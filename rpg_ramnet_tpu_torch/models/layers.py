@@ -1,0 +1,192 @@
+"""Conv layers and the ConvGRU cell of the ported slice, as nn.Modules.
+
+Counterpart of ``rpg_ramnet_tpu/models/layers.py`` (the flagship subset).
+Module and parameter names follow the upstream torch modules
+(RAM_Net/model/submodules.py), which are also the names
+``rpg_ramnet_tpu.compat.torch_import.params_to_state_dict`` emits, so a
+reference state dict loads with ``strict=True``.
+
+    JAX function                         port
+    conv2d / conv_layer_apply            ConvLayer.forward
+    upsample2x_bilinear                  upsample2x_bilinear
+    upsample_conv_layer_apply            UpsampleConvLayer.forward
+    residual_block_apply                 ResidualBlock.forward
+    conv_gru_apply                       ConvGRU.forward
+    conv_gru_x_gates                     ConvGRU.x_gates
+    conv_gru_apply_hside                 ConvGRU.hside
+
+Modules take and return NCHW-shaped tensors.  The model keeps them in
+``torch.channels_last`` memory, which is physically the JAX package's NHWC:
+``utils.layout.to_nchw``/``to_nhwc`` are the only layout conversions in the
+package and are views, not copies.  A ConvLayer also takes an
+NCHW-contiguous input (the channel-first head input of the JAX
+``input_layout='NCHW'``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def activate(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
+    if name is None or name == "identity":
+        return x
+    if name == "relu":
+        return torch.relu(x)
+    if name == "sigmoid":
+        return torch.sigmoid(x)
+    if name == "tanh":
+        return torch.tanh(x)
+    raise KeyError(f"unknown activation {name}")
+
+
+def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """torch's nn.Conv2d default init (U(+-1/sqrt(fan_in)) on weight and
+    bias), drawn from ``generator``."""
+    fan_in = conv.weight.shape[1] * conv.weight.shape[2] * conv.weight.shape[3]
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        nn.init.uniform_(conv.weight, -bound, bound, generator=generator)
+        if conv.bias is not None:
+            nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear x2, half-pixel centres (align_corners=False), as the
+    reference's UpsampleConvLayer (submodules.py:88)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear",
+                         align_corners=False)
+
+
+class ConvLayer(nn.Module):
+    """Conv + activation (submodules.py:8-35, norm-free)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0,
+                 activation: Optional[str] = "relu"):
+        super().__init__()
+        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return activate(self.conv2d(x), self.activation)
+
+
+class UpsampleConvLayer(nn.Module):
+    """Bilinear x2 then conv + activation (submodules.py:69-97)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 padding: int = 0, activation: Optional[str] = "relu"):
+        super().__init__()
+        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, 1, padding)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return activate(self.conv2d(upsample2x_bilinear(x)), self.activation)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs with an identity skip (submodules.py:182-215)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, channels, 3, 1, 1)
+        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(torch.relu(self.conv1(x)))
+        return torch.relu(out + x)
+
+
+class ConvGRU(nn.Module):
+    """ConvGRU (submodules.py:414-454): three gate convs on cat(x, h).
+
+    forward is the whole cell; x_gates and hside split it for the
+    precomputed path: conv(cat(x, h), W) == conv(x, W_x) + conv(h, W_h), the
+    x side is state-independent and runs batched over a whole chunk, and
+    only the h side stays sequential."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        cin = input_size + hidden_size
+        self.reset_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
+        self.update_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
+        self.out_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
+        self._hside_cache = None
+
+    def gates(self):
+        """The gate convs in gx order: update, reset, out."""
+        return (self.update_gate, self.reset_gate, self.out_gate)
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        """Orthogonal weights, zero biases (submodules.py:429-434)."""
+        with torch.no_grad():
+            for g in (self.reset_gate, self.update_gate, self.out_gate):
+                nn.init.orthogonal_(g.weight, generator=generator)
+                nn.init.zeros_(g.bias)
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        C = self.hidden_size
+        stacked = torch.cat([x, h], dim=1)
+        w_ur = torch.cat([self.update_gate.weight, self.reset_gate.weight])
+        b_ur = torch.cat([self.update_gate.bias, self.reset_gate.bias])
+        ur = torch.sigmoid(F.conv2d(stacked, w_ur, b_ur, 1, 1))
+        z, r = ur[:, :C], ur[:, C:]
+        o = torch.tanh(self.out_gate(torch.cat([x, h * r], dim=1)))
+        return h * (1.0 - z) + o * z
+
+    def x_gates(self, x: torch.Tensor) -> torch.Tensor:
+        """x-side gate pre-activations [B, 3C, H, W] in (update, reset,
+        out) order, biases folded in, so the h-side convs are bias-free."""
+        cx = self.input_size
+        w = torch.cat([g.weight[:, :cx] for g in self.gates()])
+        b = torch.cat([g.bias for g in self.gates()])
+        return F.conv2d(x, w, b, 1, 1)
+
+    def hside(self, gx: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """The sequential h-side completion from gx = x_gates(x).  Equals
+        forward up to float summation order (the two conv halves are
+        summed after the convs)."""
+        C = self.hidden_size
+        w_ur = torch.cat([self.update_gate.weight[:, -C:],
+                          self.reset_gate.weight[:, -C:]])
+        ur = torch.sigmoid(F.conv2d(h, w_ur, None, 1, 1) + gx[:, :2 * C])
+        z, r = ur[:, :C], ur[:, C:]
+        o = torch.tanh(F.conv2d(h * r, self.out_gate.weight[:, -C:], None,
+                                1, 1) + gx[:, 2 * C:])
+        return h * (1.0 - z) + o * z
+
+    def hside_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The h slices of the gate weights in the layout of
+        ops.gru_hside: w_ur [9, 2C, C] (update rows, then reset rows) and
+        w_o [9, C, C], indexed (ky*3 + kx, output channel, input channel).
+        Folded once per weight version and cached, not once per step."""
+        ws = tuple(g.weight for g in self.gates())
+        key = tuple((w.data_ptr(), w._version, w.dtype) for w in ws)
+        if self._hside_cache is None or self._hside_cache[0] != key:
+            C = self.hidden_size
+
+            def fold(w):
+                return (w[:, -C:].permute(2, 3, 0, 1)
+                        .reshape(9, w.shape[0], C).contiguous())
+
+            with torch.no_grad():
+                w_ur = fold(torch.cat([ws[0], ws[1]]))
+                w_o = fold(ws[2])
+            self._hside_cache = (key, w_ur, w_o)
+        return self._hside_cache[1], self._hside_cache[2]
+
+
+class RecurrentConvLayer(nn.Module):
+    """Bare recurrent block for per-scale state combination
+    (submodules.py:100-120; its conv is unused upstream)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.recurrent_block = ConvGRU(channels, channels)

@@ -1,0 +1,170 @@
+"""ERGB2DepthRecurrent, the RAM-Net model (RAM_Net/model/model.py:114-219).
+
+Counterpart of ``rpg_ramnet_tpu/models/model.py`` for the flagship recipe.
+A datapackage is {'events': [B, K, H, W, Ce], 'image': [B, H, W, Ci]}: K
+event voxel grids, then one frame.  The recurrent state is a tuple of
+per-scale NHWC super states.  All public tensors are NHWC.
+
+    forward_package               one package, per-step decodes, full cells
+    forward_sequence_precomputed  a chunk of packages: batched x side,
+                                  sequential h side, one batched decode
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from ..core.config import ModelConfig
+from ..utils.layout import to_nchw, to_nhwc
+from . import statenet
+
+
+def event_loop_range(cfg: ModelConfig) -> int:
+    """Number of event sub-steps per datapackage (model/model.py:161-175);
+    baselines are not ported, so it is every_x_rgb_frame."""
+    return cfg.every_x_rgb_frame
+
+
+def prediction_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    return (tuple(f"events{k}" for k in range(event_loop_range(cfg)))
+            + ("image",))
+
+
+def _hside_package(net, cfg: ModelConfig, supers, gev, gim,
+                   sel_keys: Sequence[str], loop: int,
+                   allow_fused: bool = False):
+    """The sequential h-side completions of one package from precomputed
+    x-side gates (gev: per-scale [B, K, 3C, h, w]; gim: per-scale
+    [B, 3C, h, w]).  Returns the new supers and the per-scale supers after
+    each step named in sel_keys."""
+    snaps = []
+    for k in range(loop):
+        supers = statenet.combine_hside(net, cfg, supers,
+                                        [g[:, k] for g in gev], "events",
+                                        allow_fused=allow_fused)
+        if f"events{k}" in sel_keys:
+            snaps.append(supers)
+    supers = statenet.combine_hside(net, cfg, supers, gim, "image",
+                                    allow_fused=allow_fused)
+    if "image" in sel_keys:
+        snaps.append(supers)
+    return supers, snaps
+
+
+def _decode_snapshots(net, cfg: ModelConfig, snaps, sel_keys: Sequence[str],
+                      l: int, b: int) -> Dict[str, torch.Tensor]:
+    """One decoder pass over all snapshots, ordered (package, key, batch),
+    regrouped into per-key [L, B, H, W, 1] predictions."""
+    if not snaps:
+        return {}
+    flat = tuple(torch.cat(scale, dim=0) for scale in zip(*snaps))
+    pred = to_nhwc(statenet.forward_decoder_supers(net, cfg, flat))
+    grouped = pred.reshape((l, len(sel_keys), b) + pred.shape[1:])
+    return {key: grouped[:, i] for i, key in enumerate(sel_keys)}
+
+
+class ERGB2DepthRecurrent(nn.Module):
+    """RAM-Net.  Parameters live under ``statenetphasedrecurrent.`` with
+    the upstream names, in the config's compute dtype and channels_last
+    memory, on ``device``.  Random init (upstream's scheme) draws from
+    ``generator``, or from a generator seeded 0."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        with torch.device("meta"):
+            self.statenetphasedrecurrent = statenet.StateNet(cfg)
+        self.to_empty(device="cpu")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.statenetphasedrecurrent.reset_parameters_(generator)
+        self.to(device=device, dtype=statenet.compute_dtype(cfg),
+                memory_format=torch.channels_last)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def init_state(self, batch: int, height: int, width: int
+                   ) -> Tuple[torch.Tensor, ...]:
+        return statenet.init_state(self.cfg, batch, height, width,
+                                   statenet.compute_dtype(self.cfg),
+                                   self.device)
+
+    def forward_package(self, state, pkg):
+        """One datapackage: K event steps then the image step, decoding
+        after every step (model.py:176-217), with the full ConvGRU cell on
+        cat(x, h): the reference semantics.  Returns (state, {key:
+        [B, H, W, 1]})."""
+        net, cfg = self.statenetphasedrecurrent, self.cfg
+        supers = tuple(to_nchw(s) for s in state)
+        preds = {}
+        steps = [(f"events{k}", pkg["events"][:, k], "events")
+                 for k in range(event_loop_range(cfg))]
+        steps.append(("image", pkg["image"], "image"))
+        for key, x, modality in steps:
+            supers = statenet.forward_modality(net, cfg, to_nchw(x), supers,
+                                               modality)
+            preds[key] = to_nhwc(
+                statenet.forward_decoder_supers(net, cfg, supers))
+        return tuple(to_nhwc(s) for s in supers), preds
+
+    @torch.inference_mode()
+    def forward_sequence_precomputed(self, state, seq,
+                                     decode_keys: Optional[Sequence[str]] = None,
+                                     chunk_cells: bool = False,
+                                     stream_cells: bool = False):
+        """L packages with the x side hoisted out of the recurrence
+        (model.py:396-594, its scan branch):
+
+          1. one batched pass of head, encoders and ConvGRU x-side gate
+             convs over all L*K event steps and L frames;
+          2. the per-scale h-side completions, step by step, through the
+             fused_gru policy (ops/gru_hside.py);
+          3. one decoder pass over the snapshots of the selected keys.
+
+        seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
+        decode_keys: decode only these of prediction_keys (all when None).
+        Returns (state, {key: [L, B, H, W, 1]}).  Equals forward_package up
+        to float summation order.
+        """
+        if chunk_cells:
+            raise NotImplementedError(
+                "chunk_cells (the whole-chunk resident-state kernel K11) is "
+                "not ported yet: ROADMAP queue 2, K11")
+        if stream_cells:
+            raise NotImplementedError(
+                "stream_cells (the gx-streaming cells K10) are not ported "
+                "yet: ROADMAP queue 2, K10")
+        net, cfg = self.statenetphasedrecurrent, self.cfg
+        sel_keys = [k for k in prediction_keys(cfg)
+                    if decode_keys is None or k in decode_keys]
+        loop = event_loop_range(cfg)
+        ev = seq["events"].movedim(1, 0)     # [L, B, K, H, W, Ce]
+        im = seq["image"].movedim(1, 0)      # [L, B, H, W, Ci]
+        l, b, kk = ev.shape[:3]
+        if kk != loop:
+            raise ValueError(f"events carry {kk} steps per package, the "
+                             f"config {loop}")
+        ev_flat = to_nchw(ev.reshape((l * b * loop,) + ev.shape[3:]))
+        im_flat = to_nchw(im.reshape((l * b,) + im.shape[2:]))
+        gx_ev = [g.view((l, b, loop) + g.shape[1:])
+                 for g in statenet.gru_x_gates(
+                     net, "events",
+                     statenet.encoder_features(net, cfg, ev_flat, "events"))]
+        gx_im = [g.view((l, b) + g.shape[1:])
+                 for g in statenet.gru_x_gates(
+                     net, "image",
+                     statenet.encoder_features(net, cfg, im_flat, "image"))]
+        supers = tuple(to_nchw(s) for s in state)
+        snaps: List[Tuple[torch.Tensor, ...]] = []
+        for t in range(l):
+            supers, pkg_snaps = _hside_package(
+                net, cfg, supers, [g[t] for g in gx_ev],
+                [g[t] for g in gx_im], sel_keys, loop, allow_fused=True)
+            snaps.extend(pkg_snaps)
+        preds = _decode_snapshots(net, cfg, snaps, sel_keys, l, b)
+        return tuple(to_nhwc(s) for s in supers), preds
