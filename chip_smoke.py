@@ -3,23 +3,33 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's main path, offline chunked depth inference
-(``rpg_ramnet_tpu_torch.eval.run_chunked_streaming``), at the full width of
-the flagship EventScape recipe
-(configs/train_e2depth_si_grad_loss_statenet_ergb_tpu_bf16.json) at 256x512,
-with random weights and synthetic event/frame sequences made from --seed.
-It imports nothing of JAX or of the JAX package.
+Drives the port's two main paths at the full width of the flagship
+EventScape recipe (configs/train_e2depth_si_grad_loss_statenet_ergb_tpu_bf16.json,
+bf16, 3 encoders, base 32, K=5), with random weights and synthetic data
+made from --seed: offline chunked depth inference
+(``rpg_ramnet_tpu_torch.eval.run_chunked_streaming``) at 256x512, and TBPTT
+training with trainer.precompute_x set in code (``python -m
+rpg_ramnet_tpu_torch.train``, run in-process) at B=16, L=10, crop 224.  It
+imports nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
-  1. device   the card, its power limit, the nvcc build of the kernels;
-  2. kernel   the ConvGRU h-side kernel against its plain PyTorch version on
-              the card, at the three flagship widths and one ragged shape;
-  3. slice    two sequences (40 and 8 packages) through the main path with
-              chunk 16: the kernel's launch count, finite predictions in
-              [0, 1], and the first chunk against the same run with
-              fused_gru='off' (the plain layer);
-  4. timing   the kernel and its plain version per cell, the slice's depth
-              maps/s.
+  1. device        the card, its power limit, the nvcc builds (in parallel);
+  2. kernel        K1 against its plain PyTorch version on the card, at the
+                   three inference widths and one ragged shape;
+  3. slice         two sequences (40 and 8 packages) through the inference
+                   path with chunk 16: K1's launch count, finite predictions
+                   in [0, 1], the first chunk against fused_gru='off';
+  4. timing        K1 and its plain version per cell, the slice's maps/s;
+  5. kernel_train  K1-res, K2 and the ConvGRUHside Function against their
+                   plain versions at the three training shapes (B=16) and
+                   one ragged shape;
+  6. train         the first step's loss and gradients against
+                   fused_gru='off', then the entry point for TRAIN_STEPS
+                   optimizer steps and one validation batch on a synthetic
+                   on-disk split: finite losses, the K1-res, K2 and K1
+                   launch counts, peak memory;
+  7. timing_train  training sequences/s with the kernels and with 'off',
+                   K1-res and K2 per cell against their plain versions.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary, and last {"ok": true, "device": {...}}.  Exits non-zero, without
 that last line, if there is no CUDA device or any phase fails.
@@ -29,9 +39,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 H, W, CHUNK = 256, 512, 16
@@ -44,6 +56,15 @@ SLICE_TOL = 5e-2   # sigmoid predictions after L*(K+1) bf16 cells
 # whose gx is a strided view, as forward_sequence_precomputed passes it
 FLAGSHIP_CELLS = ((1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256))
 RAGGED_CELL = (2, 30, 45, 96)
+# training: the flagship recipe's batch, window and crop; its h-side shapes
+# at the three scales, and a ragged one with B > 1 and a strided gx
+TRAIN_B, TRAIN_L, TRAIN_CROP, TRAIN_STEPS = 16, 10, 224, 2
+TRAIN_CELLS = ((16, 112, 112, 64), (16, 56, 56, 128), (16, 28, 28, 256))
+RAGGED_TRAIN_CELL = (3, 30, 45, 96)
+GRAD_TOL = 2e-2    # K2 / Function gradients: max abs error over the plain
+                   # version's max magnitude (a few bf16 roundings)
+LOSS_TOL = 2e-2    # first step, kernels vs 'off': relative loss difference
+COS_TOL = 0.95     # first step, kernels vs 'off': least per-tensor cosine
 
 
 def emit(obj) -> None:
@@ -67,7 +88,8 @@ def make_cell_inputs(shape, dev, gen, strided_gx=False):
     cell = ConvGRU(C, C)
     cell.reset_parameters_(gen)
     cell.to(device=dev, dtype=torch.bfloat16)
-    w_ur, w_o = cell.hside_weights()
+    with torch.no_grad():
+        w_ur, w_o = cell.hside_weights()
     h = (torch.rand((B, Hc, Wc, C), generator=gen) * 2 - 1).to(dev, torch.bfloat16)
     if strided_gx:   # step 1 of a [B, 2, H, W, 3C] buffer
         gx = torch.randn((B, 2, Hc, Wc, 3 * C), generator=gen)
@@ -96,6 +118,89 @@ def kernel_check(dev, gen):
     return errs
 
 
+def rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def train_kernel_check(dev, gen):
+    """K1-res (h', acts: max abs error), K2 (dh, dgx) and the ConvGRUHside
+    Function (dh, dgx, dw_ur, dw_o; max abs error over the plain version's
+    max magnitude) against their plain versions, per shape."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    rows = []
+    for shape in TRAIN_CELLS + (RAGGED_TRAIN_CELL,):
+        _, h, gx, w_ur, w_o = make_cell_inputs(
+            shape, dev, gen, strided_gx=shape == RAGGED_TRAIN_CELL)
+        g = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        got_h, got_acts = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o)
+        want_h, want_acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+        dh, dgx = gru_hside.conv_gru_hside_bwd(g, h, want_acts, w_ur, w_o)
+        want_dh, want_dgx = gru_hside.conv_gru_hside_bwd_plain(
+            g, h, want_acts, w_ur, w_o)
+        args = [t.detach().clone().requires_grad_() for t in (h, gx, w_ur, w_o)]
+        fn_grads = torch.autograd.grad(gru_hside.ConvGRUHside.apply(*args),
+                                       args, g)
+        want_fn = (want_dh, want_dgx) + gru_hside.hside_weight_grads(
+            h, want_acts, want_dgx)
+        torch.cuda.synchronize()
+        row = {"shape": list(shape),
+               "res_h_err": (got_h.float() - want_h.float()).abs().max().item(),
+               "res_acts_err": (got_acts.float() - want_acts.float()).abs().max().item(),
+               "bwd_dh_abs_err": (dh.float() - want_dh.float()).abs().max().item(),
+               "bwd_dgx_abs_err": (dgx.float() - want_dgx.float()).abs().max().item(),
+               "bwd_dh_rel": rel_err(dh, want_dh),
+               "bwd_dgx_rel": rel_err(dgx, want_dgx),
+               "fn_rel": [rel_err(a, b) for a, b in zip(fn_grads, want_fn)]}
+        rows.append(row)
+        if not (max(row["res_h_err"], row["res_acts_err"]) <= CELL_TOL):
+            raise AssertionError(f"K1-res vs plain at {shape}: {row}")
+        if not (max([row["bwd_dh_rel"], row["bwd_dgx_rel"]] + row["fn_rel"])
+                <= GRAD_TOL):
+            raise AssertionError(f"K2 / Function vs plain at {shape}: {row}")
+    return rows
+
+
+def cuda_time_us(fn, iters):
+    """Microseconds per call of fn by CUDA events over iters calls, after
+    three warm-up calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) * 1e3 / iters
+
+
+def time_train_cells(dev, gen, iters=20):
+    """Microseconds per cell of K1-res and K2 and of their plain versions
+    at the training shapes, in turns plain, kernel, kernel, plain."""
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    import torch
+    rows = []
+    for shape in TRAIN_CELLS:
+        _, h, gx, w_ur, w_o = make_cell_inputs(shape, dev, gen)
+        g = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        _, acts = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o)
+        row = {"shape": list(shape)}
+        for name, kern, plain in (
+                ("res", lambda: gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o),
+                 lambda: gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)),
+                ("bwd", lambda: gru_hside.conv_gru_hside_bwd(g, h, acts, w_ur, w_o),
+                 lambda: gru_hside.conv_gru_hside_bwd_plain(g, h, acts, w_ur, w_o))):
+            p1, k1, k2, p2 = (cuda_time_us(f, iters) for f in (plain, kern, kern, plain))
+            row.update({f"{name}_kernel_us": min(k1, k2),
+                        f"{name}_plain_us": min(p1, p2),
+                        f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2]})
+        rows.append(row)
+    return rows
+
+
 def time_cells(dev, gen, iters=50):
     """Microseconds per cell, kernel and plain version (and the plain
     layer the 'off' policy runs), in turns plain, kernel, kernel, plain."""
@@ -104,15 +209,7 @@ def time_cells(dev, gen, iters=50):
     from rpg_ramnet_tpu_torch.utils.layout import to_nchw
 
     def cuda_us(fn):
-        for _ in range(3):
-            fn()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for _ in range(iters):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) * 1e3 / iters
+        return cuda_time_us(fn, iters)
 
     rows = []
     for shape in FLAGSHIP_CELLS:
@@ -172,10 +269,170 @@ def run_slice(model, dataset, keep=None):
     return kept, stats
 
 
+def check_no_jax():
+    jax_modules = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib", "rpg_ramnet_tpu"))
+    if jax_modules:
+        raise AssertionError(f"the port loaded JAX modules: {jax_modules[:5]}")
+
+
 def max_pred_diff(a, b):
     import numpy as np
     return max(float(np.abs(a[g][k] - b[g][k]).max())
                for g in a for k in a[g])
+
+
+def write_train_data(root, K, seed):
+    """Synthetic on-disk splits at the crop size: one training sequence
+    with TRAIN_STEPS * TRAIN_B windows of TRAIN_L packages (step_size 1)
+    and one validation sequence with two windows."""
+    from rpg_ramnet_tpu_torch.data import generate_split
+    for split, windows, s in (("train", TRAIN_STEPS * TRAIN_B, seed),
+                              ("val", 2, seed + 100)):
+        generate_split(os.path.join(root, split), n_sequences=1, seed=s,
+                       n_frames=TRAIN_L * K + K * (windows - 1),
+                       height=TRAIN_CROP, width=TRAIN_CROP)
+
+
+def train_config(tmp):
+    """The flagship config with trainer.precompute_x on, the run directory
+    and data folders in tmp, one epoch, a checkpoint after it."""
+    with open(os.path.join(ROOT, CONFIG)) as f:
+        raw = json.load(f)
+    raw["name"] = "smoke_train"
+    raw["trainer"].update(precompute_x=True, epochs=1, save_freq=1,
+                          log_every=1, save_dir=os.path.join(tmp, "runs"),
+                          sequence_length=TRAIN_L)
+    raw["data_loader"]["batch_size"] = TRAIN_B
+    for split, folder in (("train", "train"), ("validation", "val")):
+        raw["data_loader"][split].update(base_folder=folder, step_size=1)
+    raw["data_loader"]["crop_size"] = TRAIN_CROP
+    return raw
+
+
+def first_step_vs_off(cfg, root, dev, seed):
+    """Loss and every parameter gradient of one window batch with the
+    kernels (fused_gru 'auto') and with the plain layer ('off'), from the
+    same weights.  Returns the batch, both models and the comparison."""
+    import torch
+    from rpg_ramnet_tpu_torch.data import BatchLoader, concatenate_subfolders
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.train.sequence_loss import (make_sequence_loss,
+                                                          pack_train_batch)
+    split = cfg.train_data
+    ds = concatenate_subfolders(
+        os.path.join(root, "train"), split.type, split.event_folder,
+        split.depth_folder, split.frame_folder, TRAIN_L, step_size=1,
+        clip_distance=split.clip_distance,
+        every_x_rgb_frame=split.every_x_rgb_frame,
+        reg_factor=split.reg_factor)
+    batch = pack_train_batch(next(iter(BatchLoader(ds, TRAIN_B, shuffle=False))),
+                             dev)
+    models, losses, grads = {}, {}, {}
+    for mode in ("auto", "off"):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                               fused_gru=mode))
+        model = ERGB2DepthRecurrent(c.model, device=dev,
+                                    generator=torch.Generator().manual_seed(seed))
+        n_res = gru_hside.conv_gru_hside_res.launches
+        loss, _ = make_sequence_loss(c, remat=True)(
+            model, model.init_state(TRAIN_B, TRAIN_CROP, TRAIN_CROP), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        if (mode == "off") != (gru_hside.conv_gru_hside_res.launches == n_res):
+            raise AssertionError(f"fused_gru={mode!r}: K1-res launched "
+                                 f"{gru_hside.conv_gru_hside_res.launches - n_res}")
+        models[mode], losses[mode] = model, loss.item()
+        grads[mode] = {n: p.grad.float() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    cos = {n: torch.nn.functional.cosine_similarity(
+        grads["auto"][n].flatten(), grads["off"][n].flatten(), dim=0).item()
+        for n in grads["off"]}
+    worst = min(cos, key=cos.get)
+    out = {"loss_kernels": losses["auto"], "loss_off": losses["off"],
+           "loss_rel_diff": abs(losses["auto"] - losses["off"]) / abs(losses["off"]),
+           "loss_tol": LOSS_TOL, "grad_cos_min": cos[worst],
+           "grad_cos_min_tensor": worst,
+           "grad_cos_median": sorted(cos.values())[len(cos) // 2],
+           "cos_tol": COS_TOL, "tensors": len(cos)}
+    if not (math.isfinite(losses["auto"]) and out["loss_rel_diff"] <= LOSS_TOL
+            and out["grad_cos_min"] >= COS_TOL):
+        raise AssertionError(f"first step, kernels vs fused_gru='off': {out}")
+    return batch, models, out
+
+
+def time_training(cfg, models, batch, steps=2):
+    """Training sequences/s of one window batch through make_train_step,
+    kernels ('auto') and plain layer ('off'), in turns off, on, on, off
+    after one warm-up step each."""
+    import torch
+    from rpg_ramnet_tpu_torch.train.optim import make_optimizer
+    from rpg_ramnet_tpu_torch.train.train_step import make_train_step
+    step_fns = {}
+    for mode, model in models.items():
+        c = dataclasses.replace(cfg, model=model.cfg)
+        step_fns[mode] = make_train_step(c, model,
+                                         make_optimizer(c, model.parameters()))
+        step_fns[mode](batch)
+    walls = []
+    for mode in ("off", "auto", "auto", "off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            aux = step_fns[mode](batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not math.isfinite(aux["loss"]):
+            raise AssertionError(f"non-finite loss in timing ({mode}): {aux}")
+    seqs = TRAIN_B * steps
+    return {"train_seq_per_s": seqs / min(walls[1], walls[2]),
+            "train_off_seq_per_s": seqs / min(walls[0], walls[3]),
+            "train_wall_s_off_on_on_off": walls, "steps_per_run": steps}
+
+
+def run_training(raw, tmp, K):
+    """The entry point in-process on the synthetic split, with every
+    launch count set to 0 just before; returns the trainer, its log and
+    the counts read just after."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.train.__main__ import main as train_main
+    cfg_path = os.path.join(tmp, "train_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    os.environ["PREPROCESSED_DATASETS_FOLDER"] = os.path.join(tmp, "data")
+    counters = (gru_hside.conv_gru_hside, gru_hside.conv_gru_hside_res,
+                gru_hside.conv_gru_hside_bwd)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = train_main(["-c", cfg_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, res, bwd = (c.launches for c in counters)
+    log = trainer.jsonl.entries[0]
+    cells = 3 * (K + 1) * TRAIN_L          # h-side cells per window
+    # each checkpointed package runs its forward twice (the recompute)
+    want = {"k1_res": 2 * cells * TRAIN_STEPS, "k2": cells * TRAIN_STEPS,
+            "k1_validation": cells}
+    got = {"k1_res": res, "k2": bwd, "k1_validation": k1}
+    if got != want:
+        raise AssertionError(f"launch counts {got}, expected {want}")
+    losses = [log["train_loss"], log["val_loss"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite losses: {log}")
+    ckpt = os.path.join(trainer.run_dir, "checkpoint-epoch0", "state.pt")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"no checkpoint at {ckpt}")
+    return {"launches": got, "launches_expected": want,
+            "train_loss": log["train_loss"], "val_loss": log["val_loss"],
+            "grad_norm": log["train_grad_norm"],
+            "train_sec_per_epoch": log["train_sec_per_epoch"],
+            "val_sec_per_epoch": log["val_sec_per_epoch"],
+            "entry_point_wall_s": wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
 def main() -> int:
@@ -194,14 +451,17 @@ def main() -> int:
     from rpg_ramnet_tpu_torch.ops import gru_hside
     from rpg_ramnet_tpu_torch.utils import require_cuda
 
-    # 1. device and build
+    # 1. device and build (one nvcc per source, all at once)
     dev = require_cuda()
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
+    kernels.build(gru_hside.SOURCES)
     gru_hside.library()
+    gru_hside.library_bwd()
     build_s = time.perf_counter() - t0
-    ptxas = [ln for ln in kernels.build_log.get("gru_hside", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in kernels.build_log.items()}
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -254,10 +514,7 @@ def main() -> int:
     if not (first_err <= SLICE_TOL):
         raise AssertionError(f"first chunk vs fused_gru='off': {first_err} "
                              f"> {SLICE_TOL}")
-    jax_modules = sorted(m for m in sys.modules
-                         if m.split(".")[0] in ("jax", "jaxlib", "rpg_ramnet_tpu"))
-    if jax_modules:
-        raise AssertionError(f"the port loaded JAX modules: {jax_modules[:5]}")
+    check_no_jax()
     emit({"phase": "slice", "config": CONFIG, "H": H, "W": W, "chunk": CHUNK,
           "K": K, "sequences": list(SEQ_LENGTHS), "packages_processed": packages,
           "k1_launches": launches, "k1_launches_expected": want,
@@ -281,15 +538,58 @@ def main() -> int:
           "slice_off_maps_per_s": maps / min(walls[0], walls[3]),
           "slice_wall_s_off_on_on_off": walls, "nvidia_smi": smi})
 
+    # 5. the training kernels against their plain versions on the card
+    train_rows = train_kernel_check(dev, gen)
+    emit({"phase": "kernel_train", "cell_tol": CELL_TOL, "grad_tol": GRAD_TOL,
+          "cells": train_rows})
+
+    # 6. training at full width through the entry point
+    from rpg_ramnet_tpu_torch.core.config import Config
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_") as tmp:
+        t0 = time.perf_counter()
+        write_train_data(os.path.join(tmp, "data"), K, args.seed)
+        data_s = time.perf_counter() - t0
+        raw = train_config(tmp)
+        tcfg = Config.from_dict(raw)
+        batch, tmodels, first = first_step_vs_off(
+            tcfg, os.path.join(tmp, "data"), dev, args.seed)
+        trained = run_training(raw, tmp, K)
+    check_no_jax()
+    emit({"phase": "train", "config": CONFIG, "precompute_x": True,
+          "B": TRAIN_B, "L": TRAIN_L, "crop": TRAIN_CROP, "K": K,
+          "steps": TRAIN_STEPS, "data_write_s": data_s,
+          "first_step_vs_off": first, **trained})
+
+    # 7. training throughput and the training kernels' times
+    train_timing = time_training(tcfg, tmodels, batch)
+    train_cells = time_train_cells(dev, gen)
+    emit({"phase": "timing_train", **train_timing, "cells": train_cells,
+          "nvidia_smi": smi})
+
     kern_ms = sum(r["kernel_us"] for r in cells) / 1e3
     plain_ms = sum(r["plain_us"] for r in cells) / 1e3
+    src = "rpg_ramnet_tpu_torch/csrc/"
     print(smi)
-    emit({"kernels": [{
-        "name": "gru_hside", "route": "cuda",
-        "source": "rpg_ramnet_tpu_torch/csrc/gru_hside.cu",
-        "replaces": "rpg_ramnet_tpu/ops/gru_hside.py:289",
-        "launches": launches, "max_abs_err": max(errs.values()),
-        "ms": kern_ms, "plain_ms": plain_ms}]})
+    emit({"kernels": [
+        {"name": "gru_hside", "route": "cuda", "source": src + "gru_hside.cu",
+         "replaces": "rpg_ramnet_tpu/ops/gru_hside.py:289",
+         "launches": launches, "max_abs_err": max(errs.values()),
+         "ms": kern_ms, "plain_ms": plain_ms},
+        {"name": "gru_hside_res", "route": "cuda", "source": src + "gru_hside.cu",
+         "replaces": "rpg_ramnet_tpu/ops/gru_hside.py:124",
+         "launches": trained["launches"]["k1_res"],
+         "max_abs_err": max(max(r["res_h_err"], r["res_acts_err"])
+                            for r in train_rows),
+         "ms": sum(r["res_kernel_us"] for r in train_cells) / 1e3,
+         "plain_ms": sum(r["res_plain_us"] for r in train_cells) / 1e3},
+        {"name": "gru_hside_bwd", "route": "cuda",
+         "source": src + "gru_hside_bwd.cu",
+         "replaces": "rpg_ramnet_tpu/ops/gru_hside.py:535",
+         "launches": trained["launches"]["k2"],
+         "max_abs_err": max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
+                            for r in train_rows),
+         "ms": sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
+         "plain_ms": sum(r["bwd_plain_us"] for r in train_cells) / 1e3}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,16 +1,18 @@
-"""Model configuration, parsed from the reference JSON schema.
+"""Configuration, parsed from the reference JSON schema.
 
-Counterpart of ``rpg_ramnet_tpu/core/config.py::ModelConfig``, reduced to
-the fields the ported slice reads.  It is its own class so that the port
-loads nothing of the JAX package.  ``from_dict`` reads a config file's
-``model`` section and inherits ``every_x_rgb_frame`` and ``baseline`` from
-``data_loader.train`` as the reference's train.py does.
+Counterpart of ``rpg_ramnet_tpu/core/config.py`` (``ModelConfig``,
+``DataSplitConfig``, ``TrainerConfig``, ``Config``), reduced to the fields
+the ported slices read, with the JAX package's defaults.  These are the
+port's own classes so that it loads nothing of the JAX package.
+``ModelConfig.from_dict`` reads a config file's ``model`` section and
+inherits ``every_x_rgb_frame`` and ``baseline`` from ``data_loader.train``
+as the reference's train.py does.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +82,144 @@ class ModelConfig:
     @property
     def is_baseline(self) -> bool:
         return bool(self.baseline)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSplitConfig:
+    """config['data_loader'][split] (reference train.py:99-137)."""
+    type: str = "SequenceSynchronizedFramesEventsDataset"
+    base_folder: str = ""
+    event_folder: str = "events/voxels"
+    depth_folder: str = "depth/data"
+    frame_folder: str = "rgb/data"
+    proba_pause_when_running: float = 0.0
+    proba_pause_when_paused: float = 0.0
+    step_size: int = 1
+    clip_distance: float = 100.0
+    every_x_rgb_frame: int = 1
+    scale_factor: float = 1.0
+    reg_factor: float = 5.7
+    baseline: Union[bool, str] = False
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "DataSplitConfig":
+        return DataSplitConfig(**_typed(DataSplitConfig, d))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    epochs: int = 100
+    sequence_length: int = 10
+    save_dir: str = "runs"
+    save_freq: int = 4
+    verbosity: int = 2
+    monitor: str = "val_loss"
+    monitor_mode: str = "min"
+    loss_composition: Union[bool, Tuple[str, ...]] = False
+    loss_weights: Tuple[float, ...] = (1.0,)
+    # replicate the reference's loss-aliasing scale (x num_keys)
+    legacy_loss_scaling: bool = False
+    log_every: int = 25
+    remat: bool = True          # torch.utils.checkpoint per package
+    remat_chunk: int = 1        # packages per checkpoint
+    # decode the supervised keys once, outside the per-package loop
+    deferred_decode: bool = False
+    # with deferred_decode: batch each package's x side, leaving only the
+    # h-side cells sequential (and on the fused cell kernels)
+    precompute_x: bool = False
+    remat_policy: str = "none"
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "TrainerConfig":
+        kw = _typed(TrainerConfig, d)
+        if isinstance(kw.get("loss_composition"), list):
+            kw["loss_composition"] = tuple(kw["loss_composition"])
+        if "loss_weights" in kw:
+            kw["loss_weights"] = tuple(float(w) for w in kw["loss_weights"])
+        return TrainerConfig(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """A whole reference-schema config file (what train.py reads)."""
+    name: str = "run"
+    arch: str = "ERGB2DepthRecurrent"
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train_data: DataSplitConfig = dataclasses.field(
+        default_factory=DataSplitConfig)
+    val_data: DataSplitConfig = dataclasses.field(
+        default_factory=DataSplitConfig)
+    batch_size: int = 8
+    num_workers: int = 4
+    normalize: bool = True
+    shuffle: bool = True
+    crop_size: int = 224
+    optimizer_type: str = "Adam"
+    optimizer: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: {"lr": 3e-4})
+    lr_scheduler_type: str = "ExponentialLR"
+    lr_scheduler_freq: int = 100
+    lr_scheduler: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: {"gamma": 0.5})
+    loss_type: str = "scale_invariant_loss"
+    loss_config: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    grad_loss_weight: Optional[float] = None   # None: no gradient loss
+    mse_loss_weight: Optional[float] = None
+    mse_loss_downsampling_factor: float = 0.5
+    trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
+    raw: Dict[str, Any] = dataclasses.field(default_factory=dict,
+                                            hash=False, compare=False)
+
+    @staticmethod
+    def from_dict(cfg: Dict[str, Any]) -> "Config":
+        dl = cfg.get("data_loader", {})
+        train_d = dl.get("train", {})
+        loss = cfg.get("loss", {})
+        grad_loss, mse_loss = cfg.get("grad_loss"), cfg.get("mse_loss")
+        return Config(
+            name=str(cfg.get("name", "run")),
+            arch=str(cfg.get("arch", "ERGB2DepthRecurrent")),
+            model=ModelConfig.from_config_dict(cfg),
+            train_data=DataSplitConfig.from_dict(train_d),
+            val_data=DataSplitConfig.from_dict(dl.get("validation", train_d)),
+            batch_size=int(dl.get("batch_size", 8)),
+            num_workers=int(dl.get("num_workers", 4)),
+            normalize=bool(dl.get("normalize", True)),
+            shuffle=bool(dl.get("shuffle", True)),
+            crop_size=int(dl.get("crop_size", 224)),
+            optimizer_type=str(cfg.get("optimizer_type", "Adam")),
+            optimizer=dict(cfg.get("optimizer", {"lr": 3e-4})),
+            lr_scheduler_type=str(cfg.get("lr_scheduler_type",
+                                          "ExponentialLR")),
+            lr_scheduler_freq=int(cfg.get("lr_scheduler_freq", 100)),
+            lr_scheduler=dict(cfg.get("lr_scheduler", {"gamma": 0.5})),
+            loss_type=str(loss.get("type", "scale_invariant_loss")),
+            loss_config=dict(loss.get("config", {})),
+            grad_loss_weight=(None if grad_loss is None
+                              else float(grad_loss.get("weight", 1.0))),
+            mse_loss_weight=(None if mse_loss is None
+                             else float(mse_loss.get("weight", 1.0))),
+            mse_loss_downsampling_factor=(
+                0.5 if mse_loss is None
+                else float(mse_loss.get("downsampling_factor", 0.5))),
+            trainer=TrainerConfig.from_dict(cfg.get("trainer", {})),
+            raw=cfg)
+
+    @staticmethod
+    def load(path: str) -> "Config":
+        with open(path) as f:
+            return Config.from_dict(json.load(f))
+
+
+def _typed(cls, d: Dict[str, Any]) -> Dict[str, Any]:
+    """The keys of d that are fields of cls, converted to the field's
+    type where it is a plain int, float, str or bool."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in d:
+            v = d[f.name]
+            if f.type in ("int", "float", "str", "bool"):
+                v = {"int": int, "float": float, "str": str,
+                     "bool": bool}[f.type](v)
+            kw[f.name] = v
+    return kw

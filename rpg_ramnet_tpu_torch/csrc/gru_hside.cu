@@ -1,121 +1,48 @@
-// Fused ConvGRU h-side cell (kernel K1) for NVIDIA Hopper, sm_90a.
+// Fused ConvGRU h-side cell (kernel K1) for NVIDIA Hopper, sm_90a, and its
+// residual variant for training (K1-res).
 //
-// Replaces the Pallas TPU kernel rpg_ramnet_tpu/ops/gru_hside.py::_run /
-// _kernel.  From the state h [B,H,W,C] and the precomputed x-side gate
-// pre-activations gx [B,H,W,3C] (update | reset | out, biases folded in):
+// Replaces the Pallas TPU kernel rpg_ramnet_tpu/ops/gru_hside.py::_run with
+// _kernel (K1) and _kernel_res (K1-res).  From the state h [B,H,W,C] and the
+// precomputed x-side gate pre-activations gx [B,H,W,3C] (update | reset |
+// out, biases folded in):
 //
 //     z = sigmoid(conv3x3(h, Wz) + gx_z)      r = sigmoid(conv3x3(h, Wr) + gx_r)
 //     a = bf16(r * h)                          o = tanh(conv3x3(a, Wo) + gx_o)
 //     h' = h * (1 - z) + o * z
 //
 // with zero padding at the image border, f32 accumulation and bf16 I/O.
+// K1-res also stores acts = bf16(concat(z, r, o)) [B,H,W,3C] at the tile's
+// own pixels: the gate activations the backward (K2, gru_hside_bwd.cu)
+// reads instead of recomputing the forward.  It is the same kernel with a
+// compile-time flag.
 //
 // What bounds it on this card.  Per pixel the cell must move h, gx and h'
-// (10*C bytes) and do 27*C^2 multiply-adds: 5.4*C flop per byte, 346 to
-// 1382 at the flagship widths C = 64, 128, 256, above the H100's bf16
-// tensor-core ridge (~295 flop/B).  So the convs belong on the tensor
-// cores, and the cell is bound by how well they are fed: the operand
-// loads from shared memory (h, a) and from L1/L2 (the weights).
+// (10*C bytes; 16*C with acts) and do 27*C^2 multiply-adds: 5.4*C flop per
+// byte, 346 to 1382 at the flagship widths C = 64, 128, 256, above the
+// H100's bf16 tensor-core ridge (~295 flop/B).  So the convs belong on the
+// tensor cores, and the cell is bound by how well they are fed: the
+// operand loads from shared memory (h, a) and from L1/L2 (the weights).
 //
-// What the design does about it.  As on the TPU, nothing but h, gx and h'
-// touches device memory: one launch per cell, one block per TH x TW output
-// tile.  The block stages h with a 2-pixel halo in shared memory, computes
-// r and a = bf16(r*h) on the tile plus a 1-pixel ring (a is 0 outside the
-// image, which is exactly the zero padding of conv(r*h)), keeps a in
-// shared memory, then computes z, o and h' for the tile.  Each 3x3 conv is
-// an implicit GEMM on the tensor cores (mma.sync m16n8k16, bf16 in, f32
-// accumulate): M = pixels, N = output channels, K = 9 taps x C.  A warp
-// owns 32 pixels x 16 channels; its A fragments come from the staged tile
-// with ldmatrix (one row address per pixel and tap, so the 2-D window
-// needs no im2col copy), its B fragments straight from the folded weights
-// [9][C_out][C] (K-contiguous), which stay resident in L1/L2.  The pixel
-// pitch in shared memory is C + 8 elements: 16-byte rows for ldmatrix, and
-// the 8 rows of one ldmatrix phase fall in distinct banks.  wgmma and TMA
-// are the next steps.  The wrapper picks the tile per C (ops/gru_hside.py).
+// What the design does about it.  As on the TPU, nothing but h, gx, h' (and
+// acts) touches device memory: one launch per cell, one block per TH x TW
+// output tile.  The block stages h with a 2-pixel halo in shared memory,
+// computes r and a = bf16(r*h) on the tile plus a 1-pixel ring (a is 0
+// outside the image, which is exactly the zero padding of conv(r*h)), keeps
+// a in shared memory, then computes z, o and h' for the tile.  Each 3x3
+// conv is an implicit GEMM on the tensor cores (mma_conv.cuh).  wgmma and
+// TMA are the next steps.  The wrapper picks the tile per C
+// (ops/gru_hside.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_conv.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPad = 8;   // pixel pitch C + kPad elements
-constexpr int kMI = 2;    // m16 tiles per warp item: 32 pixels
-constexpr int kNI = 2;    // n8 tiles per warp item: 16 channels
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row-major) * b (16x8, col-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-typedef float Acc[kMI][kNI][4];
-
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int mi = 0; mi < kMI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-}
-
-// acc += the 3x3 conv of a 32-pixel x 16-channel warp tile as an implicit
-// GEMM.  a_addr[mi]: this lane's ldmatrix row address (shared-space bytes)
-// for m16 tile mi: pixel (lane & 15) of the tile at its top-left tap, plus
-// (lane >> 4) * 8 elements.  row_b, pix_b: row and pixel pitch of the
-// source tile in bytes.  w: [9][w_rows][C] bf16; co0: first output row of
-// the warp tile.
-__device__ __forceinline__ void conv3x3_mma(Acc& acc, const uint32_t (&a_addr)[kMI],
-                                            int row_b, int pix_b,
-                                            const bf16* __restrict__ w, int w_rows,
-                                            int C, int co0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      const uint32_t off = (uint32_t)(ky * row_b + kx * pix_b);
-      const bf16* wt = w + ((size_t)(ky * 3 + kx) * w_rows + co0 + g) * C + 2 * t;
-#pragma unroll 2
-      for (int k0 = 0; k0 < C; k0 += 16) {
-        uint32_t a[kMI][4];
-#pragma unroll
-        for (int mi = 0; mi < kMI; ++mi) ldmatrix_x4(a_addr[mi] + off + 2 * k0, a[mi]);
-#pragma unroll
-        for (int ni = 0; ni < kNI; ++ni) {
-          const bf16* wp = wt + (size_t)ni * 8 * C + k0;
-          const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wp));
-          const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
-#pragma unroll
-          for (int mi = 0; mi < kMI; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-        }
-      }
-    }
-  }
-}
-
+template <bool kRes>
 __global__ void __launch_bounds__(kThreads)
 gru_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ gx,
                  const bf16* __restrict__ w_ur, const bf16* __restrict__ w_o,
-                 bf16* __restrict__ out, int H, int W, int C,
-                 long long gx_bstride, int TH, int TW) {
+                 bf16* __restrict__ out, bf16* __restrict__ acts, int H, int W,
+                 int C, long long gx_bstride, int TH, int TW) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ps = C + kPad;              // pixel pitch in shared memory
   const int hw = TW + 4, hh = TH + 4;   // h tile with a 2-pixel halo
@@ -130,6 +57,7 @@ gru_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ gx,
   const bf16* hb = h + (size_t)b * H * W * C;
   const bf16* gb = gx + (size_t)b * gx_bstride;
   const int C3 = 3 * C;
+  bf16* actb = kRes ? acts + (size_t)b * H * W * C3 : nullptr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_groups = C / (8 * kNI);
@@ -150,7 +78,7 @@ gru_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ gx,
 
   // 2. Reset gate and a = bf16(r * h) on the tile plus its 1-pixel ring:
   //    a-tile pixel (ry, rx) is image (y0-1+ry, x0-1+rx); its conv taps
-  //    start at h-tile pixel (ry, rx).
+  //    start at h-tile pixel (ry, rx).  K1-res stores r at the tile.
   const int n_a = ah * aw;
   const int items_a = ((n_a + 16 * kMI - 1) / (16 * kMI)) * n_groups;
   for (int item = warp; item < items_a; item += kWarps) {
@@ -175,20 +103,21 @@ gru_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ gx,
         const int ry = q / aw, rx = q - ry * aw;
         const int gy = y0 - 1 + ry, gx_ = x0 - 1 + rx;
         const bool inside = gy >= 0 && gy < H && gx_ >= 0 && gx_ < W;
+        const bool center = ry >= 1 && ry <= TH && rx >= 1 && rx <= TW;
 #pragma unroll
         for (int ni = 0; ni < kNI; ++ni) {
           const int ch = co0 + ni * 8 + 2 * t;
-          __nv_bfloat162 av = __floats2bfloat162_rn(0.0f, 0.0f);
+          float a0 = 0.0f, a1 = 0.0f;
           if (inside) {
-            const float2 gr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                gb + ((size_t)gy * W + gx_) * C3 + C + ch));
-            const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                hs + ((ry + 1) * hw + rx + 1) * ps + ch));
+            const float2 gr = ld_bf2(gb + ((size_t)gy * W + gx_) * C3 + C + ch);
+            const float2 hv = ld_bf2(hs + ((ry + 1) * hw + rx + 1) * ps + ch);
             const float r0 = sigmoid_f(acc[mi][ni][2 * half] + gr.x);
             const float r1 = sigmoid_f(acc[mi][ni][2 * half + 1] + gr.y);
-            av = __floats2bfloat162_rn(r0 * hv.x, r1 * hv.y);
+            a0 = r0 * hv.x;
+            a1 = r1 * hv.y;
+            if (kRes && center) st_bf2(actb + ((size_t)gy * W + gx_) * C3 + C + ch, r0, r1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(as + q * ps + ch) = av;
+          st_bf2(as + q * ps + ch, a0, a1);
         }
       }
     }
@@ -197,7 +126,7 @@ gru_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ gx,
 
   // 3. Update gate, out gate on a, and h' for the TH x TW tile: output
   //    pixel (cy, cx) is image (y0+cy, x0+cx); its taps start at h-tile
-  //    pixel (cy+1, cx+1) and a-tile pixel (cy, cx).
+  //    pixel (cy+1, cx+1) and a-tile pixel (cy, cx).  K1-res stores z, o.
   const int n_c = TH * TW;
   const int items_c = ((n_c + 16 * kMI - 1) / (16 * kMI)) * n_groups;
   for (int item = warp; item < items_c; item += kWarps) {
@@ -230,21 +159,44 @@ gru_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ gx,
 #pragma unroll
         for (int ni = 0; ni < kNI; ++ni) {
           const int ch = co0 + ni * 8 + 2 * t;
-          const float2 gz = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(gp + ch));
-          const float2 go = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(gp + 2 * C + ch));
-          const float2 hv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              hs + ((cy + 2) * hw + cx + 2) * ps + ch));
+          const float2 gz = ld_bf2(gp + ch);
+          const float2 go = ld_bf2(gp + 2 * C + ch);
+          const float2 hv = ld_bf2(hs + ((cy + 2) * hw + cx + 2) * ps + ch);
           const float z0 = sigmoid_f(accz[mi][ni][2 * half] + gz.x);
           const float z1 = sigmoid_f(accz[mi][ni][2 * half + 1] + gz.y);
           const float o0 = tanhf(acco[mi][ni][2 * half] + go.x);
           const float o1 = tanhf(acco[mi][ni][2 * half + 1] + go.y);
-          *reinterpret_cast<__nv_bfloat162*>(op + ch) = __floats2bfloat162_rn(
-              hv.x * (1.0f - z0) + o0 * z0, hv.y * (1.0f - z1) + o1 * z1);
+          st_bf2(op + ch, hv.x * (1.0f - z0) + o0 * z0, hv.y * (1.0f - z1) + o1 * z1);
+          if (kRes) {
+            bf16* ap = actb + ((size_t)gy * W + gx_) * C3;
+            st_bf2(ap + ch, z0, z1);
+            st_bf2(ap + 2 * C + ch, o0, o1);
+          }
         }
       }
     }
   }
+}
+
+template <bool kRes>
+int launch(const void* h, const void* gx, const void* w_ur, const void* w_o,
+           void* out, void* acts, int B, int H, int W, int C,
+           long long gx_bstride, int tile_h, int tile_w, void* stream) {
+  // the h tile with its 2-pixel halo and the a tile with its 1-pixel ring
+  // (ops/gru_hside.py::smem_bytes computes the same)
+  const size_t smem =
+      ((size_t)(tile_h + 4) * (tile_w + 4) + (size_t)(tile_h + 2) * (tile_w + 2)) *
+      (size_t)(C + kPad) * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_hside_kernel<kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, B);
+  gru_hside_kernel<kRes><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(h), static_cast<const bf16*>(gx),
+      static_cast<const bf16*>(w_ur), static_cast<const bf16*>(w_o),
+      static_cast<bf16*>(out), static_cast<bf16*>(acts), H, W, C, gx_bstride,
+      tile_h, tile_w);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -260,20 +212,18 @@ int ramnet_gru_hside_forward(const void* h, const void* gx, const void* w_ur,
                              const void* w_o, void* out, int B, int H, int W,
                              int C, long long gx_bstride, int tile_h,
                              int tile_w, void* stream) {
-  // the h tile with its 2-pixel halo and the a tile with its 1-pixel ring
-  // (ops/gru_hside.py::smem_bytes computes the same)
-  const size_t smem =
-      ((size_t)(tile_h + 4) * (tile_w + 4) + (size_t)(tile_h + 2) * (tile_w + 2)) *
-      (size_t)(C + kPad) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_hside_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, B);
-  gru_hside_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(h), static_cast<const bf16*>(gx),
-      static_cast<const bf16*>(w_ur), static_cast<const bf16*>(w_o),
-      static_cast<bf16*>(out), H, W, C, gx_bstride, tile_h, tile_w);
-  return (int)cudaGetLastError();
+  return launch<false>(h, gx, w_ur, w_o, out, nullptr, B, H, W, C, gx_bstride,
+                       tile_h, tile_w, stream);
+}
+
+// The same cell, also writing acts [B,H,W,3C] = bf16(concat(z, r, o)),
+// contiguous.
+int ramnet_gru_hside_forward_res(const void* h, const void* gx, const void* w_ur,
+                                 const void* w_o, void* out, void* acts, int B,
+                                 int H, int W, int C, long long gx_bstride,
+                                 int tile_h, int tile_w, void* stream) {
+  return launch<true>(h, gx, w_ur, w_o, out, acts, B, H, W, C, gx_bstride,
+                      tile_h, tile_w, stream);
 }
 
 const char* ramnet_cuda_error_string(int err) {

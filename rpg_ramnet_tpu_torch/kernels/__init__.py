@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports plain C functions.  ``library(name)`` compiles
-it with nvcc for Hopper (``sm_90a``) into ``rpg_ramnet_tpu_torch/_build/``
-(listed in .gitignore) on first use, under a name that carries a hash of the
-source and flags, and loads it with ctypes.  Nothing is built at import, and
-a failed build raises: there is no fallback to another implementation.
+Each ``csrc/<name>.cu`` exports plain C functions and may include the
+shared ``csrc/*.cuh`` headers.  ``library(name)`` compiles it with nvcc for
+Hopper (``sm_90a``) into ``rpg_ramnet_tpu_torch/_build/`` (listed in
+.gitignore) on first use, under a name that carries a hash of the sources
+and flags, and loads it with ctypes.  ``build(names)`` runs one nvcc per
+source, all at once.  Nothing is built at import, and a failed build
+raises: there is no fallback to another implementation.
 """
 from __future__ import annotations
 
@@ -14,8 +16,9 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -27,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # report registers and spills per kernel
 build_log: Dict[str, str] = {}
 
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -41,20 +45,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def library(name: str,
-            signatures: Dict[str, Tuple[object, Tuple[object, ...]]]
-            ) -> ctypes.CDLL:
-    """The loaded ``csrc/<name>.cu``, built on first use.  signatures maps
-    each exported function to (restype, argtypes), set on load."""
-    with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"lib{name}-{digest}.so"
+def _lock(name: str) -> threading.Lock:
+    with _locks_lock:
+        return _locks.setdefault(name, threading.Lock())
+
+
+def _so_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build(name: str) -> Path:
+    """The built ``csrc/<name>.cu`` (nvcc unless already built)."""
+    with _lock(name):
+        so = _so_path(name)
         if not so.exists():
             BUILD_DIR.mkdir(exist_ok=True)
+            src = CSRC / f"{name}.cu"
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             proc = subprocess.run(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -65,10 +76,30 @@ def library(name: str,
                     f"{proc.stdout}\n{proc.stderr}")
             os.replace(tmp, so)
             build_log[name] = proc.stderr
-        lib = ctypes.CDLL(str(so))
-        for fn_name, (restype, argtypes) in signatures.items():
-            fn = getattr(lib, fn_name)
-            fn.restype = restype
-            fn.argtypes = list(argtypes)
-        _libs[name] = lib
-        return lib
+        return so
+
+
+def build(names: Sequence[str]) -> None:
+    """Build the named sources concurrently, one nvcc each."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build, names))
+
+
+def library(name: str,
+            signatures: Dict[str, Tuple[object, Tuple[object, ...]]]
+            ) -> ctypes.CDLL:
+    """The loaded ``csrc/<name>.cu``, built on first use.  signatures maps
+    each exported function to (restype, argtypes), set on load."""
+    with _lock(name):
+        if name in _libs:
+            return _libs[name]
+    so = _build(name)
+    with _lock(name):
+        if name not in _libs:
+            lib = ctypes.CDLL(str(so))
+            for fn_name, (restype, argtypes) in signatures.items():
+                fn = getattr(lib, fn_name)
+                fn.restype = restype
+                fn.argtypes = list(argtypes)
+            _libs[name] = lib
+        return _libs[name]

@@ -15,6 +15,11 @@ reference state dict loads with ``strict=True``.
     conv_gru_x_gates                     ConvGRU.x_gates
     conv_gru_apply_hside                 ConvGRU.hside
 
+Parameters stay float32 (the masters an optimizer updates); every layer
+casts its weights to its input's dtype at use, as the JAX layers do
+(``conv2d``: ``w.astype(x.dtype)``), so one model serves float32 and bf16
+compute, training and inference.
+
 Modules take and return NCHW-shaped tensors.  The model keeps them in
 ``torch.channels_last`` memory, which is physically the JAX package's NHWC:
 ``utils.layout.to_nchw``/``to_nhwc`` are the only layout conversions in the
@@ -55,6 +60,13 @@ def init_conv_(conv: nn.Conv2d, generator: torch.Generator) -> None:
             nn.init.uniform_(conv.bias, -bound, bound, generator=generator)
 
 
+def conv(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` applied to x with its weight and bias cast to x's dtype."""
+    b = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.conv2d(x, layer.weight.to(x.dtype), b, layer.stride,
+                    layer.padding)
+
+
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     """Bilinear x2, half-pixel centres (align_corners=False), as the
     reference's UpsampleConvLayer (submodules.py:88)."""
@@ -73,7 +85,7 @@ class ConvLayer(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return activate(self.conv2d(x), self.activation)
+        return activate(conv(self.conv2d, x), self.activation)
 
 
 class UpsampleConvLayer(nn.Module):
@@ -86,7 +98,8 @@ class UpsampleConvLayer(nn.Module):
         self.activation = activation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return activate(self.conv2d(upsample2x_bilinear(x)), self.activation)
+        return activate(conv(self.conv2d, upsample2x_bilinear(x)),
+                        self.activation)
 
 
 class ResidualBlock(nn.Module):
@@ -98,7 +111,7 @@ class ResidualBlock(nn.Module):
         self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv2(torch.relu(self.conv1(x)))
+        out = conv(self.conv2, torch.relu(conv(self.conv1, x)))
         return torch.relu(out + x)
 
 
@@ -133,12 +146,13 @@ class ConvGRU(nn.Module):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         C = self.hidden_size
+        dt = h.dtype
         stacked = torch.cat([x, h], dim=1)
         w_ur = torch.cat([self.update_gate.weight, self.reset_gate.weight])
         b_ur = torch.cat([self.update_gate.bias, self.reset_gate.bias])
-        ur = torch.sigmoid(F.conv2d(stacked, w_ur, b_ur, 1, 1))
+        ur = torch.sigmoid(F.conv2d(stacked, w_ur.to(dt), b_ur.to(dt), 1, 1))
         z, r = ur[:, :C], ur[:, C:]
-        o = torch.tanh(self.out_gate(torch.cat([x, h * r], dim=1)))
+        o = torch.tanh(conv(self.out_gate, torch.cat([x, h * r], dim=1)))
         return h * (1.0 - z) + o * z
 
     def x_gates(self, x: torch.Tensor) -> torch.Tensor:
@@ -147,39 +161,48 @@ class ConvGRU(nn.Module):
         cx = self.input_size
         w = torch.cat([g.weight[:, :cx] for g in self.gates()])
         b = torch.cat([g.bias for g in self.gates()])
-        return F.conv2d(x, w, b, 1, 1)
+        return F.conv2d(x, w.to(x.dtype), b.to(x.dtype), 1, 1)
 
     def hside(self, gx: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """The sequential h-side completion from gx = x_gates(x).  Equals
         forward up to float summation order (the two conv halves are
         summed after the convs)."""
         C = self.hidden_size
+        dt = h.dtype
         w_ur = torch.cat([self.update_gate.weight[:, -C:],
                           self.reset_gate.weight[:, -C:]])
-        ur = torch.sigmoid(F.conv2d(h, w_ur, None, 1, 1) + gx[:, :2 * C])
+        ur = torch.sigmoid(F.conv2d(h, w_ur.to(dt), None, 1, 1)
+                           + gx[:, :2 * C])
         z, r = ur[:, :C], ur[:, C:]
-        o = torch.tanh(F.conv2d(h * r, self.out_gate.weight[:, -C:], None,
-                                1, 1) + gx[:, 2 * C:])
+        o = torch.tanh(F.conv2d(h * r, self.out_gate.weight[:, -C:].to(dt),
+                                None, 1, 1) + gx[:, 2 * C:])
         return h * (1.0 - z) + o * z
 
-    def hside_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def hside_weights(self, dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The h slices of the gate weights in the layout of
         ops.gru_hside: w_ur [9, 2C, C] (update rows, then reset rows) and
-        w_o [9, C, C], indexed (ky*3 + kx, output channel, input channel).
-        Folded once per weight version and cached, not once per step."""
+        w_o [9, C, C], indexed (ky*3 + kx, output channel, input channel),
+        in ``dtype`` (the parameters' own when None).
+
+        Under autograd they are folded from the live parameters on every
+        call, through differentiable ops, so gradients reach the gate
+        weights.  Otherwise (no_grad, inference_mode) they are folded once
+        per weight version and dtype and cached, not once per step."""
+        C = self.hidden_size
         ws = tuple(g.weight for g in self.gates())
-        key = tuple((w.data_ptr(), w._version, w.dtype) for w in ws)
+        dtype = dtype or ws[0].dtype
+
+        def fold(w):
+            return (w[:, -C:].permute(2, 3, 0, 1)
+                    .reshape(9, w.shape[0], C).to(dtype).contiguous())
+
+        if torch.is_grad_enabled():
+            return fold(torch.cat([ws[0], ws[1]])), fold(ws[2])
+        key = tuple((w.data_ptr(), w._version) for w in ws) + (dtype,)
         if self._hside_cache is None or self._hside_cache[0] != key:
-            C = self.hidden_size
-
-            def fold(w):
-                return (w[:, -C:].permute(2, 3, 0, 1)
-                        .reshape(9, w.shape[0], C).contiguous())
-
-            with torch.no_grad():
-                w_ur = fold(torch.cat([ws[0], ws[1]]))
-                w_o = fold(ws[2])
-            self._hside_cache = (key, w_ur, w_o)
+            self._hside_cache = (key, fold(torch.cat([ws[0], ws[1]])),
+                                 fold(ws[2]))
         return self._hside_cache[1], self._hside_cache[2]
 
 

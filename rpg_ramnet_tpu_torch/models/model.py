@@ -5,9 +5,15 @@ A datapackage is {'events': [B, K, H, W, Ce], 'image': [B, H, W, Ci]}: K
 event voxel grids, then one frame.  The recurrent state is a tuple of
 per-scale NHWC super states.  All public tensors are NHWC.
 
-    forward_package               one package, per-step decodes, full cells
-    forward_sequence_precomputed  a chunk of packages: batched x side,
-                                  sequential h side, one batched decode
+    forward_package                  one package, per-step decodes, full
+                                     cells
+    forward_sequence_precomputed     a chunk of packages (inference):
+                                     batched x side, sequential h side, one
+                                     batched decode
+    forward_sequence_batched_decode  a TBPTT window (training): per-package
+                                     state updates, optionally checkpointed
+                                     and with the package's x side batched,
+                                     then one batched decode
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
 from ..utils.layout import to_nchw, to_nhwc
@@ -53,13 +60,63 @@ def _hside_package(net, cfg: ModelConfig, supers, gev, gim,
     return supers, snaps
 
 
+def _package_snapshot_step(net, cfg: ModelConfig, supers, pkg,
+                           sel_keys: Sequence[str]):
+    """One package of state updates with the full ConvGRU cell per step
+    (K event steps, then the image step; no decodes), returning the new
+    supers and the supers after each step in sel_keys, concatenated over
+    the batch.  pkg: {'events': [B, K, H, W, Ce], 'image': [B, H, W, Ci]}
+    NHWC; supers NCHW-shaped."""
+    snaps = []
+    for k in range(event_loop_range(cfg)):
+        supers = statenet.forward_modality(net, cfg, to_nchw(pkg["events"][:, k]),
+                                           supers, "events")
+        if f"events{k}" in sel_keys:
+            snaps.append(supers)
+    supers = statenet.forward_modality(net, cfg, to_nchw(pkg["image"]), supers,
+                                       "image")
+    if "image" in sel_keys:
+        snaps.append(supers)
+    return supers, _stack(snaps)
+
+
+def _package_snapshot_step_pre(net, cfg: ModelConfig, supers, pkg,
+                               sel_keys: Sequence[str],
+                               allow_fused: bool = False):
+    """_package_snapshot_step with the package's x side batched: the K
+    event encoder sweeps and x-side gate convs run as one (B*K)-deep pass
+    (state-independent for recurrent_block_type='conv'), leaving only the
+    K+1 h-side cells sequential; gx memory stays bounded to one package.
+    allow_fused: let the fused_gru policy pick the h-side kernels, which
+    are differentiable (ops/gru_hside.py::ConvGRUHside)."""
+    loop = event_loop_range(cfg)
+    ev = pkg["events"]                       # [B, K, H, W, Ce]
+    b = ev.shape[0]
+    ev_flat = to_nchw(ev.reshape((b * loop,) + ev.shape[2:]))
+    gx_ev = [g.view((b, loop) + g.shape[1:])
+             for g in statenet.gru_x_gates(
+                 net, "events",
+                 statenet.encoder_features(net, cfg, ev_flat, "events"))]
+    gx_im = statenet.gru_x_gates(
+        net, "image",
+        statenet.encoder_features(net, cfg, to_nchw(pkg["image"]), "image"))
+    supers, snaps = _hside_package(net, cfg, supers, gx_ev, gx_im, sel_keys,
+                                   loop, allow_fused=allow_fused)
+    return supers, _stack(snaps)
+
+
+def _stack(snaps):
+    """Per-scale concatenation over the batch of a list of snapshots."""
+    return tuple(torch.cat(scale, dim=0) for scale in zip(*snaps))
+
+
 def _decode_snapshots(net, cfg: ModelConfig, snaps, sel_keys: Sequence[str],
                       l: int, b: int) -> Dict[str, torch.Tensor]:
     """One decoder pass over all snapshots, ordered (package, key, batch),
     regrouped into per-key [L, B, H, W, 1] predictions."""
     if not snaps:
         return {}
-    flat = tuple(torch.cat(scale, dim=0) for scale in zip(*snaps))
+    flat = _stack(snaps)
     pred = to_nhwc(statenet.forward_decoder_supers(net, cfg, flat))
     grouped = pred.reshape((l, len(sel_keys), b) + pred.shape[1:])
     return {key: grouped[:, i] for i, key in enumerate(sel_keys)}
@@ -67,9 +124,11 @@ def _decode_snapshots(net, cfg: ModelConfig, snaps, sel_keys: Sequence[str],
 
 class ERGB2DepthRecurrent(nn.Module):
     """RAM-Net.  Parameters live under ``statenetphasedrecurrent.`` with
-    the upstream names, in the config's compute dtype and channels_last
-    memory, on ``device``.  Random init (upstream's scheme) draws from
-    ``generator``, or from a generator seeded 0."""
+    the upstream names, in float32 (the masters an optimizer updates) and
+    channels_last memory, on ``device``; the layers compute in the
+    config's compute dtype, casting the weights at use.  Random init
+    (upstream's scheme) draws from ``generator``, or from a generator
+    seeded 0."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -81,8 +140,7 @@ class ERGB2DepthRecurrent(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.statenetphasedrecurrent.reset_parameters_(generator)
-        self.to(device=device, dtype=statenet.compute_dtype(cfg),
-                memory_format=torch.channels_last)
+        self.to(device=device, memory_format=torch.channels_last)
 
     @property
     def device(self) -> torch.device:
@@ -167,4 +225,60 @@ class ERGB2DepthRecurrent(nn.Module):
                 [g[t] for g in gx_im], sel_keys, loop, allow_fused=True)
             snaps.extend(pkg_snaps)
         preds = _decode_snapshots(net, cfg, snaps, sel_keys, l, b)
+        return tuple(to_nhwc(s) for s in supers), preds
+
+    def forward_sequence_batched_decode(
+            self, state, seq, decode_keys: Optional[Sequence[str]] = None,
+            remat: bool = False, squeeze_preds: bool = False,
+            package_precompute: bool = False, allow_fused: bool = False):
+        """A window of L packages with every decode deferred
+        (model.py:317-393): a loop over the packages runs only the state
+        updates and keeps the snapshots of the selected keys, then ONE
+        decoder pass runs over all L*S*B snapshots.  Predictions equal
+        forward_package's: decodes never feed the state.  The training
+        path (trainer.deferred_decode).
+
+        remat: checkpoint each package (torch.utils.checkpoint,
+        non-reentrant): its activations are recomputed in the backward, so
+        each package's forward runs twice per step.
+        package_precompute: batch each package's x side
+        (_package_snapshot_step_pre; trainer.precompute_x).
+        allow_fused: with package_precompute, let the fused_gru policy pick
+        the h-side kernels.
+
+        seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
+        Returns (state, {key: [L, B, H, W, 1]}, or [L, B, H, W] when
+        squeeze_preds)."""
+        net, cfg = self.statenetphasedrecurrent, self.cfg
+        sel_keys = [k for k in prediction_keys(cfg)
+                    if decode_keys is None or k in decode_keys]
+        if package_precompute:
+            def step(supers, pkg):
+                return _package_snapshot_step_pre(net, cfg, supers, pkg,
+                                                  sel_keys, allow_fused)
+        else:
+            if cfg.fused_gru == "on":
+                raise NotImplementedError(
+                    "fused_gru='on' without precompute_x needs the full-cell "
+                    "kernel K5, not ported yet: ROADMAP queue 2, K5")
+
+            def step(supers, pkg):
+                return _package_snapshot_step(net, cfg, supers, pkg, sel_keys)
+
+        l, b = seq["image"].shape[1], seq["image"].shape[0]
+        supers = tuple(to_nchw(s) for s in state)
+        snaps = []
+        for t in range(l):
+            pkg = {"events": seq["events"][:, t], "image": seq["image"][:, t]}
+            if remat:
+                supers, stacked = checkpoint(step, supers, pkg,
+                                             use_reentrant=False,
+                                             preserve_rng_state=False)
+            else:
+                supers, stacked = step(supers, pkg)
+            snaps.append(stacked)
+        preds = _decode_snapshots(net, cfg, snaps if sel_keys else [],
+                                  sel_keys, l, b)
+        if squeeze_preds:
+            preds = {k: v[..., 0] for k, v in preds.items()}
         return tuple(to_nhwc(s) for s in supers), preds

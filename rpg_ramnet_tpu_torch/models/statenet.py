@@ -48,6 +48,14 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
 
+def supports_x_precompute(cfg: ModelConfig) -> bool:
+    """True when the encoder chain is state-independent and the state
+    combination is ConvGRU/ConvLSTM: the x side can be batched over steps
+    (statenet.py:315)."""
+    return (not cfg.is_baseline and cfg.recurrent_block_type == "conv"
+            and cfg.state_combination in ("convgru", "convlstm"))
+
+
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
@@ -166,14 +174,18 @@ def combine_hside(net: StateNet, cfg: ModelConfig,
                   allow_fused: bool = False) -> Tuple[torch.Tensor, ...]:
     """One modality step of per-scale h-side ConvGRU completion from
     precomputed x-side gates.  allow_fused: let the fused_gru policy pick
-    the h-side kernel (ops/gru_hside.py)."""
+    the h-side kernels (ops/gru_hside.py).  Under autograd the cell is the
+    ``ConvGRUHside`` Function on the float32 master weights, folded anew
+    per call; otherwise K1 on the cached folded weights in h's dtype."""
     _, _, combs = net.branch(modality)
     out = []
     for c, g, h in zip(combs, gx_scales, supers):
         cell = c.recurrent_block
         if allow_fused and use_fused_cell(cfg, h):
+            w = cell.hside_weights(
+                None if torch.is_grad_enabled() else h.dtype)
             out.append(to_nchw(gru_hside.conv_gru_hside(
-                to_nhwc(h), to_nhwc(g), *cell.hside_weights())))
+                to_nhwc(h), to_nhwc(g), *w)))
         else:
             out.append(cell.hside(g, h))
     return tuple(out)

@@ -1,8 +1,12 @@
-"""The fused ConvGRU h-side cell (kernel K1): wrapper, plain version, count.
+"""The fused ConvGRU h-side cell: forward (K1), its residual variant for
+training (K1-res), its backward (K2), and the autograd.Function over them.
 
-Counterpart of ``rpg_ramnet_tpu/ops/gru_hside.py::conv_gru_hside_fused``
-(Pallas ``_run``/``_kernel``).  The CUDA kernel is ``csrc/gru_hside.cu``; its
-header says what bounds it on an H100 and what the design does about it.
+Counterpart of ``rpg_ramnet_tpu/ops/gru_hside.py``: ``conv_gru_hside_fused``
+and its custom VJP (``_gru_hside_cell``: Pallas ``_run``/``_kernel`` and
+``_kernel_res`` forward, ``_run_bwd``/``_bwd_kernel`` or
+``_gru_hside_bwd_xla`` backward).  The CUDA kernels are
+``csrc/gru_hside.cu`` (K1, K1-res) and ``csrc/gru_hside_bwd.cu`` (K2); their
+headers say what bounds them on an H100 and what the design does about it.
 
     z, r = sigmoid(conv3x3(h, W_ur) + gx[..., :2C])
     o    = tanh(conv3x3(bf16(r * h), W_o) + gx[..., 2C:])
@@ -12,12 +16,20 @@ Tensors are NHWC: h [B, H, W, C], gx [B, H, W, 3C] in (update, reset, out)
 order with the biases folded in (``ConvGRU.x_gates``), and the h slices of
 the gate weights folded by ``ConvGRU.hside_weights``: w_ur [9, 2C, C]
 (update rows, then reset rows) and w_o [9, C, C], indexed (ky*3 + kx, out,
-in): the tensor cores' B operand, contiguous along the contraction.
+in): the tensor cores' B operand, contiguous along the contraction.  acts
+[B, H, W, 3C] = (z, r, o) in h's dtype.
 
-``conv_gru_hside`` runs ``conv_gru_hside_plain`` for a tensor on the CPU and
-the kernel for a CUDA tensor; on a CUDA tensor it launches or raises.  The
-kernel takes C % 16 == 0 (one mma k-step of channels); the plain version
-any C % 8 == 0.  The kernel has no backward yet.
+Each kernel has a plain PyTorch version here (``*_plain``), and each wrapper
+runs it for a tensor on the CPU and launches the kernel for a CUDA tensor;
+on a CUDA tensor it launches or raises.  ``<wrapper>.launches`` counts the
+kernel's launches.  The kernels take bf16 and C % 16 == 0 (one mma k-step of
+channels); the plain versions any float dtype and C % 8 == 0.
+
+``conv_gru_hside`` is the entry point: without autograd it runs K1; when a
+gradient is needed it runs ``ConvGRUHside``, whose forward runs K1-res and
+whose backward runs K2 for dh and dgx and two library convolutions for the
+weight gradients (the counterpart of ``_dconv_w``, which the JAX package
+also leaves to XLA).
 """
 from __future__ import annotations
 
@@ -30,74 +42,157 @@ import torch.nn.functional as F
 
 from ..utils.layout import to_nchw, to_nhwc
 
-# H x W output tiles the wrapper chooses from, largest first.  A block holds
-# the h tile with a 2-pixel halo and a = r*h with a 1-pixel ring in shared
-# memory; smaller tiles recompute more of the ring but give more blocks.
+# H x W output tiles the wrappers choose from, largest first.  A K1 block
+# holds the h tile with a 2-pixel halo and a = r*h with a 1-pixel ring in
+# shared memory, a K2 block dpre_o with a 2-pixel ring, [dpre_z | dpre_r]
+# with a 1-pixel ring and da*r at the tile in f32; smaller tiles recompute
+# more of the ring but give more blocks.
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
 _SMEM_MAX = 232448           # bytes a block may use on Hopper
 _SMEM_TWO_BLOCKS = 110 * 1024
 _MIN_BLOCKS = 128            # about one block per SM of the 132
 
-_TRAINING_NOT_PORTED = (
-    "conv_gru_hside has no backward yet: the residual variant and its "
-    "autograd.Function come with training (ROADMAP queue 2, K1 residual "
-    "variant + queue 1, training).  Call it under torch.no_grad() or "
-    "torch.inference_mode().")
-
 
 def smem_bytes(tile_h: int, tile_w: int, C: int) -> int:
-    """The h tile with its 2-pixel halo and the a tile with its 1-pixel
+    """K1: the h tile with its 2-pixel halo and the a tile with its 1-pixel
     ring, bf16, at the kernel's pixel pitch of C + 8."""
     return ((tile_h + 4) * (tile_w + 4) + (tile_h + 2) * (tile_w + 2)) \
         * (C + 8) * 2
 
 
-def pick_tile(B: int, H: int, W: int, C: int) -> Optional[Tuple[int, int]]:
+def smem_bytes_bwd(tile_h: int, tile_w: int, C: int) -> int:
+    """K2: dpre_o with a 2-pixel ring (pitch C + 8), [dpre_z | dpre_r] with
+    a 1-pixel ring (pitch 2C + 8), both bf16, and da*r at the tile in f32."""
+    return ((tile_h + 4) * (tile_w + 4) * (C + 8) * 2
+            + (tile_h + 2) * (tile_w + 2) * (2 * C + 8) * 2
+            + tile_h * tile_w * C * 4)
+
+
+def pick_tile(B: int, H: int, W: int, C: int, smem=smem_bytes
+              ) -> Optional[Tuple[int, int]]:
     """The largest tile that leaves room for two blocks per SM and still
     gives about one block per SM; else the smallest tile that fits.  None
-    when no tile fits in shared memory."""
-    fits = [t for t in _TILES if smem_bytes(*t, C) <= _SMEM_MAX]
+    when no tile fits in shared memory.  smem: the kernel's footprint."""
+    fits = [t for t in _TILES if smem(*t, C) <= _SMEM_MAX]
     if not fits:
         return None
     for th, tw in fits:
         blocks = B * math.ceil(H / th) * math.ceil(W / tw)
-        if smem_bytes(th, tw, C) <= _SMEM_TWO_BLOCKS and blocks >= _MIN_BLOCKS:
+        if smem(th, tw, C) <= _SMEM_TWO_BLOCKS and blocks >= _MIN_BLOCKS:
             return th, tw
     return fits[-1]
 
 
 def supports(h: torch.Tensor) -> bool:
-    """Whether the kernel takes this NHWC state's dtype and shape: bf16,
-    4-D, C a multiple of 16 and a tile that fits in shared memory."""
+    """Whether the kernels take this NHWC state's dtype and shape: bf16,
+    4-D, C a multiple of 16 and a forward and a backward tile that fit in
+    shared memory."""
     return (h.dtype == torch.bfloat16 and h.dim() == 4
-            and h.shape[-1] % 16 == 0 and pick_tile(*h.shape) is not None)
+            and h.shape[-1] % 16 == 0 and pick_tile(*h.shape) is not None
+            and pick_tile(*h.shape, smem=smem_bytes_bwd) is not None)
+
+
+# -- plain versions ---------------------------------------------------------
+
+
+def _work_dtype(h: torch.Tensor) -> torch.dtype:
+    """float32 for bf16/f32 states, float64 for float64 (gradcheck)."""
+    return torch.promote_types(h.dtype, torch.float32)
+
+
+def _oihw(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Folded [9, O, C] -> OIHW [O, C, 3, 3]."""
+    return w.to(dt).reshape(3, 3, w.shape[1], w.shape[2]).permute(2, 3, 0, 1)
+
+
+def _cell_plain(h, gx, w_ur, w_o):
+    """(h', z, r, o) NCHW: convs and gates in the work dtype on the inputs'
+    values (weights rounded to h's dtype), a = r*h rounded to h's dtype
+    before the out-gate conv, h' rounded to h's dtype."""
+    C = h.shape[-1]
+    dt = _work_dtype(h)
+    hf = to_nchw(h).to(dt)
+    g = to_nchw(gx).to(dt)
+    ur = torch.sigmoid(F.conv2d(hf, _oihw(w_ur.to(h.dtype), dt), None, 1, 1)
+                       + g[:, :2 * C])
+    z, r = ur[:, :C], ur[:, C:]
+    a = (r * hf).to(h.dtype).to(dt)
+    o = torch.tanh(F.conv2d(a, _oihw(w_o.to(h.dtype), dt), None, 1, 1)
+                   + g[:, 2 * C:])
+    return (hf * (1.0 - z) + o * z).to(h.dtype), z, r, o
 
 
 def conv_gru_hside_plain(h: torch.Tensor, gx: torch.Tensor,
                          w_ur: torch.Tensor, w_o: torch.Tensor
                          ) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: the convs and gates in
-    float32 on the inputs' values, a = r*h rounded to h's dtype before the
-    out-gate conv, h' rounded to h's dtype.  The CPU implementation of
-    ``conv_gru_hside`` and the kernel's oracle on the card."""
+    """K1's arithmetic in plain PyTorch (``_cell_plain``): the CPU
+    implementation of ``conv_gru_hside`` and the kernel's oracle on the
+    card."""
+    return to_nhwc(_cell_plain(h, gx, w_ur, w_o)[0]).contiguous()
+
+
+def conv_gru_hside_res_plain(h: torch.Tensor, gx: torch.Tensor,
+                             w_ur: torch.Tensor, w_o: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1-res in plain PyTorch: (h', acts = (z, r, o) in h's dtype)."""
+    h_new, z, r, o = _cell_plain(h, gx, w_ur, w_o)
+    acts = torch.cat([z, r, o], dim=1).to(h.dtype)
+    return to_nhwc(h_new).contiguous(), to_nhwc(acts).contiguous()
+
+
+def conv_gru_hside_bwd_plain(g: torch.Tensor, h: torch.Tensor,
+                             acts: torch.Tensor, w_ur: torch.Tensor,
+                             w_o: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 in plain PyTorch, the counterpart of ``_gru_hside_bwd_xla``:
+    (dh, dgx) in h's dtype from the cotangent g of h', with the gate chain
+    in the work dtype and the transposed convs on operands rounded to h's
+    dtype."""
     C = h.shape[-1]
+    dt = _work_dtype(h)
+    a = to_nchw(acts).to(dt)
+    z, r, o = a[:, :C], a[:, C:2 * C], a[:, 2 * C:]
+    hf = to_nchw(h).to(dt)
+    gf = to_nchw(g).to(dt)
 
-    def unfold(w):  # [9, O, C] -> OIHW [O, C, 3, 3]
-        return w.float().reshape(3, 3, -1, C).permute(2, 3, 0, 1)
+    def rounded(x):
+        return x.to(h.dtype).to(dt)
 
-    hf = to_nchw(h).float()
-    g = to_nchw(gx).float()
-    ur = torch.sigmoid(F.conv2d(hf, unfold(w_ur), None, 1, 1) + g[:, :2 * C])
-    z, r = ur[:, :C], ur[:, C:]
-    a = (r * hf).to(h.dtype).float()
-    o = torch.tanh(F.conv2d(a, unfold(w_o), None, 1, 1) + g[:, 2 * C:])
-    return to_nhwc((hf * (1.0 - z) + o * z).to(h.dtype)).contiguous()
+    dpre_o = (gf * z) * (1.0 - o * o)
+    dpre_z = gf * (o - hf) * z * (1.0 - z)
+    da = F.conv_transpose2d(rounded(dpre_o), _oihw(w_o.to(h.dtype), dt),
+                            None, 1, 1)
+    dpre_r = (da * hf) * r * (1.0 - r)
+    dh = gf * (1.0 - z) + da * r
+    dh = dh + F.conv_transpose2d(rounded(torch.cat([dpre_z, dpre_r], 1)),
+                                 _oihw(w_ur.to(h.dtype), dt), None, 1, 1)
+    dgx = torch.cat([dpre_z, dpre_r, dpre_o], 1).to(h.dtype)
+    return to_nhwc(dh.to(h.dtype)).contiguous(), to_nhwc(dgx).contiguous()
+
+
+def hside_weight_grads(h: torch.Tensor, acts: torch.Tensor,
+                       dgx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The h-side weight gradients, folded [9, 2C, C] and [9, C, C], as
+    library convolutions in h's dtype (f32 accumulation): W_ur's from h and
+    dgx's (z, r) part, W_o's from a = bf16(r*h) and dgx's o part.  The
+    counterpart of ``_dconv_w`` in ``_gru_hside_bwd_xla``."""
+    C = h.shape[-1]
+    dt = _work_dtype(h)
+    a = (acts[..., C:2 * C].to(dt) * h.to(dt)).to(h.dtype)
+    ds = to_nchw(dgx.to(h.dtype))
+
+    def wgrad(x, d, rows):
+        w = torch.nn.grad.conv2d_weight(to_nchw(x), (rows, C, 3, 3), d,
+                                        padding=1)
+        return w.permute(2, 3, 0, 1).reshape(9, rows, C)
+
+    return wgrad(h, ds[:, :2 * C], 2 * C), wgrad(a, ds[:, 2 * C:], C)
+
+
+# -- the kernels ------------------------------------------------------------
 
 
 def _check(h, gx, w_ur, w_o) -> None:
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (h, gx, w_ur, w_o)):
-        raise NotImplementedError(_TRAINING_NOT_PORTED)
     if h.dim() != 4:
         raise ValueError(f"h must be NHWC [B, H, W, C], got {tuple(h.shape)}")
     B, H, W, C = h.shape
@@ -112,66 +207,201 @@ def _check(h, gx, w_ur, w_o) -> None:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
 
 
-_SIGNATURES = {
-    "ramnet_gru_hside_forward": (ctypes.c_int, (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p)),
-    "ramnet_cuda_error_string": (ctypes.c_char_p, (ctypes.c_int,)),
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ERR = {"ramnet_cuda_error_string": (ctypes.c_char_p, (_I,))}
+_FWD_SIGNATURES = {
+    "ramnet_gru_hside_forward": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _L, _I, _I, _P)),
+    "ramnet_gru_hside_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _I, _I,
+                                          _I, _I, _L, _I, _I, _P)),
+    **_ERR,
 }
+_BWD_SIGNATURES = {
+    "ramnet_gru_hside_backward": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _P)),
+    **_ERR,
+}
+SOURCES = ("gru_hside", "gru_hside_bwd")   # csrc/<name>.cu
 
 
 def library():
-    """The built and loaded kernel library (nvcc on first use)."""
+    """The built and loaded K1/K1-res library (nvcc on first use)."""
     from .. import kernels
-    return kernels.library("gru_hside", _SIGNATURES)
+    return kernels.library("gru_hside", _FWD_SIGNATURES)
 
 
-def _launch(h, gx, w_ur, w_o) -> torch.Tensor:
-    if not (h.dtype == gx.dtype == w_ur.dtype == w_o.dtype == torch.bfloat16):
-        raise TypeError("the CUDA kernel takes bf16 h, gx and weights; got "
-                        f"{h.dtype}, {gx.dtype}, {w_ur.dtype}, {w_o.dtype}")
+def library_bwd():
+    """The built and loaded K2 library (nvcc on first use)."""
+    from .. import kernels
+    return kernels.library("gru_hside_bwd", _BWD_SIGNATURES)
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.ramnet_cuda_error_string(err).decode())
+
+
+def _check_launch(*tensors) -> None:
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError("the CUDA kernels take bf16 tensors; got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    if tensors[0].shape[-1] % 16:
+        raise ValueError("the CUDA kernels take C % 16 == 0, got "
+                         f"C={tensors[0].shape[-1]}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the kernels' tensors must be 16-byte aligned")
+
+
+def _tile(h, smem) -> Tuple[int, int]:
+    tile = pick_tile(*h.shape, smem=smem)
+    if tile is None:
+        raise ValueError(f"C={h.shape[-1]} does not fit the kernel's shared "
+                         "memory")
+    return tile
+
+
+def _gx_bstride(h, gx) -> int:
     B, H, W, C = h.shape
-    if C % 16:
-        raise ValueError(f"the CUDA kernel takes C % 16 == 0, got C={C}")
-    if not (h.is_contiguous() and w_ur.is_contiguous()
-            and w_o.is_contiguous()):
-        raise ValueError("h, w_ur and w_o must be contiguous")
     if gx.stride()[1:] != (W * 3 * C, 3 * C, 1):
         raise ValueError("gx must be contiguous within each batch item "
                          f"(strides {gx.stride()})")
-    gx_bstride = gx.stride(0) if B > 1 else H * W * 3 * C
-    if gx_bstride % 8 or any(t.data_ptr() % 16 for t in (h, gx, w_ur, w_o)):
-        raise ValueError("h, gx and the weights must be 16-byte aligned")
-    tile = pick_tile(B, H, W, C)
-    if tile is None:
-        raise ValueError(f"C={C} does not fit the kernel's shared memory")
+    stride = gx.stride(0) if B > 1 else H * W * 3 * C
+    if stride % 8:
+        raise ValueError("gx's batch stride must keep 16-byte alignment")
+    return stride
+
+
+def _launch(h, gx, w_ur, w_o, residuals: bool):
+    _check_launch(h, gx, w_ur, w_o)
+    if not (h.is_contiguous() and w_ur.is_contiguous()
+            and w_o.is_contiguous()):
+        raise ValueError("h, w_ur and w_o must be contiguous")
+    B, H, W, C = h.shape
+    gx_bstride = _gx_bstride(h, gx)
+    th, tw = _tile(h, smem_bytes)
     lib = library()
     out = torch.empty_like(h)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    if residuals:
+        acts = torch.empty((B, H, W, 3 * C), dtype=h.dtype, device=h.device)
+        err = lib.ramnet_gru_hside_forward_res(
+            h.data_ptr(), gx.data_ptr(), w_ur.data_ptr(), w_o.data_ptr(),
+            out.data_ptr(), acts.data_ptr(), B, H, W, C, gx_bstride, th, tw,
+            stream)
+        _raise_on(err, lib, "gru_hside_res")
+        conv_gru_hside_res.launches += 1
+        return out, acts
     err = lib.ramnet_gru_hside_forward(
         h.data_ptr(), gx.data_ptr(), w_ur.data_ptr(), w_o.data_ptr(),
-        out.data_ptr(), B, H, W, C, gx_bstride, tile[0], tile[1],
-        torch.cuda.current_stream(h.device).cuda_stream)
-    if err:
-        raise RuntimeError("gru_hside kernel launch failed: "
-                           + lib.ramnet_cuda_error_string(err).decode())
+        out.data_ptr(), B, H, W, C, gx_bstride, th, tw, stream)
+    _raise_on(err, lib, "gru_hside")
     conv_gru_hside.launches += 1
     return out
 
 
+def _launch_bwd(g, h, acts, w_ur, w_o):
+    B, H, W, C = h.shape
+    g, h, acts = g.contiguous(), h.contiguous(), acts.contiguous()
+    # convT = correlation with the flipped, in/out-swapped weights
+    wb_ur = w_ur.flip(0).transpose(1, 2).contiguous()    # [9, C, 2C]
+    wb_o = w_o.flip(0).transpose(1, 2).contiguous()      # [9, C, C]
+    _check_launch(h, g, acts, wb_ur, wb_o)
+    th, tw = _tile(h, smem_bytes_bwd)
+    lib = library_bwd()
+    dh = torch.empty_like(h)
+    dgx = torch.empty((B, H, W, 3 * C), dtype=h.dtype, device=h.device)
+    err = lib.ramnet_gru_hside_backward(
+        g.data_ptr(), h.data_ptr(), acts.data_ptr(), wb_ur.data_ptr(),
+        wb_o.data_ptr(), dh.data_ptr(), dgx.data_ptr(), B, H, W, C, th, tw,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on(err, lib, "gru_hside_bwd")
+    conv_gru_hside_bwd.launches += 1
+    return dh, dgx
+
+
+def _device_of(h: torch.Tensor) -> str:
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no implementation for device {h.device}")
+    return h.device.type
+
+
+def conv_gru_hside_res(h: torch.Tensor, gx: torch.Tensor, w_ur: torch.Tensor,
+                       w_o: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h', acts): K1-res for CUDA tensors, ``conv_gru_hside_res_plain`` for
+    CPU tensors.  ``conv_gru_hside_res.launches`` counts kernel launches."""
+    _check(h, gx, w_ur, w_o)
+    if _device_of(h) == "cpu":
+        return conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+    with torch.cuda.device(h.device):
+        return _launch(h, gx, w_ur, w_o, residuals=True)
+
+
+def conv_gru_hside_bwd(g: torch.Tensor, h: torch.Tensor, acts: torch.Tensor,
+                       w_ur: torch.Tensor, w_o: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dh, dgx): K2 for CUDA tensors, ``conv_gru_hside_bwd_plain`` for CPU
+    tensors.  ``conv_gru_hside_bwd.launches`` counts kernel launches."""
+    _check(h, acts, w_ur, w_o)
+    if tuple(g.shape) != tuple(h.shape):
+        raise ValueError(f"g must be {tuple(h.shape)}, got {tuple(g.shape)}")
+    if _device_of(h) == "cpu":
+        return conv_gru_hside_bwd_plain(g, h, acts, w_ur, w_o)
+    with torch.cuda.device(h.device):
+        return _launch_bwd(g, h, acts, w_ur, w_o)
+
+
+class ConvGRUHside(torch.autograd.Function):
+    """h' = cell(h, gx, w_ur, w_o) with gradients for all four inputs.
+    The forward runs K1-res and saves (h, acts, the weights in h's dtype)
+    when a gradient is needed, K1 otherwise; the backward runs K2 for dh
+    and dgx and ``hside_weight_grads``.  Weights may be float32 masters:
+    they are rounded to h's dtype for the kernels and their gradients are
+    returned in their own dtype."""
+
+    @staticmethod
+    def forward(ctx, h, gx, w_ur, w_o):
+        wk_ur = w_ur.to(h.dtype).contiguous()
+        wk_o = w_o.to(h.dtype).contiguous()
+        if not any(ctx.needs_input_grad):
+            return conv_gru_hside(h, gx, wk_ur, wk_o)
+        h_new, acts = conv_gru_hside_res(h, gx, wk_ur, wk_o)
+        ctx.save_for_backward(h, acts, wk_ur, wk_o)
+        ctx.dtypes = (gx.dtype, w_ur.dtype, w_o.dtype)
+        return h_new
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        h, acts, w_ur, w_o = ctx.saved_tensors
+        dh, dgx = conv_gru_hside_bwd(g.to(h.dtype), h, acts, w_ur, w_o)
+        gx_dt, wur_dt, wo_dt = ctx.dtypes
+        dw_ur = dw_o = None
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            dw_ur, dw_o = hside_weight_grads(h, acts, dgx)
+            dw_ur, dw_o = dw_ur.to(wur_dt), dw_o.to(wo_dt)
+        return dh, dgx.to(gx_dt), dw_ur, dw_o
+
+
 def conv_gru_hside(h: torch.Tensor, gx: torch.Tensor, w_ur: torch.Tensor,
                    w_o: torch.Tensor) -> torch.Tensor:
-    """h' [B, H, W, C] from NHWC h, gx and the folded weights: the CUDA
-    kernel for CUDA tensors, ``conv_gru_hside_plain`` for CPU tensors.
-    ``conv_gru_hside.launches`` counts kernel launches."""
+    """h' [B, H, W, C] from NHWC h, gx and the folded weights (rounded to
+    h's dtype).  When autograd needs a gradient of any input this is
+    ``ConvGRUHside``; otherwise K1 for CUDA tensors and
+    ``conv_gru_hside_plain`` for CPU tensors.  ``conv_gru_hside.launches``
+    counts K1's launches."""
     _check(h, gx, w_ur, w_o)
-    if h.device.type == "cpu":
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h, gx, w_ur, w_o)):
+        return ConvGRUHside.apply(h, gx, w_ur, w_o)
+    w_ur, w_o = w_ur.to(h.dtype), w_o.to(h.dtype)
+    if _device_of(h) == "cpu":
         return conv_gru_hside_plain(h, gx, w_ur, w_o)
-    if h.device.type != "cuda":
-        raise ValueError(f"no implementation for device {h.device}")
     with torch.cuda.device(h.device):
-        return _launch(h, gx, w_ur, w_o)
+        return _launch(h, gx, w_ur, w_o, residuals=False)
 
 
 conv_gru_hside.launches = 0
+conv_gru_hside_res.launches = 0
+conv_gru_hside_bwd.launches = 0

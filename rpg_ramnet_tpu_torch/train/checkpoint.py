@@ -1,0 +1,72 @@
+"""Checkpoint save and restore, and export to the reference's format.
+
+Counterpart of ``rpg_ramnet_tpu/train/checkpoint.py`` (payload semantics of
+RAM_Net/base/base_trainer.py:133-179).  A checkpoint is a directory
+``<run_dir>/checkpoint-epoch{E}`` holding ``state.pt`` (the model's and the
+optimizer's state dicts) and ``meta.json`` (epoch, monitor_best, config,
+log); the best by the monitored metric is copied to ``model_best``.
+``export_pth_tar`` writes a ``.pth.tar`` with the upstream parameter
+names, which the reference implementation and
+``compat.load_reference_checkpoint`` load.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from os.path import join
+from typing import Any, Dict, Optional
+
+import torch
+
+
+class CheckpointManager:
+    def __init__(self, run_dir: str):
+        self.run_dir = run_dir
+        os.makedirs(run_dir, exist_ok=True)
+
+    def save(self, name: str, model, optimizer, *, epoch: int,
+             monitor_best: float, config: Dict[str, Any],
+             logger: Optional[Dict[str, Any]] = None) -> str:
+        path = join(self.run_dir, name)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.makedirs(path)
+        torch.save({"state_dict": model.state_dict(),
+                    "optimizer": optimizer.state_dict()},
+                   join(path, "state.pt"))
+        with open(join(path, "meta.json"), "w") as f:
+            json.dump({"epoch": epoch, "monitor_best": float(monitor_best),
+                       "config": config, "logger": logger or {}}, f,
+                      default=float)
+        return path
+
+    def save_best(self, src_name: str) -> None:
+        """Copy a checkpoint to model_best (base_trainer.py:154-156)."""
+        dst = join(self.run_dir, "model_best")
+        if os.path.exists(dst):
+            shutil.rmtree(dst)
+        shutil.copytree(join(self.run_dir, src_name), dst)
+
+
+def restore(path: str, model, optimizer=None) -> Dict[str, Any]:
+    """Load a checkpoint directory into model (and optimizer); returns its
+    meta (epoch, monitor_best, config, logger)."""
+    state = torch.load(join(path, "state.pt"), map_location="cpu",
+                       weights_only=True)
+    model.load_state_dict(state["state_dict"], strict=True)
+    if optimizer is not None:
+        optimizer.load_state_dict(state["optimizer"])
+    with open(join(path, "meta.json")) as f:
+        return json.load(f)
+
+
+def export_pth_tar(path: str, model, arch: str, config: Dict[str, Any],
+                   epoch: int = 0, monitor_best: float = float("inf")) -> None:
+    """Write a reference-loadable .pth.tar (float32 state dict under the
+    upstream module names, base_trainer.py:133-158)."""
+    sd = {k: v.detach().float().cpu().contiguous()
+          for k, v in model.state_dict().items()}
+    torch.save({"arch": arch, "epoch": epoch, "state_dict": sd,
+                "monitor_best": monitor_best, "config": config,
+                "logger": None, "optimizer": None}, path)

@@ -1,5 +1,7 @@
-"""Card-only tests of the port: the h-side kernel (K1) against its plain
-version, and the precomputed path with the kernel against the plain layer.
+"""Card-only tests of the port: the h-side kernels (K1, K1-res, K2) and
+the ConvGRUHside Function against their plain versions, the precomputed
+path with the kernel against the plain layer, and one training step with
+the kernels against fused_gru='off'.
 
 They skip without a CUDA device.  This file imports nothing of JAX, so it
 also runs where JAX is absent:
@@ -35,7 +37,8 @@ def test_kernel_matches_plain(device, shape):
     cell = ConvGRU(C, C)
     cell.reset_parameters_(gen)
     cell.to(device, torch.bfloat16)
-    w_ur, w_o = cell.hside_weights()
+    with torch.no_grad():
+        w_ur, w_o = cell.hside_weights()
     h = (torch.rand(B, H, W, C, generator=gen) * 2 - 1).to(device, torch.bfloat16)
     gx = torch.randn(B, 2, H, W, 3 * C, generator=gen).to(device, torch.bfloat16)[:, 1]
     n0 = gru_hside.conv_gru_hside.launches
@@ -44,6 +47,67 @@ def test_kernel_matches_plain(device, shape):
     torch.cuda.synchronize()
     assert gru_hside.conv_gru_hside.launches == n0 + 1
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def _cell_inputs(shape, device, seed=0):
+    B, H, W, C = shape
+    gen = torch.Generator().manual_seed(seed)
+    cell = ConvGRU(C, C)
+    cell.reset_parameters_(gen)
+    with torch.no_grad():
+        w_ur, w_o = cell.hside_weights(torch.bfloat16)
+    h = (torch.rand(B, H, W, C, generator=gen) * 2 - 1).to(device, torch.bfloat16)
+    gx = torch.randn(B, 2, H, W, 3 * C, generator=gen).to(device, torch.bfloat16)[:, 1]
+    g = torch.randn(B, H, W, C, generator=gen).to(device, torch.bfloat16)
+    return h, gx, g, w_ur.to(device), w_o.to(device)
+
+
+def _rel_err(got, want):
+    """Max abs error over the plain version's max magnitude."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+TRAIN_CELLS = [(16, 28, 28, 256), (3, 30, 45, 96)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_CELLS, ids=lambda s: "x".join(map(str, s)))
+def test_res_and_bwd_kernels_match_plain(device, shape):
+    """K1-res: h' and acts within 2e-2 of the plain version (values in
+    [-1, 1]; a few bf16 roundings).  K2: dh and dgx within 2e-2 of the
+    plain version's largest magnitude."""
+    h, gx, g, w_ur, w_o = _cell_inputs(shape, device)
+    n_res, n_bwd = gru_hside.conv_gru_hside_res.launches, gru_hside.conv_gru_hside_bwd.launches
+    got_h, got_acts = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o)
+    want_h, want_acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+    dh, dgx = gru_hside.conv_gru_hside_bwd(g, h, want_acts, w_ur, w_o)
+    want_dh, want_dgx = gru_hside.conv_gru_hside_bwd_plain(g, h, want_acts, w_ur, w_o)
+    torch.cuda.synchronize()
+    assert gru_hside.conv_gru_hside_res.launches == n_res + 1
+    assert gru_hside.conv_gru_hside_bwd.launches == n_bwd + 1
+    assert (got_h.float() - want_h.float()).abs().max().item() <= 2e-2
+    assert (got_acts.float() - want_acts.float()).abs().max().item() <= 2e-2
+    assert _rel_err(dh, want_dh) <= 2e-2
+    assert _rel_err(dgx, want_dgx) <= 2e-2
+
+
+def test_function_kernels_match_plain(device):
+    """The ConvGRUHside Function on the card (K1-res, K2, library weight
+    gradients) against the plain versions composed: every gradient within
+    2e-2 of the plain one's largest magnitude."""
+    h, gx, g, w_ur, w_o = _cell_inputs((2, 56, 56, 128), device)
+    w_ur, w_o = w_ur.float(), w_o.float()
+    args = [t.clone().requires_grad_() for t in (h, gx, w_ur, w_o)]
+    out = gru_hside.ConvGRUHside.apply(*args)
+    got = torch.autograd.grad(out, args, g)
+    want_h, acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+    dh, dgx = gru_hside.conv_gru_hside_bwd_plain(
+        g, h, acts, w_ur.to(h.dtype), w_o.to(h.dtype))
+    want = (dh, dgx) + gru_hside.hside_weight_grads(h, acts, dgx)
+    assert (out.float() - want_h.float()).abs().max().item() <= 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == (torch.float32 if a.dim() == 3 else torch.bfloat16)
+        assert _rel_err(a, b) <= 2e-2
 
 
 def test_precomputed_path_kernel_vs_plain_layer(device):
@@ -69,3 +133,48 @@ def test_precomputed_path_kernel_vs_plain_layer(device):
     for k in p_on:
         assert torch.isfinite(p_on[k]).all()
         assert (p_on[k] - p_off[k]).abs().max().item() <= 5e-2
+
+
+def test_training_step_kernels_vs_off(device):
+    """One TBPTT loss and backward of a small flagship-shaped bf16 model
+    (precompute_x, checkpointed packages) with the kernels and with
+    fused_gru='off', from the same weights: K1-res runs twice per cell
+    (the recompute) and K2 once; the loss within 2e-2 relative and every
+    parameter gradient at cosine >= 0.95 of the plain layer's."""
+    from rpg_ramnet_tpu_torch.core.config import Config, TrainerConfig
+    from rpg_ramnet_tpu_torch.train.sequence_loss import make_sequence_loss
+    mcfg = ModelConfig(num_encoders=3, base_num_channels=16,
+                       recurrent_block_type="conv", state_combination="convgru",
+                       num_residual_blocks=1, every_x_rgb_frame=2,
+                       compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    B, L, K, H, W = 2, 3, 2, 64, 96
+    batch = {"events": torch.randn(B, L, K, H, W, 5, generator=gen),
+             "image": torch.rand(B, L, H, W, 1, generator=gen),
+             "depth_events": torch.rand(B, L, K, H, W, 1, generator=gen),
+             "depth_image": torch.rand(B, L, H, W, 1, generator=gen)}
+    batch = {k: v.to(device) for k, v in batch.items()}
+    out = {}
+    for mode in ("auto", "off"):
+        cfg = Config(model=dataclasses.replace(mcfg, fused_gru=mode),
+                     grad_loss_weight=0.25,
+                     trainer=TrainerConfig(deferred_decode=True,
+                                           precompute_x=True,
+                                           sequence_length=L))
+        model = ERGB2DepthRecurrent(cfg.model, device=device)
+        n = (gru_hside.conv_gru_hside_res.launches,
+             gru_hside.conv_gru_hside_bwd.launches)
+        loss, _ = make_sequence_loss(cfg, remat=True)(
+            model, model.init_state(B, H, W), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (gru_hside.conv_gru_hside_res.launches - n[0],
+                    gru_hside.conv_gru_hside_bwd.launches - n[1])
+        cells = 3 * (K + 1) * L
+        assert launched == ((2 * cells, cells) if mode == "auto" else (0, 0))
+        out[mode] = (loss.item(), {k: p.grad.float().flatten()
+                                   for k, p in model.named_parameters()})
+    assert abs(out["auto"][0] - out["off"][0]) <= 2e-2 * abs(out["off"][0])
+    for k, g in out["off"][1].items():
+        cos = torch.nn.functional.cosine_similarity(out["auto"][1][k], g, dim=0)
+        assert cos.item() >= 0.95, k

@@ -73,13 +73,25 @@ def test_fused_on_raises_on_cpu():
 
 
 def test_wrapper_raises_on_grad_and_bad_inputs():
+    """Under autograd the wrapper now runs the ConvGRUHside Function:
+    gradients reach h, gx and both folded weights.  Bad inputs still
+    raise."""
     _, cell = _cells(8)
     w_ur, w_o = cell.hside_weights()
-    h = torch.zeros(1, 8, 8, 8)
+    h = torch.randn(1, 8, 8, 8, generator=torch.Generator().manual_seed(0))
     gx = torch.zeros(1, 8, 8, 24)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gru_hside.conv_gru_hside(h.requires_grad_(), gx, w_ur, w_o)
+    h.requires_grad_()
+    gx.requires_grad_()
+    out = gru_hside.conv_gru_hside(h, gx, w_ur, w_o)
+    assert out.requires_grad
+    out.sum().backward()
+    for t in (h, gx, cell.update_gate.weight, cell.out_gate.weight):
+        assert t.grad is not None and torch.isfinite(t.grad).all()
+    assert cell.out_gate.weight.grad[:, -8:].abs().sum() > 0
     with torch.no_grad():
+        w_ur, w_o = cell.hside_weights()
+        h = h.detach()
+        gx = gx.detach()
         with pytest.raises(ValueError, match="multiple of 8"):
             gru_hside.conv_gru_hside(torch.zeros(1, 8, 8, 4),
                                      torch.zeros(1, 8, 8, 12), w_ur, w_o)
@@ -97,10 +109,10 @@ def test_tile_choice_and_weight_fold_cache():
                                               dtype=torch.bfloat16))
     # the folded weights follow an in-place weight update
     _, cell = _cells(8)
-    w_ur, _ = cell.hside_weights()
-    assert cell.hside_weights()[0] is w_ur
     with torch.no_grad():
+        w_ur, _ = cell.hside_weights()
+        assert cell.hside_weights()[0] is w_ur
         cell.update_gate.weight.mul_(2.0)
-    w_ur2, _ = cell.hside_weights()
+        w_ur2, _ = cell.hside_weights()
     assert torch.allclose(w_ur2[:, :8], 2.0 * w_ur[:, :8])
     assert torch.equal(w_ur2[:, 8:], w_ur[:, 8:])

@@ -200,6 +200,11 @@ def test_port_imports_no_jax():
         "import sys, torch\n"
         "import rpg_ramnet_tpu_torch.compat, rpg_ramnet_tpu_torch.eval\n"
         "import rpg_ramnet_tpu_torch.kernels, rpg_ramnet_tpu_torch.utils\n"
+        "import rpg_ramnet_tpu_torch.data, rpg_ramnet_tpu_torch.train.trainer\n"
+        "import rpg_ramnet_tpu_torch.train.__main__\n"
+        "from rpg_ramnet_tpu_torch.core.config import Config, TrainerConfig\n"
+        "from rpg_ramnet_tpu_torch.train.optim import make_optimizer\n"
+        "from rpg_ramnet_tpu_torch.train.train_step import make_train_step\n"
         "from rpg_ramnet_tpu_torch.core.config import ModelConfig\n"
         "from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent\n"
         "cfg = ModelConfig(num_encoders=2, base_num_channels=8,\n"
@@ -211,6 +216,12 @@ def test_port_imports_no_jax():
         "       'image': torch.rand(1, 2, 16, 32, 1)}\n"
         "_, p = m.forward_sequence_precomputed(m.init_state(1, 16, 32), seq)\n"
         "assert p['image'].shape == (2, 1, 16, 32, 1)\n"
+        "c = Config(model=cfg, trainer=TrainerConfig(\n"
+        "    deferred_decode=True, precompute_x=True, sequence_length=2))\n"
+        "step = make_train_step(c, m, make_optimizer(c, m.parameters()))\n"
+        "aux = step({**seq, 'depth_events': torch.rand(1, 2, 2, 16, 32, 1),\n"
+        "            'depth_image': torch.rand(1, 2, 16, 32, 1)})\n"
+        "assert aux['loss'] == aux['loss']\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'rpg_ramnet_tpu'))\n"
         "print(bad)\n"
