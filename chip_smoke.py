@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py [--seed N]
 
-Drives the port's two main paths at the full width of the flagship
-EventScape recipe (configs/train_e2depth_si_grad_loss_statenet_ergb_tpu_bf16.json,
+Drives the port's main paths at the full width of the flagship EventScape
+recipe (configs/train_e2depth_si_grad_loss_statenet_ergb_tpu_bf16.json,
 bf16, 3 encoders, base 32, K=5), with random weights and synthetic data
 made from --seed: offline chunked depth inference
-(``rpg_ramnet_tpu_torch.eval.run_chunked_streaming``) at 256x512, and TBPTT
+(``rpg_ramnet_tpu_torch.eval.run_chunked_streaming``) at 256x512; TBPTT
 training with trainer.precompute_x set in code (``python -m
-rpg_ramnet_tpu_torch.train``, run in-process) at B=16, L=10, crop 224.  It
-imports nothing of JAX or of the JAX package.
+rpg_ramnet_tpu_torch.train``, run in-process) at B=16, L=10, crop 224; the
+per-package streaming engine at 256x512 with fused_gru='on' set in code
+(``python -m rpg_ramnet_tpu_torch.eval``, in-process); and the live path
+(``python -m rpg_ramnet_tpu_torch.stream``, in-process) on a 346x260
+event log.  It imports nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel);
@@ -29,9 +32,26 @@ Phases, each printed as one JSON line:
                    on-disk split: finite losses, the K1-res, K2 and K1
                    launch counts, peak memory;
   7. timing_train  training sequences/s with the kernels and with 'off',
-                   K1-res and K2 per cell against their plain versions.
+                   K1-res and K2 per cell against their plain versions;
+  8. kernel_stream K5 against its plain version at the three per-package
+                   shapes and one ragged shape; K6 (with and without stats)
+                   and K7 (float32 and bf16 factors) against the plain
+                   scatter at 1M events on 5x260x346 and on a sparse
+                   padded case;
+  9. stream        the per-package engine through the eval entry point on
+                   two sequences (40 and 8 packages): K5's launch count,
+                   finite predictions in [0, 1], all of them against
+                   fused_gru='off'; then the stream entry point on 20
+                   windows of 0.35 events per pixel: K6's launch count,
+                   every window's grid against its plain version, finite
+                   depth maps, and again with --voxel_backend pallas (K7);
+ 10. timing_stream per-package latency (median, p90) and depth maps/s with
+                   K5 and with 'off', K5 per cell against its plain
+                   version, the voxelizers' Mev/s at 1M events.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
-summary, and last {"ok": true, "device": {...}}.  Exits non-zero, without
+summary (with each kernel's bound: the larger of its MACs at the bf16
+dense peak and its bytes at the HBM rate), and last {"ok": true,
+"device": {...}}.  Exits non-zero, without
 that last line, if there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
@@ -65,6 +85,21 @@ GRAD_TOL = 2e-2    # K2 / Function gradients: max abs error over the plain
                    # version's max magnitude (a few bf16 roundings)
 LOSS_TOL = 2e-2    # first step, kernels vs 'off': relative loss difference
 COS_TOL = 0.95     # first step, kernels vs 'off': least per-tensor cosine
+# the live path: the DAVIS346 sensor of the reference's streaming demo,
+# 1M events for the voxelizer times, 20 windows of 0.35 events per pixel
+VOX_GRID = (5, 260, 346)            # num_bins, height, width
+VOX_EVENTS = 1 << 20
+VOX_TOL = 1e-4                      # relative to the grid's magnitude, as
+                                    # tests/test_ops.py:97 (atomic order)
+VOX_BF16_TOL = 5e-2                 # bf16 factors, tests/test_ops.py:85
+STREAM_WINDOWS, STREAM_EVENTS_PER_PIXEL = 20, 0.35
+# the card's published peaks (H100 SXM, dense bf16; HBM3)
+PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+# per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
+# bytes / C^2): K1 reads h, gx and writes h'; K1-res also acts; K2 reads
+# g, h, acts and writes dh, dgx; K5 reads x, h and writes h'
+CELL_WORK = {"k1": (27, 10, 54), "k1_res": (27, 16, 54), "k2": (27, 18, 54),
+             "k5": (54, 6, 108)}
 
 
 def emit(obj) -> None:
@@ -435,6 +470,303 @@ def run_training(raw, tmp, K):
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+def cell_bound(kind, shapes):
+    """(least ms, 'operations' or 'bytes') of one cell per shape, summed:
+    per shape the larger of its MACs at the bf16 dense peak and its bytes
+    (each input read and each output written once, weights included) at
+    the HBM rate; bound_by names the side that gives most of the sum."""
+    macs, io, wts = CELL_WORK[kind]
+    by = {"operations": 0.0, "bytes": 0.0}
+    for B, H, W, C in shapes:
+        t_ops = 2 * macs * C * C * B * H * W / PEAK_FLOPS
+        t_bytes = (io * C * B * H * W + wts * C * C) / HBM_BYTES_PER_S
+        by["operations" if t_ops >= t_bytes else "bytes"] += max(t_ops, t_bytes)
+    return sum(by.values()) * 1e3, max(by, key=by.get)
+
+
+def voxel_bound(n_events):
+    """(least ms, 'bytes') of one voxel grid: the events read once (16
+    bytes each) and the 5x260x346 float32 grid written once; the few
+    float32 operations per event are far below the bytes' time."""
+    nb, h, w = VOX_GRID
+    return (16 * n_events + 4 * nb * h * w) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def make_full_cell_inputs(shape, dev, gen):
+    """x ~ N(0, 1), h in (-1, 1) and a ConvGRU's whole-cell weights with
+    biases in (-0.5, 0.5), bf16 (biases float32) on ``dev``."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import ConvGRU
+    B, Hc, Wc, C = shape
+    cell = ConvGRU(C, C)
+    cell.reset_parameters_(gen)
+    with torch.no_grad():
+        for g in cell.gates():
+            g.bias.uniform_(-0.5, 0.5, generator=gen)
+        w = [t.to(dev) for t in cell.full_weights(torch.bfloat16)]
+    x = torch.randn((B, Hc, Wc, C), generator=gen).to(dev, torch.bfloat16)
+    h = (torch.rand((B, Hc, Wc, C), generator=gen) * 2 - 1).to(dev, torch.bfloat16)
+    return cell, x, h, w
+
+
+def make_events(n, n_valid, dev, seed):
+    """[n, 4] float32 events on the 346x260 sensor, sorted timestamps over
+    50 ms, rows past n_valid zero."""
+    import numpy as np
+    import torch
+    nb, h, w = VOX_GRID
+    rng = np.random.default_rng(seed)
+    ev = np.stack([np.sort(rng.uniform(0.0, 0.05, n)), rng.integers(0, w, n),
+                   rng.integers(0, h, n), rng.integers(0, 2, n)], 1)
+    ev[n_valid:] = 0
+    return torch.from_numpy(ev.astype(np.float32)).to(dev)
+
+
+def stream_kernel_check(dev, gen, seed):
+    """K5 against its plain version per shape (max abs error); K6 with and
+    without stats and K7 with float32 and bf16 factors against the plain
+    scatter at 1M events and on a sparse padded case."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside, voxel
+    k5 = {}
+    for shape in FLAGSHIP_CELLS + (RAGGED_CELL,):
+        _, x, h, w = make_full_cell_inputs(shape, dev, gen)
+        with torch.no_grad():
+            got = gru_hside.conv_gru_full(x, h, *w)
+            want = gru_hside.conv_gru_full_plain(x, h, *w)
+        torch.cuda.synchronize()
+        k5["x".join(map(str, shape))] = err = (got.float() - want.float()).abs().max().item()
+        if not (err <= CELL_TOL):
+            raise AssertionError(f"K5 vs plain at {shape}: {err} > {CELL_TOL}")
+    nb, hh, ww = VOX_GRID
+    kw = dict(num_bins=nb, height=hh, width=ww)
+    vox = {}
+    for name, (n, n_valid) in (("1M", (VOX_EVENTS, VOX_EVENTS)),
+                               ("sparse_padded", (4096, 64))):
+        ev = make_events(n, n_valid, dev, seed)
+        want = voxel.events_to_voxel_grid_scatter(ev, n_valid, **kw)
+        k6 = voxel.events_to_voxel_grid_sortseg(ev, n_valid, **kw)
+        k6s, stats = voxel.events_to_voxel_grid_sortseg(ev, n_valid,
+                                                        with_stats=True, **kw)
+        k7 = voxel.events_to_voxel_grid_pallas(ev, n_valid, **kw)
+        k7b = voxel.events_to_voxel_grid_pallas(
+            ev, n_valid, factor_dtype=torch.bfloat16, **kw)
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        row = {f: (g - want).abs().max().item()
+               for f, g in (("k6", k6), ("k6_stats", k6s), ("k7_f32", k7),
+                            ("k7_bf16", k7b))}
+        # each stat against its own magnitude (the sum against the sum of
+        # |values|, as its cancellations are the atomics' rounding)
+        want_stats = voxel.voxel_stats(want)
+        scales = (want_stats[0], want.abs().sum(), want_stats[2])
+        row["stats_rel_err"] = max(
+            abs(a.item() - b.item()) / max(s.item(), 1.0)
+            for a, b, s in zip(stats, want_stats, scales))
+        row["grid_max_abs"] = scale
+        vox[name] = row
+        tol = VOX_TOL * max(scale, 1.0)
+        if not (max(row["k6"], row["k6_stats"], row["k7_f32"]) <= tol
+                and row["stats_rel_err"] <= VOX_TOL
+                and row["k7_bf16"] <= VOX_BF16_TOL):
+            raise AssertionError(f"voxelizers vs plain ({name}): {row}")
+    return k5, vox
+
+
+def write_stream_data(root, K, seed):
+    """The per-package split (two sequences of SEQ_LENGTHS packages at HxW)
+    and the event log of STREAM_WINDOWS fixed-size windows on the 346x260
+    sensor; returns the log's path."""
+    import numpy as np
+    from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
+    for s, n in enumerate(SEQ_LENGTHS):
+        generate_eventscape_sequence(os.path.join(root, "test", f"seq{s:02d}"),
+                                     n_frames=K * n, height=H, width=W,
+                                     seed=seed + s)
+    _, h, w = VOX_GRID
+    n = STREAM_WINDOWS * int(w * h * STREAM_EVENTS_PER_PIXEL)
+    rng = np.random.default_rng(seed)
+    rows = np.stack([np.sort(rng.uniform(0.0, STREAM_WINDOWS * 0.05, n)),
+                     rng.integers(0, w, n), rng.integers(0, h, n),
+                     rng.integers(0, 2, n)], 1)
+    path = os.path.join(root, "events.txt")
+    np.savetxt(path, rows, fmt=("%.9f", "%d", "%d", "%d"), header=f"{w} {h}",
+               comments="")
+    return path
+
+
+def stream_files(tmp, model, fused_gru):
+    """The flagship config with model.fused_gru set and a .pth.tar of the
+    model's weights, in tmp; returns (config path, checkpoint path)."""
+    from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
+    with open(os.path.join(ROOT, CONFIG)) as f:
+        raw = json.load(f)
+    raw["model"]["fused_gru"] = fused_gru
+    cfg_path = os.path.join(tmp, f"stream_config_{fused_gru}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    ckpt = os.path.join(tmp, "stream_model.pth.tar")
+    export_pth_tar(ckpt, model, raw["arch"], raw)
+    return cfg_path, ckpt
+
+
+def run_eval_entry(cfg_path, ckpt, root):
+    """``python -m rpg_ramnet_tpu_torch.eval``'s main in-process on the
+    per-package split, with the K5 count set to 0 just before; returns the
+    predictions, the K5 count read just after, the wall time and counts of
+    non-finite and out-of-range values."""
+    import numpy as np
+    import torch
+    from rpg_ramnet_tpu_torch.eval.__main__ import main as eval_main
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    os.environ["PREPROCESSED_DATASETS_FOLDER"] = root
+    preds, stats = {}, {"nonfinite": 0, "out_of_range": 0}
+
+    def keep(idx, p):
+        preds[idx] = p
+        for v in p.values():
+            stats["nonfinite"] += int((~np.isfinite(v)).sum())
+            stats["out_of_range"] += int(((v < 0) | (v > 1)).sum())
+
+    gru_hside.conv_gru_full.launches = 0
+    t0 = time.perf_counter()
+    eval_main(["--path_to_model", ckpt, "--config", cfg_path, "--data_folder",
+               "test", "--crop", f"{H},{W}"], on_prediction=keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return preds, gru_hside.conv_gru_full.launches, wall, stats
+
+
+def run_stream_entry(cfg_path, ckpt, log, backend):
+    """``python -m rpg_ramnet_tpu_torch.stream``'s main in-process on the
+    event log with the given voxel backend, the K6 and K7 counts set to 0
+    just before; returns the depth maps and the counts read just after."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import voxel
+    from rpg_ramnet_tpu_torch.stream import main as stream_main
+    _, h, w = VOX_GRID
+    depths = {}
+    counters = (voxel.events_to_voxel_grid_sortseg, voxel.events_to_voxel_grid_pallas)
+    for c in counters:
+        c.launches = 0
+    stream_main(["-i", log, "--path_to_model", ckpt, "--config", cfg_path,
+                 "--height", str(h), "--width", str(w),
+                 "--num_events_per_pixel", str(STREAM_EVENTS_PER_PIXEL),
+                 "--voxel_backend", backend], on_window=depths.__setitem__)
+    torch.cuda.synchronize()
+    return depths, {"k6": counters[0].launches, "k7": counters[1].launches}
+
+
+def window_grid_check(log, dev):
+    """Every window of the log through K6 and its plain version: the
+    largest max abs error over the windows, each relative to its grid's
+    magnitude (at least 1), and the window count."""
+    import numpy as np
+    import torch
+    from rpg_ramnet_tpu_torch.ops import voxel
+    from rpg_ramnet_tpu_torch.utils.event_readers import FixedSizeEventReader
+    nb, h, w = VOX_GRID
+    worst, n = 0.0, 0
+    for events in FixedSizeEventReader(log, int(w * h * STREAM_EVENTS_PER_PIXEL)):
+        ev = torch.from_numpy(events.astype(np.float32)).to(dev)
+        kw = dict(num_bins=nb, height=h, width=w)
+        got = voxel.events_to_voxel_grid_sortseg(ev, len(ev), **kw)
+        want = voxel.events_to_voxel_grid_scatter(ev, len(ev), **kw)
+        worst = max(worst, (got - want).abs().max().item()
+                    / max(want.abs().max().item(), 1.0))
+        n += 1
+    return worst, n
+
+
+def time_per_package(models, K, seed, steps=20):
+    """Per-package latency of StreamingInference.step (batched decode; host
+    clock around each step, which ends in the predictions' copy to the
+    host) with K5 ('on') and the plain cells ('off'), in turns off, on,
+    on, off after three warm-up packages each: median and p90 ms per
+    package, and depth maps/s over each turn."""
+    import numpy as np
+    from rpg_ramnet_tpu_torch.eval import StreamingInference
+    rng = np.random.default_rng(seed)
+    pkgs = [{"events": rng.standard_normal((K, H, W, 5), dtype=np.float32),
+             "image": rng.random((H, W, 1), dtype=np.float32)} for _ in range(4)]
+    runs = []
+    for mode in ("off", "on", "on", "off"):
+        engine = StreamingInference(models[mode], batched_decode=True)
+        for i in range(3):
+            engine.step(pkgs[i % 4])
+        lat = []
+        t_run = time.perf_counter()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            engine.step(pkgs[i % 4])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        wall = time.perf_counter() - t_run
+        runs.append({"mode": mode, "median_ms": float(np.median(lat)),
+                     "p90_ms": float(np.percentile(lat, 90)),
+                     "maps_per_s": (K + 1) * steps / wall})
+    out = {"runs_off_on_on_off": runs, "packages_per_run": steps}
+    for mode in ("on", "off"):
+        mine = [r for r in runs if r["mode"] == mode]
+        best = min(mine, key=lambda r: r["median_ms"])
+        out[f"per_package_latency_ms_{mode}"] = best["median_ms"]
+        out[f"per_package_p90_ms_{mode}"] = best["p90_ms"]
+        out[f"stream_maps_per_s_{mode}"] = max(r["maps_per_s"] for r in mine)
+    return out
+
+
+def time_full_cells(dev, gen, iters=50):
+    """Microseconds per cell of K5 and its plain version at the flagship
+    per-package shapes, in turns plain, kernel, kernel, plain, and of the
+    plain bf16 layer that fused_gru='off' runs."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.utils.layout import to_nchw
+    rows = []
+    for shape in FLAGSHIP_CELLS:
+        cell, x, h, w = make_full_cell_inputs(shape, dev, gen)
+        cell.to(dev)
+        kern = lambda: gru_hside.conv_gru_full(x, h, *w)  # noqa: E731
+        plain = lambda: gru_hside.conv_gru_full_plain(x, h, *w)  # noqa: E731
+        layer = lambda: cell(to_nchw(x), to_nchw(h))  # noqa: E731
+        with torch.no_grad():
+            p1, k1, k2, p2 = (cuda_time_us(f, iters) for f in (plain, kern, kern, plain))
+            layer_us = cuda_time_us(layer, iters)
+        rows.append({"shape": list(shape), "kernel_us": min(k1, k2),
+                     "plain_us": min(p1, p2), "plain_layer_bf16_us": layer_us,
+                     "us_runs_p_k_k_p": [p1, k1, k2, p2]})
+    return rows
+
+
+def time_voxelizers(dev, seed, iters=20):
+    """Microseconds per grid at 1M events on 5x260x346 and Mev/s: K6
+    (without and with stats), K7 (float32 and bf16 factors), their plain
+    versions and the one index_add_ call on precomputed contributions."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import voxel
+    nb, h, w = VOX_GRID
+    kw = dict(num_bins=nb, height=h, width=w)
+    n = VOX_EVENTS
+    ev = make_events(n, n, dev, seed)
+    idx, vals, ok = voxel._contributions(ev, n, nb, h, w)
+    idx, vals = torch.where(ok, idx, 0), torch.where(ok, vals, 0.0)
+    grid = torch.zeros(nb * h * w, device=dev)
+    calls = {
+        "k6": lambda: voxel.events_to_voxel_grid_sortseg(ev, n, **kw),
+        "k6_stats": lambda: voxel.events_to_voxel_grid_sortseg(
+            ev, n, with_stats=True, **kw),
+        "k7_f32": lambda: voxel.events_to_voxel_grid_pallas(ev, n, **kw),
+        "k7_bf16": lambda: voxel.events_to_voxel_grid_pallas(
+            ev, n, factor_dtype=torch.bfloat16, **kw),
+        "scatter_plain": lambda: voxel.events_to_voxel_grid_scatter(ev, n, **kw),
+        "index_add_only": lambda: grid.index_add_(0, idx, vals),
+    }
+    us = {k: cuda_time_us(f, iters) for k, f in calls.items()}
+    us["matmul_plain"] = cuda_time_us(
+        lambda: voxel.events_to_voxel_grid_matmul(ev, n, **kw), 2)
+    return {"events": n, "grid": list(VOX_GRID), "us": us,
+            "mev_per_s": {k: n / v for k, v in us.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -448,16 +780,18 @@ def main() -> int:
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.core.config import ModelConfig
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
-    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.ops import gru_hside, voxel
     from rpg_ramnet_tpu_torch.utils import require_cuda
 
     # 1. device and build (one nvcc per source, all at once)
     dev = require_cuda()
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    kernels.build(gru_hside.SOURCES)
+    kernels.build(gru_hside.SOURCES + voxel.SOURCES)
     gru_hside.library()
     gru_hside.library_bwd()
+    gru_hside.library_full()
+    voxel.library()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -566,30 +900,126 @@ def main() -> int:
     emit({"phase": "timing_train", **train_timing, "cells": train_cells,
           "nvidia_smi": smi})
 
-    kern_ms = sum(r["kernel_us"] for r in cells) / 1e3
-    plain_ms = sum(r["plain_us"] for r in cells) / 1e3
+    # 8. the streaming kernels against their plain versions on the card
+    k5_errs, vox_errs = stream_kernel_check(dev, gen, args.seed)
+    emit({"phase": "kernel_stream", "cell_tol": CELL_TOL, "vox_tol": VOX_TOL,
+          "vox_bf16_tol": VOX_BF16_TOL, "k5_max_abs_err": k5_errs,
+          "voxel_max_abs_err": vox_errs})
+
+    # 9. the per-package engine and the live path through their entry points
+    stream_model = ERGB2DepthRecurrent(
+        cfg, device=dev, generator=torch.Generator().manual_seed(args.seed + 1))
+    n_pkg = sum(SEQ_LENGTHS)
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_stream_") as tmp:
+        t0 = time.perf_counter()
+        log = write_stream_data(tmp, K, args.seed)
+        stream_data_s = time.perf_counter() - t0
+        files = {m: stream_files(tmp, stream_model, m) for m in ("on", "off")}
+        preds_k5, k5_launches, eval_wall, eval_stats = run_eval_entry(
+            *files["on"], tmp)
+        want_k5 = 3 * (K + 1) * n_pkg
+        if k5_launches != want_k5:
+            raise AssertionError(f"K5 launched {k5_launches} times, expected "
+                                 f"3*(K+1)*packages = {want_k5}")
+        if len(preds_k5) != n_pkg or eval_stats["nonfinite"] \
+                or eval_stats["out_of_range"]:
+            raise AssertionError(f"per-package predictions: {len(preds_k5)} "
+                                 f"items, {eval_stats}")
+        preds_plain, off_launches, _, _ = run_eval_entry(*files["off"], tmp)
+        if off_launches:
+            raise AssertionError("fused_gru='off' launched K5")
+        eval_err = max_pred_diff(preds_k5, preds_plain)
+        if not (eval_err <= SLICE_TOL):
+            raise AssertionError(f"per-package engine, K5 vs fused_gru='off': "
+                                 f"{eval_err} > {SLICE_TOL}")
+        depths_k6, stream_counts = run_stream_entry(*files["off"], log, "auto")
+        depths_k7, k7_counts = run_stream_entry(*files["off"], log, "pallas")
+        window_err, windows = window_grid_check(log, dev)
+    if (windows != STREAM_WINDOWS or len(depths_k6) != windows
+            or stream_counts != {"k6": windows, "k7": 0}
+            or k7_counts != {"k6": 0, "k7": windows}):
+        raise AssertionError(f"stream: {windows} windows, {len(depths_k6)} "
+                             f"depth maps, launches {stream_counts} (K6 run), "
+                             f"{k7_counts} (K7 run)")
+    import numpy as np
+    if not all(np.isfinite(d).all() for d in depths_k6.values()):
+        raise AssertionError("non-finite depth maps in the stream")
+    stream_k7_err = max(float(np.abs(depths_k6[i] - depths_k7[i]).max())
+                        for i in depths_k6)
+    _, vh, vw = VOX_GRID
+    if not (window_err <= VOX_TOL and stream_k7_err <= SLICE_TOL):
+        raise AssertionError(f"stream windows: K6 vs plain {window_err}, "
+                             f"depths K7 vs K6 {stream_k7_err}")
+    check_no_jax()
+    emit({"phase": "stream", "config": CONFIG, "fused_gru": "on", "H": H,
+          "W": W, "K": K, "sequences": list(SEQ_LENGTHS),
+          "k5_launches": k5_launches, "k5_launches_expected": want_k5,
+          "max_abs_err_vs_off": eval_err, "tol": SLICE_TOL,
+          "eval_entry_wall_s": eval_wall, "data_write_s": stream_data_s,
+          "stream_windows": windows, "stream_launches": stream_counts,
+          "stream_k7_launches": k7_counts, "window_grid_max_rel_err": window_err,
+          "depth_k7_vs_k6_max_abs_err": stream_k7_err,
+          "events_per_window": int(vh * vw * STREAM_EVENTS_PER_PIXEL)})
+
+    # 10. per-package latency, K5 per cell, the voxelizers' rates
+    off_stream = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="off"),
+                                     device=dev)
+    off_stream.load_state_dict(stream_model.state_dict())
+    on_stream = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="on"),
+                                    device=dev)
+    on_stream.load_state_dict(stream_model.state_dict())
+    latency = time_per_package({"on": on_stream, "off": off_stream}, K,
+                               args.seed)
+    full_cells = time_full_cells(dev, gen)
+    vox_times = time_voxelizers(dev, args.seed)
+    emit({"phase": "timing_stream", **latency, "k5_cells": full_cells,
+          "voxelizers": vox_times, "nvidia_smi": smi})
+
     src = "rpg_ramnet_tpu_torch/csrc/"
+    vus = vox_times["us"]
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              library_ms=None):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
+
     print(smi)
     emit({"kernels": [
-        {"name": "gru_hside", "route": "cuda", "source": src + "gru_hside.cu",
-         "replaces": "rpg_ramnet_tpu/ops/gru_hside.py:289",
-         "launches": launches, "max_abs_err": max(errs.values()),
-         "ms": kern_ms, "plain_ms": plain_ms},
-        {"name": "gru_hside_res", "route": "cuda", "source": src + "gru_hside.cu",
-         "replaces": "rpg_ramnet_tpu/ops/gru_hside.py:124",
-         "launches": trained["launches"]["k1_res"],
-         "max_abs_err": max(max(r["res_h_err"], r["res_acts_err"])
-                            for r in train_rows),
-         "ms": sum(r["res_kernel_us"] for r in train_cells) / 1e3,
-         "plain_ms": sum(r["res_plain_us"] for r in train_cells) / 1e3},
-        {"name": "gru_hside_bwd", "route": "cuda",
-         "source": src + "gru_hside_bwd.cu",
-         "replaces": "rpg_ramnet_tpu/ops/gru_hside.py:535",
-         "launches": trained["launches"]["k2"],
-         "max_abs_err": max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
-                            for r in train_rows),
-         "ms": sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
-         "plain_ms": sum(r["bwd_plain_us"] for r in train_cells) / 1e3}]})
+        entry("gru_hside", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:289",
+              launches, max(errs.values()),
+              sum(r["kernel_us"] for r in cells) / 1e3,
+              sum(r["plain_us"] for r in cells) / 1e3,
+              cell_bound("k1", FLAGSHIP_CELLS)),
+        entry("gru_hside_res", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:124",
+              trained["launches"]["k1_res"],
+              max(max(r["res_h_err"], r["res_acts_err"]) for r in train_rows),
+              sum(r["res_kernel_us"] for r in train_cells) / 1e3,
+              sum(r["res_plain_us"] for r in train_cells) / 1e3,
+              cell_bound("k1_res", TRAIN_CELLS)),
+        entry("gru_hside_bwd", "gru_hside_bwd.cu",
+              "rpg_ramnet_tpu/ops/gru_hside.py:535", trained["launches"]["k2"],
+              max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
+                  for r in train_rows),
+              sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
+              sum(r["bwd_plain_us"] for r in train_cells) / 1e3,
+              cell_bound("k2", TRAIN_CELLS)),
+        entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
+              k5_launches, max(k5_errs.values()),
+              sum(r["kernel_us"] for r in full_cells) / 1e3,
+              sum(r["plain_us"] for r in full_cells) / 1e3,
+              cell_bound("k5", FLAGSHIP_CELLS)),
+        entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
+              stream_counts["k6"],
+              max(max(r["k6"], r["k6_stats"]) for r in vox_errs.values()),
+              vus["k6"] / 1e3, vus["scatter_plain"] / 1e3,
+              voxel_bound(VOX_EVENTS), vus["index_add_only"] / 1e3),
+        entry("voxel_onehot", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:242",
+              k7_counts["k7"], max(r["k7_f32"] for r in vox_errs.values()),
+              vus["k7_f32"] / 1e3, vus["matmul_plain"] / 1e3,
+              voxel_bound(VOX_EVENTS), vus["index_add_only"] / 1e3)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,21 +5,50 @@ load with ``load_state_dict(strict=True)`` and no remapping.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 
+def params_to_state_dict(params: Any, arch: str = "ERGB2DepthRecurrent"
+                         ) -> Dict[str, np.ndarray]:
+    """A JAX param tree (nested dicts and lists of arrays, HWIO conv
+    weights) -> upstream-named numpy arrays: the arch prefix, dotted
+    paths with list indices, conv weights transposed HWIO -> OIHW and
+    ConvTranspose2d weights to (in, out, kh, kw).  The port's own copy of
+    ``rpg_ramnet_tpu/compat/torch_import.py::params_to_state_dict``, so
+    that loading JAX params imports nothing of the JAX package."""
+    prefix = ("statenetphasedrecurrent." if arch == "ERGB2DepthRecurrent"
+              else "unet.")
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        else:
+            value = np.asarray(node)
+            parent = path[-2] if len(path) >= 2 else ""
+            if path[-1] == "weight" and value.ndim == 4:
+                value = np.transpose(value, (2, 3, 0, 1)
+                                     if parent == "transposed_conv2d"
+                                     else (3, 2, 0, 1))
+            out[prefix + ".".join(path)] = value
+
+    walk(params, ())
+    return out
+
+
 def params_from_jax(model: nn.Module, params: Any,
                     arch: str = "ERGB2DepthRecurrent") -> nn.Module:
-    """Load a JAX param tree (arrays or numpy) into ``model``: the JAX
-    package's own ``params_to_state_dict`` (OIHW transposes, upstream
-    names), then ``load_state_dict(strict=True)``, which casts to the
-    model's dtype and memory format.  Imports that JAX-free module of the
-    JAX package only here, where JAX params exist."""
-    from rpg_ramnet_tpu.compat.torch_import import params_to_state_dict
+    """Load a JAX param tree (arrays or numpy) into ``model``:
+    ``params_to_state_dict``, then ``load_state_dict(strict=True)``, which
+    casts to the model's dtype and memory format."""
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
           for k, v in params_to_state_dict(params, arch).items()}
     model.load_state_dict(sd, strict=True)

@@ -38,6 +38,12 @@ class ModelConfig:
     # 'auto' = CUDA bf16 tensors of a supported shape, 'on' = always (raises
     # where the kernel cannot run), 'off' = the plain layer
     fused_gru: str = "auto"
+    # the JAX package's decoder switches: 'on' selects the fused
+    # upsample-conv kernel (K8) or the composed transposed-conv layers,
+    # neither ported yet (statenet.check_supported raises); 'auto' and
+    # 'off' run the two-stage layers, as the JAX streaming engines do
+    fused_decoder: str = "auto"
+    composed_decoder: str = "auto"
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "ModelConfig":

@@ -1,6 +1,6 @@
 // The implicit-GEMM 3x3 convolution on the tensor cores that the ConvGRU
-// h-side kernels share (gru_hside.cu: K1 and its residual variant;
-// gru_hside_bwd.cu: K2).
+// kernels share (gru_hside.cu: K1 and its residual variant;
+// gru_hside_bwd.cu: K2; gru_full.cu: K5).
 //
 // A block stages its source pixels in shared memory at a pixel pitch of
 // K + kPad bf16 elements; a warp owns one item of 32 pixels x 16 output
@@ -70,19 +70,20 @@ __device__ __forceinline__ void zero(Acc& acc) {
 // this lane's ldmatrix row address (shared-space bytes) for m16 tile mi:
 // pixel (lane & 15) of the tile at its top-left tap, plus (lane >> 4) * 8
 // elements.  row_b, pix_b: row and pixel pitch of the source tile in bytes.
-// w: [9][w_rows][K] bf16; K: the contraction length (input channels, a
-// multiple of 16); co0: first output row of the item.  Accumulator layout
-// (mma.sync): acc[mi][ni][2*half + j] is pixel mi*16 + lane/4 + 8*half,
-// channel co0 + ni*8 + 2*(lane%4) + j.
-__device__ __forceinline__ void conv3x3_mma(Acc& acc, const uint32_t (&a_addr)[kMI],
-                                            int row_b, int pix_b,
-                                            const bf16* __restrict__ w, int w_rows,
-                                            int K, int co0, int lane) {
+// w: [9][w_rows][w_ld] bf16, of which the item contracts the first K
+// columns; K: the contraction length (input channels, a multiple of 16);
+// co0: first output row of the item.  Accumulator layout (mma.sync):
+// acc[mi][ni][2*half + j] is pixel mi*16 + lane/4 + 8*half, channel
+// co0 + ni*8 + 2*(lane%4) + j.
+__device__ __forceinline__ void conv3x3_mma_ld(Acc& acc, const uint32_t (&a_addr)[kMI],
+                                               int row_b, int pix_b,
+                                               const bf16* __restrict__ w, int w_rows,
+                                               int w_ld, int K, int co0, int lane) {
   const int g = lane >> 2, t = lane & 3;
   for (int ky = 0; ky < 3; ++ky) {
     for (int kx = 0; kx < 3; ++kx) {
       const uint32_t off = (uint32_t)(ky * row_b + kx * pix_b);
-      const bf16* wt = w + ((size_t)(ky * 3 + kx) * w_rows + co0 + g) * K + 2 * t;
+      const bf16* wt = w + ((size_t)(ky * 3 + kx) * w_rows + co0 + g) * w_ld + 2 * t;
 #pragma unroll 2
       for (int k0 = 0; k0 < K; k0 += 16) {
         uint32_t a[kMI][4];
@@ -90,7 +91,7 @@ __device__ __forceinline__ void conv3x3_mma(Acc& acc, const uint32_t (&a_addr)[k
         for (int mi = 0; mi < kMI; ++mi) ldmatrix_x4(a_addr[mi] + off + 2 * k0, a[mi]);
 #pragma unroll
         for (int ni = 0; ni < kNI; ++ni) {
-          const bf16* wp = wt + (size_t)ni * 8 * K + k0;
+          const bf16* wp = wt + (size_t)ni * 8 * w_ld + k0;
           const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wp));
           const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
 #pragma unroll
@@ -99,6 +100,14 @@ __device__ __forceinline__ void conv3x3_mma(Acc& acc, const uint32_t (&a_addr)[k
       }
     }
   }
+}
+
+// conv3x3_mma_ld over weights whose rows are exactly K long.
+__device__ __forceinline__ void conv3x3_mma(Acc& acc, const uint32_t (&a_addr)[kMI],
+                                            int row_b, int pix_b,
+                                            const bf16* __restrict__ w, int w_rows,
+                                            int K, int co0, int lane) {
+  conv3x3_mma_ld(acc, a_addr, row_b, pix_b, w, w_rows, K, K, co0, lane);
 }
 
 }  // namespace

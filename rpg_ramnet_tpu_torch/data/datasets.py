@@ -15,9 +15,11 @@ On-disk format (EventScape, as the reference): <seq>/events/voxels/
 *_%04d_voxel.npy, <seq>/depth/data/*_%04d_depth.npy, <seq>/rgb/data/
 *_%04d_image.png, each folder with its timestamps.txt; MVSEC names
 (event_tensor_%010d.npy, depth_%010d.npy, frame_%010d.png) where the base
-folder's name says "mvsec".  Raw-event inputs, baselines, semantic labels,
-phased timestamps and scale_factor < 1 are not ported (ROADMAP queue 1,
-items 6 and 13).
+folder's name says "mvsec"; with load_semantic, the semantic labels
+<seq>/semantic/data/*_%04d_gt_labelIds.png ('semantic_events' [K, H, W, 1],
+'semantic_image' [H, W, 1]) that test.py writes out.  Raw-event inputs,
+baselines, phased timestamps and scale_factor < 1 are not ported (ROADMAP
+queue 1, items 6 and 13).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ _PATTERNS = {
               re.compile(r"^depth_(\d{10})\.npy$")),
     "image": (re.compile(r"_(\d{4})_image\.png$"),
               re.compile(r"^frame_(\d{10})\.png$")),
+    "semantic": (re.compile(r"_(\d{4})_gt_labelIds\.png$"),) * 2,
 }
 
 
@@ -113,9 +116,11 @@ class SynchronizedFramesEventsDataset:
                  start_time: float = 0.0, stop_time: float = 0.0,
                  clip_distance: float = 100.0, every_x_rgb_frame: int = 1,
                  transform=None, normalize: bool = True,
-                 reg_factor: float = 5.7):
+                 reg_factor: float = 5.7, semantic_folder: str = "semantic",
+                 load_semantic: bool = False):
         self.depth_folder = join(base_folder, depth_folder or "frames")
         self.frame_folder = join(base_folder, frame_folder or "rgb")
+        self.load_semantic = load_semantic
         self.transform = transform
         self.clip_distance = clip_distance
         self.every_x_rgb_frame = every_x_rgb_frame
@@ -133,6 +138,8 @@ class SynchronizedFramesEventsDataset:
                              "monotonically increasing")
         self.depth_files = index_files(self.depth_folder, "depth", mvsec)
         self.frame_files = index_files(self.frame_folder, "image", mvsec)
+        self.semantic_files = index_files(
+            join(base_folder, semantic_folder or "semantic"), "semantic", mvsec)
         # raw event steps, not packages, as the reference's .length
         self.length = len(self.event_dataset)
 
@@ -153,13 +160,23 @@ class SynchronizedFramesEventsDataset:
         d = depth_to_log_np(d, self.clip_distance, self.reg_factor)
         return d[..., None] if d.ndim == 2 else d
 
+    def _load_semantic(self, frame_idx: int, seed: int) -> Optional[np.ndarray]:
+        """[H, W, 1] label ids of a frame (its first channel), transformed;
+        None without a label file."""
+        path = self.semantic_files.get(frame_idx)
+        if path is None:
+            return None
+        img = _read_image(path)
+        img = img[..., 0] if img.ndim == 3 else img
+        return _apply_transform(img[..., None], self.transform, seed)
+
     def __getitem__(self, i: int, seed: Optional[int] = None
                     ) -> Dict[str, np.ndarray]:
         assert 0 <= i < self.num_packages()
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31))
         K = self.every_x_rgb_frame
-        events, depths = [], []
+        events, depths, semantics = [], [], []
         item: Dict[str, np.ndarray] = {}
         for k in range(K):
             j = i * K + k
@@ -168,6 +185,10 @@ class SynchronizedFramesEventsDataset:
             events.append(self.event_dataset.__getitem__(j, seed))
             depths.append(_apply_transform(self._load_depth(frame_idx),
                                            self.transform, seed))
+            sem = (self._load_semantic(frame_idx, seed) if self.load_semantic
+                   else None)
+            if sem is not None:
+                semantics.append(sem)
             if k == K - 1:
                 path = self.frame_files.get(frame_idx)
                 if path is not None:
@@ -176,8 +197,12 @@ class SynchronizedFramesEventsDataset:
                     item["image"] = _apply_transform(
                         (gray / 255.0)[..., None], self.transform, seed)
                 item["depth_image"] = depths[-1]
+                if sem is not None:
+                    item["semantic_image"] = sem
         item["events"] = np.stack(events)            # [K, H, W, C]
         item["depth_events"] = np.stack(depths)
+        if semantics:
+            item["semantic_events"] = np.stack(semantics)
         return item
 
 
@@ -195,7 +220,9 @@ class SequenceSynchronizedFramesEventsDataset:
                  proba_pause_when_paused: float = 0.0,
                  step_size: int = 20, clip_distance: float = 100.0,
                  normalize: bool = True, scale_factor: float = 1.0,
-                 every_x_rgb_frame: int = 1, reg_factor: float = 5.7):
+                 every_x_rgb_frame: int = 1, reg_factor: float = 5.7,
+                 semantic_folder: str = "semantic/data",
+                 load_semantic: bool = False):
         assert sequence_length > 0 and step_size > 0 and clip_distance > 0
         if scale_factor < 1.0:
             raise NotImplementedError(
@@ -205,7 +232,8 @@ class SequenceSynchronizedFramesEventsDataset:
         self.dataset = SynchronizedFramesEventsDataset(
             base_folder, event_folder, depth_folder, frame_folder,
             start_time, stop_time, clip_distance, every_x_rgb_frame,
-            transform, normalize=normalize, reg_factor=reg_factor)
+            transform, normalize=normalize, reg_factor=reg_factor,
+            semantic_folder=semantic_folder, load_semantic=load_semantic)
         self.step_size = step_size
         self.proba_pause_when_running = proba_pause_when_running
         self.proba_pause_when_paused = proba_pause_when_paused

@@ -29,7 +29,8 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
                            proba_pause_when_paused: float = 0.0,
                            step_size: int = 1, clip_distance: float = 100.0,
                            every_x_rgb_frame: int = 1, normalize: bool = True,
-                           scale_factor: float = 1.0, reg_factor: float = 5.7
+                           scale_factor: float = 1.0, reg_factor: float = 5.7,
+                           load_semantic: bool = False
                            ) -> "ConcatSequenceDataset":
     """One dataset per sequence subfolder, concatenated (train.py:37-75)."""
     if dataset_type not in DATASETS:
@@ -45,7 +46,8 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
             proba_pause_when_paused=proba_pause_when_paused,
             step_size=step_size, clip_distance=clip_distance,
             every_x_rgb_frame=every_x_rgb_frame, normalize=normalize,
-            scale_factor=scale_factor, reg_factor=reg_factor)
+            scale_factor=scale_factor, reg_factor=reg_factor,
+            load_semantic=load_semantic)
         for name in sorted(os.listdir(base_folder))])
 
 

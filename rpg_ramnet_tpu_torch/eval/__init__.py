@@ -1,3 +1,6 @@
-from .inference import SequenceScanInference, run_chunked_streaming
+from .inference import (CropParameters, SequenceScanInference,
+                        StreamingInference, optimal_crop_size, optimal_scale,
+                        run_chunked_streaming)
 
-__all__ = ["SequenceScanInference", "run_chunked_streaming"]
+__all__ = ["CropParameters", "SequenceScanInference", "StreamingInference",
+           "optimal_crop_size", "optimal_scale", "run_chunked_streaming"]

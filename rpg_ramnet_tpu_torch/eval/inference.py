@@ -1,24 +1,159 @@
-"""Offline chunked inference over recorded sequences (test.py --scan_chunk).
+"""Inference engines: per-package streaming and offline chunked inference.
 
-Counterpart of ``rpg_ramnet_tpu/eval/inference.py``: ``_resolve_precompute``,
-``SequenceScanInference`` and ``run_chunked_streaming``, on the precomputed
-path (``ERGB2DepthRecurrent.forward_sequence_precomputed``).  Behaviour kept
-from the JAX engines: the recurrent state is carried across the chunks of a
-sequence and re-zeroed at every sequence boundary; the tail chunk is
-zero-padded to the chunk length (padding only touches the post-sequence
-state, which is discarded); one host thread prepares the next chunk while
-the device runs the current one.
+Counterpart of ``rpg_ramnet_tpu/eval/inference.py``:
+
+- ``StreamingInference``, the per-package engine that ``test.py`` runs by
+  default and the live ``depth_stream.py`` path runs one modality at a
+  time (``step_modality``), on ``forward_package(_batched_decode)``;
+- ``SequenceScanInference`` and ``run_chunked_streaming`` (``test.py
+  --scan_chunk``) on the precomputed path
+  (``ERGB2DepthRecurrent.forward_sequence_precomputed``);
+- ``CropParameters``, ``optimal_crop_size`` and ``optimal_scale``.
+
+Behaviour kept from the JAX engines: the recurrent state is carried
+across the packages and chunks of a sequence and re-zeroed at every
+sequence boundary; the tail chunk is zero-padded to the chunk length
+(padding only touches the post-sequence state, which is discarded); one
+host thread prepares the next chunk while the device runs the current
+one.  Lanes and the spatial mesh are not ported (ROADMAP queue 1, items
+14 and 15).
 """
 from __future__ import annotations
 
+import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.config import ModelConfig
+from ..models import statenet
 from ..models.model import ERGB2DepthRecurrent
+from ..utils.layout import to_nchw, to_nhwc
+
+
+def optimal_crop_size(max_size: int, max_subsample_factor: int) -> int:
+    """Smallest multiple of 2^num_encoders >= max_size
+    (inference_utils.py:278-284)."""
+    f = 2 ** max_subsample_factor
+    return ((max_size + f - 1) // f) * f
+
+
+@dataclasses.dataclass
+class CropParameters:
+    """Reflection-pad an input to a multiple of 2^num_encoders, then crop
+    the predictions back (inference_utils.py:287-316).  pad and crop take
+    numpy arrays or tensors [..., H, W, C]."""
+    width: int
+    height: int
+    num_encoders: int
+
+    def __post_init__(self):
+        self.width_crop = optimal_crop_size(self.width, self.num_encoders)
+        self.height_crop = optimal_crop_size(self.height, self.num_encoders)
+        self.padding_left = (self.width_crop - self.width) // 2
+        self.padding_right = self.width_crop - self.width - self.padding_left
+        self.padding_top = (self.height_crop - self.height) // 2
+        self.padding_bottom = self.height_crop - self.height - self.padding_top
+
+    def pad(self, x):
+        """x: [..., H, W, C] -> reflection-padded to the crop size."""
+        t, b = self.padding_top, self.padding_bottom
+        l, r = self.padding_left, self.padding_right
+        if isinstance(x, np.ndarray):
+            pads = [(0, 0)] * (x.ndim - 3) + [(t, b), (l, r), (0, 0)]
+            return np.pad(x, pads, mode="reflect")
+        if not (t or b or l or r):
+            return x
+        lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
+        y = F.pad(to_nchw(x.reshape(-1, h, w, c)), (l, r, t, b),
+                  mode="reflect")
+        return to_nhwc(y).reshape(*lead, h + t + b, w + l + r, c)
+
+    def crop(self, x):
+        h0, w0 = self.padding_top, self.padding_left
+        return x[..., h0:h0 + self.height, w0:w0 + self.width, :]
+
+
+def optimal_scale(prediction: np.ndarray, target: np.ndarray,
+                  reg_factor: float, clip_distance: float) -> float:
+    """Metric-space optimal scale (test.py:365-378)."""
+    pred = np.exp(reg_factor * (prediction - 1.0)) * clip_distance
+    targ = np.exp(reg_factor * (target - 1.0)) * clip_distance
+    return float(np.sum(pred * targ) / np.sum(pred * pred))
+
+
+def _as_input(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor on ``device`` (float32 numpy stays float32;
+    the model casts to its compute dtype)."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(device)
+
+
+class StreamingInference:
+    """Single-lane per-package streaming (the reference's behaviour).
+
+    decode_keys: decode only these predictions (all when None).
+    batched_decode: decode the K+1 predictions of a package as one
+    batched decoder pass (``forward_package_batched_decode``; identical
+    outputs), unless decode_keys restricts them.  As in the JAX engine,
+    only ``cfg.fused_gru == 'on'`` lets ``step`` run the cells as kernel
+    K5; ``step_modality`` never does.  Runs under inference_mode."""
+
+    def __init__(self, model: ERGB2DepthRecurrent, decode_keys=None,
+                 batched_decode: bool = False, spatial_mesh=None):
+        if spatial_mesh is not None:
+            raise NotImplementedError(
+                "spatial_mesh (H-sharded single-stream inference) is not "
+                "ported yet: ROADMAP queue 1, item 15")
+        self.model = model
+        self.cfg = model.cfg
+        self.decode_keys = tuple(decode_keys) if decode_keys else None
+        self.batched_decode = batched_decode and self.decode_keys is None
+        self.allow_fused = model.cfg.fused_gru == "on"
+        self._state = None
+
+    def reset(self, batch: int, height: int, width: int) -> None:
+        self._state = self.model.init_state(batch, height, width)
+
+    @torch.inference_mode()
+    def step(self, pkg) -> Dict[str, np.ndarray]:
+        """pkg: {'events': [K, H, W, C], 'image': [H, W, C]} (unbatched,
+        numpy or tensors) -> {key: [H, W, 1] float32 numpy}."""
+        dev = self.model.device
+        batched = {k: _as_input(pkg[k], dev)[None] for k in ("events", "image")}
+        if self._state is None:
+            self.reset(1, *batched["image"].shape[1:3])
+        if self.batched_decode:
+            self._state, preds = self.model.forward_package_batched_decode(
+                self._state, batched, allow_fused=self.allow_fused)
+        else:
+            self._state, preds = self.model.forward_package(
+                self._state, batched, decode_keys=self.decode_keys,
+                allow_fused=self.allow_fused)
+        return {k: v[0].float().cpu().numpy() for k, v in preds.items()}
+
+    @torch.inference_mode()
+    def step_modality(self, x, modality: str = "events"):
+        """Single-modality streaming (the events-only live path): one
+        encoder sweep and one decode.  x: [H, W, C] unbatched -> [H, W, 1]
+        float32, a numpy array for a numpy input, else a tensor on the
+        model's device."""
+        net = self.model.statenetphasedrecurrent
+        as_numpy = isinstance(x, np.ndarray)
+        xt = _as_input(x, self.model.device)[None]
+        if self._state is None:
+            self.reset(1, xt.shape[1], xt.shape[2])
+        supers = statenet.forward_modality(
+            net, self.cfg, to_nchw(xt), tuple(to_nchw(s) for s in self._state),
+            modality)
+        self._state = tuple(to_nhwc(s) for s in supers)
+        pred = to_nhwc(statenet.forward_decoder_supers(net, self.cfg,
+                                                       supers))[0]
+        return pred.cpu().numpy() if as_numpy else pred
 
 
 def _resolve_precompute(cfg: ModelConfig,

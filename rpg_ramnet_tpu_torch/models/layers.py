@@ -3,8 +3,8 @@
 Counterpart of ``rpg_ramnet_tpu/models/layers.py`` (the flagship subset).
 Module and parameter names follow the upstream torch modules
 (RAM_Net/model/submodules.py), which are also the names
-``rpg_ramnet_tpu.compat.torch_import.params_to_state_dict`` emits, so a
-reference state dict loads with ``strict=True``.
+``compat.params_to_state_dict`` emits for JAX params, so a reference
+state dict loads with ``strict=True``.
 
     JAX function                         port
     conv2d / conv_layer_apply            ConvLayer.forward
@@ -14,6 +14,8 @@ reference state dict loads with ``strict=True``.
     conv_gru_apply                       ConvGRU.forward
     conv_gru_x_gates                     ConvGRU.x_gates
     conv_gru_apply_hside                 ConvGRU.hside
+    the folds of conv_gru_hside_fused    ConvGRU.hside_weights (K1)
+    the folds of conv_gru_full_fused     ConvGRU.full_weights (K5)
 
 Parameters stay float32 (the masters an optimizer updates); every layer
 casts its weights to its input's dtype at use, as the JAX layers do
@@ -131,7 +133,7 @@ class ConvGRU(nn.Module):
         self.reset_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
         self.update_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
         self.out_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
-        self._hside_cache = None
+        self._fold_cache = {}
 
     def gates(self):
         """The gate convs in gx order: update, reset, out."""
@@ -190,20 +192,50 @@ class ConvGRU(nn.Module):
         weights.  Otherwise (no_grad, inference_mode) they are folded once
         per weight version and dtype and cached, not once per step."""
         C = self.hidden_size
-        ws = tuple(g.weight for g in self.gates())
-        dtype = dtype or ws[0].dtype
 
         def fold(w):
             return (w[:, -C:].permute(2, 3, 0, 1)
                     .reshape(9, w.shape[0], C).to(dtype).contiguous())
 
-        if torch.is_grad_enabled():
+        def make(ws, dtype):
             return fold(torch.cat([ws[0], ws[1]])), fold(ws[2])
-        key = tuple((w.data_ptr(), w._version) for w in ws) + (dtype,)
-        if self._hside_cache is None or self._hside_cache[0] != key:
-            self._hside_cache = (key, fold(torch.cat([ws[0], ws[1]])),
-                                 fold(ws[2]))
-        return self._hside_cache[1], self._hside_cache[2]
+
+        dtype = dtype or self.update_gate.weight.dtype
+        return self._folded("hside", dtype, make)
+
+    def full_weights(self, dtype: Optional[torch.dtype] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+        """The whole cell's gate weights on cat(x, h) in the layout of
+        ops.gru_hside.conv_gru_full (kernel K5): w_ur [9, 2C, Cx + C]
+        (update rows, then reset rows; x channels, then h channels) and
+        w_o [9, C, Cx + C], indexed (ky*3 + kx, output channel, input
+        channel), in ``dtype`` (the parameters' own when None), and the
+        biases b_ur [2C] and b_o [C] in float32.  Folded once per weight
+        version and dtype and cached; under autograd, folded anew."""
+        def fold(w):
+            return (w.permute(2, 3, 0, 1)
+                    .reshape(9, w.shape[0], w.shape[1]).to(dtype).contiguous())
+
+        def make(ws, dtype):
+            u, r, o = self.gates()
+            return (fold(torch.cat([ws[0], ws[1]])), fold(ws[2]),
+                    torch.cat([u.bias, r.bias]).float(), o.bias.float().clone())
+
+        dtype = dtype or self.update_gate.weight.dtype
+        return self._folded("full", dtype, make)
+
+    def _folded(self, kind: str, dtype: torch.dtype, make):
+        """make(gate weights, dtype), cached per kind, weight version and
+        dtype when no gradient is being recorded."""
+        ws = tuple(g.weight for g in self.gates())
+        if torch.is_grad_enabled():
+            return make(ws, dtype)
+        params = ws + tuple(g.bias for g in self.gates())
+        key = tuple((p.data_ptr(), p._version) for p in params) + (dtype,)
+        hit = self._fold_cache.get(kind)
+        if hit is None or hit[0] != key:
+            hit = self._fold_cache[kind] = (key, make(ws, dtype))
+        return hit[1]
 
 
 class RecurrentConvLayer(nn.Module):

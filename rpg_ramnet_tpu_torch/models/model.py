@@ -6,7 +6,10 @@ event voxel grids, then one frame.  The recurrent state is a tuple of
 per-scale NHWC super states.  All public tensors are NHWC.
 
     forward_package                  one package, per-step decodes, full
-                                     cells
+                                     cells (K5 with allow_fused)
+    forward_package_batched_decode   one package, full cells, its K+1
+                                     decodes as one batched pass (the
+                                     per-package streaming engine)
     forward_sequence_precomputed     a chunk of packages (inference):
                                      batched x side, sequential h side, one
                                      batched decode
@@ -60,21 +63,30 @@ def _hside_package(net, cfg: ModelConfig, supers, gev, gim,
     return supers, snaps
 
 
+def _check_no_reset(pkg) -> None:
+    if "reset" in pkg:
+        raise NotImplementedError(
+            "per-lane reset masks are not ported yet: ROADMAP queue 1, item "
+            "14 (lane-batched streaming)")
+
+
 def _package_snapshot_step(net, cfg: ModelConfig, supers, pkg,
-                           sel_keys: Sequence[str]):
+                           sel_keys: Sequence[str], allow_fused: bool = False):
     """One package of state updates with the full ConvGRU cell per step
     (K event steps, then the image step; no decodes), returning the new
     supers and the supers after each step in sel_keys, concatenated over
     the batch.  pkg: {'events': [B, K, H, W, Ce], 'image': [B, H, W, Ci]}
-    NHWC; supers NCHW-shaped."""
+    NHWC; supers NCHW-shaped.  allow_fused: let the fused_gru policy run
+    the cells as kernel K5."""
+    _check_no_reset(pkg)
     snaps = []
     for k in range(event_loop_range(cfg)):
         supers = statenet.forward_modality(net, cfg, to_nchw(pkg["events"][:, k]),
-                                           supers, "events")
+                                           supers, "events", allow_fused)
         if f"events{k}" in sel_keys:
             snaps.append(supers)
     supers = statenet.forward_modality(net, cfg, to_nchw(pkg["image"]), supers,
-                                       "image")
+                                       "image", allow_fused)
     if "image" in sel_keys:
         snaps.append(supers)
     return supers, _stack(snaps)
@@ -152,11 +164,16 @@ class ERGB2DepthRecurrent(nn.Module):
                                    statenet.compute_dtype(self.cfg),
                                    self.device)
 
-    def forward_package(self, state, pkg):
+    def forward_package(self, state, pkg,
+                        decode_keys: Optional[Sequence[str]] = None,
+                        allow_fused: bool = False):
         """One datapackage: K event steps then the image step, decoding
         after every step (model.py:176-217), with the full ConvGRU cell on
-        cat(x, h): the reference semantics.  Returns (state, {key:
-        [B, H, W, 1]})."""
+        cat(x, h): the reference semantics.  decode_keys: decode only
+        these keys (all when None); the recurrence is unchanged.
+        allow_fused: let the fused_gru policy run the cells as kernel K5
+        (inference only).  Returns (state, {key: [B, H, W, 1]})."""
+        _check_no_reset(pkg)
         net, cfg = self.statenetphasedrecurrent, self.cfg
         supers = tuple(to_nchw(s) for s in state)
         preds = {}
@@ -165,9 +182,26 @@ class ERGB2DepthRecurrent(nn.Module):
         steps.append(("image", pkg["image"], "image"))
         for key, x, modality in steps:
             supers = statenet.forward_modality(net, cfg, to_nchw(x), supers,
-                                               modality)
-            preds[key] = to_nhwc(
-                statenet.forward_decoder_supers(net, cfg, supers))
+                                               modality, allow_fused)
+            if decode_keys is None or key in decode_keys:
+                preds[key] = to_nhwc(
+                    statenet.forward_decoder_supers(net, cfg, supers))
+        return tuple(to_nhwc(s) for s in supers), preds
+
+    def forward_package_batched_decode(self, state, pkg,
+                                       allow_fused: bool = False):
+        """forward_package with the K+1 decodes of the package run as ONE
+        decoder pass over the stacked per-step super states (model.py:
+        291-314).  Decodes never feed the state, so the predictions equal
+        forward_package's.  Returns (state, {key: [B, H, W, 1]})."""
+        net, cfg = self.statenetphasedrecurrent, self.cfg
+        keys = prediction_keys(cfg)
+        b = pkg["image"].shape[0]
+        supers, snaps = _package_snapshot_step(
+            net, cfg, tuple(to_nchw(s) for s in state), pkg, keys,
+            allow_fused)
+        pred = to_nhwc(statenet.forward_decoder_supers(net, cfg, snaps))
+        preds = {key: pred[i * b:(i + 1) * b] for i, key in enumerate(keys)}
         return tuple(to_nhwc(s) for s in supers), preds
 
     @torch.inference_mode()
@@ -243,8 +277,10 @@ class ERGB2DepthRecurrent(nn.Module):
         each package's forward runs twice per step.
         package_precompute: batch each package's x side
         (_package_snapshot_step_pre; trainer.precompute_x).
-        allow_fused: with package_precompute, let the fused_gru policy pick
-        the h-side kernels.
+        allow_fused: let the fused_gru policy pick the kernels: the h-side
+        cells with package_precompute, else the whole cell K5, which has
+        no gradient (it raises under autograd, as the JAX kernel has no
+        VJP).
 
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
         Returns (state, {key: [L, B, H, W, 1]}, or [L, B, H, W] when
@@ -257,13 +293,9 @@ class ERGB2DepthRecurrent(nn.Module):
                 return _package_snapshot_step_pre(net, cfg, supers, pkg,
                                                   sel_keys, allow_fused)
         else:
-            if cfg.fused_gru == "on":
-                raise NotImplementedError(
-                    "fused_gru='on' without precompute_x needs the full-cell "
-                    "kernel K5, not ported yet: ROADMAP queue 2, K5")
-
             def step(supers, pkg):
-                return _package_snapshot_step(net, cfg, supers, pkg, sel_keys)
+                return _package_snapshot_step(net, cfg, supers, pkg, sel_keys,
+                                              allow_fused)
 
         l, b = seq["image"].shape[1], seq["image"].shape[0]
         supers = tuple(to_nchw(s) for s in state)

@@ -41,9 +41,16 @@ def check_supported(cfg: ModelConfig) -> None:
                         "(ROADMAP queue 1, item 12)")
     if cfg.use_phased_arch:
         unported.append("the phased regime (ROADMAP queue 1, item 10)")
-    if cfg.fused_gru not in ("auto", "on", "off"):
-        raise ValueError(
-            f"fused_gru must be auto/on/off, got {cfg.fused_gru!r}")
+    for name in ("fused_gru", "fused_decoder", "composed_decoder"):
+        if getattr(cfg, name) not in ("auto", "on", "off"):
+            raise ValueError(f"{name} must be auto/on/off, got "
+                             f"{getattr(cfg, name)!r}")
+    if cfg.fused_decoder == "on":
+        unported.append("fused_decoder='on' (the fused upsample-conv "
+                        "kernel K8, ROADMAP queue 2, K8)")
+    if cfg.composed_decoder == "on":
+        unported.append("composed_decoder='on' (the composed decoder, "
+                        "ROADMAP queue 1, item 2)")
     if unported:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
@@ -119,16 +126,24 @@ def init_state(cfg: ModelConfig, batch: int, height: int, width: int,
 
 
 def forward_modality(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
-                     supers: Sequence[torch.Tensor], modality: str
-                     ) -> Tuple[torch.Tensor, ...]:
+                     supers: Sequence[torch.Tensor], modality: str,
+                     allow_fused: bool = False) -> Tuple[torch.Tensor, ...]:
     """One encoder sweep of one modality with the full ConvGRU cell per
-    scale (the reference semantics), returning the new super states."""
+    scale (the reference semantics), returning the new super states.
+    allow_fused: let the fused_gru policy run each scale's cell as
+    ``gru_hside.conv_gru_full`` (kernel K5; inference only) instead of the
+    plain layer (statenet.py:275-290)."""
     head, encoders, combs = net.branch(modality)
     x = head(x.to(compute_dtype(cfg)))
     new = []
     for enc, comb, prev in zip(encoders, combs, supers):
         x = enc(x)
-        new.append(comb.recurrent_block(x, prev))
+        cell = comb.recurrent_block
+        if allow_fused and use_fused_cell(cfg, prev, full=True):
+            new.append(to_nchw(gru_hside.conv_gru_full(
+                to_nhwc(x), to_nhwc(prev), *cell.full_weights(prev.dtype))))
+        else:
+            new.append(cell(x, prev))
     return tuple(new)
 
 
@@ -152,12 +167,14 @@ def gru_x_gates(net: StateNet, modality: str,
     return [c.recurrent_block.x_gates(x) for c, x in zip(combs, xs)]
 
 
-def use_fused_cell(cfg: ModelConfig, h: torch.Tensor) -> bool:
-    """The fused_gru policy for one NCHW super state.  'auto' takes the
-    h-side wrapper for bf16 states of a shape the kernel supports: on a
-    CUDA tensor that is the kernel, on a CPU tensor the kernel's plain
-    version.  'on' takes the kernel always and raises on a CPU tensor (the
-    wrapper raises on an unsupported shape); 'off' takes the plain layer."""
+def use_fused_cell(cfg: ModelConfig, h: torch.Tensor,
+                   full: bool = False) -> bool:
+    """The fused_gru policy for one NCHW super state, for the h-side cell
+    (K1) or, with ``full``, the whole cell (K5).  'auto' takes the
+    wrapper for bf16 states of a shape the kernel supports: on a CUDA
+    tensor that is the kernel, on a CPU tensor the kernel's plain version.
+    'on' takes the kernel always and raises on a CPU tensor (the wrapper
+    raises on an unsupported shape); 'off' takes the plain layer."""
     if cfg.fused_gru == "off":
         return False
     if cfg.fused_gru == "on":
@@ -165,7 +182,8 @@ def use_fused_cell(cfg: ModelConfig, h: torch.Tensor) -> bool:
             raise ValueError("fused_gru='on' needs CUDA tensors: the kernel "
                              "has no CPU implementation")
         return True
-    return gru_hside.supports(to_nhwc(h))
+    supports = gru_hside.supports_full if full else gru_hside.supports
+    return supports(to_nhwc(h))
 
 
 def combine_hside(net: StateNet, cfg: ModelConfig,

@@ -30,6 +30,14 @@ gradient is needed it runs ``ConvGRUHside``, whose forward runs K1-res and
 whose backward runs K2 for dh and dgx and two library convolutions for the
 weight gradients (the counterpart of ``_dconv_w``, which the JAX package
 also leaves to XLA).
+
+``conv_gru_full`` is the whole cell on cat(x, h) with biases, for the
+per-package streaming path where no gx exists: kernel K5
+(``csrc/gru_full.cu``), the counterpart of ``conv_gru_full_fused``
+(``_run_full``/``_full_kernel``).  Inference only, as the JAX kernel (no
+VJP).  Its weights are ``ConvGRU.full_weights``: w_ur [9, 2C, 2C] (update
+rows, then reset rows; x columns, then h columns), w_o [9, C, 2C], biases
+b_ur [2C] and b_o [C] in float32.
 """
 from __future__ import annotations
 
@@ -68,6 +76,13 @@ def smem_bytes_bwd(tile_h: int, tile_w: int, C: int) -> int:
             + tile_h * tile_w * C * 4)
 
 
+def smem_bytes_full(tile_h: int, tile_w: int, C: int) -> int:
+    """K5: [x | h] with a 2-pixel halo at pitch 2C + 8 and a = r*h with a
+    1-pixel ring at pitch C + 8, bf16."""
+    return ((tile_h + 4) * (tile_w + 4) * (2 * C + 8)
+            + (tile_h + 2) * (tile_w + 2) * (C + 8)) * 2
+
+
 def pick_tile(B: int, H: int, W: int, C: int, smem=smem_bytes
               ) -> Optional[Tuple[int, int]]:
     """The largest tile that leaves room for two blocks per SM and still
@@ -90,6 +105,14 @@ def supports(h: torch.Tensor) -> bool:
     return (h.dtype == torch.bfloat16 and h.dim() == 4
             and h.shape[-1] % 16 == 0 and pick_tile(*h.shape) is not None
             and pick_tile(*h.shape, smem=smem_bytes_bwd) is not None)
+
+
+def supports_full(h: torch.Tensor) -> bool:
+    """Whether K5 takes this NHWC state (and an x of its shape): bf16,
+    4-D, C a multiple of 16 and a tile that fits K5's shared memory."""
+    return (h.dtype == torch.bfloat16 and h.dim() == 4
+            and h.shape[-1] % 16 == 0
+            and pick_tile(*h.shape, smem=smem_bytes_full) is not None)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -170,6 +193,28 @@ def conv_gru_hside_bwd_plain(g: torch.Tensor, h: torch.Tensor,
     return to_nhwc(dh.to(h.dtype)).contiguous(), to_nhwc(dgx).contiguous()
 
 
+def conv_gru_full_plain(x: torch.Tensor, h: torch.Tensor,
+                        w_ur: torch.Tensor, w_o: torch.Tensor,
+                        b_ur: torch.Tensor, b_o: torch.Tensor
+                        ) -> torch.Tensor:
+    """K5's arithmetic in plain PyTorch: convs and gates in the work dtype
+    on x and the weights rounded to h's dtype, float32 biases,
+    a = bf16(r*h) before the out gate's conv on cat(x, a), h' rounded to
+    h's dtype.  The CPU implementation of ``conv_gru_full`` and the
+    kernel's oracle on the card."""
+    C = h.shape[-1]
+    dt = _work_dtype(h)
+    xf = to_nchw(x.to(h.dtype)).to(dt)
+    hf = to_nchw(h).to(dt)
+    ur = torch.sigmoid(F.conv2d(torch.cat([xf, hf], 1),
+                                _oihw(w_ur.to(h.dtype), dt), b_ur.to(dt), 1, 1))
+    z, r = ur[:, :C], ur[:, C:]
+    a = (r * hf).to(h.dtype).to(dt)
+    o = torch.tanh(F.conv2d(torch.cat([xf, a], 1),
+                            _oihw(w_o.to(h.dtype), dt), b_o.to(dt), 1, 1))
+    return to_nhwc((hf * (1.0 - z) + o * z).to(h.dtype)).contiguous()
+
+
 def hside_weight_grads(h: torch.Tensor, acts: torch.Tensor,
                        dgx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The h-side weight gradients, folded [9, 2C, C] and [9, C, C], as
@@ -221,7 +266,12 @@ _BWD_SIGNATURES = {
                                        _I, _I, _I, _I, _P)),
     **_ERR,
 }
-SOURCES = ("gru_hside", "gru_hside_bwd")   # csrc/<name>.cu
+_FULL_SIGNATURES = {
+    "ramnet_gru_full_forward": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _P)),
+    **_ERR,
+}
+SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full")   # csrc/<name>.cu
 
 
 def library():
@@ -234,6 +284,12 @@ def library_bwd():
     """The built and loaded K2 library (nvcc on first use)."""
     from .. import kernels
     return kernels.library("gru_hside_bwd", _BWD_SIGNATURES)
+
+
+def library_full():
+    """The built and loaded K5 library (nvcc on first use)."""
+    from .. import kernels
+    return kernels.library("gru_full", _FULL_SIGNATURES)
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -320,6 +376,42 @@ def _launch_bwd(g, h, acts, w_ur, w_o):
     return dh, dgx
 
 
+def _check_full(x, h, w_ur, w_o, b_ur, b_o) -> None:
+    if h.dim() != 4:
+        raise ValueError(f"h must be NHWC [B, H, W, C], got {tuple(h.shape)}")
+    C = h.shape[-1]
+    if C % 8:
+        raise ValueError(f"C must be a multiple of 8, got {C}")
+    for name, t, shape in (("x", x, tuple(h.shape)),
+                           ("w_ur", w_ur, (9, 2 * C, 2 * C)),
+                           ("w_o", w_o, (9, C, 2 * C)),
+                           ("b_ur", b_ur, (2 * C,)), ("b_o", b_o, (C,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+
+
+def _launch_full(x, h, w_ur, w_o, b_ur, b_o):
+    x, h = x.to(h.dtype).contiguous(), h.contiguous()
+    w_ur, w_o = w_ur.to(h.dtype).contiguous(), w_o.to(h.dtype).contiguous()
+    b_ur, b_o = b_ur.float().contiguous(), b_o.float().contiguous()
+    _check_launch(h, x, w_ur, w_o)
+    if b_ur.data_ptr() % 16 or b_o.data_ptr() % 16:
+        raise ValueError("the kernels' tensors must be 16-byte aligned")
+    B, H, W, C = h.shape
+    th, tw = _tile(h, smem_bytes_full)
+    lib = library_full()
+    out = torch.empty_like(h)
+    err = lib.ramnet_gru_full_forward(
+        x.data_ptr(), h.data_ptr(), w_ur.data_ptr(), w_o.data_ptr(),
+        b_ur.data_ptr(), b_o.data_ptr(), out.data_ptr(), B, H, W, C, th, tw,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on(err, lib, "gru_full")
+    conv_gru_full.launches += 1
+    return out
+
+
 def _device_of(h: torch.Tensor) -> str:
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no implementation for device {h.device}")
@@ -402,6 +494,27 @@ def conv_gru_hside(h: torch.Tensor, gx: torch.Tensor, w_ur: torch.Tensor,
         return _launch(h, gx, w_ur, w_o, residuals=False)
 
 
+def conv_gru_full(x: torch.Tensor, h: torch.Tensor, w_ur: torch.Tensor,
+                  w_o: torch.Tensor, b_ur: torch.Tensor, b_o: torch.Tensor
+                  ) -> torch.Tensor:
+    """h' [B, H, W, C] of the whole ConvGRU cell from NHWC x and h (of one
+    shape) and ``ConvGRU.full_weights``: K5 for CUDA tensors,
+    ``conv_gru_full_plain`` for CPU tensors.  Inference only: raises when
+    autograd would need a gradient.  ``conv_gru_full.launches`` counts
+    K5's launches."""
+    _check_full(x, h, w_ur, w_o, b_ur, b_o)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, h, w_ur, w_o, b_ur, b_o)):
+        raise RuntimeError("conv_gru_full has no gradient (inference only, "
+                           "as the JAX kernel): run it under no_grad or "
+                           "inference_mode")
+    if _device_of(h) == "cpu":
+        return conv_gru_full_plain(x, h, w_ur, w_o, b_ur, b_o)
+    with torch.cuda.device(h.device):
+        return _launch_full(x, h, w_ur, w_o, b_ur, b_o)
+
+
 conv_gru_hside.launches = 0
 conv_gru_hside_res.launches = 0
 conv_gru_hside_bwd.launches = 0
+conv_gru_full.launches = 0

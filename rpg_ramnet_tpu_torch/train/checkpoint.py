@@ -61,6 +61,26 @@ def restore(path: str, model, optimizer=None) -> Dict[str, Any]:
         return json.load(f)
 
 
+def load_any(path: str, model) -> Dict[str, Any]:
+    """Load weights into ``model`` from a checkpoint directory of the port
+    (``state.pt`` + ``meta.json``) or a reference ``.pth.tar``; returns
+    the meta (config, epoch) the checkpoint carries.  The counterpart of
+    the JAX ``load_any``; its Orbax directories are not read yet."""
+    if path.endswith((".pth.tar", ".pth")) or os.path.isfile(path):
+        from ..compat import load_reference_checkpoint
+        load_reference_checkpoint(model, path)
+        ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        return {"config": ckpt.get("config"), "epoch": ckpt.get("epoch", 0)}
+    if os.path.exists(join(path, "state.pt")):
+        return restore(path, model)
+    if os.path.isdir(join(path, "tree")):
+        raise NotImplementedError(
+            f"{path} is an Orbax checkpoint of the JAX package: reading it "
+            "is not ported yet (ROADMAP queue 1, item 6); export it to a "
+            ".pth.tar with the JAX package")
+    raise FileNotFoundError(f"no checkpoint at {path}")
+
+
 def export_pth_tar(path: str, model, arch: str, config: Dict[str, Any],
                    epoch: int = 0, monitor_best: float = float("inf")) -> None:
     """Write a reference-loadable .pth.tar (float32 state dict under the

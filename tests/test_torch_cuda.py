@@ -1,7 +1,9 @@
 """Card-only tests of the port: the h-side kernels (K1, K1-res, K2) and
 the ConvGRUHside Function against their plain versions, the precomputed
-path with the kernel against the plain layer, and one training step with
-the kernels against fused_gru='off'.
+path with the kernel against the plain layer, one training step with
+the kernels against fused_gru='off', the whole-cell kernel K5 and the
+voxelizers K6 and K7 against their plain versions, and the per-package
+engine with K5 against fused_gru='off'.
 
 They skip without a CUDA device.  This file imports nothing of JAX, so it
 also runs where JAX is absent:
@@ -178,3 +180,89 @@ def test_training_step_kernels_vs_off(device):
     for k, g in out["off"][1].items():
         cos = torch.nn.functional.cosine_similarity(out["auto"][1][k], g, dim=0)
         assert cos.item() >= 0.95, k
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 256, 64), (1, 32, 64, 256),
+                                   (2, 30, 45, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_full_cell_kernel_matches_plain(device, shape):
+    """K5, bf16, one cell with nonzero biases: within 2e-2 of its plain
+    version (a few bf16 roundings)."""
+    B, H, W, C = shape
+    gen = torch.Generator().manual_seed(1)
+    cell = ConvGRU(C, C)
+    cell.reset_parameters_(gen)
+    with torch.no_grad():
+        for g in cell.gates():
+            g.bias.uniform_(-0.5, 0.5, generator=gen)
+        w = [t.to(device) for t in cell.full_weights(torch.bfloat16)]
+        x = torch.randn(B, H, W, C, generator=gen).to(device, torch.bfloat16)
+        h = (torch.rand(B, H, W, C, generator=gen) * 2 - 1).to(device, torch.bfloat16)
+        n0 = gru_hside.conv_gru_full.launches
+        got = gru_hside.conv_gru_full(x, h, *w)
+        want = gru_hside.conv_gru_full_plain(x, h, *w)
+    torch.cuda.synchronize()
+    assert gru_hside.conv_gru_full.launches == n0 + 1
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def _events(n, n_valid, height, width, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ev = torch.stack([torch.rand(n, generator=gen).sort().values * 0.05,
+                      torch.randint(0, width, (n,), generator=gen).float(),
+                      torch.randint(0, height, (n,), generator=gen).float(),
+                      torch.randint(0, 2, (n,), generator=gen).float()], 1)
+    ev[n_valid:] = 0
+    return ev
+
+
+@pytest.mark.parametrize("n,n_valid", [(200_000, 200_000), (4096, 64)])
+def test_voxel_kernels_match_plain(device, n, n_valid):
+    """K6 (with and without stats) and K7 (float32 factors) within 1e-4 of
+    the index_add_ scatter; K7 with bfloat16 factors within 0.05."""
+    from rpg_ramnet_tpu_torch.ops import voxel
+    ev = _events(n, n_valid, 260, 346, seed=n).to(device)
+    kw = dict(num_bins=5, height=260, width=346)
+    want = voxel.events_to_voxel_grid_scatter(ev, n_valid, **kw)
+    n6, n7 = (voxel.events_to_voxel_grid_sortseg.launches,
+              voxel.events_to_voxel_grid_pallas.launches)
+    k6 = voxel.events_to_voxel_grid(ev, n_valid, **kw)           # 'auto'
+    k6s, stats = voxel.events_to_voxel_grid_sortseg(ev, n_valid, with_stats=True, **kw)
+    k7 = voxel.events_to_voxel_grid_pallas(ev, n_valid, **kw)
+    k7b = voxel.events_to_voxel_grid_pallas(ev, n_valid,
+                                            factor_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert (voxel.events_to_voxel_grid_sortseg.launches - n6,
+            voxel.events_to_voxel_grid_pallas.launches - n7) == (2, 2)
+    for got in (k6, k6s, k7):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert (k7b - want).abs().max().item() <= 0.05
+    for got, ref in zip(stats, voxel.voxel_stats(want)):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_per_package_engine_kernel_vs_off(device):
+    """A small flagship-shaped bf16 model: fused_gru='on' runs K5 on every
+    cell of the per-package engine (3 scales x (K+1) per package), and its
+    predictions stay within 5e-2 of fused_gru='off'."""
+    import numpy as np
+    from rpg_ramnet_tpu_torch.eval import StreamingInference
+    cfg = ModelConfig(num_encoders=3, base_num_channels=16,
+                      recurrent_block_type="conv", state_combination="convgru",
+                      num_residual_blocks=1, every_x_rgb_frame=2,
+                      compute_dtype="bfloat16", fused_gru="on")
+    model = ERGB2DepthRecurrent(cfg, device=device)
+    off = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="off"),
+                              device=device)
+    off.load_state_dict(model.state_dict())
+    rng = np.random.RandomState(0)
+    on_e, off_e = (StreamingInference(m, batched_decode=True) for m in (model, off))
+    n0 = gru_hside.conv_gru_full.launches
+    for _ in range(3):
+        pkg = {"events": rng.randn(2, 64, 96, 5).astype(np.float32),
+               "image": rng.rand(64, 96, 1).astype(np.float32)}
+        p_on, p_off = on_e.step(pkg), off_e.step(pkg)
+        for k in p_on:
+            assert np.isfinite(p_on[k]).all()
+            assert np.abs(p_on[k] - p_off[k]).max() <= 5e-2
+    assert gru_hside.conv_gru_full.launches - n0 == 3 * 3 * 3

@@ -195,13 +195,36 @@ def test_config_checkpoint_and_unported_paths(tmp_path):
         assert ka == kb and torch.equal(a, b)
 
 
+def test_params_to_state_dict_matches_jax_package():
+    """The port's own copy against the JAX package's on flagship params:
+    the same names and arrays, the OIHW transposes included."""
+    from rpg_ramnet_tpu.compat.torch_import import params_to_state_dict as jax_sd
+    from rpg_ramnet_tpu_torch.compat import params_to_state_dict
+    jcfg = JaxModelConfig.from_dict(dict(CFG, num_encoders=3,
+                                         base_num_channels=32,
+                                         num_residual_blocks=2,
+                                         every_x_rgb_frame=5))
+    params = jax.tree_util.tree_map(
+        np.asarray, JaxModel.init_params(jax.random.PRNGKey(1), jcfg))
+    got, want = params_to_state_dict(params), jax_sd(params)
+    assert list(got) == list(want) and len(got) > 50
+    for k in want:
+        assert got[k].shape == want[k].shape and np.array_equal(got[k], want[k]), k
+    assert got["statenetphasedrecurrent.head_events.conv2d.weight"].shape == \
+        (32, 5, 5, 5)
+
+
 def test_port_imports_no_jax():
     code = (
-        "import sys, torch\n"
+        "import sys, torch, numpy as np\n"
         "import rpg_ramnet_tpu_torch.compat, rpg_ramnet_tpu_torch.eval\n"
         "import rpg_ramnet_tpu_torch.kernels, rpg_ramnet_tpu_torch.utils\n"
         "import rpg_ramnet_tpu_torch.data, rpg_ramnet_tpu_torch.train.trainer\n"
         "import rpg_ramnet_tpu_torch.train.__main__\n"
+        "import rpg_ramnet_tpu_torch.eval.__main__, rpg_ramnet_tpu_torch.stream\n"
+        "import rpg_ramnet_tpu_torch.eval.filters, rpg_ramnet_tpu_torch.eval.writers\n"
+        "import rpg_ramnet_tpu_torch.ops.voxel, rpg_ramnet_tpu_torch.ops.event_preprocess\n"
+        "import rpg_ramnet_tpu_torch.utils.event_readers, rpg_ramnet_tpu_torch.options\n"
         "from rpg_ramnet_tpu_torch.core.config import Config, TrainerConfig\n"
         "from rpg_ramnet_tpu_torch.train.optim import make_optimizer\n"
         "from rpg_ramnet_tpu_torch.train.train_step import make_train_step\n"
@@ -222,6 +245,24 @@ def test_port_imports_no_jax():
         "aux = step({**seq, 'depth_events': torch.rand(1, 2, 2, 16, 32, 1),\n"
         "            'depth_image': torch.rand(1, 2, 16, 32, 1)})\n"
         "assert aux['loss'] == aux['loss']\n"
+        "from rpg_ramnet_tpu_torch.compat import params_from_jax\n"
+        "# a JAX-layout numpy param tree (HWIO, lists) of m's weights\n"
+        "sd = m.state_dict()\n"
+        "tree = {}\n"
+        "for name, v in sd.items():\n"
+        "    node = tree\n"
+        "    parts = name.split('.')[1:]\n"
+        "    for p in parts[:-1]:\n"
+        "        node = node.setdefault(p, {})\n"
+        "    a = v.float().numpy()\n"
+        "    node[parts[-1]] = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a\n"
+        "def lists(n):\n"
+        "    if isinstance(n, dict) and n and all(k.isdigit() for k in n):\n"
+        "        return [lists(n[str(i)]) for i in range(len(n))]\n"
+        "    return {k: lists(v) for k, v in n.items()} if isinstance(n, dict) else n\n"
+        "m2 = ERGB2DepthRecurrent(cfg, generator=torch.Generator().manual_seed(7))\n"
+        "params_from_jax(m2, lists(tree))\n"
+        "assert all(torch.equal(a, b) for a, b in zip(sd.values(), m2.state_dict().values()))\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'rpg_ramnet_tpu'))\n"
         "print(bad)\n"
