@@ -11,9 +11,14 @@ made from --seed: offline chunked depth inference
 training with trainer.precompute_x set in code (``python -m
 rpg_ramnet_tpu_torch.train``, run in-process) at B=16, L=10, crop 224; the
 per-package streaming engine at 256x512 with fused_gru='on' set in code
-(``python -m rpg_ramnet_tpu_torch.eval``, in-process); and the live path
+(``python -m rpg_ramnet_tpu_torch.eval``, in-process); the live path
 (``python -m rpg_ramnet_tpu_torch.stream``, in-process) on a 346x260
-event log.  It imports nothing of JAX or of the JAX package.
+event log; and the phased irregular-timestamp regime (BASELINE config 3:
+the same recipe with phased ConvLSTM encoders and the ConvLSTM state
+combination, set in code as the JAX bench does) at 256x352 through the eval
+entry point, per package and chunked, with the flagship's ConvLSTM
+state-combination variant on the chunked engine.  It imports nothing of
+JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel);
@@ -47,7 +52,21 @@ Phases, each printed as one JSON line:
                    depth maps, and again with --voxel_backend pallas (K7);
  10. timing_stream per-package latency (median, p90) and depth maps/s with
                    K5 and with 'off', K5 per cell against its plain
-                   version, the voxelizers' Mev/s at 1M events.
+                   version, the voxelizers' Mev/s at 1M events;
+ 11. kernel_phased K3 and K4 against their plain versions at the three
+                   phased shapes and one ragged shape, K3 at the three
+                   flagship shapes;
+ 12. phased        the eval entry point on a synthetic on-disk split with
+                   timestamps (two sequences, PHASED_SEQ_LENGTHS packages)
+                   at 256x352 with fused_gru='on': K4's and K3's launch
+                   counts, finite predictions in [0, 1], all of them
+                   against 'off'; again with --scan_chunk PHASED_CHUNK
+                   (padded packages counted); then the flagship with the
+                   ConvLSTM state combination on run_chunked_streaming
+                   under 'auto': K3's count, the first chunk against 'off';
+ 13. timing_phased phased per-package latency (median, p90) and maps/s,
+                   phased chunked maps/s, K3 and K4 per cell against their
+                   plain versions.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -93,13 +112,25 @@ VOX_TOL = 1e-4                      # relative to the grid's magnitude, as
                                     # tests/test_ops.py:97 (atomic order)
 VOX_BF16_TOL = 5e-2                 # bf16 factors, tests/test_ops.py:85
 STREAM_WINDOWS, STREAM_EVENTS_PER_PIXEL = 20, 0.35
+# the phased regime (BASELINE config 3, bench.py:615-621 of the JAX
+# package): MVSEC-sized 256x352, two sequences, the tail one shorter than a
+# chunk (cut: the data); its h-side shapes at the three scales, and a
+# ragged one with B > 1 and a strided gx
+PHASED_H, PHASED_W, PHASED_CHUNK = 256, 352, 8
+PHASED_SEQ_LENGTHS = (24, 6)
+PHASED = {"recurrent_block_type": "convlstm", "state_combination": "convlstm",
+          "use_phased_arch": True, "spatial_resolution": [PHASED_H, PHASED_W]}
+PHASED_CELLS = ((1, 128, 176, 64), (1, 64, 88, 128), (1, 32, 44, 256))
+RAGGED_LSTM_CELL = (3, 30, 45, 96)
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
 # bytes / C^2): K1 reads h, gx and writes h'; K1-res also acts; K2 reads
-# g, h, acts and writes dh, dgx; K5 reads x, h and writes h'
+# g, h, acts and writes dh, dgx; K5 reads x, h and writes h'; K3 reads h,
+# c, gx (4C) and writes h', c'; K4 also reads the f32 tau and phase and
+# writes three maps
 CELL_WORK = {"k1": (27, 10, 54), "k1_res": (27, 16, 54), "k2": (27, 18, 54),
-             "k5": (54, 6, 108)}
+             "k5": (54, 6, 108), "k3": (36, 16, 72), "k4": (36, 26, 72)}
 
 
 def emit(obj) -> None:
@@ -261,28 +292,37 @@ def time_cells(dev, gen, iters=50):
 
 class SyntheticSequence:
     """One recorded sequence in the dataset contract of
-    run_chunked_streaming: item i is {'events': [1, K, H, W, 5],
-    'image': [1, H, W, 1]}, events ~ N(0, 1), frames ~ U(0, 1)."""
+    run_chunked_streaming: item i is {'events': [1, K, h, w, 5],
+    'image': [1, h, w, 1]}, events ~ N(0, 1), frames ~ U(0, 1); with
+    times, also 'times_events' [1, K] and 'times_image' [1], stamps 10 ms
+    apart."""
 
-    def __init__(self, n, K, rng):
-        self.events = rng.standard_normal((n, K, H, W, 5), dtype="float32")
-        self.image = rng.random((n, H, W, 1), dtype="float32")
+    def __init__(self, n, K, rng, h=H, w=W, times=False):
+        import numpy as np
+        self.events = rng.standard_normal((n, K, h, w, 5), dtype="float32")
+        self.image = rng.random((n, h, w, 1), dtype="float32")
+        self.times = (0.01 * np.arange(n * K, dtype=np.float32)).reshape(n, K) \
+            if times else None
 
     def __len__(self):
         return len(self.events)
 
     def __getitem__(self, i):
-        return {"events": self.events[i:i + 1], "image": self.image[i:i + 1]}
+        item = {"events": self.events[i:i + 1], "image": self.image[i:i + 1]}
+        if self.times is not None:
+            item["times_events"] = self.times[i:i + 1]
+            item["times_image"] = self.times[i:i + 1, -1]
+        return item
 
 
 class SyntheticDataset:
-    def __init__(self, lengths, K, seed):
+    def __init__(self, lengths, K, seed, **kw):
         import numpy as np
         rng = np.random.default_rng(seed)
-        self.datasets = [SyntheticSequence(n, K, rng) for n in lengths]
+        self.datasets = [SyntheticSequence(n, K, rng, **kw) for n in lengths]
 
 
-def run_slice(model, dataset, keep=None):
+def run_slice(model, dataset, keep=None, chunk=CHUNK):
     """run_chunked_streaming over the dataset, every prediction copied to
     the host and checked.  Returns the predictions of the items in
     ``keep`` (global indices; all when None) and counts of items,
@@ -299,7 +339,7 @@ def run_slice(model, dataset, keep=None):
         if keep is None or gidx in keep:
             kept[gidx] = preds
 
-    run_chunked_streaming(dataset, model, chunk=CHUNK,
+    run_chunked_streaming(dataset, model, chunk=chunk,
                           on_prediction=on_prediction)
     return kept, stats
 
@@ -595,26 +635,38 @@ def write_stream_data(root, K, seed):
     return path
 
 
-def stream_files(tmp, model, fused_gru):
-    """The flagship config with model.fused_gru set and a .pth.tar of the
-    model's weights, in tmp; returns (config path, checkpoint path)."""
-    from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
+def raw_config(overrides=None):
+    """The flagship config file's dict with the model keys in overrides
+    set (use_phased_arch also at the top level, where test.py reads it)."""
     with open(os.path.join(ROOT, CONFIG)) as f:
         raw = json.load(f)
-    raw["model"]["fused_gru"] = fused_gru
-    cfg_path = os.path.join(tmp, f"stream_config_{fused_gru}.json")
+    raw["model"].update(overrides or {})
+    if "use_phased_arch" in raw["model"]:
+        raw["use_phased_arch"] = raw["model"]["use_phased_arch"]
+    return raw
+
+
+def stream_files(tmp, model, fused_gru, overrides=None, name="stream"):
+    """The flagship config (with overrides) with model.fused_gru set and a
+    .pth.tar of the model's weights, in tmp; returns (config path,
+    checkpoint path)."""
+    from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
+    raw = raw_config({**(overrides or {}), "fused_gru": fused_gru})
+    cfg_path = os.path.join(tmp, f"{name}_config_{fused_gru}.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f)
-    ckpt = os.path.join(tmp, "stream_model.pth.tar")
+    ckpt = os.path.join(tmp, f"{name}_model.pth.tar")
     export_pth_tar(ckpt, model, raw["arch"], raw)
     return cfg_path, ckpt
 
 
-def run_eval_entry(cfg_path, ckpt, root):
+def run_eval_entry(cfg_path, ckpt, root, counters=None, crop=(H, W),
+                   extra=()):
     """``python -m rpg_ramnet_tpu_torch.eval``'s main in-process on the
-    per-package split, with the K5 count set to 0 just before; returns the
-    predictions, the K5 count read just after, the wall time and counts of
-    non-finite and out-of-range values."""
+    split under root, with the launch counts of ``counters`` (default:
+    K5's) set to 0 just before; returns the predictions, the list of
+    counts read just after, the wall time and counts of non-finite and
+    out-of-range values."""
     import numpy as np
     import torch
     from rpg_ramnet_tpu_torch.eval.__main__ import main as eval_main
@@ -628,13 +680,16 @@ def run_eval_entry(cfg_path, ckpt, root):
             stats["nonfinite"] += int((~np.isfinite(v)).sum())
             stats["out_of_range"] += int(((v < 0) | (v > 1)).sum())
 
-    gru_hside.conv_gru_full.launches = 0
+    counters = counters or [gru_hside.conv_gru_full]
+    for c in counters:
+        c.launches = 0
     t0 = time.perf_counter()
     eval_main(["--path_to_model", ckpt, "--config", cfg_path, "--data_folder",
-               "test", "--crop", f"{H},{W}"], on_prediction=keep)
+               "test", "--crop", f"{crop[0]},{crop[1]}", *extra],
+              on_prediction=keep)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return preds, gru_hside.conv_gru_full.launches, wall, stats
+    return preds, [c.launches for c in counters], wall, stats
 
 
 def run_stream_entry(cfg_path, ckpt, log, backend):
@@ -678,17 +733,22 @@ def window_grid_check(log, dev):
     return worst, n
 
 
-def time_per_package(models, K, seed, steps=20):
+def time_per_package(models, K, seed, steps=20, h=H, w=W, times=False):
     """Per-package latency of StreamingInference.step (batched decode; host
     clock around each step, which ends in the predictions' copy to the
-    host) with K5 ('on') and the plain cells ('off'), in turns off, on,
-    on, off after three warm-up packages each: median and p90 ms per
-    package, and depth maps/s over each turn."""
+    host) with the kernels ('on') and the plain cells ('off'), in turns
+    off, on, on, off after three warm-up packages each: median and p90 ms
+    per package, and depth maps/s over each turn.  times: the packages
+    carry timestamps (the phased regime)."""
     import numpy as np
     from rpg_ramnet_tpu_torch.eval import StreamingInference
     rng = np.random.default_rng(seed)
-    pkgs = [{"events": rng.standard_normal((K, H, W, 5), dtype=np.float32),
-             "image": rng.random((H, W, 1), dtype=np.float32)} for _ in range(4)]
+    pkgs = [{"events": rng.standard_normal((K, h, w, 5), dtype=np.float32),
+             "image": rng.random((h, w, 1), dtype=np.float32)} for _ in range(4)]
+    if times:
+        for i, p in enumerate(pkgs):
+            p["times_events"] = np.float32(0.05 * i + 0.01 * np.arange(K))
+            p["times_image"] = p["times_events"][-1]
     runs = []
     for mode in ("off", "on", "on", "off"):
         engine = StreamingInference(models[mode], batched_decode=True)
@@ -767,6 +827,236 @@ def time_voxelizers(dev, seed, iters=20):
             "mev_per_s": {k: n / v for k, v in us.items()}}
 
 
+def make_lstm_inputs(shape, dev, gen, strided_gx=False):
+    """bf16 NHWC h in (-1, 1) and c in (-2, 2), gx ~ N(0, 1), a ConvLSTM's
+    folded h-side weight (torch's conv init), a phased gate's [H, W, C]
+    tau and phase (upstream init) and t in (0, 3) s per batch item."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import (ConvLSTM, PhasedLSTMGate,
+                                                    init_conv_)
+    B, Hc, Wc, C = shape
+    cell = ConvLSTM(C, C)
+    init_conv_(cell.Gates, gen)
+    gate = PhasedLSTMGate(C * Hc * Wc)
+    gate.reset_parameters_(gen)
+    with torch.no_grad():
+        w4 = cell.hside_weights(torch.bfloat16).to(dev)
+        tau, phase = (v.to(dev) for v in gate.nhwc(C, Hc, Wc))
+    h = (torch.rand(shape, generator=gen) * 2 - 1).to(dev, torch.bfloat16)
+    c = (torch.rand(shape, generator=gen) * 4 - 2).to(dev, torch.bfloat16)
+    if strided_gx:   # step 1 of a [B, 2, H, W, 4C] buffer
+        gx = torch.randn((B, 2, Hc, Wc, 4 * C), generator=gen)
+        gx = gx.to(dev, torch.bfloat16)[:, 1]
+    else:
+        gx = torch.randn((B, Hc, Wc, 4 * C), generator=gen).to(dev, torch.bfloat16)
+    t = (torch.rand(B, generator=gen) * 3).to(dev)
+    return h, c, gx, w4, tau, phase, t
+
+
+def lstm_kernel_check(dev, gen):
+    """Max abs error of K3 (h', c') and K4 (h_t, h_new, c_new) against
+    their plain versions per shape: the phased shapes and a ragged one for
+    both, the flagship shapes for K3."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    k3, k4 = {}, {}
+    for shape in PHASED_CELLS + (RAGGED_LSTM_CELL,) + FLAGSHIP_CELLS:
+        h, c, gx, w4, tau, phase, t = make_lstm_inputs(
+            shape, dev, gen, strided_gx=shape == RAGGED_LSTM_CELL)
+        key = "x".join(map(str, shape))
+        with torch.no_grad():
+            pairs = list(zip(gru_hside.conv_lstm_hside(h, c, gx, w4),
+                             gru_hside.conv_lstm_hside_plain(h, c, gx, w4)))
+            k3[key] = max((a.float() - b.float()).abs().max().item()
+                          for a, b in pairs)
+            if shape not in FLAGSHIP_CELLS:
+                pairs = zip(phased_cell.conv_lstm_phased(h, c, gx, w4, tau,
+                                                         phase, t),
+                            phased_cell.conv_lstm_phased_plain(h, c, gx, w4, tau,
+                                                               phase, t))
+                k4[key] = max((a.float() - b.float()).abs().max().item()
+                              for a, b in pairs)
+        torch.cuda.synchronize()
+        if not max(k3[key], k4.get(key, 0.0)) <= CELL_TOL:
+            raise AssertionError(f"K3/K4 vs plain at {shape}: {k3[key]}, "
+                                 f"{k4.get(key)} > {CELL_TOL}")
+    return k3, k4
+
+
+def time_lstm_cells(dev, gen, iters=50):
+    """Microseconds per cell of K3 and K4 and of their plain versions at
+    the phased shapes, in turns plain, kernel, kernel, plain."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    rows = []
+    for shape in PHASED_CELLS:
+        h, c, gx, w4, tau, phase, t = make_lstm_inputs(shape, dev, gen)
+        row = {"shape": list(shape)}
+        for name, kern, plain in (
+                ("k3", lambda: gru_hside.conv_lstm_hside(h, c, gx, w4),
+                 lambda: gru_hside.conv_lstm_hside_plain(h, c, gx, w4)),
+                ("k4", lambda: phased_cell.conv_lstm_phased(
+                    h, c, gx, w4, tau, phase, t),
+                 lambda: phased_cell.conv_lstm_phased_plain(
+                    h, c, gx, w4, tau, phase, t))):
+            with torch.no_grad():
+                p1, k1, k2, p2 = (cuda_time_us(f, iters)
+                                  for f in (plain, kern, kern, plain))
+            row.update({f"{name}_kernel_us": min(k1, k2),
+                        f"{name}_plain_us": min(p1, p2),
+                        f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2]})
+        rows.append(row)
+    return rows
+
+
+def write_phased_data(root, K, seed):
+    """The phased split: two sequences of PHASED_SEQ_LENGTHS packages at
+    PHASED_H x PHASED_W, timestamps included."""
+    from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
+    for s, n in enumerate(PHASED_SEQ_LENGTHS):
+        generate_eventscape_sequence(os.path.join(root, "test", f"seq{s:02d}"),
+                                     n_frames=K * n, height=PHASED_H,
+                                     width=PHASED_W, seed=seed + s)
+
+
+def time_chunked(models, dataset, chunk, packages, K):
+    """maps/s of run_chunked_streaming over the dataset with the kernels
+    ('on') and the plain cells ('off'), in turns off, on, on, off."""
+    import torch
+    walls = []
+    for mode in ("off", "on", "on", "off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_slice(models[mode], dataset, keep=set(), chunk=chunk)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    maps = packages * (K + 1)
+    return {"maps": maps, "maps_per_s_on": maps / min(walls[1], walls[2]),
+            "maps_per_s_off": maps / min(walls[0], walls[3]),
+            "wall_s_off_on_on_off": walls}
+
+
+def phased_phases(cfg, K, dev, gen, seed, dataset, packages, first_chunk,
+                  smi):
+    """Phases 11-13: K3 and K4 against their plain versions; the phased
+    regime through the eval entry point, per package and chunked, and the
+    flagship's ConvLSTM state combination on the chunked engine over the
+    slice's dataset (packages: its padded package count; first_chunk: its
+    first chunk's indices); their times.  Returns what the kernels line
+    reads."""
+    import torch
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+
+    # 11. the ConvLSTM kernels against their plain versions on the card
+    k3_errs, k4_errs = lstm_kernel_check(dev, gen)
+    emit({"phase": "kernel_phased", "cell_tol": CELL_TOL,
+          "k3_max_abs_err": k3_errs, "k4_max_abs_err": k4_errs})
+
+    # 12. the phased regime at 256x352 through the eval entry point, per
+    #     package and chunked; the ConvLSTM state combination on the
+    #     chunked engine at 256x512
+    pcfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list)
+                                       else v for k, v in PHASED.items()})
+    phased_model = ERGB2DepthRecurrent(
+        pcfg, device=dev, generator=torch.Generator().manual_seed(seed + 2))
+    lstm_counters = [gru_hside.conv_lstm_hside, phased_cell.conv_lstm_phased]
+    n_ph = sum(PHASED_SEQ_LENGTHS)
+    n_ph_padded = sum(-(-n // PHASED_CHUNK) * PHASED_CHUNK
+                      for n in PHASED_SEQ_LENGTHS)
+    crop = (PHASED_H, PHASED_W)
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_phased_") as tmp:
+        t0 = time.perf_counter()
+        write_phased_data(tmp, K, seed + 7)
+        phased_data_s = time.perf_counter() - t0
+        files = {m: stream_files(tmp, phased_model, m, PHASED, "phased")
+                 for m in ("on", "off")}
+        preds_ph, ph_counts, ph_wall, ph_stats = run_eval_entry(
+            *files["on"], tmp, lstm_counters, crop)
+        want_ph = [3 * (K + 1) * n_ph] * 2
+        if ph_counts != want_ph:
+            raise AssertionError(f"phased per package: K3, K4 launched "
+                                 f"{ph_counts}, expected {want_ph}")
+        if len(preds_ph) != n_ph or ph_stats["nonfinite"] \
+                or ph_stats["out_of_range"]:
+            raise AssertionError(f"phased predictions: {len(preds_ph)} items, "
+                                 f"{ph_stats}")
+        preds_ph_off, ph_off_counts, ph_off_wall, _ = run_eval_entry(
+            *files["off"], tmp, lstm_counters, crop)
+        if ph_off_counts != [0, 0]:
+            raise AssertionError("fused_gru='off' launched K3/K4")
+        ph_err = max_pred_diff(preds_ph, preds_ph_off)
+        preds_chunk, chunk_counts, chunk_wall, chunk_stats = run_eval_entry(
+            *files["on"], tmp, lstm_counters, crop,
+            ("--scan_chunk", str(PHASED_CHUNK)))
+        want_chunk = [3 * (K + 1) * n_ph_padded] * 2
+        if chunk_counts != want_chunk or len(preds_chunk) != n_ph \
+                or chunk_stats["nonfinite"] or chunk_stats["out_of_range"]:
+            raise AssertionError(f"phased chunked: launches {chunk_counts}, "
+                                 f"expected {want_chunk}; {len(preds_chunk)} "
+                                 f"items, {chunk_stats}")
+        chunk_err = max_pred_diff(preds_chunk, preds_ph_off)
+    if not (ph_err <= SLICE_TOL and chunk_err <= SLICE_TOL):
+        raise AssertionError(f"phased vs fused_gru='off': per package "
+                             f"{ph_err}, chunked {chunk_err} > {SLICE_TOL}")
+    lcfg = dataclasses.replace(cfg, state_combination="convlstm")
+    lstm_model = ERGB2DepthRecurrent(
+        lcfg, device=dev, generator=torch.Generator().manual_seed(seed + 3))
+    gru_hside.conv_lstm_hside.launches = 0
+    t0 = time.perf_counter()
+    preds_lc, lc_stats = run_slice(lstm_model, dataset)
+    lc_wall = time.perf_counter() - t0
+    lc_launches = gru_hside.conv_lstm_hside.launches
+    want_lc = 3 * (K + 1) * packages
+    if lc_launches != want_lc or lc_stats["nonfinite"] \
+            or lc_stats["out_of_range"] or lc_stats["items"] != sum(SEQ_LENGTHS):
+        raise AssertionError(f"ConvLSTM state combination: K3 launched "
+                             f"{lc_launches}, expected {want_lc}; {lc_stats}")
+    lstm_off = ERGB2DepthRecurrent(dataclasses.replace(lcfg, fused_gru="off"),
+                                   device=dev)
+    lstm_off.load_state_dict(lstm_model.state_dict())
+    preds_lc_off, _ = run_slice(lstm_off, dataset, keep=first_chunk)
+    lc_err = max_pred_diff({g: preds_lc[g] for g in first_chunk}, preds_lc_off)
+    if not (lc_err <= SLICE_TOL):
+        raise AssertionError(f"ConvLSTM state combination, first chunk vs "
+                             f"'off': {lc_err} > {SLICE_TOL}")
+    check_no_jax()
+    emit({"phase": "phased", "config": CONFIG, "overrides": PHASED,
+          "H": PHASED_H, "W": PHASED_W, "K": K,
+          "sequences": list(PHASED_SEQ_LENGTHS), "data_write_s": phased_data_s,
+          "per_package": {"k3_k4_launches": ph_counts,
+                          "expected": want_ph, "max_abs_err_vs_off": ph_err,
+                          "wall_s_on": ph_wall, "wall_s_off": ph_off_wall},
+          "chunked": {"chunk": PHASED_CHUNK, "k3_k4_launches": chunk_counts,
+                      "expected": want_chunk,
+                      "max_abs_err_vs_off_per_package": chunk_err,
+                      "wall_s": chunk_wall},
+          "tol": SLICE_TOL,
+          "lstm_state_combination": {
+              "H": H, "W": W, "chunk": CHUNK, "sequences": list(SEQ_LENGTHS),
+              "k3_launches": lc_launches, "expected": want_lc,
+              "first_chunk_max_abs_err_vs_off": lc_err, "wall_s": lc_wall}})
+
+    # 13. phased latency and throughput, K3 and K4 per cell
+    ph_models = {}
+    for mode in ("on", "off"):
+        ph_models[mode] = ERGB2DepthRecurrent(
+            dataclasses.replace(pcfg, fused_gru=mode), device=dev)
+        ph_models[mode].load_state_dict(phased_model.state_dict())
+    ph_latency = time_per_package(ph_models, K, seed, h=PHASED_H,
+                                  w=PHASED_W, times=True)
+    ph_dataset = SyntheticDataset(PHASED_SEQ_LENGTHS, K, seed, h=PHASED_H,
+                                  w=PHASED_W, times=True)
+    ph_chunked = time_chunked(ph_models, ph_dataset, PHASED_CHUNK, n_ph_padded,
+                              K)
+    lstm_cells = time_lstm_cells(dev, gen)
+    emit({"phase": "timing_phased", **ph_latency, "chunked": ph_chunked,
+          "lstm_cells": lstm_cells, "nvidia_smi": smi})
+
+    return {"k3_errs": k3_errs, "k4_errs": k4_errs, "counts": ph_counts,
+            "cells": lstm_cells}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -791,6 +1081,7 @@ def main() -> int:
     gru_hside.library()
     gru_hside.library_bwd()
     gru_hside.library_full()
+    gru_hside.library_lstm()
     voxel.library()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln for ln in log.splitlines()
@@ -915,7 +1206,7 @@ def main() -> int:
         log = write_stream_data(tmp, K, args.seed)
         stream_data_s = time.perf_counter() - t0
         files = {m: stream_files(tmp, stream_model, m) for m in ("on", "off")}
-        preds_k5, k5_launches, eval_wall, eval_stats = run_eval_entry(
+        preds_k5, [k5_launches], eval_wall, eval_stats = run_eval_entry(
             *files["on"], tmp)
         want_k5 = 3 * (K + 1) * n_pkg
         if k5_launches != want_k5:
@@ -925,7 +1216,7 @@ def main() -> int:
                 or eval_stats["out_of_range"]:
             raise AssertionError(f"per-package predictions: {len(preds_k5)} "
                                  f"items, {eval_stats}")
-        preds_plain, off_launches, _, _ = run_eval_entry(*files["off"], tmp)
+        preds_plain, [off_launches], _, _ = run_eval_entry(*files["off"], tmp)
         if off_launches:
             raise AssertionError("fused_gru='off' launched K5")
         eval_err = max_pred_diff(preds_k5, preds_plain)
@@ -975,6 +1266,10 @@ def main() -> int:
     emit({"phase": "timing_stream", **latency, "k5_cells": full_cells,
           "voxelizers": vox_times, "nvidia_smi": smi})
 
+    # 11-13. the phased regime and the ConvLSTM kernels
+    ph = phased_phases(cfg, K, dev, gen, args.seed, dataset, packages,
+                       first_chunk, smi)
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     vus = vox_times["us"]
 
@@ -1019,7 +1314,18 @@ def main() -> int:
         entry("voxel_onehot", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:242",
               k7_counts["k7"], max(r["k7_f32"] for r in vox_errs.values()),
               vus["k7_f32"] / 1e3, vus["matmul_plain"] / 1e3,
-              voxel_bound(VOX_EVENTS), vus["index_add_only"] / 1e3)]})
+              voxel_bound(VOX_EVENTS), vus["index_add_only"] / 1e3),
+        entry("lstm_hside", "lstm_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:368",
+              ph["counts"][0], max(ph["k3_errs"].values()),
+              sum(r["k3_kernel_us"] for r in ph["cells"]) / 1e3,
+              sum(r["k3_plain_us"] for r in ph["cells"]) / 1e3,
+              cell_bound("k3", PHASED_CELLS)),
+        entry("phased_cell", "lstm_hside.cu",
+              "rpg_ramnet_tpu/ops/phased_cell.py:113", ph["counts"][1],
+              max(ph["k4_errs"].values()),
+              sum(r["k4_kernel_us"] for r in ph["cells"]) / 1e3,
+              sum(r["k4_plain_us"] for r in ph["cells"]) / 1e3,
+              cell_bound("k4", PHASED_CELLS))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's per-package streaming step goes, on one GPU.
 
-    python3 profile_stream.py [--steps N] [--seed S] [--out DIR]
+    python3 profile_stream.py [--steps N] [--seed S] [--out DIR] [--phased]
 
 The flagship recipe (configs/train_e2depth_si_grad_loss_statenet_ergb_tpu_bf16.json,
 bf16, K=5) at 256x512 with random weights from --seed, through
 ``StreamingInference.step`` with batched decode, once with
 fused_gru='on' (kernel K5 for every cell) and once with 'off' (the plain
-bf16 cells), in turns off, on, on, off.  Each turn runs three warm-up
+bf16 cells), in turns off, on, on, off.  With --phased, the phased
+regime instead (the same recipe with phased ConvLSTM encoders and the
+ConvLSTM state combination, as chip_smoke.py's phase 12) at 256x352,
+packages with timestamps: 'on' runs kernels K4 and K3.  Each turn runs three warm-up
 packages, then N packages under torch.profiler (CPU and CUDA activities).
 Per turn it prints one JSON line: the wall ms per package, device time by
 kernel name (the top 12, summed over the turn), the device's busy time
@@ -52,6 +55,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="runs/profile_stream")
+    ap.add_argument("--phased", action="store_true",
+                    help="the phased regime at 256x352")
     args = ap.parse_args()
 
     import numpy as np
@@ -67,6 +72,12 @@ def main() -> int:
 
     dev = require_cuda()
     cfg = ModelConfig.load(os.path.join(ROOT, CONFIG))
+    h, w = H, W
+    if args.phased:
+        h, w = 256, 352
+        cfg = dataclasses.replace(
+            cfg, recurrent_block_type="convlstm", state_combination="convlstm",
+            use_phased_arch=True, spatial_resolution=(h, w))
     K = event_loop_range(cfg)
     models = {}
     for mode in ("on", "off"):
@@ -74,8 +85,12 @@ def main() -> int:
             dataclasses.replace(cfg, fused_gru=mode), device=dev,
             generator=torch.Generator().manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)
-    pkgs = [{"events": rng.standard_normal((K, H, W, 5), dtype=np.float32),
-             "image": rng.random((H, W, 1), dtype=np.float32)} for _ in range(4)]
+    pkgs = [{"events": rng.standard_normal((K, h, w, 5), dtype=np.float32),
+             "image": rng.random((h, w, 1), dtype=np.float32)} for _ in range(4)]
+    if args.phased:
+        for i, p in enumerate(pkgs):
+            p["times_events"] = np.float32(0.05 * i + 0.01 * np.arange(K))
+            p["times_image"] = p["times_events"][-1]
     os.makedirs(args.out, exist_ok=True)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()

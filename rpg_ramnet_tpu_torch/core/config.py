@@ -31,6 +31,10 @@ class ModelConfig:
     baseline: Union[bool, str] = False
     num_output_channels: int = 1
     activation: str = "sigmoid"
+    # the post-conv feature map of the first phased encoder is
+    # spatial_resolution / 2 (the time gate is per feature), so it must
+    # match the crop the model runs at
+    spatial_resolution: Tuple[int, int] = (112, 112)
     use_phased_arch: bool = False
     compute_dtype: str = "float32"         # 'float32' | 'bfloat16'
     fast_upsample: bool = False
@@ -53,6 +57,9 @@ class ModelConfig:
         names = {f.name for f in dataclasses.fields(ModelConfig)}
         kw = {k: v for k, v in d.items() if k in names}
         kw["norm"] = norm
+        if "spatial_resolution" in kw:
+            kw["spatial_resolution"] = tuple(int(v) for v in
+                                             kw["spatial_resolution"])
         return ModelConfig(**kw)
 
     @staticmethod
@@ -172,6 +179,9 @@ class Config:
     grad_loss_weight: Optional[float] = None   # None: no gradient loss
     mse_loss_weight: Optional[float] = None
     mse_loss_downsampling_factor: float = 0.5
+    # the config file's top-level key, which test.py passes to the dataset
+    # (timestamps in the items)
+    use_phased_arch: bool = False
     trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict,
                                             hash=False, compare=False)
@@ -208,6 +218,7 @@ class Config:
             mse_loss_downsampling_factor=(
                 0.5 if mse_loss is None
                 else float(mse_loss.get("downsampling_factor", 0.5))),
+            use_phased_arch=bool(cfg.get("use_phased_arch", False)),
             trainer=TrainerConfig.from_dict(cfg.get("trainer", {})),
             raw=cfg)
 

@@ -18,8 +18,10 @@ On-disk format (EventScape, as the reference): <seq>/events/voxels/
 folder's name says "mvsec"; with load_semantic, the semantic labels
 <seq>/semantic/data/*_%04d_gt_labelIds.png ('semantic_events' [K, H, W, 1],
 'semantic_image' [H, W, 1]) that test.py writes out.  Raw-event inputs,
-baselines, phased timestamps and scale_factor < 1 are not ported (ROADMAP
-queue 1, items 6 and 13).
+baselines and scale_factor < 1 are not ported (ROADMAP queue 1, items 6
+and 13).  With use_phased_arch (the irregular-timestamp regime) an item
+also carries its steps' timestamps: 'times_events' [K] and 'times_image'
+(a scalar), float32 seconds from the sequence's first event stamp.
 """
 from __future__ import annotations
 
@@ -117,8 +119,9 @@ class SynchronizedFramesEventsDataset:
                  clip_distance: float = 100.0, every_x_rgb_frame: int = 1,
                  transform=None, normalize: bool = True,
                  reg_factor: float = 5.7, semantic_folder: str = "semantic",
-                 load_semantic: bool = False):
+                 load_semantic: bool = False, use_phased_arch: bool = False):
         self.depth_folder = join(base_folder, depth_folder or "frames")
+        self.use_phased_arch = use_phased_arch
         self.frame_folder = join(base_folder, frame_folder or "rgb")
         self.load_semantic = load_semantic
         self.transform = transform
@@ -176,12 +179,12 @@ class SynchronizedFramesEventsDataset:
         if seed is None:
             seed = int(np.random.randint(0, 2 ** 31))
         K = self.every_x_rgb_frame
-        events, depths, semantics = [], [], []
+        events, depths, semantics, stamps = [], [], [], []
         item: Dict[str, np.ndarray] = {}
         for k in range(K):
             j = i * K + k
-            frame_idx = self._frame_idx_for_stamp(
-                self.event_dataset.get_stamp_at(j))
+            stamps.append(self.event_dataset.get_stamp_at(j))
+            frame_idx = self._frame_idx_for_stamp(stamps[-1])
             events.append(self.event_dataset.__getitem__(j, seed))
             depths.append(_apply_transform(self._load_depth(frame_idx),
                                            self.transform, seed))
@@ -203,6 +206,9 @@ class SynchronizedFramesEventsDataset:
         item["depth_events"] = np.stack(depths)
         if semantics:
             item["semantic_events"] = np.stack(semantics)
+        if self.use_phased_arch:        # datasets.py:338-349 of the JAX package
+            item["times_events"] = np.asarray(stamps, np.float32)
+            item["times_image"] = np.float32(stamps[-1])
         return item
 
 
@@ -222,7 +228,7 @@ class SequenceSynchronizedFramesEventsDataset:
                  normalize: bool = True, scale_factor: float = 1.0,
                  every_x_rgb_frame: int = 1, reg_factor: float = 5.7,
                  semantic_folder: str = "semantic/data",
-                 load_semantic: bool = False):
+                 load_semantic: bool = False, use_phased_arch: bool = False):
         assert sequence_length > 0 and step_size > 0 and clip_distance > 0
         if scale_factor < 1.0:
             raise NotImplementedError(
@@ -233,7 +239,8 @@ class SequenceSynchronizedFramesEventsDataset:
             base_folder, event_folder, depth_folder, frame_folder,
             start_time, stop_time, clip_distance, every_x_rgb_frame,
             transform, normalize=normalize, reg_factor=reg_factor,
-            semantic_folder=semantic_folder, load_semantic=load_semantic)
+            semantic_folder=semantic_folder, load_semantic=load_semantic,
+            use_phased_arch=use_phased_arch)
         self.step_size = step_size
         self.proba_pause_when_running = proba_pause_when_running
         self.proba_pause_when_paused = proba_pause_when_paused

@@ -30,7 +30,8 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
                            step_size: int = 1, clip_distance: float = 100.0,
                            every_x_rgb_frame: int = 1, normalize: bool = True,
                            scale_factor: float = 1.0, reg_factor: float = 5.7,
-                           load_semantic: bool = False
+                           load_semantic: bool = False,
+                           use_phased_arch: bool = False
                            ) -> "ConcatSequenceDataset":
     """One dataset per sequence subfolder, concatenated (train.py:37-75)."""
     if dataset_type not in DATASETS:
@@ -47,7 +48,7 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
             step_size=step_size, clip_distance=clip_distance,
             every_x_rgb_frame=every_x_rgb_frame, normalize=normalize,
             scale_factor=scale_factor, reg_factor=reg_factor,
-            load_semantic=load_semantic)
+            load_semantic=load_semantic, use_phased_arch=use_phased_arch)
         for name in sorted(os.listdir(base_folder))])
 
 

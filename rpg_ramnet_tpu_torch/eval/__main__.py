@@ -16,7 +16,10 @@ scale and metric lines:
   --precompute_x, --decode_keys, --dataset_reg_factor   as test.py
   --device          'cuda' (default) or 'cpu'
 
-Behaviour kept from test.py: the state resets at every sequence boundary,
+In the phased regime (the config's top-level use_phased_arch) the
+dataset's items carry their timestamps, which go into each package as
+test.py passes them.  Behaviour kept from test.py: the state resets at
+every sequence boundary,
 predictions are saved only from a sequence's third item on, the metric
 vector runs over the saved items and the metric-space scale over all.
 --lanes > 1 and --mesh > 0 are not ported (ROADMAP queue 1, items 14 and
@@ -105,7 +108,7 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
         normalize=cfg.normalize, scale_factor=vd.scale_factor,
         # test.py's quirk, kept for output parity: its datasets load depth
         # targets with reg_factor 5.7 whatever the config says
-        reg_factor=args.dataset_reg_factor,
+        reg_factor=args.dataset_reg_factor, use_phased_arch=cfg.use_phased_arch,
         load_semantic=bool(args.output_path))
 
     model = ERGB2DepthRecurrent(cfg.model, device=device)
@@ -178,6 +181,10 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
                 if idx + 1 < n:
                     fut = pool.submit(dataset.__getitem__, idx + 1)
                 pkg = {"events": item["events"][0], "image": item["image"][0]}
+                if cfg.use_phased_arch:     # test.py:227-231
+                    for k in ("times_events", "times_image"):
+                        if k in item:
+                            pkg[k] = item[k][0]
                 if dataset_idx > prev_dataset_idx:
                     engine.reset(1, *pkg["image"].shape[:2])
                     sequence_idx = 0

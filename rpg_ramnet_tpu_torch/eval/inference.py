@@ -7,7 +7,9 @@ Counterpart of ``rpg_ramnet_tpu/eval/inference.py``:
   time (``step_modality``), on ``forward_package(_batched_decode)``;
 - ``SequenceScanInference`` and ``run_chunked_streaming`` (``test.py
   --scan_chunk``) on the precomputed path
-  (``ERGB2DepthRecurrent.forward_sequence_precomputed``);
+  (``ERGB2DepthRecurrent.forward_sequence_precomputed``) where
+  ``_resolve_precompute`` takes it, else on
+  ``forward_sequence_batched_decode`` (the phased regime, float32 configs);
 - ``CropParameters``, ``optimal_crop_size`` and ``optimal_scale``.
 
 Behaviour kept from the JAX engines: the recurrent state is carried
@@ -15,8 +17,8 @@ across the packages and chunks of a sequence and re-zeroed at every
 sequence boundary; the tail chunk is zero-padded to the chunk length
 (padding only touches the post-sequence state, which is discarded); one
 host thread prepares the next chunk while the device runs the current
-one.  Lanes and the spatial mesh are not ported (ROADMAP queue 1, items
-14 and 15).
+one; in the phased regime the packages' timestamps go with them.  Lanes
+and the spatial mesh are not ported (ROADMAP queue 1, items 14 and 15).
 """
 from __future__ import annotations
 
@@ -121,10 +123,15 @@ class StreamingInference:
 
     @torch.inference_mode()
     def step(self, pkg) -> Dict[str, np.ndarray]:
-        """pkg: {'events': [K, H, W, C], 'image': [H, W, C]} (unbatched,
-        numpy or tensors) -> {key: [H, W, 1] float32 numpy}."""
+        """pkg: {'events': [K, H, W, C], 'image': [H, W, C], and for the
+        phased regime 'times_events' [K] and 'times_image' (a scalar)}
+        (unbatched, numpy or tensors) -> {key: [H, W, 1] float32 numpy}."""
         dev = self.model.device
         batched = {k: _as_input(pkg[k], dev)[None] for k in ("events", "image")}
+        for k, shape in (("times_events", (1, -1)), ("times_image", (1,))):
+            if k in pkg:
+                batched[k] = _as_input(np.asarray(pkg[k], np.float32),
+                                       dev).reshape(shape)
         if self._state is None:
             self.reset(1, *batched["image"].shape[1:3])
         if self.batched_decode:
@@ -147,30 +154,39 @@ class StreamingInference:
         xt = _as_input(x, self.model.device)[None]
         if self._state is None:
             self.reset(1, xt.shape[1], xt.shape[2])
-        supers = statenet.forward_modality(
-            net, self.cfg, to_nchw(xt), tuple(to_nchw(s) for s in self._state),
-            modality)
-        self._state = tuple(to_nhwc(s) for s in supers)
-        pred = to_nhwc(statenet.forward_decoder_supers(net, self.cfg,
-                                                       supers))[0]
+        state = statenet.forward_modality(
+            net, self.cfg, to_nchw(xt),
+            statenet.map_state(to_nchw, self._state), modality)
+        self._state = statenet.map_state(to_nhwc, state)
+        pred = to_nhwc(statenet.forward_decoder_supers(
+            net, self.cfg, statenet.decoder_view(self.cfg, state)))[0]
         return pred.cpu().numpy() if as_numpy else pred
 
 
 def _resolve_precompute(cfg: ModelConfig,
                         precompute_x: Optional[bool]) -> bool:
-    """Tri-state precompute_x: None = auto (on for bf16 compute, where the
-    JAX package measured it faster), True forces, False is off."""
+    """Tri-state precompute_x: None = auto (on for bf16 compute on the
+    configs whose x side is state-independent, where the JAX package
+    measured it faster), True forces (the model raises where the config
+    does not support it), False is off."""
     if precompute_x is None:
-        return cfg.compute_dtype == "bfloat16"
+        return (statenet.supports_x_precompute(cfg)
+                and cfg.compute_dtype == "bfloat16")
     return bool(precompute_x)
 
 
-def _require_precompute(cfg: ModelConfig, precompute_x: Optional[bool]):
-    if not _resolve_precompute(cfg, precompute_x):
-        raise NotImplementedError(
-            "only the precomputed path is ported: pass precompute_x=True "
-            "for a float32 config (the scan without x precompute, "
-            "forward_sequence_batched_decode, is ROADMAP queue 1, item 4)")
+def _chunk_forward(model: ERGB2DepthRecurrent,
+                   precompute_x: Optional[bool], decode_keys=None):
+    """forward(state, seq) of the chunked engines: the precomputed path
+    where ``_resolve_precompute`` takes it, else
+    forward_sequence_batched_decode with the cells' kernels allowed only
+    for fused_gru='on' (inference.py:263-271 of the JAX package)."""
+    if _resolve_precompute(model.cfg, precompute_x):
+        return lambda state, seq: model.forward_sequence_precomputed(
+            state, seq, decode_keys=decode_keys)
+    fused = model.cfg.fused_gru == "on"
+    return lambda state, seq: model.forward_sequence_batched_decode(
+        state, seq, decode_keys=decode_keys, allow_fused=fused)
 
 
 def _pad_time(x: np.ndarray, length: int) -> np.ndarray:
@@ -193,9 +209,9 @@ class SequenceScanInference:
 
     def __init__(self, model: ERGB2DepthRecurrent, chunk: int = 32,
                  precompute_x: Optional[bool] = None):
-        _require_precompute(model.cfg, precompute_x)
         self.model = model
         self.chunk = chunk
+        self._fwd = _chunk_forward(model, precompute_x)
 
     @torch.inference_mode()
     def run_sequence(self, events: np.ndarray, image: np.ndarray
@@ -213,7 +229,7 @@ class SequenceScanInference:
             im = _pad_time(image[t0:t0 + self.chunk], self.chunk)
             seq = {"events": _to_device(ev, dev)[None],
                    "image": _to_device(im, dev)[None]}
-            state, preds = self.model.forward_sequence_precomputed(state, seq)
+            state, preds = self._fwd(state, seq)
             for k, v in preds.items():
                 outs.setdefault(k, []).append(v[:n, 0].cpu().numpy())
         return {k: np.concatenate(v) for k, v in outs.items()}
@@ -226,24 +242,37 @@ def run_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
                           precompute_x: Optional[bool] = None) -> None:
     """Offline chunked streaming over a ConcatSequenceDataset-like
     ``dataset``: ``dataset.datasets`` is the list of sequences, and item i
-    of a sequence is {'events': [1, K, H, W, Ce], 'image': [1, H, W, Ci]}.
-    Each sequence runs ``chunk`` packages per forward call.
-    on_prediction(global_idx, {key: [H, W, 1] numpy}, item, seq_pos) is
-    called for every real item, in order."""
-    _require_precompute(model.cfg, precompute_x)
+    of a sequence is {'events': [1, K, H, W, Ce], 'image': [1, H, W, Ci]},
+    and in the phased regime 'times_events' [1, K] and 'times_image' [1].
+    Each sequence runs ``chunk`` packages per forward call (see
+    ``_chunk_forward`` for which).  on_prediction(global_idx, {key:
+    [H, W, 1] numpy}, item, seq_pos) is called for every real item, in
+    order."""
     dk = tuple(decode_keys) if decode_keys else None
+    fwd = _chunk_forward(model, precompute_x, dk)
     dev = model.device
     sizes = [len(d) for d in dataset.datasets]
     starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(int)
 
     def load_chunk(sub, t0, size):
         items = [sub[i] for i in range(t0, min(t0 + chunk, size))]
-        ev = _pad_time(np.stack([it["events"][0] for it in items]), chunk)
-        im = _pad_time(np.stack([it["image"][0] for it in items]), chunk)
-        ev_t, im_t = torch.from_numpy(ev), torch.from_numpy(im)
-        if dev.type == "cuda":
-            ev_t, im_t = ev_t.pin_memory(), im_t.pin_memory()
-        return items, ev_t, im_t
+        arrs = {"events": np.stack([it["events"][0] for it in items]),
+                "image": np.stack([it["image"][0] for it in items])}
+        # the phased regime: the timestamps go with the chunk
+        # (inference.py:295-302 of the JAX package)
+        if model.cfg.use_phased_arch and "times_events" in items[0]:
+            arrs["times_events"] = np.stack(
+                [np.atleast_1d(it["times_events"][0]) for it in items]
+            ).astype(np.float32)
+            arrs["times_image"] = np.array(
+                [np.asarray(it["times_image"][0]).ravel()[0] for it in items],
+                np.float32)
+        out = {}
+        for k, v in arrs.items():
+            out[k] = torch.from_numpy(_pad_time(v, chunk))
+            if dev.type == "cuda":
+                out[k] = out[k].pin_memory()
+        return items, out
 
     tasks = [(s, t0) for s in range(len(sizes))
              for t0 in range(0, sizes[s], chunk)]
@@ -254,18 +283,18 @@ def run_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
                           tasks[0][1], sizes[tasks[0][0]])
         state, cur_seq = None, -1
         for ti, (s, t0) in enumerate(tasks):
-            items, ev_t, im_t = fut.result()
+            items, arrs = fut.result()
             if ti + 1 < len(tasks):
                 s2, t02 = tasks[ti + 1]
                 fut = pool.submit(load_chunk, dataset.datasets[s2], t02,
                                   sizes[s2])
             if s != cur_seq:
-                state = model.init_state(1, im_t.shape[1], im_t.shape[2])
+                im = arrs["image"]
+                state = model.init_state(1, im.shape[1], im.shape[2])
                 cur_seq = s
-            seq = {"events": ev_t.to(dev, non_blocking=True)[None],
-                   "image": im_t.to(dev, non_blocking=True)[None]}
-            state, preds = model.forward_sequence_precomputed(
-                state, seq, decode_keys=dk)
+            seq = {k: v.to(dev, non_blocking=True)[None]
+                   for k, v in arrs.items()}
+            state, preds = fwd(state, seq)
             if on_prediction is not None:
                 preds_np = {k: v.cpu().numpy() for k, v in preds.items()}
                 for j, item in enumerate(items):

@@ -16,6 +16,15 @@ state dict loads with ``strict=True``.
     conv_gru_apply_hside                 ConvGRU.hside
     the folds of conv_gru_hside_fused    ConvGRU.hside_weights (K1)
     the folds of conv_gru_full_fused     ConvGRU.full_weights (K5)
+    conv_lstm_apply                      ConvLSTM.forward
+    conv_lstm_x_gates                    ConvLSTM.x_gates
+    conv_lstm_apply_hside                ConvLSTM.hside
+    the fold of conv_lstm_hside_fused    ConvLSTM.hside_weights (K3, K4)
+    recurrent_conv_layer_apply           RecurrentConvLayer.forward
+    phased_lstm_gate_init                PhasedLSTMGate
+    phased_gate_k                        phased_gate_k
+    phased_conv_lstm_apply               PhasedConvLSTM.forward
+    recurrent_phased_conv_layer_apply    RecurrentPhasedConvLayer.forward
 
 Parameters stay float32 (the masters an optimizer updates); every layer
 casts its weights to its input's dtype at use, as the JAX layers do
@@ -37,6 +46,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.phased_cell import conv_lstm_phased, gate_k
+from ..utils.layout import to_nchw, to_nhwc
 
 
 def activate(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
@@ -117,7 +129,37 @@ class ResidualBlock(nn.Module):
         return torch.relu(out + x)
 
 
-class ConvGRU(nn.Module):
+class _FoldedGates(nn.Module):
+    """A recurrent cell whose gate convs (``gates()``) are folded into the
+    kernels' weight layouts, cached per weight version and dtype."""
+
+    def __init__(self):
+        super().__init__()
+        self._fold_cache = {}
+
+    def _folded(self, kind: str, dtype: torch.dtype, make):
+        """make(gate weights, dtype), cached per kind, weight version and
+        dtype when no gradient is being recorded; under autograd, folded
+        anew from the live parameters through differentiable ops."""
+        ws = tuple(g.weight for g in self.gates())
+        if torch.is_grad_enabled():
+            return make(ws, dtype)
+        params = ws + tuple(g.bias for g in self.gates())
+        key = tuple((p.data_ptr(), p._version) for p in params) + (dtype,)
+        hit = self._fold_cache.get(kind)
+        if hit is None or hit[0] != key:
+            hit = self._fold_cache[kind] = (key, make(ws, dtype))
+        return hit[1]
+
+
+def _fold_taps(w: torch.Tensor, dtype) -> torch.Tensor:
+    """OIHW [O, I, 3, 3] -> [9, O, I] (tap ky*3 + kx, output, input) in
+    ``dtype``, contiguous: the tensor cores' B operand."""
+    return (w.permute(2, 3, 0, 1).reshape(9, w.shape[0], w.shape[1])
+            .to(dtype).contiguous())
+
+
+class ConvGRU(_FoldedGates):
     """ConvGRU (submodules.py:414-454): three gate convs on cat(x, h).
 
     forward is the whole cell; x_gates and hside split it for the
@@ -133,7 +175,6 @@ class ConvGRU(nn.Module):
         self.reset_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
         self.update_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
         self.out_gate = nn.Conv2d(cin, hidden_size, 3, padding=1)
-        self._fold_cache = {}
 
     def gates(self):
         """The gate convs in gx order: update, reset, out."""
@@ -193,12 +234,9 @@ class ConvGRU(nn.Module):
         per weight version and dtype and cached, not once per step."""
         C = self.hidden_size
 
-        def fold(w):
-            return (w[:, -C:].permute(2, 3, 0, 1)
-                    .reshape(9, w.shape[0], C).to(dtype).contiguous())
-
         def make(ws, dtype):
-            return fold(torch.cat([ws[0], ws[1]])), fold(ws[2])
+            return (_fold_taps(torch.cat([ws[0], ws[1]])[:, -C:], dtype),
+                    _fold_taps(ws[2][:, -C:], dtype))
 
         dtype = dtype or self.update_gate.weight.dtype
         return self._folded("hside", dtype, make)
@@ -212,36 +250,173 @@ class ConvGRU(nn.Module):
         channel), in ``dtype`` (the parameters' own when None), and the
         biases b_ur [2C] and b_o [C] in float32.  Folded once per weight
         version and dtype and cached; under autograd, folded anew."""
-        def fold(w):
-            return (w.permute(2, 3, 0, 1)
-                    .reshape(9, w.shape[0], w.shape[1]).to(dtype).contiguous())
-
         def make(ws, dtype):
             u, r, o = self.gates()
-            return (fold(torch.cat([ws[0], ws[1]])), fold(ws[2]),
+            return (_fold_taps(torch.cat([ws[0], ws[1]]), dtype),
+                    _fold_taps(ws[2], dtype),
                     torch.cat([u.bias, r.bias]).float(), o.bias.float().clone())
 
         dtype = dtype or self.update_gate.weight.dtype
         return self._folded("full", dtype, make)
 
-    def _folded(self, kind: str, dtype: torch.dtype, make):
-        """make(gate weights, dtype), cached per kind, weight version and
-        dtype when no gradient is being recorded."""
-        ws = tuple(g.weight for g in self.gates())
-        if torch.is_grad_enabled():
-            return make(ws, dtype)
-        params = ws + tuple(g.bias for g in self.gates())
-        key = tuple((p.data_ptr(), p._version) for p in params) + (dtype,)
-        hit = self._fold_cache.get(kind)
-        if hit is None or hit[0] != key:
-            hit = self._fold_cache[kind] = (key, make(ws, dtype))
-        return hit[1]
+
+def _lstm_cell(gates: torch.Tensor, c: torch.Tensor):
+    """(hidden, cell) from the 4-gate pre-activations [B, 4C, H, W] in
+    (in, remember, out, cell) order and the cell input c."""
+    i, f, o, u = gates.chunk(4, dim=1)
+    cell = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(u)
+    return torch.sigmoid(o) * torch.tanh(cell), cell
+
+
+class ConvLSTM(_FoldedGates):
+    """ConvLSTM (submodules.py:303-358): one 4-gate conv ``Gates`` on
+    cat(x, h), gate order (in, remember, out, cell), torch's default conv
+    init.  The state is (hidden, cell); forward returns the new pair.
+
+    x_gates and hside split it as ConvGRU's do (the biases go with the x
+    side), and hside_weights folds the h slice for kernels K3 and K4."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.input_size = input_size
+        self.hidden_size = hidden_size
+        self.Gates = nn.Conv2d(input_size + hidden_size, 4 * hidden_size, 3,
+                               padding=1)
+
+    def gates(self):
+        return (self.Gates,)
+
+    def forward(self, x: torch.Tensor, state):
+        h, c = state
+        return _lstm_cell(conv(self.Gates, torch.cat([x, h], dim=1)), c)
+
+    def x_gates(self, x: torch.Tensor) -> torch.Tensor:
+        """x-side gate pre-activations [B, 4C, H, W], bias folded in."""
+        w = self.Gates.weight[:, :self.input_size]
+        return F.conv2d(x, w.to(x.dtype), self.Gates.bias.to(x.dtype), 1, 1)
+
+    def hside(self, gx: torch.Tensor, state):
+        """The h-side completion from gx = x_gates(x): the new (hidden,
+        cell).  Equals forward up to float summation order."""
+        h, c = state
+        w = self.Gates.weight[:, -self.hidden_size:]
+        return _lstm_cell(F.conv2d(h, w.to(h.dtype), None, 1, 1) + gx, c)
+
+    def hside_weights(self, dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+        """The h slice of the gate weight in the layout of
+        ops.gru_hside.conv_lstm_hside (K3) and ops.phased_cell (K4):
+        w4 [9, 4C, C], indexed (ky*3 + kx, gate*C + output channel, input
+        channel), in ``dtype`` (the parameter's own when None); cached as
+        ConvGRU.hside_weights."""
+        C = self.hidden_size
+        dtype = dtype or self.Gates.weight.dtype
+        return self._folded("hside", dtype,
+                            lambda ws, dt: _fold_taps(ws[0][:, -C:], dt))
 
 
 class RecurrentConvLayer(nn.Module):
     """Bare recurrent block for per-scale state combination
-    (submodules.py:100-120; its conv is unused upstream)."""
+    (submodules.py:100-120; its conv is unused upstream): a ConvGRU, or a
+    ConvLSTM for state_combination='convlstm'."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, block_type: str = "convgru"):
         super().__init__()
-        self.recurrent_block = ConvGRU(channels, channels)
+        cell = ConvLSTM if block_type == "convlstm" else ConvGRU
+        self.recurrent_block = cell(channels, channels)
+
+
+class PhasedLSTMGate(nn.Module):
+    """The PhasedLSTM time gate (submodules.py:218-300): a period ``tau``
+    and a ``phase`` per flattened torch-order feature (c*H*W + y*W + x).
+    Init (``reset_parameters_``): log tau ~ U(log 0.02, log 50), phase ~
+    U(0, 1) * tau, as ``phased_lstm_gate_init``."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.tau = nn.Parameter(torch.empty(hidden_size))
+        self.phase = nn.Parameter(torch.empty(hidden_size))
+        self._cache = None
+
+    def reset_parameters_(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.tau.uniform_(math.log(0.02), math.log(50.0),
+                              generator=generator).exp_()
+            self.phase.uniform_(0.0, 1.0, generator=generator).mul_(self.tau)
+
+    def nchw(self, c: int, h: int, w: int):
+        """(tau, phase) as [C, H, W] views of the parameters."""
+        return self.tau.view(c, h, w), self.phase.view(c, h, w)
+
+    def nhwc(self, c: int, h: int, w: int):
+        """(tau, phase) permuted once to the kernel's [H, W, C], float32,
+        contiguous: copies, never aliases of the parameters, cached per
+        parameter version."""
+        key = tuple((p.data_ptr(), p._version) for p in (self.tau, self.phase))
+        if self._cache is None or self._cache[0] != key:
+            with torch.no_grad():
+                out = tuple(v.float().view(c, h, w).permute(1, 2, 0)
+                            .contiguous().clone() for v in (self.tau, self.phase))
+            self._cache = (key, out)
+        return self._cache[1]
+
+
+def phased_gate_k(gate: PhasedLSTMGate, t: torch.Tensor, c: int, h: int,
+                  w: int) -> torch.Tensor:
+    """k(t) [B, C, H, W] (NCHW-shaped) in float32 from the flattened
+    torch-order tau/phase and t [B]: the JAX ``phased_gate_k`` evaluated in
+    the layout of the port's modules."""
+    tau, phase = gate.nchw(c, h, w)
+    return gate_k(tau[None], phase[None], t.reshape(-1, 1, 1, 1))
+
+
+class PhasedConvLSTM(nn.Module):
+    """PhasedConvLSTMCell (submodules.py:361-411): a ConvLSTM whose outputs
+    the time gate blends with the previous state, over a feature map of a
+    fixed size (the gate is per flattened feature)."""
+
+    def __init__(self, input_channels: int, hidden_channels: int,
+                 height: int, width: int):
+        super().__init__()
+        self.height, self.width = height, width
+        self.lstm = ConvLSTM(input_channels, hidden_channels)
+        self.phased_cell = PhasedLSTMGate(hidden_channels * height * width)
+
+    def forward(self, x: torch.Tensor, times: torch.Tensor, state,
+                fused: bool = False):
+        """(h_t, (h_new, c_new)) from NCHW x, times [B] and the state
+        (c0, h0), the reference's slot convention kept verbatim: (c0, h0)
+        go into the ConvLSTM's (hidden, cell) slots and its (hidden, cell)
+        return is (c_t, h_t).  The blend runs in float32 and is cast back
+        to the state's dtype.  fused: the x/h split and kernel K4
+        (ops/phased_cell.py), on the kernel's plain version for CPU
+        tensors."""
+        c0, h0 = state
+        C = self.lstm.hidden_size
+        if fused:
+            gx = self.lstm.x_gates(x)
+            h_t, h_new, c_new = conv_lstm_phased(
+                to_nhwc(c0), to_nhwc(h0), to_nhwc(gx),
+                self.lstm.hside_weights(c0.dtype),
+                *self.phased_cell.nhwc(C, self.height, self.width), times)
+            return to_nchw(h_t), (to_nchw(h_new), to_nchw(c_new))
+        c_t, h_t = self.lstm(x, (c0, h0))
+        k = phased_gate_k(self.phased_cell, times, C, *c_t.shape[2:])
+        dt = h_t.dtype
+        return h_t, ((k * h_t + (1.0 - k) * h0).to(dt),
+                     (k * c_t + (1.0 - k) * c0).to(dt))
+
+
+class RecurrentPhasedConvLayer(nn.Module):
+    """RecurrentPhasedConvLayer (submodules.py:145-157): a 5x5 stride-2
+    conv with ReLU, then a PhasedConvLSTM over the post-conv feature map
+    (height x width)."""
+
+    def __init__(self, in_ch: int, out_ch: int, height: int, width: int):
+        super().__init__()
+        self.conv = ConvLayer(in_ch, out_ch, 5, 2, 2)
+        self.recurrent_block = PhasedConvLSTM(out_ch, out_ch, height, width)
+
+    def forward(self, x: torch.Tensor, times: torch.Tensor, state,
+                fused: bool = False):
+        return self.recurrent_block(self.conv(x), times, state, fused=fused)

@@ -1,9 +1,12 @@
 """ERGB2DepthRecurrent, the RAM-Net model (RAM_Net/model/model.py:114-219).
 
-Counterpart of ``rpg_ramnet_tpu/models/model.py`` for the flagship recipe.
+Counterpart of ``rpg_ramnet_tpu/models/model.py`` for the recipes that
+``statenet`` ports.
 A datapackage is {'events': [B, K, H, W, Ce], 'image': [B, H, W, Ci]}: K
-event voxel grids, then one frame.  The recurrent state is a tuple of
-per-scale NHWC super states.  All public tensors are NHWC.
+event voxel grids, then one frame; in the phased regime also
+'times_events' [B, K] and 'times_image' [B], the steps' timestamps.  The
+recurrent state is a ``statenet.StateNetState`` of NHWC tensors.  All
+public tensors are NHWC.
 
     forward_package                  one package, per-step decodes, full
                                      cells (K5 with allow_fused)
@@ -13,9 +16,11 @@ per-scale NHWC super states.  All public tensors are NHWC.
     forward_sequence_precomputed     a chunk of packages (inference):
                                      batched x side, sequential h side, one
                                      batched decode
-    forward_sequence_batched_decode  a TBPTT window (training): per-package
-                                     state updates, optionally checkpointed
-                                     and with the package's x side batched,
+    forward_sequence_batched_decode  a TBPTT window (training), or a chunk
+                                     (inference, configs without x
+                                     precompute): per-package state
+                                     updates, optionally checkpointed and
+                                     with the package's x side batched,
                                      then one batched decode
 """
 from __future__ import annotations
@@ -46,20 +51,20 @@ def _hside_package(net, cfg: ModelConfig, supers, gev, gim,
                    sel_keys: Sequence[str], loop: int,
                    allow_fused: bool = False):
     """The sequential h-side completions of one package from precomputed
-    x-side gates (gev: per-scale [B, K, 3C, h, w]; gim: per-scale
-    [B, 3C, h, w]).  Returns the new supers and the per-scale supers after
-    each step named in sel_keys."""
+    x-side gates (gev: per-scale [B, K, gC, h, w]; gim: per-scale
+    [B, gC, h, w]).  Returns the new supers and the decoder views of the
+    supers after each step named in sel_keys."""
     snaps = []
     for k in range(loop):
         supers = statenet.combine_hside(net, cfg, supers,
                                         [g[:, k] for g in gev], "events",
                                         allow_fused=allow_fused)
         if f"events{k}" in sel_keys:
-            snaps.append(supers)
+            snaps.append(statenet.supers_decoder_view(cfg, supers))
     supers = statenet.combine_hside(net, cfg, supers, gim, "image",
                                     allow_fused=allow_fused)
     if "image" in sel_keys:
-        snaps.append(supers)
+        snaps.append(statenet.supers_decoder_view(cfg, supers))
     return supers, snaps
 
 
@@ -70,29 +75,37 @@ def _check_no_reset(pkg) -> None:
             "14 (lane-batched streaming)")
 
 
-def _package_snapshot_step(net, cfg: ModelConfig, supers, pkg,
+def _package_steps(cfg: ModelConfig, pkg):
+    """(key, NCHW input, modality, timestamps [B] or None) of a package's
+    K event steps and its image step (model.py:99-118)."""
+    times_ev = pkg.get("times_events") if cfg.use_phased_arch else None
+    times_im = pkg.get("times_image") if cfg.use_phased_arch else None
+    steps = [(f"events{k}", to_nchw(pkg["events"][:, k]), "events",
+              None if times_ev is None else times_ev[:, k])
+             for k in range(event_loop_range(cfg))]
+    steps.append(("image", to_nchw(pkg["image"]), "image", times_im))
+    return steps
+
+
+def _package_snapshot_step(net, cfg: ModelConfig, state, pkg,
                            sel_keys: Sequence[str], allow_fused: bool = False):
-    """One package of state updates with the full ConvGRU cell per step
-    (K event steps, then the image step; no decodes), returning the new
-    supers and the supers after each step in sel_keys, concatenated over
-    the batch.  pkg: {'events': [B, K, H, W, Ce], 'image': [B, H, W, Ci]}
-    NHWC; supers NCHW-shaped.  allow_fused: let the fused_gru policy run
-    the cells as kernel K5."""
+    """One package of state updates with the whole cells per step (K event
+    steps, then the image step; no decodes), returning the new state and
+    the decoder views after each step in sel_keys, concatenated over the
+    batch.  pkg: NHWC (timestamps for the phased regime); state
+    NCHW-shaped.  allow_fused: let the fused_gru policy run the cells as
+    kernels (K4, K3, K5)."""
     _check_no_reset(pkg)
     snaps = []
-    for k in range(event_loop_range(cfg)):
-        supers = statenet.forward_modality(net, cfg, to_nchw(pkg["events"][:, k]),
-                                           supers, "events", allow_fused)
-        if f"events{k}" in sel_keys:
-            snaps.append(supers)
-    supers = statenet.forward_modality(net, cfg, to_nchw(pkg["image"]), supers,
-                                       "image", allow_fused)
-    if "image" in sel_keys:
-        snaps.append(supers)
-    return supers, _stack(snaps)
+    for key, x, modality, t in _package_steps(cfg, pkg):
+        state = statenet.forward_modality(net, cfg, x, state, modality,
+                                          times=t, allow_fused=allow_fused)
+        if key in sel_keys:
+            snaps.append(statenet.decoder_view(cfg, state))
+    return state, _stack(snaps)
 
 
-def _package_snapshot_step_pre(net, cfg: ModelConfig, supers, pkg,
+def _package_snapshot_step_pre(net, cfg: ModelConfig, state, pkg,
                                sel_keys: Sequence[str],
                                allow_fused: bool = False):
     """_package_snapshot_step with the package's x side batched: the K
@@ -100,7 +113,7 @@ def _package_snapshot_step_pre(net, cfg: ModelConfig, supers, pkg,
     (state-independent for recurrent_block_type='conv'), leaving only the
     K+1 h-side cells sequential; gx memory stays bounded to one package.
     allow_fused: let the fused_gru policy pick the h-side kernels, which
-    are differentiable (ops/gru_hside.py::ConvGRUHside)."""
+    are differentiable for the ConvGRU (ops/gru_hside.py::ConvGRUHside)."""
     loop = event_loop_range(cfg)
     ev = pkg["events"]                       # [B, K, H, W, Ce]
     b = ev.shape[0]
@@ -112,9 +125,14 @@ def _package_snapshot_step_pre(net, cfg: ModelConfig, supers, pkg,
     gx_im = statenet.gru_x_gates(
         net, "image",
         statenet.encoder_features(net, cfg, to_nchw(pkg["image"]), "image"))
-    supers, snaps = _hside_package(net, cfg, supers, gx_ev, gx_im, sel_keys,
-                                   loop, allow_fused=allow_fused)
-    return supers, _stack(snaps)
+    supers, snaps = _hside_package(net, cfg, state.super_states, gx_ev,
+                                   gx_im, sel_keys, loop,
+                                   allow_fused=allow_fused)
+    return state._replace(super_states=supers), _stack(snaps)
+
+
+# the per-package entries of a sequence dict, [B, L, ...] each
+_SEQ_KEYS = ("events", "image", "times_events", "times_image")
 
 
 def _stack(snaps):
@@ -159,7 +177,7 @@ class ERGB2DepthRecurrent(nn.Module):
         return next(self.parameters()).device
 
     def init_state(self, batch: int, height: int, width: int
-                   ) -> Tuple[torch.Tensor, ...]:
+                   ) -> statenet.StateNetState:
         return statenet.init_state(self.cfg, batch, height, width,
                                    statenet.compute_dtype(self.cfg),
                                    self.device)
@@ -168,25 +186,22 @@ class ERGB2DepthRecurrent(nn.Module):
                         decode_keys: Optional[Sequence[str]] = None,
                         allow_fused: bool = False):
         """One datapackage: K event steps then the image step, decoding
-        after every step (model.py:176-217), with the full ConvGRU cell on
-        cat(x, h): the reference semantics.  decode_keys: decode only
-        these keys (all when None); the recurrence is unchanged.
-        allow_fused: let the fused_gru policy run the cells as kernel K5
-        (inference only).  Returns (state, {key: [B, H, W, 1]})."""
+        after every step (model.py:176-217), with the whole cells: the
+        reference semantics.  decode_keys: decode only these keys (all
+        when None); the recurrence is unchanged.  allow_fused: let the
+        fused_gru policy run the cells as kernels K4, K3 and K5 (inference
+        only).  Returns (state, {key: [B, H, W, 1]})."""
         _check_no_reset(pkg)
         net, cfg = self.statenetphasedrecurrent, self.cfg
-        supers = tuple(to_nchw(s) for s in state)
+        state = statenet.map_state(to_nchw, state)
         preds = {}
-        steps = [(f"events{k}", pkg["events"][:, k], "events")
-                 for k in range(event_loop_range(cfg))]
-        steps.append(("image", pkg["image"], "image"))
-        for key, x, modality in steps:
-            supers = statenet.forward_modality(net, cfg, to_nchw(x), supers,
-                                               modality, allow_fused)
+        for key, x, modality, t in _package_steps(cfg, pkg):
+            state = statenet.forward_modality(net, cfg, x, state, modality,
+                                              times=t, allow_fused=allow_fused)
             if decode_keys is None or key in decode_keys:
-                preds[key] = to_nhwc(
-                    statenet.forward_decoder_supers(net, cfg, supers))
-        return tuple(to_nhwc(s) for s in supers), preds
+                preds[key] = to_nhwc(statenet.forward_decoder_supers(
+                    net, cfg, statenet.decoder_view(cfg, state)))
+        return statenet.map_state(to_nhwc, state), preds
 
     def forward_package_batched_decode(self, state, pkg,
                                        allow_fused: bool = False):
@@ -197,12 +212,12 @@ class ERGB2DepthRecurrent(nn.Module):
         net, cfg = self.statenetphasedrecurrent, self.cfg
         keys = prediction_keys(cfg)
         b = pkg["image"].shape[0]
-        supers, snaps = _package_snapshot_step(
-            net, cfg, tuple(to_nchw(s) for s in state), pkg, keys,
+        state, snaps = _package_snapshot_step(
+            net, cfg, statenet.map_state(to_nchw, state), pkg, keys,
             allow_fused)
         pred = to_nhwc(statenet.forward_decoder_supers(net, cfg, snaps))
         preds = {key: pred[i * b:(i + 1) * b] for i, key in enumerate(keys)}
-        return tuple(to_nhwc(s) for s in supers), preds
+        return statenet.map_state(to_nhwc, state), preds
 
     @torch.inference_mode()
     def forward_sequence_precomputed(self, state, seq,
@@ -210,12 +225,15 @@ class ERGB2DepthRecurrent(nn.Module):
                                      chunk_cells: bool = False,
                                      stream_cells: bool = False):
         """L packages with the x side hoisted out of the recurrence
-        (model.py:396-594, its scan branch):
+        (model.py:396-594, its scan branch), for the configs of
+        statenet.supports_x_precompute:
 
-          1. one batched pass of head, encoders and ConvGRU x-side gate
-             convs over all L*K event steps and L frames;
-          2. the per-scale h-side completions, step by step, through the
-             fused_gru policy (ops/gru_hside.py);
+          1. one batched pass of head, encoders and the state
+             combination's x-side gate convs over all L*K event steps and
+             L frames;
+          2. the per-scale h-side completions (ConvGRU, or ConvLSTM with
+             (hidden, cell) supers), step by step, through the fused_gru
+             policy (ops/gru_hside.py: K1 or K3);
           3. one decoder pass over the snapshots of the selected keys.
 
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
@@ -232,6 +250,11 @@ class ERGB2DepthRecurrent(nn.Module):
                 "stream_cells (the gx-streaming cells K10) are not ported "
                 "yet: ROADMAP queue 2, K10")
         net, cfg = self.statenetphasedrecurrent, self.cfg
+        if not statenet.supports_x_precompute(cfg):
+            raise ValueError(
+                "forward_sequence_precomputed requires recurrent_block_type="
+                "'conv' and a convgru/convlstm state combination; got "
+                f"{cfg.recurrent_block_type}/{cfg.state_combination}")
         sel_keys = [k for k in prediction_keys(cfg)
                     if decode_keys is None or k in decode_keys]
         loop = event_loop_range(cfg)
@@ -251,7 +274,8 @@ class ERGB2DepthRecurrent(nn.Module):
                  for g in statenet.gru_x_gates(
                      net, "image",
                      statenet.encoder_features(net, cfg, im_flat, "image"))]
-        supers = tuple(to_nchw(s) for s in state)
+        state = statenet.map_state(to_nchw, state)
+        supers = state.super_states
         snaps: List[Tuple[torch.Tensor, ...]] = []
         for t in range(l):
             supers, pkg_snaps = _hside_package(
@@ -259,7 +283,8 @@ class ERGB2DepthRecurrent(nn.Module):
                 [g[t] for g in gx_im], sel_keys, loop, allow_fused=True)
             snaps.extend(pkg_snaps)
         preds = _decode_snapshots(net, cfg, snaps, sel_keys, l, b)
-        return tuple(to_nhwc(s) for s in supers), preds
+        return statenet.map_state(
+            to_nhwc, state._replace(super_states=supers)), preds
 
     def forward_sequence_batched_decode(
             self, state, seq, decode_keys: Optional[Sequence[str]] = None,
@@ -278,39 +303,44 @@ class ERGB2DepthRecurrent(nn.Module):
         package_precompute: batch each package's x side
         (_package_snapshot_step_pre; trainer.precompute_x).
         allow_fused: let the fused_gru policy pick the kernels: the h-side
-        cells with package_precompute, else the whole cell K5, which has
-        no gradient (it raises under autograd, as the JAX kernel has no
-        VJP).
+        cells with package_precompute, else the whole cells (K5, and the
+        phased and ConvLSTM cells K4 and K3), which have no gradient (they
+        raise under autograd).
 
-        seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
-        Returns (state, {key: [L, B, H, W, 1]}, or [L, B, H, W] when
-        squeeze_preds)."""
+        seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
+        and in the phased regime 'times_events' [B, L, K] and
+        'times_image' [B, L].  Returns (state, {key: [L, B, H, W, 1]}, or
+        [L, B, H, W] when squeeze_preds)."""
         net, cfg = self.statenetphasedrecurrent, self.cfg
         sel_keys = [k for k in prediction_keys(cfg)
                     if decode_keys is None or k in decode_keys]
+        if package_precompute and not statenet.supports_x_precompute(cfg):
+            raise ValueError(
+                "package_precompute requires recurrent_block_type='conv' and "
+                "a convgru/convlstm state combination")
         if package_precompute:
-            def step(supers, pkg):
-                return _package_snapshot_step_pre(net, cfg, supers, pkg,
+            def step(state, pkg):
+                return _package_snapshot_step_pre(net, cfg, state, pkg,
                                                   sel_keys, allow_fused)
         else:
-            def step(supers, pkg):
-                return _package_snapshot_step(net, cfg, supers, pkg, sel_keys,
+            def step(state, pkg):
+                return _package_snapshot_step(net, cfg, state, pkg, sel_keys,
                                               allow_fused)
 
         l, b = seq["image"].shape[1], seq["image"].shape[0]
-        supers = tuple(to_nchw(s) for s in state)
+        state = statenet.map_state(to_nchw, state)
         snaps = []
         for t in range(l):
-            pkg = {"events": seq["events"][:, t], "image": seq["image"][:, t]}
+            pkg = {k: seq[k][:, t] for k in _SEQ_KEYS if k in seq}
             if remat:
-                supers, stacked = checkpoint(step, supers, pkg,
-                                             use_reentrant=False,
-                                             preserve_rng_state=False)
+                state, stacked = checkpoint(step, state, pkg,
+                                            use_reentrant=False,
+                                            preserve_rng_state=False)
             else:
-                supers, stacked = step(supers, pkg)
+                state, stacked = step(state, pkg)
             snaps.append(stacked)
         preds = _decode_snapshots(net, cfg, snaps if sel_keys else [],
                                   sel_keys, l, b)
         if squeeze_preds:
             preds = {k: v[..., 0] for k, v in preds.items()}
-        return tuple(to_nhwc(s) for s in supers), preds
+        return statenet.map_state(to_nhwc, state), preds

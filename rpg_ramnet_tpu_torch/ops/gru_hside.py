@@ -38,6 +38,20 @@ per-package streaming path where no gx exists: kernel K5
 VJP).  Its weights are ``ConvGRU.full_weights``: w_ur [9, 2C, 2C] (update
 rows, then reset rows; x columns, then h columns), w_o [9, C, 2C], biases
 b_ur [2C] and b_o [C] in float32.
+
+``conv_lstm_hside`` is the ConvLSTM h-side cell for the ConvLSTM state
+combination: kernel K3 (``csrc/lstm_hside.cu``), the counterpart of
+``conv_lstm_hside_fused`` (``_run_lstm``/``_lstm_kernel``).  From the conv
+operand h, the cell input c and gx [B, H, W, 4C] in (in, remember, out,
+cell) order with the biases folded in (``ConvLSTM.x_gates``):
+
+    i, f, o = sigmoid(conv3x3(h, W4) + gx[i, f, o]);  u = tanh(... + gx[u])
+    c' = f * c + i * u;   h' = o * tanh(c')
+
+with w4 [9, 4C, C] = ``ConvLSTM.hside_weights``.  Inference only here: it
+raises under autograd (the VJP, ``_lstm_hside_bwd``, comes with training).
+The phased cell K4 is the same source with a template flag
+(``ops/phased_cell.py``).
 """
 from __future__ import annotations
 
@@ -83,6 +97,12 @@ def smem_bytes_full(tile_h: int, tile_w: int, C: int) -> int:
             + (tile_h + 2) * (tile_w + 2) * (C + 8)) * 2
 
 
+def smem_bytes_lstm(tile_h: int, tile_w: int, C: int) -> int:
+    """K3 and K4: the conv operand's tile with a 1-pixel halo, bf16, at
+    pitch C + 8."""
+    return (tile_h + 2) * (tile_w + 2) * (C + 8) * 2
+
+
 def pick_tile(B: int, H: int, W: int, C: int, smem=smem_bytes
               ) -> Optional[Tuple[int, int]]:
     """The largest tile that leaves room for two blocks per SM and still
@@ -113,6 +133,14 @@ def supports_full(h: torch.Tensor) -> bool:
     return (h.dtype == torch.bfloat16 and h.dim() == 4
             and h.shape[-1] % 16 == 0
             and pick_tile(*h.shape, smem=smem_bytes_full) is not None)
+
+
+def supports_lstm(h: torch.Tensor) -> bool:
+    """Whether K3 and K4 take this NHWC state: bf16, 4-D, C a multiple of
+    16 and a tile that fits their shared memory."""
+    return (h.dtype == torch.bfloat16 and h.dim() == 4
+            and h.shape[-1] % 16 == 0
+            and pick_tile(*h.shape, smem=smem_bytes_lstm) is not None)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -215,6 +243,32 @@ def conv_gru_full_plain(x: torch.Tensor, h: torch.Tensor,
     return to_nhwc((hf * (1.0 - z) + o * z).to(h.dtype)).contiguous()
 
 
+def lstm_gates_plain(h: torch.Tensor, gx: torch.Tensor, w4: torch.Tensor):
+    """The ConvLSTM gate activations (i, f, o, u), NCHW in the work dtype:
+    the conv of h with w4 (rounded to h's dtype) plus gx, then the
+    activations (the shared body of K3's and K4's plain versions)."""
+    C = h.shape[-1]
+    dt = _work_dtype(h)
+    g = (F.conv2d(to_nchw(h).to(dt), _oihw(w4.to(h.dtype), dt), None, 1, 1)
+         + to_nchw(gx).to(dt))
+    return (torch.sigmoid(g[:, :C]), torch.sigmoid(g[:, C:2 * C]),
+            torch.sigmoid(g[:, 2 * C:3 * C]), torch.tanh(g[:, 3 * C:]))
+
+
+def conv_lstm_hside_plain(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
+                          w4: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's arithmetic in plain PyTorch: gates and cell in the work dtype,
+    (h', c') rounded to h's dtype, h' from the unrounded c'.  The CPU
+    implementation of ``conv_lstm_hside`` and the kernel's oracle on the
+    card."""
+    i, f, o, u = lstm_gates_plain(h, gx, w4)
+    cell = f * to_nchw(c).to(i.dtype) + i * u
+    hid = o * torch.tanh(cell)
+    return (to_nhwc(hid.to(h.dtype)).contiguous(),
+            to_nhwc(cell.to(h.dtype)).contiguous())
+
+
 def hside_weight_grads(h: torch.Tensor, acts: torch.Tensor,
                        dgx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The h-side weight gradients, folded [9, 2C, C] and [9, C, C], as
@@ -271,7 +325,16 @@ _FULL_SIGNATURES = {
                                      _I, _I, _I, _P)),
     **_ERR,
 }
-SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full")   # csrc/<name>.cu
+_LSTM_SIGNATURES = {
+    "ramnet_lstm_hside_forward": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _L, _I, _I, _P)),
+    "ramnet_lstm_phased_forward": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _I, _I, _I, _I, _L, _I, _I,
+                                        ctypes.c_float, ctypes.c_float, _P)),
+    **_ERR,
+}
+# csrc/<name>.cu; lstm_hside holds K3 and the phased cell K4
+SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full", "lstm_hside")
 
 
 def library():
@@ -290,6 +353,12 @@ def library_full():
     """The built and loaded K5 library (nvcc on first use)."""
     from .. import kernels
     return kernels.library("gru_full", _FULL_SIGNATURES)
+
+
+def library_lstm():
+    """The built and loaded K3/K4 library (nvcc on first use)."""
+    from .. import kernels
+    return kernels.library("lstm_hside", _LSTM_SIGNATURES)
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -317,12 +386,12 @@ def _tile(h, smem) -> Tuple[int, int]:
     return tile
 
 
-def _gx_bstride(h, gx) -> int:
+def _gx_bstride(h, gx, gates: int = 3) -> int:
     B, H, W, C = h.shape
-    if gx.stride()[1:] != (W * 3 * C, 3 * C, 1):
+    if gx.stride()[1:] != (W * gates * C, gates * C, 1):
         raise ValueError("gx must be contiguous within each batch item "
                          f"(strides {gx.stride()})")
-    stride = gx.stride(0) if B > 1 else H * W * 3 * C
+    stride = gx.stride(0) if B > 1 else H * W * gates * C
     if stride % 8:
         raise ValueError("gx's batch stride must keep 16-byte alignment")
     return stride
@@ -410,6 +479,65 @@ def _launch_full(x, h, w_ur, w_o, b_ur, b_o):
     _raise_on(err, lib, "gru_full")
     conv_gru_full.launches += 1
     return out
+
+
+def check_lstm(h, c, gx, w4) -> None:
+    """Shapes and devices of a ConvLSTM cell's operands (K3, K4)."""
+    if h.dim() != 4:
+        raise ValueError(f"h must be NHWC [B, H, W, C], got {tuple(h.shape)}")
+    B, H, W, C = h.shape
+    if C % 8:
+        raise ValueError(f"C must be a multiple of 8, got {C}")
+    for name, t, shape in (("c", c, (B, H, W, C)), ("gx", gx, (B, H, W, 4 * C)),
+                           ("w4", w4, (9, 4 * C, C))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != h.device:
+            raise ValueError(f"{name} is on {t.device}, h on {h.device}")
+
+
+def raise_under_autograd(name: str, *tensors) -> None:
+    """The inference-only kernels have no gradient: raise when autograd
+    would need one."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no gradient yet (inference only; its "
+                           "backward comes with phased/ConvLSTM training, "
+                           "ROADMAP queue 1, item 17): run it under no_grad "
+                           "or inference_mode")
+
+
+def launch_lstm(h, c, gx, w4, phased=None):
+    """K3 (phased None: returns (h', c')) or K4 (phased = (tau, phase, t,
+    leak, ratio_on): returns (h_t, h_new, c_new)) on h's stream."""
+    h, c, w4 = h.contiguous(), c.contiguous(), w4.to(h.dtype).contiguous()
+    _check_launch(h, c, gx, w4)
+    B, H, W, C = h.shape
+    gx_bstride = _gx_bstride(h, gx, gates=4)
+    th, tw = _tile(h, smem_bytes_lstm)
+    lib = library_lstm()
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    if phased is None:
+        hid, cell = torch.empty_like(h), torch.empty_like(h)
+        err = lib.ramnet_lstm_hside_forward(
+            h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
+            hid.data_ptr(), cell.data_ptr(), B, H, W, C, gx_bstride, th, tw,
+            stream)
+        _raise_on(err, lib, "lstm_hside")
+        return hid, cell
+    tau, phase, t, leak, ratio_on = phased
+    t = t.contiguous()
+    if any(x.dtype != torch.float32 or not x.is_contiguous()
+           or x.data_ptr() % 16 for x in (tau, phase)) or t.dtype != torch.float32:
+        raise ValueError("tau, phase and t must be float32, tau and phase "
+                         "contiguous and 16-byte aligned")
+    outs = tuple(torch.empty_like(h) for _ in range(3))
+    err = lib.ramnet_lstm_phased_forward(
+        h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
+        tau.data_ptr(), phase.data_ptr(), t.data_ptr(),
+        *(o.data_ptr() for o in outs), B, H, W, C, gx_bstride, th, tw,
+        float(leak), float(ratio_on), stream)
+    _raise_on(err, lib, "lstm_phased")
+    return outs
 
 
 def _device_of(h: torch.Tensor) -> str:
@@ -514,7 +642,26 @@ def conv_gru_full(x: torch.Tensor, h: torch.Tensor, w_ur: torch.Tensor,
         return _launch_full(x, h, w_ur, w_o, b_ur, b_o)
 
 
+def conv_lstm_hside(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
+                    w4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h', c') [B, H, W, C] of the ConvLSTM h-side cell from NHWC h
+    (the conv operand), c (the cell input), gx [B, H, W, 4C] and
+    ``ConvLSTM.hside_weights`` (rounded to h's dtype): K3 for CUDA
+    tensors, ``conv_lstm_hside_plain`` for CPU tensors.  Inference only:
+    raises when autograd would need a gradient.
+    ``conv_lstm_hside.launches`` counts K3's launches."""
+    check_lstm(h, c, gx, w4)
+    raise_under_autograd("conv_lstm_hside", h, c, gx, w4)
+    if _device_of(h) == "cpu":
+        return conv_lstm_hside_plain(h, c, gx, w4)
+    with torch.cuda.device(h.device):
+        out = launch_lstm(h, c, gx, w4)
+    conv_lstm_hside.launches += 1
+    return out
+
+
 conv_gru_hside.launches = 0
 conv_gru_hside_res.launches = 0
 conv_gru_hside_bwd.launches = 0
 conv_gru_full.launches = 0
+conv_lstm_hside.launches = 0

@@ -77,6 +77,12 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
     in-scan branch raises NotImplementedError."""
     mcfg = cfg.model
     tr = cfg.trainer
+    if mcfg.use_phased_arch or mcfg.state_combination == "convlstm":
+        raise NotImplementedError(
+            "training the phased regime and the ConvLSTM state combination "
+            "is not ported yet (the K3/K4 residual kernels behind an "
+            "autograd.Function, timestamps in the loader): ROADMAP queue 1, "
+            "item 17")
     keys = supervised_keys(cfg)
     lc = tr.loss_composition
     weights = {k: (tr.loss_weights[list(lc).index(k)] if lc else 1.0)

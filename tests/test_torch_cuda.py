@@ -2,8 +2,10 @@
 the ConvGRUHside Function against their plain versions, the precomputed
 path with the kernel against the plain layer, one training step with
 the kernels against fused_gru='off', the whole-cell kernel K5 and the
-voxelizers K6 and K7 against their plain versions, and the per-package
-engine with K5 against fused_gru='off'.
+voxelizers K6 and K7 against their plain versions, the per-package
+engine with K5 against fused_gru='off', the ConvLSTM cells K3 and K4
+against their plain versions, and the phased per-package engine with the
+kernels against fused_gru='off'.
 
 They skip without a CUDA device.  This file imports nothing of JAX, so it
 also runs where JAX is absent:
@@ -266,3 +268,81 @@ def test_per_package_engine_kernel_vs_off(device):
             assert np.isfinite(p_on[k]).all()
             assert np.abs(p_on[k] - p_off[k]).max() <= 5e-2
     assert gru_hside.conv_gru_full.launches - n0 == 3 * 3 * 3
+
+
+def _lstm_inputs(shape, device, seed):
+    """bf16 NHWC (h, c), a strided gx, a ConvLSTM's folded weight and a
+    phased gate's [H, W, C] tau and phase on ``device``."""
+    from rpg_ramnet_tpu_torch.models.layers import ConvLSTM, PhasedLSTMGate
+    B, H, W, C = shape
+    gen = torch.Generator().manual_seed(seed)
+    cell = ConvLSTM(C, C)
+    torch.nn.init.uniform_(cell.Gates.weight, -0.05, 0.05, generator=gen)
+    gate = PhasedLSTMGate(C * H * W)
+    gate.reset_parameters_(gen)
+    with torch.no_grad():
+        w4 = cell.hside_weights(torch.bfloat16).to(device)
+        tau, phase = (v.to(device) for v in gate.nhwc(C, H, W))
+    h = (torch.rand(B, H, W, C, generator=gen) * 2 - 1).to(device, torch.bfloat16)
+    c = (torch.rand(B, H, W, C, generator=gen) * 4 - 2).to(device, torch.bfloat16)
+    gx = torch.randn(B, 2, H, W, 4 * C, generator=gen).to(device, torch.bfloat16)[:, 1]
+    t = (torch.rand(B, generator=gen) * 3).to(device)
+    return h, c, gx, w4, tau, phase, t
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 176, 64), (1, 64, 88, 128),
+                                   (1, 32, 44, 256), (3, 30, 45, 96),
+                                   (1, 32, 64, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_kernels_match_plain(device, shape):
+    """K3 (h', c') and K4 (h_t, h_new, c_new), bf16, one cell: within 2e-2
+    of their plain versions; the phased shapes (W=44 included), a ragged
+    one with B > 1 and a flagship one; gx a strided view."""
+    from rpg_ramnet_tpu_torch.ops import phased_cell
+    h, c, gx, w4, tau, phase, t = _lstm_inputs(shape, device, seed=shape[2])
+    n3, n4 = gru_hside.conv_lstm_hside.launches, phased_cell.conv_lstm_phased.launches
+    with torch.no_grad():
+        got3 = gru_hside.conv_lstm_hside(h, c, gx, w4)
+        want3 = gru_hside.conv_lstm_hside_plain(h, c, gx, w4)
+        got4 = phased_cell.conv_lstm_phased(h, c, gx, w4, tau, phase, t)
+        want4 = phased_cell.conv_lstm_phased_plain(h, c, gx, w4, tau, phase, t)
+    torch.cuda.synchronize()
+    assert (gru_hside.conv_lstm_hside.launches - n3,
+            phased_cell.conv_lstm_phased.launches - n4) == (1, 1)
+    for a, b in zip(got3 + got4, want3 + want4):
+        assert a.shape == shape
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2
+
+
+def test_phased_engine_kernels_vs_off(device):
+    """A small phased bf16 model with the ConvLSTM state combination:
+    fused_gru='on' runs K4 and K3 on every cell of the per-package engine
+    (3 scales x (K+1) per package each), and its predictions stay within
+    5e-2 of fused_gru='off'."""
+    import numpy as np
+    from rpg_ramnet_tpu_torch.eval import StreamingInference
+    from rpg_ramnet_tpu_torch.ops import phased_cell
+    cfg = ModelConfig(num_encoders=3, base_num_channels=16,
+                      recurrent_block_type="convlstm",
+                      state_combination="convlstm", use_phased_arch=True,
+                      spatial_resolution=(64, 96), num_residual_blocks=1,
+                      every_x_rgb_frame=2, compute_dtype="bfloat16",
+                      fused_gru="on")
+    model = ERGB2DepthRecurrent(cfg, device=device)
+    off = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="off"),
+                              device=device)
+    off.load_state_dict(model.state_dict())
+    rng = np.random.RandomState(0)
+    on_e, off_e = (StreamingInference(m, batched_decode=True) for m in (model, off))
+    n = (gru_hside.conv_lstm_hside.launches, phased_cell.conv_lstm_phased.launches)
+    for p in range(3):
+        pkg = {"events": rng.randn(2, 64, 96, 5).astype(np.float32),
+               "image": rng.rand(64, 96, 1).astype(np.float32),
+               "times_events": np.float32([0.1 * p, 0.1 * p + 0.03]),
+               "times_image": np.float32(0.1 * p + 0.05)}
+        p_on, p_off = on_e.step(pkg), off_e.step(pkg)
+        for k in p_on:
+            assert np.isfinite(p_on[k]).all()
+            assert np.abs(p_on[k] - p_off[k]).max() <= 5e-2
+    assert (gru_hside.conv_lstm_hside.launches - n[0],
+            phased_cell.conv_lstm_phased.launches - n[1]) == (3 * 3 * 3, 3 * 3 * 3)

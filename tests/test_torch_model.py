@@ -72,7 +72,7 @@ def _port_chunks(model, seq):
         state, preds = model.forward_sequence_precomputed(state, sub)
         outs.append({k: v.float().numpy() for k, v in preds.items()})
     preds = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
-    return [s.float().numpy() for s in state], preds
+    return [s.float().numpy() for s in state.super_states], preds
 
 
 def _package_loop(model, seq):
@@ -85,7 +85,8 @@ def _package_loop(model, seq):
             state, p = model.forward_package(state, pkg)
             for k, v in p.items():
                 preds.setdefault(k, []).append(v.numpy())
-    return [s.numpy() for s in state], {k: np.stack(v) for k, v in preds.items()}
+    return ([s.numpy() for s in state.super_states],
+            {k: np.stack(v) for k, v in preds.items()})
 
 
 def test_slice_f32_matches_jax_and_package_loop():
@@ -170,8 +171,11 @@ def test_chunked_streaming_carries_pads_and_resets():
     engine = SequenceScanInference(model, chunk=CHUNK, precompute_x=True)
     out = engine.run_sequence(seqs[0]["events"][0], seqs[0]["image"][0])
     np.testing.assert_allclose(out["image"][2], got[2][1]["image"], atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SequenceScanInference(model)   # float32 without precompute_x
+    # float32 without precompute_x: forward_sequence_batched_decode, the
+    # whole cells per step, as the JAX engine
+    plain = SequenceScanInference(model, chunk=CHUNK).run_sequence(
+        seqs[0]["events"][0], seqs[0]["image"][0])
+    np.testing.assert_allclose(plain["image"], out["image"], atol=ATOL_F32)
 
 
 def test_config_checkpoint_and_unported_paths(tmp_path):
