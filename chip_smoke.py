@@ -66,7 +66,21 @@ Phases, each printed as one JSON line:
                    under 'auto': K3's count, the first chunk against 'off';
  13. timing_phased phased per-package latency (median, p90) and maps/s,
                    phased chunked maps/s, K3 and K4 per cell against their
-                   plain versions.
+                   plain versions;
+ 14. kernel_chunked the chunked path's launch variants against their plain
+                   versions: K9 at the flagship scales 0+1 and a ragged B=2
+                   pair, K10a and K10b at the flagship shapes at a step of
+                   a 96-step buffer, K11 over S = 96 steps (K=5) at each
+                   flagship scale, every step against one plain cell on
+                   the kernel's previous step;
+ 15. chunked_variants the slice's two sequences through run_chunked_streaming
+                   with fused_pair='on', fused_stream='on' and both, then
+                   forward_sequence_precomputed(chunk_cells=True) over the
+                   same chunks: each variant's launch counts, finite
+                   predictions in [0, 1], the first chunk against
+                   fused_gru='off'; maps/s of every variant beside the
+                   default path (K1) and 'off' in mirrored turns; K9, K10a,
+                   K10b and K11 per launch against their plain versions.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -122,15 +136,25 @@ PHASED = {"recurrent_block_type": "convlstm", "state_combination": "convlstm",
           "use_phased_arch": True, "spatial_resolution": [PHASED_H, PHASED_W]}
 PHASED_CELLS = ((1, 128, 176, 64), (1, 64, 88, 128), (1, 32, 44, 256))
 RAGGED_LSTM_CELL = (3, 30, 45, 96)
+# the chunked path's launch variants (phases 14-15): a ragged pair of
+# scales with B=2 and strided gx views for K9, and the step of the 96-step
+# gx buffers that K10a and K10b read
+RAGGED_PAIR = ((2, 30, 45, 96), (2, 15, 23, 32))
+STREAM_STEP = 37
+VARIANTS = (("pair", {"fused_pair": "on"}), ("stream", {"fused_stream": "on"}),
+            ("stream_pair", {"fused_pair": "on", "fused_stream": "on"}))
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
 # bytes / C^2): K1 reads h, gx and writes h'; K1-res also acts; K2 reads
 # g, h, acts and writes dh, dgx; K5 reads x, h and writes h'; K3 reads h,
 # c, gx (4C) and writes h', c'; K4 also reads the f32 tau and phase and
-# writes three maps
+# writes three maps; a K11 step reads gx and writes its snapshot (h0 and
+# the events and image weights once per launch, counted per step here:
+# far below the operations' time)
 CELL_WORK = {"k1": (27, 10, 54), "k1_res": (27, 16, 54), "k2": (27, 18, 54),
-             "k5": (54, 6, 108), "k3": (36, 16, 72), "k4": (36, 26, 72)}
+             "k5": (54, 6, 108), "k3": (36, 16, 72), "k4": (36, 26, 72),
+             "k11_step": (27, 8, 108)}
 
 
 def emit(obj) -> None:
@@ -1057,6 +1081,221 @@ def phased_phases(cfg, K, dev, gen, seed, dataset, packages, first_chunk,
             "cells": lstm_cells}
 
 
+def chunk_cell_inputs(shape, dev, gen, seed, steps=None):
+    """bf16 on ``dev``: NHWC h in (-1, 1), gx ~ N(0, 1) (a strided view of
+    [B, 2, H, W, 3C] with steps None, else a [steps, H, W, 3C] buffer) and
+    two ConvGRUs' folded h-side weights (events, image) from seed."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import ConvGRU
+    B, Hc, Wc, C = shape
+    ws = []
+    for s in (seed, seed + 1):
+        cell = ConvGRU(C, C)
+        cell.reset_parameters_(torch.Generator().manual_seed(s))
+        with torch.no_grad():
+            ws.append(tuple(w.to(dev) for w in cell.hside_weights(torch.bfloat16)))
+    h = (torch.rand((B, Hc, Wc, C), device=dev, generator=gen) * 2 - 1).bfloat16()
+    if steps is None:
+        gx = torch.randn((B, 2, Hc, Wc, 3 * C), device=dev, generator=gen)
+        gx = gx.bfloat16()[:, 1]
+    else:
+        gx = torch.randn((steps, Hc, Wc, 3 * C), device=dev, generator=gen).bfloat16()
+    return h, gx, ws[0], ws[1]
+
+
+def chunk_teacher_forced(snaps, h0, gseq, w_ev, w_im, K):
+    """Every K11 step against one plain cell on the kernel's previous
+    snapshot (h0 before step 0): max abs error.  A stale or raced read of
+    h at any step shows here, and bf16 roundings do not compound."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    prev = torch.cat([h0, snaps[:-1]])
+    image = torch.arange(len(snaps), device=snaps.device) % (K + 1) == K
+    want = torch.empty_like(snaps)
+    want[~image] = gru_hside.conv_gru_hside_plain(prev[~image], gseq[~image], *w_ev)
+    want[image] = gru_hside.conv_gru_hside_plain(prev[image], gseq[image], *w_im)
+    return (snaps.float() - want.float()).abs().max().item()
+
+
+def chunked_kernel_check(dev, seed, K):
+    """K9 (flagship scales 0+1 and the ragged pair), K10a and K10b (the
+    flagship shapes, step STREAM_STEP of CHUNK*(K+1)-step buffers) and K11
+    (S = CHUNK*(K+1) steps per flagship scale) against their plain
+    versions: max abs errors; K11 per step on its own previous snapshot
+    (gated) and free-running against the plain loop (reported).  Returns
+    the errors and the flagship inputs for the timing."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_pair, gru_stream
+
+    def err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S = CHUNK * (K + 1)
+    out = {"k9": {}, "k10a": {}, "k11": {}}
+    for pair in (FLAGSHIP_CELLS[:2], RAGGED_PAIR):
+        args = []
+        for shape in pair:
+            h, gx, w, _ = chunk_cell_inputs(shape, dev, gen, seed + shape[-1])
+            args += [h, gx, *w]
+        with torch.no_grad():
+            got = gru_pair.conv_gru_hside_pair(*args)
+            want = gru_pair.conv_gru_hside_pair_plain(*args)
+        out["k9"]["+".join("x".join(map(str, sh)) for sh in pair)] = max(
+            err(a, b) for a, b in zip(got, want))
+    inputs = {shape: chunk_cell_inputs(shape, dev, gen, seed + shape[-1], S)
+              for shape in FLAGSHIP_CELLS}
+    sel = torch.tensor([STREAM_STEP], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for shape, (h, gseq, w, _) in inputs.items():
+            out["k10a"]["x".join(map(str, shape))] = err(
+                gru_stream.conv_gru_hside_stream(h, gseq, sel, *w),
+                gru_stream.conv_gru_hside_stream_plain(h, gseq, sel, *w))
+        (h0, g0, w0, _), (h1, g1, w1, _) = (inputs[c] for c in FLAGSHIP_CELLS[:2])
+        out["k10b"] = max(err(a, b) for a, b in zip(
+            gru_stream.conv_gru_hside_stream_pair(h0, g0, *w0, h1, g1, *w1, sel),
+            gru_stream.conv_gru_hside_stream_pair_plain(h0, g0, *w0, h1, g1, *w1,
+                                                        sel)))
+        for shape, (h, gseq, w_ev, w_im) in inputs.items():
+            snaps = gru_chunk.conv_gru_hside_chunk(w_ev, w_im, gseq, h, K)
+            grid = gru_chunk.conv_gru_hside_chunk.last_grid
+            out["k11"]["x".join(map(str, shape))] = {
+                "steps": S, "grid": grid,
+                "per_step_err": chunk_teacher_forced(snaps, h, gseq, w_ev, w_im, K),
+                "free_running_err": err(snaps, gru_chunk.conv_gru_hside_chunk_plain(
+                    w_ev, w_im, gseq, h, K))}
+    torch.cuda.synchronize()
+    worst = max(list(out["k9"].values()) + list(out["k10a"].values())
+                + [out["k10b"]] + [r["per_step_err"] for r in out["k11"].values()])
+    if not (worst <= CELL_TOL):
+        raise AssertionError(f"chunked-path kernels vs plain: {out}")
+    return out, inputs
+
+
+def time_chunked_kernels(dev, inputs, K, iters=50):
+    """Microseconds per launch of K9 and K10b (flagship scales 0+1), K10a
+    (each flagship shape) and K11 (each flagship scale, S steps) and of
+    their plain versions, in turns plain, kernel, kernel, plain."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_pair, gru_stream
+    sel = torch.tensor([STREAM_STEP], dtype=torch.int32, device=dev)
+    (h0, g0, w0, _), (h1, g1, w1, _) = (inputs[c] for c in FLAGSHIP_CELLS[:2])
+    # K9 reads step STREAM_STEP of the buffers as a [1, H, W, 3C] view
+    v0, v1 = g0[STREAM_STEP:STREAM_STEP + 1], g1[STREAM_STEP:STREAM_STEP + 1]
+    calls = {
+        "k9": (lambda: gru_pair.conv_gru_hside_pair(h0, v0, *w0, h1, v1, *w1),
+               lambda: gru_pair.conv_gru_hside_pair_plain(h0, v0, *w0, h1, v1, *w1),
+               iters),
+        "k10b": (lambda: gru_stream.conv_gru_hside_stream_pair(
+                     h0, g0, *w0, h1, g1, *w1, sel),
+                 lambda: gru_stream.conv_gru_hside_stream_pair_plain(
+                     h0, g0, *w0, h1, g1, *w1, sel), iters)}
+    for shape, (h, gseq, w, w_im) in inputs.items():
+        key = "x".join(map(str, shape))
+        calls[f"k10a_{key}"] = (
+            lambda h=h, gseq=gseq, w=w: gru_stream.conv_gru_hside_stream(
+                h, gseq, sel, *w),
+            lambda h=h, gseq=gseq, w=w: gru_stream.conv_gru_hside_stream_plain(
+                h, gseq, sel, *w), iters)
+        calls[f"k11_{key}"] = (
+            lambda h=h, gseq=gseq, w=w, w_im=w_im: gru_chunk.conv_gru_hside_chunk(
+                w, w_im, gseq, h, K),
+            lambda h=h, gseq=gseq, w=w, w_im=w_im: gru_chunk.conv_gru_hside_chunk_plain(
+                w, w_im, gseq, h, K), 3)
+    rows = {}
+    with torch.no_grad():
+        for name, (kern, plain, n) in calls.items():
+            p1, k1, k2, p2 = (cuda_time_us(f, n) for f in (plain, kern, kern, plain))
+            rows[name] = {"kernel_us": min(k1, k2), "plain_us": min(p1, p2),
+                          "us_runs_p_k_k_p": [p1, k1, k2, p2]}
+    return rows
+
+
+def chunk_cells_model(model):
+    """A model of the same config and weights whose
+    forward_sequence_precomputed runs the chunk_cells branch, so that
+    run_chunked_streaming (its prefetch, padding and per-sequence state)
+    drives K11 over the same chunks as the other variants; the port has
+    no engine flag for it, as the JAX package has none."""
+    import functools
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    twin = ERGB2DepthRecurrent(model.cfg, device=model.device)
+    twin.load_state_dict(model.state_dict())
+    twin.forward_sequence_precomputed = functools.partial(
+        ERGB2DepthRecurrent.forward_sequence_precomputed, twin,
+        chunk_cells=True)
+    return twin
+
+
+def chunked_variants(cfg, model, dataset, packages, first_chunk, preds_off,
+                     off_model, K):
+    """Phase 15: the slice's dataset through run_chunked_streaming under each
+    of VARIANTS and with forward_sequence_precomputed(chunk_cells=True),
+    each with every launch count set to 0 just before and read just after:
+    the counts against the derived ones, finite predictions in [0, 1], the
+    first chunk against fused_gru='off' (preds_off); then maps/s of every
+    variant, the default path and 'off' in mirrored turns."""
+    import torch
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_hside, gru_pair, gru_stream
+    counters = {"k1": gru_hside.conv_gru_hside, "k9": gru_pair.conv_gru_hside_pair,
+                "k10a": gru_stream.conv_gru_hside_stream,
+                "k10b": gru_stream.conv_gru_hside_stream_pair,
+                "k11": gru_chunk.conv_gru_hside_chunk}
+    n = cfg.num_encoders
+    steps = (K + 1) * packages           # modality steps of the run
+    expected = {"pair": {"k9": steps, "k1": (n - 2) * steps},
+                "stream": {"k10a": n * steps},
+                "stream_pair": {"k10b": steps, "k10a": (n - 2) * steps},
+                "chunk_cells": {"k11": n * packages // CHUNK}}
+    models = {"off": off_model, "default": model}
+    for name, over in VARIANTS:
+        models[name] = ERGB2DepthRecurrent(dataclasses.replace(cfg, **over),
+                                           device=model.device)
+        models[name].load_state_dict(model.state_dict())
+    models["chunk_cells"] = chunk_cells_model(model)
+
+    def run(name, keep=None):
+        return run_slice(models[name], dataset, keep)
+
+    out = {}
+    for name in list(expected):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        preds, stats = run(name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        want = {k: expected[name].get(k, 0) for k in counters}
+        err = max_pred_diff({g: preds[g] for g in first_chunk},
+                            {g: preds_off[g] for g in first_chunk})
+        out[name] = {"launches": got, "expected": want,
+                     "first_chunk_max_abs_err_vs_off": err,
+                     "first_run_s": wall, **stats}
+        if got != want or stats["items"] != sum(SEQ_LENGTHS) \
+                or stats["nonfinite"] or stats["out_of_range"] \
+                or not (err <= SLICE_TOL):
+            raise AssertionError(f"chunked variant {name}: {out[name]}")
+    # one untimed run of each first: without it every variant ran slower
+    # in the first half of the turns than in the second
+    order = ["off", "default", "pair", "stream", "stream_pair", "chunk_cells"]
+    for name in order:
+        run(name, keep=set())
+    walls = {k: [] for k in order}
+    for name in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(name, keep=set())
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    maps = packages * (K + 1)
+    timing = {"maps": maps, "turns": order + order[::-1],
+              "maps_per_s": {k: maps / min(v) for k, v in walls.items()},
+              "wall_s": walls}
+    return out, timing
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1070,7 +1309,7 @@ def main() -> int:
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.core.config import ModelConfig
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
-    from rpg_ramnet_tpu_torch.ops import gru_hside, voxel
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_hside, gru_pair, voxel
     from rpg_ramnet_tpu_torch.utils import require_cuda
 
     # 1. device and build (one nvcc per source, all at once)
@@ -1082,6 +1321,8 @@ def main() -> int:
     gru_hside.library_bwd()
     gru_hside.library_full()
     gru_hside.library_lstm()
+    gru_pair.library()
+    gru_chunk.library()
     voxel.library()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln for ln in log.splitlines()
@@ -1270,8 +1511,29 @@ def main() -> int:
     ph = phased_phases(cfg, K, dev, gen, args.seed, dataset, packages,
                        first_chunk, smi)
 
+    # 14. the chunked path's launch variants against their plain versions
+    chunk_errs, chunk_inputs = chunked_kernel_check(dev, args.seed, K)
+    emit({"phase": "kernel_chunked", "cell_tol": CELL_TOL, "K": K,
+          "stream_step": STREAM_STEP, "ragged_pair": RAGGED_PAIR,
+          "max_abs_err": chunk_errs})
+
+    # 15. the variants through the chunked engine and chunk_cells
+    variants, variant_timing = chunked_variants(
+        cfg, model, dataset, packages, first_chunk, preds_off, off_model, K)
+    chunk_cells = time_chunked_kernels(dev, chunk_inputs, K)
+    del chunk_inputs
+    check_no_jax()
+    emit({"phase": "chunked_variants", "config": CONFIG, "H": H, "W": W,
+          "chunk": CHUNK, "K": K, "sequences": list(SEQ_LENGTHS),
+          "packages_processed": packages, "tol": SLICE_TOL,
+          "variants": variants, "timing": variant_timing,
+          "cells": chunk_cells, "nvidia_smi": smi})
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     vus = vox_times["us"]
+    flagship_keys = ["x".join(map(str, c)) for c in FLAGSHIP_CELLS]
+    S = CHUNK * (K + 1)
+    k11_bound = cell_bound("k11_step", FLAGSHIP_CELLS)
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None):
@@ -1325,7 +1587,30 @@ def main() -> int:
               max(ph["k4_errs"].values()),
               sum(r["k4_kernel_us"] for r in ph["cells"]) / 1e3,
               sum(r["k4_plain_us"] for r in ph["cells"]) / 1e3,
-              cell_bound("k4", PHASED_CELLS))]})
+              cell_bound("k4", PHASED_CELLS)),
+        entry("gru_pair", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_pair.py:69",
+              variants["pair"]["launches"]["k9"], max(chunk_errs["k9"].values()),
+              chunk_cells["k9"]["kernel_us"] / 1e3,
+              chunk_cells["k9"]["plain_us"] / 1e3,
+              cell_bound("k1", FLAGSHIP_CELLS[:2])),
+        entry("gru_stream", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_stream.py:102",
+              variants["stream"]["launches"]["k10a"],
+              max(chunk_errs["k10a"].values()),
+              sum(chunk_cells[f"k10a_{k}"]["kernel_us"] for k in flagship_keys) / 1e3,
+              sum(chunk_cells[f"k10a_{k}"]["plain_us"] for k in flagship_keys) / 1e3,
+              cell_bound("k1", FLAGSHIP_CELLS)),
+        entry("gru_stream_pair", "gru_cells.cu",
+              "rpg_ramnet_tpu/ops/gru_stream.py:138",
+              variants["stream_pair"]["launches"]["k10b"], chunk_errs["k10b"],
+              chunk_cells["k10b"]["kernel_us"] / 1e3,
+              chunk_cells["k10b"]["plain_us"] / 1e3,
+              cell_bound("k1", FLAGSHIP_CELLS[:2])),
+        entry("gru_chunk", "gru_chunk.cu", "rpg_ramnet_tpu/ops/gru_chunk.py:155",
+              variants["chunk_cells"]["launches"]["k11"],
+              max(r["per_step_err"] for r in chunk_errs["k11"].values()),
+              sum(chunk_cells[f"k11_{k}"]["kernel_us"] for k in flagship_keys) / 1e3,
+              sum(chunk_cells[f"k11_{k}"]["plain_us"] for k in flagship_keys) / 1e3,
+              (S * k11_bound[0], k11_bound[1]))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

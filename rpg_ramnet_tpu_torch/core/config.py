@@ -42,6 +42,13 @@ class ModelConfig:
     # 'auto' = CUDA bf16 tensors of a supported shape, 'on' = always (raises
     # where the kernel cannot run), 'off' = the plain layer
     fused_gru: str = "auto"
+    # the JAX package's opt-in h-side launch structures on the precomputed
+    # path; only 'on' enables them.  fused_pair: scales 0 and 1 in one
+    # launch (ops/gru_pair.py, K9) where the fused cells run; fused_stream:
+    # the gx-streaming cells (ops/gru_stream.py, K10a, K10b; batch 1),
+    # whatever fused_gru says
+    fused_pair: str = "auto"
+    fused_stream: str = "auto"
     # the JAX package's decoder switches: 'on' selects the fused
     # upsample-conv kernel (K8) or the composed transposed-conv layers,
     # neither ported yet (statenet.check_supported raises); 'auto' and

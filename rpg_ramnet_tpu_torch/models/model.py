@@ -32,6 +32,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
+from ..ops import gru_chunk, gru_hside, gru_stream
 from ..utils.layout import to_nchw, to_nhwc
 from . import statenet
 
@@ -140,16 +141,107 @@ def _stack(snaps):
     return tuple(torch.cat(scale, dim=0) for scale in zip(*snaps))
 
 
-def _decode_snapshots(net, cfg: ModelConfig, snaps, sel_keys: Sequence[str],
-                      l: int, b: int) -> Dict[str, torch.Tensor]:
-    """One decoder pass over all snapshots, ordered (package, key, batch),
-    regrouped into per-key [L, B, H, W, 1] predictions."""
-    if not snaps:
-        return {}
-    flat = _stack(snaps)
+def _decode_flat(net, cfg: ModelConfig, flat, sel_keys: Sequence[str],
+                 l: int, b: int) -> Dict[str, torch.Tensor]:
+    """One decoder pass over per-scale stacks of snapshots, ordered
+    (package, key, batch), regrouped into per-key [L, B, H, W, 1]
+    predictions."""
     pred = to_nhwc(statenet.forward_decoder_supers(net, cfg, flat))
     grouped = pred.reshape((l, len(sel_keys), b) + pred.shape[1:])
     return {key: grouped[:, i] for i, key in enumerate(sel_keys)}
+
+
+def _decode_snapshots(net, cfg: ModelConfig, snaps, sel_keys: Sequence[str],
+                      l: int, b: int) -> Dict[str, torch.Tensor]:
+    """_decode_flat of a list of per-step snapshots."""
+    if not snaps:
+        return {}
+    return _decode_flat(net, cfg, _stack(snaps), sel_keys, l, b)
+
+
+def _steps_nhwc(g: torch.Tensor) -> torch.Tensor:
+    """x-side gates [..., gC, h, w] (NCHW-shaped views) -> [..., h, w, gC]."""
+    return g.movedim(-3, -1)
+
+
+def _chunk_cells(net, cfg: ModelConfig, supers, gx_ev, gx_im,
+                 sel_keys: Sequence[str], l: int, b: int, loop: int,
+                 reset: bool):
+    """forward_sequence_precomputed's chunk_cells branch (model.py:469-507):
+    per scale, all l*(K+1) h-side steps in one launch of K11
+    (ops/gru_chunk.py); the snapshots of sel_keys are gathered from the
+    trajectory.  supers: NHWC.  Returns the new supers and the
+    predictions."""
+    if (cfg.state_combination != "convgru" or b != 1 or reset
+            or not all(gru_chunk.supports(s) for s in supers)):
+        raise ValueError(
+            "chunk_cells requires convgru state combination, batch 1, no "
+            "reset mask, and bf16 super states within the kernel's shared "
+            "memory")
+    sel_pos = [loop if k == "image" else int(k[len("events"):])
+               for k in sel_keys]
+    combs_ev, combs_im = (net.branch(m)[2] for m in ("events", "image"))
+    new_supers, flat = [], []
+    for i, h0 in enumerate(supers):
+        gev = _steps_nhwc(gx_ev[i])[:, 0]            # [l, K, h, w, 3C]
+        gim = _steps_nhwc(gx_im[i])[:, 0]            # [l, h, w, 3C]
+        gseq = torch.cat([gev, gim[:, None]], dim=1).reshape(
+            (l * (loop + 1),) + gev.shape[2:])
+        snaps = gru_chunk.conv_gru_hside_chunk(
+            combs_ev[i].recurrent_block.hside_weights(h0.dtype),
+            combs_im[i].recurrent_block.hside_weights(h0.dtype), gseq,
+            h0.contiguous(), K=loop)
+        new_supers.append(snaps[-1:].clone())
+        per_pkg = snaps.view((l, loop + 1) + snaps.shape[1:])
+        if sel_pos != list(range(loop + 1)):
+            per_pkg = per_pkg[:, sel_pos]
+        flat.append(to_nchw(per_pkg.reshape((-1,) + snaps.shape[1:])))
+    preds = (_decode_flat(net, cfg, tuple(flat), sel_keys, l, b)
+             if sel_keys else {})
+    return tuple(new_supers), preds
+
+
+def _stream_cells(net, cfg: ModelConfig, supers, gx_ev, gx_im,
+                  sel_keys: Sequence[str], l: int, b: int, loop: int,
+                  reset: bool):
+    """forward_sequence_precomputed's stream_cells branch (model.py:
+    509-570): the per-step h-side cells read their gx blocks from the
+    chunk's buffers by step index (K10a, ops/gru_stream.py), scales 0 and 1
+    in one launch with fused_pair='on' (K10b); fused_gru is not read.
+    supers: NHWC.  Returns the new supers and the predictions."""
+    if (cfg.state_combination != "convgru" or b != 1 or reset
+            or not all(gru_hside.supports(s) for s in supers)):
+        raise ValueError(
+            "stream_cells requires convgru state combination, batch 1, no "
+            "reset mask, and fused-cell-supported (bf16, aligned) super "
+            "states")
+    combs_ev, combs_im = (net.branch(m)[2] for m in ("events", "image"))
+    supers = tuple(s.contiguous() for s in supers)
+    plans = [gru_stream.StreamPlan(
+                 combs_ev[i].recurrent_block.hside_weights(h.dtype),
+                 combs_im[i].recurrent_block.hside_weights(h.dtype),
+                 _steps_nhwc(gx_ev[i]), _steps_nhwc(gx_im[i]), h)
+             for i, h in enumerate(supers)]
+    pair = cfg.fused_pair == "on" and len(plans) >= 2
+
+    def one_step(supers, t, k):
+        if pair:
+            h0, h1 = gru_stream.stream_pair_step(plans[0], plans[1],
+                                                 supers[0], supers[1], t, k)
+            return (h0, h1) + tuple(p.step(h, t, k) for p, h in
+                                    zip(plans[2:], supers[2:]))
+        return tuple(p.step(h, t, k) for p, h in zip(plans, supers))
+
+    snaps = []
+    for t in range(l):
+        for k in range(loop):
+            supers = one_step(supers, t, k)
+            if f"events{k}" in sel_keys:
+                snaps.append(tuple(to_nchw(s) for s in supers))
+        supers = one_step(supers, t, None)
+        if "image" in sel_keys:
+            snaps.append(tuple(to_nchw(s) for s in supers))
+    return supers, _decode_snapshots(net, cfg, snaps, sel_keys, l, b)
 
 
 class ERGB2DepthRecurrent(nn.Module):
@@ -223,17 +315,28 @@ class ERGB2DepthRecurrent(nn.Module):
     def forward_sequence_precomputed(self, state, seq,
                                      decode_keys: Optional[Sequence[str]] = None,
                                      chunk_cells: bool = False,
-                                     stream_cells: bool = False):
+                                     stream_cells: Optional[bool] = None):
         """L packages with the x side hoisted out of the recurrence
-        (model.py:396-594, its scan branch), for the configs of
+        (model.py:396-594), for the configs of
         statenet.supports_x_precompute:
 
           1. one batched pass of head, encoders and the state
              combination's x-side gate convs over all L*K event steps and
              L frames;
           2. the per-scale h-side completions (ConvGRU, or ConvLSTM with
-             (hidden, cell) supers), step by step, through the fused_gru
-             policy (ops/gru_hside.py: K1 or K3);
+             (hidden, cell) supers), in one of three launch structures:
+             - chunk_cells: all L*(K+1) steps of a scale in one launch of
+               the resident-state kernel K11 (ops/gru_chunk.py);
+             - stream_cells (None: cfg.fused_stream == 'on'): per step,
+               cells reading their gx blocks from the chunk's buffers by
+               step index, K10a, or K10b for scales 0 and 1 with
+               fused_pair='on' (ops/gru_stream.py);
+             - else step by step through the fused_gru policy
+               (statenet.combine_hside: K1, K9 with fused_pair='on', or
+               K3);
+             the first two raise ValueError unless the state combination
+             is ConvGRU, the batch 1, no reset mask is given and the
+             kernels take the super states;
           3. one decoder pass over the snapshots of the selected keys.
 
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
@@ -241,14 +344,6 @@ class ERGB2DepthRecurrent(nn.Module):
         Returns (state, {key: [L, B, H, W, 1]}).  Equals forward_package up
         to float summation order.
         """
-        if chunk_cells:
-            raise NotImplementedError(
-                "chunk_cells (the whole-chunk resident-state kernel K11) is "
-                "not ported yet: ROADMAP queue 2, K11")
-        if stream_cells:
-            raise NotImplementedError(
-                "stream_cells (the gx-streaming cells K10) are not ported "
-                "yet: ROADMAP queue 2, K10")
         net, cfg = self.statenetphasedrecurrent, self.cfg
         if not statenet.supports_x_precompute(cfg):
             raise ValueError(
@@ -274,6 +369,14 @@ class ERGB2DepthRecurrent(nn.Module):
                  for g in statenet.gru_x_gates(
                      net, "image",
                      statenet.encoder_features(net, cfg, im_flat, "image"))]
+        if stream_cells is None:
+            stream_cells = cfg.fused_stream == "on"
+        if chunk_cells or stream_cells:
+            branch = _chunk_cells if chunk_cells else _stream_cells
+            supers, preds = branch(net, cfg, state.super_states, gx_ev, gx_im,
+                                   sel_keys, l, b, loop, "reset" in seq)
+            return state._replace(super_states=supers), preds
+        _check_no_reset(seq)
         state = statenet.map_state(to_nchw, state)
         supers = state.super_states
         snaps: List[Tuple[torch.Tensor, ...]] = []

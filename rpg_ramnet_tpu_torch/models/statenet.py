@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..core.config import ModelConfig
-from ..ops import gru_hside
+from ..ops import gru_hside, gru_pair
 from ..utils.layout import to_nchw, to_nhwc
 from .layers import (ConvGRU, ConvLayer, PhasedLSTMGate, RecurrentConvLayer,
                      RecurrentPhasedConvLayer, ResidualBlock,
@@ -81,7 +81,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if not cfg.use_upsample_conv or cfg.fast_upsample:
         unported.append("transposed-conv and fast-upsample decoders "
                         "(ROADMAP queue 1, item 12)")
-    for name in ("fused_gru", "fused_decoder", "composed_decoder"):
+    for name in ("fused_gru", "fused_pair", "fused_stream", "fused_decoder",
+                 "composed_decoder"):
         if getattr(cfg, name) not in ("auto", "on", "off"):
             raise ValueError(f"{name} must be auto/on/off, got "
                              f"{getattr(cfg, name)!r}")
@@ -286,10 +287,25 @@ def combine_hside(net: StateNet, cfg: ModelConfig, supers: Sequence,
     h-side kernels (ops/gru_hside.py: K1, or K3 for the ConvLSTM, which
     has no gradient yet).  Under autograd the GRU cell is the
     ``ConvGRUHside`` Function on the float32 master weights, folded anew
-    per call; otherwise K1 on the cached folded weights in h's dtype."""
+    per call; otherwise K1 on the cached folded weights in h's dtype.
+    With ``fused_pair='on'``, where the policy takes the fused cell for
+    scales 0 and 1 and ``gru_pair.supports_pair`` holds, those two run as
+    one launch (K9, inference only; statenet.py:416-431), the rest per
+    scale."""
     _, _, combs = net.branch(modality)
     out = []
-    for c, g, s in zip(combs, gx_scales, supers):
+    if (allow_fused and cfg.state_combination == "convgru"
+            and cfg.fused_pair == "on" and len(supers) >= 2
+            and use_fused_cell(cfg, supers[0])
+            and use_fused_cell(cfg, supers[1])
+            and gru_pair.supports_pair(to_nhwc(supers[0]),
+                                       to_nhwc(supers[1]))):
+        args = []
+        for c, g, s in zip(combs[:2], gx_scales[:2], supers[:2]):
+            args += [to_nhwc(s), to_nhwc(g),
+                     *c.recurrent_block.hside_weights(s.dtype)]
+        out = [to_nchw(h) for h in gru_pair.conv_gru_hside_pair(*args)]
+    for c, g, s in list(zip(combs, gx_scales, supers))[len(out):]:
         cell = c.recurrent_block
         if cfg.state_combination == "convlstm":
             if allow_fused and use_fused_cell(cfg, s[0], "lstm"):

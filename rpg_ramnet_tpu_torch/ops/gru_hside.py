@@ -333,8 +333,11 @@ _LSTM_SIGNATURES = {
                                         ctypes.c_float, ctypes.c_float, _P)),
     **_ERR,
 }
-# csrc/<name>.cu; lstm_hside holds K3 and the phased cell K4
-SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full", "lstm_hside")
+# csrc/<name>.cu; lstm_hside holds K3 and the phased cell K4, gru_cells the
+# pair and gx-streaming cells K9, K10a, K10b (ops/gru_pair.py,
+# ops/gru_stream.py), gru_chunk the whole-chunk cell K11 (ops/gru_chunk.py)
+SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full", "lstm_hside",
+           "gru_cells", "gru_chunk")
 
 
 def library():
@@ -496,14 +499,15 @@ def check_lstm(h, c, gx, w4) -> None:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
 
 
-def raise_under_autograd(name: str, *tensors) -> None:
+def raise_under_autograd(name: str, *tensors,
+                         why: str = "its backward comes with phased/ConvLSTM "
+                                    "training, ROADMAP queue 1, item 17"
+                         ) -> None:
     """The inference-only kernels have no gradient: raise when autograd
-    would need one."""
+    would need one.  why: where the gradient comes from, or why none."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no gradient yet (inference only; its "
-                           "backward comes with phased/ConvLSTM training, "
-                           "ROADMAP queue 1, item 17): run it under no_grad "
-                           "or inference_mode")
+        raise RuntimeError(f"{name} has no gradient yet (inference only; "
+                           f"{why}): run it under no_grad or inference_mode")
 
 
 def launch_lstm(h, c, gx, w4, phased=None):

@@ -4,8 +4,13 @@ path with the kernel against the plain layer, one training step with
 the kernels against fused_gru='off', the whole-cell kernel K5 and the
 voxelizers K6 and K7 against their plain versions, the per-package
 engine with K5 against fused_gru='off', the ConvLSTM cells K3 and K4
-against their plain versions, and the phased per-package engine with the
-kernels against fused_gru='off'.
+against their plain versions, the phased per-package engine with the
+kernels against fused_gru='off', the chunked path's launch variants (the
+pair cell K9, the gx-streaming cells K10a and K10b, the resident-state
+cell K11) against their plain versions, K11 on many steps and tiles with a
+grid smaller than the tiles (a stale or raced read of h shows at its
+step), an oversized cooperative grid raising, and the precomputed path
+under each variant against fused_gru='off'.
 
 They skip without a CUDA device.  This file imports nothing of JAX, so it
 also runs where JAX is absent:
@@ -346,3 +351,148 @@ def test_phased_engine_kernels_vs_off(device):
             assert np.abs(p_on[k] - p_off[k]).max() <= 5e-2
     assert (gru_hside.conv_lstm_hside.launches - n[0],
             phased_cell.conv_lstm_phased.launches - n[1]) == (3 * 3 * 3, 3 * 3 * 3)
+
+
+def _gru_weights(C, seed, device):
+    cell = ConvGRU(C, C)
+    cell.reset_parameters_(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        return tuple(w.to(device) for w in cell.hside_weights(torch.bfloat16))
+
+
+def _h_gx(shape, device, gen, steps=None):
+    """bf16 h in (-1, 1) and gx ~ N(0, 1): a strided [B, H, W, 3C] view, or
+    a [steps, H, W, 3C] buffer."""
+    B, H, W, C = shape
+    h = (torch.rand(B, H, W, C, device=device, generator=gen) * 2 - 1).bfloat16()
+    if steps is None:
+        gx = torch.randn(B, 2, H, W, 3 * C, device=device, generator=gen)
+        return h, gx.bfloat16()[:, 1]
+    return h, torch.randn(steps, H, W, 3 * C, device=device, generator=gen).bfloat16()
+
+
+@pytest.mark.parametrize("pair", [((1, 128, 256, 64), (1, 64, 128, 128)),
+                                  ((2, 30, 45, 96), (2, 15, 23, 32))],
+                         ids=["flagship", "ragged"])
+def test_pair_kernel_matches_plain(device, pair):
+    """K9: both scales within 2e-2 of two plain cells, one launch; gx as
+    strided views."""
+    from rpg_ramnet_tpu_torch.ops import gru_pair
+    gen = torch.Generator(device=device).manual_seed(0)
+    args = []
+    for shape in pair:
+        args += [*_h_gx(shape, device, gen), *_gru_weights(shape[-1], shape[-1], device)]
+    n0 = gru_pair.conv_gru_hside_pair.launches
+    with torch.no_grad():
+        got = gru_pair.conv_gru_hside_pair(*args)
+        want = gru_pair.conv_gru_hside_pair_plain(*args)
+    torch.cuda.synchronize()
+    assert gru_pair.conv_gru_hside_pair.launches == n0 + 1
+    for a, b, shape in zip(got, want, pair):
+        assert a.shape == shape
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2
+
+
+def test_stream_kernels_match_plain(device):
+    """K10a and K10b at a step of a 12-step buffer, and at the buffer's
+    last step, within 2e-2 of their plain versions."""
+    from rpg_ramnet_tpu_torch.ops import gru_stream
+    gen = torch.Generator(device=device).manual_seed(1)
+    (h0, g0), (h1, g1) = (_h_gx(s, device, gen, steps=12)
+                          for s in ((1, 64, 128, 64), (1, 32, 64, 128)))
+    w0, w1 = _gru_weights(64, 3, device), _gru_weights(128, 4, device)
+    n = (gru_stream.conv_gru_hside_stream.launches,
+         gru_stream.conv_gru_hside_stream_pair.launches)
+    with torch.no_grad():
+        for step in (7, 11):
+            sel = torch.tensor([step], dtype=torch.int32, device=device)
+            got = gru_stream.conv_gru_hside_stream(h0, g0, sel, *w0)
+            want = gru_stream.conv_gru_hside_stream_plain(h0, g0, sel, *w0)
+            assert (got.float() - want.float()).abs().max().item() <= 2e-2
+            pair = gru_stream.conv_gru_hside_stream_pair(h0, g0, *w0, h1, g1, *w1, sel)
+            want = gru_stream.conv_gru_hside_stream_pair_plain(h0, g0, *w0, h1, g1,
+                                                               *w1, sel)
+            for a, b in zip(pair, want):
+                assert (a.float() - b.float()).abs().max().item() <= 2e-2
+    torch.cuda.synchronize()
+    assert (gru_stream.conv_gru_hside_stream.launches - n[0],
+            gru_stream.conv_gru_hside_stream_pair.launches - n[1]) == (2, 2)
+
+
+@pytest.mark.parametrize("blocks", [0, 5], ids=["co_resident", "5_blocks"])
+def test_chunk_kernel_every_step_matches_plain(device, blocks):
+    """K11 over 48 steps (K=5) at the flagship scale 0 (128 tiles), with
+    the grid the kernel picks and with 5 blocks looping over the tiles:
+    every snapshot within 2e-2 of one plain cell on the kernel's previous
+    snapshot, so a stale or raced read of h at any step shows; and the
+    trajectory within 2e-2 of the plain loop."""
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_hside
+    K, S = 5, 48
+    gen = torch.Generator(device=device).manual_seed(2)
+    h0, gseq = _h_gx((1, 128, 256, 64), device, gen, steps=S)
+    w_ev, w_im = _gru_weights(64, 5, device), _gru_weights(64, 6, device)
+    n0 = gru_chunk.conv_gru_hside_chunk.launches
+    with torch.no_grad():
+        snaps = gru_chunk.conv_gru_hside_chunk(w_ev, w_im, gseq, h0, K, blocks=blocks)
+        grid = gru_chunk.conv_gru_hside_chunk.last_grid
+        prev = torch.cat([h0, snaps[:-1]])
+        image = torch.arange(S, device=device) % (K + 1) == K
+        want = torch.empty_like(snaps)
+        want[~image] = gru_hside.conv_gru_hside_plain(prev[~image], gseq[~image], *w_ev)
+        want[image] = gru_hside.conv_gru_hside_plain(prev[image], gseq[image], *w_im)
+        free = gru_chunk.conv_gru_hside_chunk_plain(w_ev, w_im, gseq, h0, K)
+    torch.cuda.synchronize()
+    assert gru_chunk.conv_gru_hside_chunk.launches == n0 + 1
+    assert grid == (blocks or 128)
+    assert (snaps.float() - want.float()).abs().max().item() <= 2e-2
+    assert (snaps.float() - free.float()).abs().max().item() <= 2e-2
+
+
+def test_chunk_kernel_oversized_grid_raises(device):
+    """A cooperative grid larger than the blocks that fit at once fails the
+    launch, and the wrapper raises (no fallback); the next launch runs."""
+    from rpg_ramnet_tpu_torch.ops import gru_chunk
+    gen = torch.Generator(device=device).manual_seed(3)
+    h0, gseq = _h_gx((1, 32, 64, 256), device, gen, steps=6)
+    w = _gru_weights(256, 7, device)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="cooperative"):
+        gru_chunk.conv_gru_hside_chunk(w, w, gseq, h0, 5, blocks=1 << 20)
+    with torch.no_grad():
+        got = gru_chunk.conv_gru_hside_chunk(w, w, gseq, h0, 5)
+        want = gru_chunk.conv_gru_hside_chunk_plain(w, w, gseq, h0, 5)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+def test_chunked_variants_kernels_vs_off(device):
+    """A small flagship-shaped bf16 model on the precomputed path: each
+    launch variant launches its kernels the derived number of times, and
+    its predictions stay within 5e-2 of fused_gru='off'."""
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_pair, gru_stream
+    cfg = ModelConfig(num_encoders=3, base_num_channels=16,
+                      recurrent_block_type="conv", state_combination="convgru",
+                      num_residual_blocks=1, every_x_rgb_frame=2,
+                      compute_dtype="bfloat16")
+    off = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="off"), device=device)
+    gen = torch.Generator().manual_seed(4)
+    seq = {"events": torch.randn(1, 3, 2, 64, 96, 5, generator=gen).to(device),
+           "image": torch.rand(1, 3, 64, 96, 1, generator=gen).to(device)}
+    _, p_off = off.forward_sequence_precomputed(off.init_state(1, 64, 96), seq)
+    counters = (gru_hside.conv_gru_hside, gru_pair.conv_gru_hside_pair,
+                gru_stream.conv_gru_hside_stream, gru_stream.conv_gru_hside_stream_pair,
+                gru_chunk.conv_gru_hside_chunk)
+    steps = 3 * 3                      # L * (K + 1)
+    for over, kw, want in (({"fused_pair": "on"}, {}, (steps, steps, 0, 0, 0)),
+                           ({"fused_stream": "on"}, {}, (0, 0, 3 * steps, 0, 0)),
+                           ({"fused_stream": "on", "fused_pair": "on"}, {},
+                            (0, 0, steps, steps, 0)),
+                           ({}, {"chunk_cells": True}, (0, 0, 0, 0, 3))):
+        model = ERGB2DepthRecurrent(dataclasses.replace(cfg, **over), device=device)
+        model.load_state_dict(off.state_dict())
+        n = [c.launches for c in counters]
+        _, p = model.forward_sequence_precomputed(model.init_state(1, 64, 96), seq, **kw)
+        torch.cuda.synchronize()
+        assert tuple(c.launches - m for c, m in zip(counters, n)) == want, over
+        for k in p_off:
+            assert torch.isfinite(p[k]).all()
+            assert (p[k] - p_off[k]).abs().max().item() <= 5e-2, (over, k)

@@ -187,9 +187,12 @@ def test_config_checkpoint_and_unported_paths(tmp_path):
         statenet.check_supported(dataclasses.replace(
             cfg, recurrent_block_type="convlstm"))
     _, _, model = _models()
-    with pytest.raises(NotImplementedError, match="K11"):
+    # the resident-state kernel K11 takes bf16 states only (the JAX
+    # package's ValueError)
+    seq = {k: torch.from_numpy(v) for k, v in _sequence(n=1).items()}
+    with pytest.raises(ValueError, match="chunk_cells"):
         model.forward_sequence_precomputed(
-            model.init_state(1, H, W), {}, chunk_cells=True)
+            model.init_state(1, H, W), seq, chunk_cells=True)
     path = tmp_path / "model.pth.tar"
     torch.save({"state_dict": model.state_dict()}, path)
     other = ERGB2DepthRecurrent(model.cfg, generator=torch.Generator().manual_seed(1))
@@ -229,6 +232,8 @@ def test_port_imports_no_jax():
         "import rpg_ramnet_tpu_torch.eval.filters, rpg_ramnet_tpu_torch.eval.writers\n"
         "import rpg_ramnet_tpu_torch.ops.voxel, rpg_ramnet_tpu_torch.ops.event_preprocess\n"
         "import rpg_ramnet_tpu_torch.utils.event_readers, rpg_ramnet_tpu_torch.options\n"
+        "import rpg_ramnet_tpu_torch.ops.gru_pair, rpg_ramnet_tpu_torch.ops.gru_stream\n"
+        "import rpg_ramnet_tpu_torch.ops.gru_chunk\n"
         "from rpg_ramnet_tpu_torch.core.config import Config, TrainerConfig\n"
         "from rpg_ramnet_tpu_torch.train.optim import make_optimizer\n"
         "from rpg_ramnet_tpu_torch.train.train_step import make_train_step\n"
@@ -243,6 +248,9 @@ def test_port_imports_no_jax():
         "       'image': torch.rand(1, 2, 16, 32, 1)}\n"
         "_, p = m.forward_sequence_precomputed(m.init_state(1, 16, 32), seq)\n"
         "assert p['image'].shape == (2, 1, 16, 32, 1)\n"
+        "for kw in ({'chunk_cells': True}, {'stream_cells': True}):\n"
+        "    _, q = m.forward_sequence_precomputed(m.init_state(1, 16, 32), seq, **kw)\n"
+        "    assert (q['image'] - p['image']).abs().max() < 5e-2\n"
         "c = Config(model=cfg, trainer=TrainerConfig(\n"
         "    deferred_decode=True, precompute_x=True, sequence_length=2))\n"
         "step = make_train_step(c, m, make_optimizer(c, m.parameters()))\n"
