@@ -17,8 +17,10 @@ event log; and the phased irregular-timestamp regime (BASELINE config 3:
 the same recipe with phased ConvLSTM encoders and the ConvLSTM state
 combination, set in code as the JAX bench does) at 256x352 through the eval
 entry point, per package and chunked, with the flagship's ConvLSTM
-state-combination variant on the chunked engine.  It imports nothing of
-JAX or of the JAX package.
+state-combination variant on the chunked engine; and the decoder's opt-in
+formulations (fused_decoder='on': kernel K8; composed_decoder='on')
+through the chunked engine and the eval entry point's per-package engine.
+It imports nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel);
@@ -80,7 +82,20 @@ Phases, each printed as one JSON line:
                    predictions in [0, 1], the first chunk against
                    fused_gru='off'; maps/s of every variant beside the
                    default path (K1) and 'off' in mirrored turns; K9, K10a,
-                   K10b and K11 per launch against their plain versions.
+                   K10b and K11 per launch against their plain versions;
+ 16. kernel_decoder, decoder  K8 and the composed layers against the
+                   two-stage layers at the three flagship decoder layers
+                   (decode batches 96 and 6, with and without the skip)
+                   and a ragged layer; the slice's sequences through
+                   run_chunked_streaming with fused_decoder='on' (K8's
+                   launch count) and with composed_decoder='on', the first
+                   chunk against fused_gru='off'; the eval entry point's
+                   per-package engine with fused_decoder='on' (K8's count)
+                   against the two-stage layers; maps/s of the two-stage
+                   layers, K8 and the composed layers in mirrored turns
+                   and their chunk's forward alone (ms per chunk),
+                   per-package latency with K8, and per layer K8, the
+                   two-stage and the composed layer at both batches.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -143,6 +158,20 @@ RAGGED_PAIR = ((2, 30, 45, 96), (2, 15, 23, 32))
 STREAM_STEP = 37
 VARIANTS = (("pair", {"fused_pair": "on"}), ("stream", {"fused_stream": "on"}),
             ("stream_pair", {"fused_pair": "on", "fused_stream": "on"}))
+# the decoder (phase 16): the flagship decoder layers at 256x512 as (C,
+# Cout, H, W) of the layer's input (layer 0 takes no skip), the decode
+# batches of the chunked engine (CHUNK packages x (K+1) maps) and of the
+# per-package engine (K+1 maps), one ragged layer that K8's gate admits
+# (odd H and W, 16-channel slabs, three n8 tiles), the decoder options,
+# and the per-package split of the eval entry point's run (cut: the data)
+DECODER_LAYERS = ((256, 128, 32, 64), (128, 64, 64, 128), (64, 32, 128, 256))
+DECODER_BATCHES = (96, 6)
+RAGGED_DECODER = (3, 48, 24, 13, 27)            # B, C, Cout, H, W
+DECODER_TOL = 2e-2   # max abs error over the plain version's max magnitude
+DECODER_VARIANTS = (("k8", {"fused_decoder": "on"}),
+                    ("composed", {"composed_decoder": "on"}))
+TWO_STAGE = {"composed_decoder": "off"}        # neither option, at any batch
+DECODER_SEQ_LENGTHS = (6, 3)
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -155,6 +184,21 @@ PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 CELL_WORK = {"k1": (27, 10, 54), "k1_res": (27, 16, 54), "k2": (27, 18, 54),
              "k5": (54, 6, 108), "k3": (36, 16, 72), "k4": (36, 26, 72),
              "k11_step": (27, 8, 108)}
+
+
+def decoder_bound(batch):
+    """(least ms, 'operations' or 'bytes') of the three flagship decoder
+    layers at one decode batch, summed: per layer the larger of its least
+    MACs (the bilinear 2x composed into four 4x4 phase kernels: 16*C*Cout
+    per 2x pixel) at the bf16 dense peak and its bytes (x, the skip of
+    layers 1 and 2, out, each once; the weights) at the HBM rate."""
+    by = {"operations": 0.0, "bytes": 0.0}
+    for i, (C, Cout, h, w) in enumerate(DECODER_LAYERS):
+        t_ops = 2 * 4 * h * w * 16 * C * Cout * batch / PEAK_FLOPS
+        io = batch * h * w * C * 2 * (2 if i else 1) + batch * 4 * h * w * Cout * 2
+        t_bytes = (io + 25 * C * Cout * 2) / HBM_BYTES_PER_S
+        by["operations" if t_ops >= t_bytes else "bytes"] += max(t_ops, t_bytes)
+    return sum(by.values()) * 1e3, max(by, key=by.get)
 
 
 def emit(obj) -> None:
@@ -1296,6 +1340,220 @@ def chunked_variants(cfg, model, dataset, packages, first_chunk, preds_off,
     return out, timing
 
 
+def decoder_inputs(shape, dev, seed):
+    """A bf16 UpsampleConvLayer (torch's conv init) on ``dev`` and NHWC x,
+    skip ~ N(0, 1) of shape (B, C, Cout, H, W)."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import UpsampleConvLayer, init_conv_
+    B, C, Cout, h, w = shape
+    layer = UpsampleConvLayer(C, Cout, 5, padding=2)
+    init_conv_(layer.conv2d, torch.Generator().manual_seed(seed))
+    layer.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, skip = (torch.randn((B, h, w, C), device=dev, generator=gen).bfloat16()
+               for _ in range(2))
+    return layer, x, skip
+
+
+def decoder_kernel_check(dev, seed):
+    """K8 against its plain version (the two-stage layer in bf16; gated)
+    and against the float32 plain version (reported), and the composed
+    layer against the two-stage layer (gated), at the flagship layers at
+    both decode batches with and without the skip, and the ragged layer:
+    max abs error over the plain version's max magnitude."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import upsample_conv_layer_composed
+    from rpg_ramnet_tpu_torch.ops import upsample_conv
+    from rpg_ramnet_tpu_torch.utils.layout import to_nchw
+    shapes = [(B,) + layer for B in DECODER_BATCHES for layer in DECODER_LAYERS]
+    rows = {}
+    for shape in shapes + [RAGGED_DECODER]:
+        layer, x, skip = decoder_inputs(shape, dev, seed + shape[1])
+        w, b = layer.conv2d.weight, layer.conv2d.bias
+        for sk in (None, skip):
+            with torch.no_grad():
+                got = upsample_conv.upsample_conv_fused(layer, x, sk)
+                want = upsample_conv.upsample_conv_fused_plain(w, b, x, sk)
+                want32 = upsample_conv.upsample_conv_fused_plain(
+                    w, b, x.float(), None if sk is None else sk.float())
+                s = to_nchw(x if sk is None else x + sk)
+                comp = rel_err(upsample_conv_layer_composed(layer, s), layer(s))
+            torch.cuda.synchronize()
+            key = "x".join(map(str, shape)) + ("_skip" if sk is not None else "")
+            rows[key] = {"k8_rel_err": rel_err(got, want),
+                         "k8_rel_err_vs_f32": rel_err(got, want32),
+                         "composed_rel_err": comp}
+            del got, want, want32, s
+    worst = max(max(r["k8_rel_err"], r["composed_rel_err"]) for r in rows.values())
+    if not (worst <= DECODER_TOL):
+        raise AssertionError(f"K8 / composed vs the two-stage layer: {rows}")
+    return rows
+
+
+def time_decoder_layers(dev, seed):
+    """Microseconds per flagship decoder layer at both decode batches, the
+    skip sum included where the decoder sums one: K8, the two-stage layer
+    (K8's plain version) and the composed layer, in turns two-stage, K8,
+    composed, composed, K8, two-stage; and whether the composed layers
+    beat the two-stage ones summed over the three layers at batch 96 (the
+    rule behind statenet.composed_auto)."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import upsample_conv_layer_composed
+    from rpg_ramnet_tpu_torch.ops import upsample_conv
+    from rpg_ramnet_tpu_torch.utils.layout import to_nchw
+    rows = []
+    for B in DECODER_BATCHES:
+        for i, (C, Cout, h, w) in enumerate(DECODER_LAYERS):
+            layer, x, skip = decoder_inputs((B, C, Cout, h, w), dev, seed + i)
+            sk = skip if i else None
+            wt, bias = layer.conv2d.weight, layer.conv2d.bias
+            calls = {
+                "k8": lambda: upsample_conv.upsample_conv_fused(layer, x, sk),
+                "two_stage": lambda: upsample_conv.upsample_conv_fused_plain(
+                    wt, bias, x, sk),
+                "composed": lambda: upsample_conv_layer_composed(
+                    layer, to_nchw(x if sk is None else x + sk))}
+            iters = 10 if B > 16 else 50
+            us = {k: [] for k in calls}
+            with torch.no_grad():
+                for name in ("two_stage", "k8", "composed", "composed", "k8",
+                             "two_stage"):
+                    us[name].append(cuda_time_us(calls[name], iters))
+            rows.append({"batch": B, "layer": i, "C": C, "Cout": Cout,
+                         "H": h, "W": w, "skip": bool(i),
+                         **{f"{k}_us": min(v) for k, v in us.items()},
+                         "us_runs": us})
+    at96 = [r for r in rows if r["batch"] == 96]
+    summed = {k: sum(r[f"{k}_us"] for r in at96)
+              for k in ("k8", "two_stage", "composed")}
+    return rows, {"sum_us_batch96": summed,
+                  "composed_beats_two_stage_at_96":
+                      summed["composed"] < summed["two_stage"]}
+
+
+def time_chunk_forward(models, order, K, seed, chunks=3):
+    """ms per 16-package chunk of forward_sequence_precomputed alone
+    (inputs on the card, the 96 maps copied to the host), without the
+    engine's host work, per model in mirrored turns of ``chunks`` chunks
+    after a warm-up chunk each."""
+    import torch
+    dev = models[order[0]].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seq = {"events": torch.randn((1, CHUNK, K, H, W, 5), device=dev,
+                                 generator=gen),
+           "image": torch.rand((1, CHUNK, H, W, 1), device=dev,
+                               generator=gen)}
+
+    def run(m):
+        _, preds = m.forward_sequence_precomputed(m.init_state(1, H, W), seq)
+        return [v.cpu() for v in preds.values()]
+
+    for name in order:
+        run(models[name])
+    ms = {k: [] for k in order}
+    for name in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            run(models[name])
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / chunks)
+    return ms
+
+
+def write_decoder_data(root, K, seed):
+    """The eval entry point's split for phase 16: DECODER_SEQ_LENGTHS
+    packages at HxW."""
+    from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
+    for s, n in enumerate(DECODER_SEQ_LENGTHS):
+        generate_eventscape_sequence(os.path.join(root, "test", f"seq{s:02d}"),
+                                     n_frames=K * n, height=H, width=W,
+                                     seed=seed + s)
+
+
+def decoder_engines(cfg, model, dataset, packages, first_chunk, preds_off,
+                    K, seed):
+    """Phase 16's engines: the slice's dataset through run_chunked_streaming
+    under each of DECODER_VARIANTS, each with every launch count set to 0
+    just before and read just after (K8 three per chunk with
+    fused_decoder='on', none with the composed layers; K1 as the default
+    path), finite predictions in [0, 1], the first chunk against
+    fused_gru='off' (preds_off); maps/s of both and of the two-stage
+    layers (TWO_STAGE) in mirrored turns after a warm-up run each; then
+    the eval entry point's per-package engine with fused_decoder='on' (K8
+    three per package) against the two-stage layers, and its latency."""
+    import torch
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside, upsample_conv
+    counters = {"k8": upsample_conv.upsample_conv_fused,
+                "k1": gru_hside.conv_gru_hside}
+    models = {}
+    for name, over in DECODER_VARIANTS + (("two_stage", TWO_STAGE),):
+        models[name] = ERGB2DepthRecurrent(dataclasses.replace(cfg, **over),
+                                           device=model.device)
+        models[name].load_state_dict(model.state_dict())
+    n = cfg.num_encoders
+    out = {}
+    for name, _ in DECODER_VARIANTS:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        preds, stats = run_slice(models[name], dataset)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        want = {"k8": n * packages // CHUNK if name == "k8" else 0,
+                "k1": 3 * (K + 1) * packages}
+        err = max_pred_diff({g: preds[g] for g in first_chunk},
+                            {g: preds_off[g] for g in first_chunk})
+        out[name] = {"launches": got, "expected": want,
+                     "first_chunk_max_abs_err_vs_off": err,
+                     "first_run_s": wall, **stats}
+        if got != want or stats["items"] != sum(SEQ_LENGTHS) \
+                or stats["nonfinite"] or stats["out_of_range"] \
+                or not (err <= SLICE_TOL):
+            raise AssertionError(f"decoder variant {name}: {out[name]}")
+    order = ["two_stage", "k8", "composed"]
+    for name in order:
+        run_slice(models[name], dataset, keep=set())
+    walls = {k: [] for k in order}
+    for name in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_slice(models[name], dataset, keep=set())
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    maps = packages * (K + 1)
+    timing = {"maps": maps, "turns": order + order[::-1],
+              "maps_per_s": {k: maps / min(v) for k, v in walls.items()},
+              "wall_s": walls,
+              "chunk_forward_ms": time_chunk_forward(models, order, K, seed)}
+
+    n_pkg = sum(DECODER_SEQ_LENGTHS)
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_decoder_") as tmp:
+        write_decoder_data(tmp, K, seed + 11)
+        files = {m: stream_files(tmp, model, "auto", over, f"decoder_{m}")
+                 for m, over in (("k8", {"fused_decoder": "on"}),
+                                 ("two_stage", TWO_STAGE))}
+        preds_k8, [k8_launches], k8_wall, k8_stats = run_eval_entry(
+            *files["k8"], tmp, [upsample_conv.upsample_conv_fused])
+        preds_two, [two_launches], two_wall, _ = run_eval_entry(
+            *files["two_stage"], tmp, [upsample_conv.upsample_conv_fused])
+    per_package = {"packages": n_pkg, "items": len(preds_k8),
+                   "k8_launches": k8_launches,
+                   "expected": n * n_pkg, "two_stage_launches": two_launches,
+                   "max_abs_err_vs_two_stage": max_pred_diff(preds_k8, preds_two),
+                   "wall_s_k8": k8_wall, "wall_s_two_stage": two_wall,
+                   **k8_stats}
+    if (k8_launches != n * n_pkg or two_launches or len(preds_k8) != n_pkg
+            or k8_stats["nonfinite"] or k8_stats["out_of_range"]
+            or not per_package["max_abs_err_vs_two_stage"] <= SLICE_TOL):
+        raise AssertionError(f"per-package engine with K8: {per_package}")
+    latency = time_per_package({"on": models["k8"], "off": models["two_stage"]},
+                               K, seed)
+    return out, timing, per_package, latency
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1309,14 +1567,15 @@ def main() -> int:
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.core.config import ModelConfig
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
-    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_hside, gru_pair, voxel
+    from rpg_ramnet_tpu_torch.ops import (gru_chunk, gru_hside, gru_pair,
+                                          upsample_conv, voxel)
     from rpg_ramnet_tpu_torch.utils import require_cuda
 
     # 1. device and build (one nvcc per source, all at once)
     dev = require_cuda()
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    kernels.build(gru_hside.SOURCES + voxel.SOURCES)
+    kernels.build(gru_hside.SOURCES + voxel.SOURCES + upsample_conv.SOURCES)
     gru_hside.library()
     gru_hside.library_bwd()
     gru_hside.library_full()
@@ -1324,6 +1583,7 @@ def main() -> int:
     gru_pair.library()
     gru_chunk.library()
     voxel.library()
+    upsample_conv.library()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -1529,6 +1789,28 @@ def main() -> int:
           "variants": variants, "timing": variant_timing,
           "cells": chunk_cells, "nvidia_smi": smi})
 
+    # 16. the decoder: K8 and the composed layers against the two-stage
+    #     layers, through the chunked and the per-package engines
+    dec_errs = decoder_kernel_check(dev, args.seed)
+    emit({"phase": "kernel_decoder", "tol": DECODER_TOL,
+          "layers": DECODER_LAYERS, "batches": DECODER_BATCHES,
+          "ragged": RAGGED_DECODER, "rel_err": dec_errs})
+    dec_variants, dec_timing, dec_per_package, dec_latency = decoder_engines(
+        cfg, model, dataset, packages, first_chunk, preds_off, K, args.seed)
+    dec_layers, composed_rule = time_decoder_layers(dev, args.seed)
+    check_no_jax()
+    emit({"phase": "decoder", "config": CONFIG, "H": H, "W": W,
+          "chunk": CHUNK, "K": K, "sequences": list(SEQ_LENGTHS),
+          "packages_processed": packages, "tol": SLICE_TOL,
+          "variants": dec_variants, "timing": dec_timing,
+          "per_package_entry": dec_per_package,
+          "per_package_latency_k8_vs_two_stage": dec_latency,
+          "layers_us": dec_layers, "composed_auto_rule": composed_rule,
+          "macs_per_map_per_layer": {"16_tap": 4 * 32 * 64 * 16 * 256 * 128,
+                                     "25_tap": 4 * 32 * 64 * 25 * 256 * 128},
+          "bound_ms_batch96": decoder_bound(96),
+          "bound_ms_batch6": decoder_bound(6), "nvidia_smi": smi})
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     vus = vox_times["us"]
     flagship_keys = ["x".join(map(str, c)) for c in FLAGSHIP_CELLS]
@@ -1610,7 +1892,15 @@ def main() -> int:
               max(r["per_step_err"] for r in chunk_errs["k11"].values()),
               sum(chunk_cells[f"k11_{k}"]["kernel_us"] for k in flagship_keys) / 1e3,
               sum(chunk_cells[f"k11_{k}"]["plain_us"] for k in flagship_keys) / 1e3,
-              (S * k11_bound[0], k11_bound[1]))]})
+              (S * k11_bound[0], k11_bound[1])),
+        entry("upsample_conv", "upsample_conv.cu",
+              "rpg_ramnet_tpu/ops/upsample_conv.py:203",
+              dec_variants["k8"]["launches"]["k8"],
+              max(r["k8_rel_err"] for r in dec_errs.values()),
+              composed_rule["sum_us_batch96"]["k8"] / 1e3,
+              composed_rule["sum_us_batch96"]["two_stage"] / 1e3,
+              decoder_bound(96),
+              composed_rule["sum_us_batch96"]["composed"] / 1e3)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,10 +6,13 @@ Counterpart of ``rpg_ramnet_tpu/eval/inference.py``:
   default and the live ``depth_stream.py`` path runs one modality at a
   time (``step_modality``), on ``forward_package(_batched_decode)``;
 - ``SequenceScanInference`` and ``run_chunked_streaming`` (``test.py
-  --scan_chunk``) on the precomputed path
+  --scan_chunk``): with batched_decode (``run_chunked_streaming``'s
+  default) on the precomputed path
   (``ERGB2DepthRecurrent.forward_sequence_precomputed``) where
   ``_resolve_precompute`` takes it, else on
-  ``forward_sequence_batched_decode`` (the phased regime, float32 configs);
+  ``forward_sequence_batched_decode`` (the phased regime, float32
+  configs); without it (``SequenceScanInference``'s default) on
+  ``forward_sequence``, bit-identical to per-package streaming;
 - ``CropParameters``, ``optimal_crop_size`` and ``optimal_scale``.
 
 Behaviour kept from the JAX engines: the recurrent state is carried
@@ -103,7 +106,10 @@ class StreamingInference:
     batched decoder pass (``forward_package_batched_decode``; identical
     outputs), unless decode_keys restricts them.  As in the JAX engine,
     only ``cfg.fused_gru == 'on'`` lets ``step`` run the cells as kernel
-    K5; ``step_modality`` never does.  Runs under inference_mode."""
+    K5, ``step`` lets the fused_decoder policy run decoder layers as
+    kernel K8 and, for ``cfg.composed_decoder == 'on'`` only, the composed
+    layers; ``step_modality`` does none of these.  Runs under
+    inference_mode."""
 
     def __init__(self, model: ERGB2DepthRecurrent, decode_keys=None,
                  batched_decode: bool = False, spatial_mesh=None):
@@ -116,6 +122,7 @@ class StreamingInference:
         self.decode_keys = tuple(decode_keys) if decode_keys else None
         self.batched_decode = batched_decode and self.decode_keys is None
         self.allow_fused = model.cfg.fused_gru == "on"
+        self.allow_composed = model.cfg.composed_decoder == "on"
         self._state = None
 
     def reset(self, batch: int, height: int, width: int) -> None:
@@ -134,13 +141,14 @@ class StreamingInference:
                                        dev).reshape(shape)
         if self._state is None:
             self.reset(1, *batched["image"].shape[1:3])
+        flags = dict(allow_fused=self.allow_fused, allow_fused_decoder=True,
+                     allow_composed=self.allow_composed)
         if self.batched_decode:
             self._state, preds = self.model.forward_package_batched_decode(
-                self._state, batched, allow_fused=self.allow_fused)
+                self._state, batched, **flags)
         else:
             self._state, preds = self.model.forward_package(
-                self._state, batched, decode_keys=self.decode_keys,
-                allow_fused=self.allow_fused)
+                self._state, batched, decode_keys=self.decode_keys, **flags)
         return {k: v[0].float().cpu().numpy() for k, v in preds.items()}
 
     @torch.inference_mode()
@@ -176,17 +184,27 @@ def _resolve_precompute(cfg: ModelConfig,
 
 
 def _chunk_forward(model: ERGB2DepthRecurrent,
-                   precompute_x: Optional[bool], decode_keys=None):
-    """forward(state, seq) of the chunked engines: the precomputed path
-    where ``_resolve_precompute`` takes it, else
+                   precompute_x: Optional[bool], decode_keys=None,
+                   batched_decode: bool = True):
+    """forward(state, seq) of the chunked engines, routed as JAX
+    inference.py:197-212 and :263-274: with batched_decode, the
+    precomputed path where ``_resolve_precompute`` takes it, else
     forward_sequence_batched_decode with the cells' kernels allowed only
-    for fused_gru='on' (inference.py:263-271 of the JAX package)."""
-    if _resolve_precompute(model.cfg, precompute_x):
+    for fused_gru='on', the fused_decoder policy (K8) allowed, and the
+    composed layers only for composed_decoder='on'; without
+    batched_decode, forward_sequence (per-step decodes, no kernels)."""
+    cfg = model.cfg
+    if batched_decode and _resolve_precompute(cfg, precompute_x):
         return lambda state, seq: model.forward_sequence_precomputed(
             state, seq, decode_keys=decode_keys)
-    fused = model.cfg.fused_gru == "on"
-    return lambda state, seq: model.forward_sequence_batched_decode(
-        state, seq, decode_keys=decode_keys, allow_fused=fused)
+    if batched_decode:
+        flags = dict(allow_fused=cfg.fused_gru == "on",
+                     allow_fused_decoder=True,
+                     allow_composed=cfg.composed_decoder == "on")
+        return lambda state, seq: model.forward_sequence_batched_decode(
+            state, seq, decode_keys=decode_keys, **flags)
+    return lambda state, seq: model.forward_sequence(
+        state, seq, decode_keys=decode_keys)
 
 
 def _pad_time(x: np.ndarray, length: int) -> np.ndarray:
@@ -205,13 +223,21 @@ def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class SequenceScanInference:
-    """Whole-sequence inference, ``chunk`` packages per forward call."""
+    """Whole-sequence inference, ``chunk`` packages per forward call.
+
+    batched_decode: defer the chunk's decodes to one decoder pass over all
+    chunk*(K+1) snapshots (the precomputed path or
+    forward_sequence_batched_decode, ``_chunk_forward``); off by default,
+    as in JAX, which runs forward_sequence: bit-identical to per-package
+    streaming (``StreamingInference``)."""
 
     def __init__(self, model: ERGB2DepthRecurrent, chunk: int = 32,
+                 batched_decode: bool = False,
                  precompute_x: Optional[bool] = None):
         self.model = model
         self.chunk = chunk
-        self._fwd = _chunk_forward(model, precompute_x)
+        self._fwd = _chunk_forward(model, precompute_x,
+                                   batched_decode=batched_decode)
 
     @torch.inference_mode()
     def run_sequence(self, events: np.ndarray, image: np.ndarray
@@ -238,18 +264,18 @@ class SequenceScanInference:
 @torch.inference_mode()
 def run_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
                           chunk: int = 16, on_prediction=None,
-                          decode_keys=None,
+                          batched_decode: bool = True, decode_keys=None,
                           precompute_x: Optional[bool] = None) -> None:
     """Offline chunked streaming over a ConcatSequenceDataset-like
     ``dataset``: ``dataset.datasets`` is the list of sequences, and item i
     of a sequence is {'events': [1, K, H, W, Ce], 'image': [1, H, W, Ci]},
     and in the phased regime 'times_events' [1, K] and 'times_image' [1].
     Each sequence runs ``chunk`` packages per forward call (see
-    ``_chunk_forward`` for which).  on_prediction(global_idx, {key:
-    [H, W, 1] numpy}, item, seq_pos) is called for every real item, in
-    order."""
+    ``_chunk_forward`` for which; batched_decode defaults to True, as in
+    JAX).  on_prediction(global_idx, {key: [H, W, 1] numpy}, item,
+    seq_pos) is called for every real item, in order."""
     dk = tuple(decode_keys) if decode_keys else None
-    fwd = _chunk_forward(model, precompute_x, dk)
+    fwd = _chunk_forward(model, precompute_x, dk, batched_decode)
     dev = model.device
     sizes = [len(d) for d in dataset.datasets]
     starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(int)

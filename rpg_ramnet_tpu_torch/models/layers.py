@@ -10,6 +10,10 @@ state dict loads with ``strict=True``.
     conv2d / conv_layer_apply            ConvLayer.forward
     upsample2x_bilinear                  upsample2x_bilinear
     upsample_conv_layer_apply            UpsampleConvLayer.forward
+    compose_upsample_conv_kernel         compose_upsample_conv_kernel
+                                         (UpsampleConvLayer.composed_weights)
+    upsample_conv_layer_composed_apply   upsample_conv_layer_composed
+    the fold of upsample_conv_fused      UpsampleConvLayer.fused_weights (K8)
     residual_block_apply                 ResidualBlock.forward
     conv_gru_apply                       ConvGRU.forward
     conv_gru_x_gates                     ConvGRU.x_gates
@@ -48,6 +52,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.phased_cell import conv_lstm_phased, gate_k
+from ..ops.upsample_conv import kernel_weights
 from ..utils.layout import to_nchw, to_nhwc
 
 
@@ -102,36 +107,10 @@ class ConvLayer(nn.Module):
         return activate(conv(self.conv2d, x), self.activation)
 
 
-class UpsampleConvLayer(nn.Module):
-    """Bilinear x2 then conv + activation (submodules.py:69-97)."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 padding: int = 0, activation: Optional[str] = "relu"):
-        super().__init__()
-        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, 1, padding)
-        self.activation = activation
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return activate(conv(self.conv2d, upsample2x_bilinear(x)),
-                        self.activation)
-
-
-class ResidualBlock(nn.Module):
-    """Two 3x3 convs with an identity skip (submodules.py:182-215)."""
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.conv1 = nn.Conv2d(channels, channels, 3, 1, 1)
-        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = conv(self.conv2, torch.relu(conv(self.conv1, x)))
-        return torch.relu(out + x)
-
-
 class _FoldedGates(nn.Module):
-    """A recurrent cell whose gate convs (``gates()``) are folded into the
-    kernels' weight layouts, cached per weight version and dtype."""
+    """A module whose convs (``gates()``: a recurrent cell's gate convs, a
+    decoder layer's conv) are folded into the kernels' weight layouts,
+    cached per weight version and dtype."""
 
     def __init__(self):
         super().__init__()
@@ -150,6 +129,124 @@ class _FoldedGates(nn.Module):
         if hit is None or hit[0] != key:
             hit = self._fold_cache[kind] = (key, make(ws, dtype))
         return hit[1]
+
+
+class UpsampleConvLayer(_FoldedGates):
+    """Bilinear x2 then conv + activation (submodules.py:69-97).  Its
+    weights also come folded for the fused decoder kernel K8
+    (``fused_weights``) and composed for the transposed-conv formulation
+    (``composed_weights``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 padding: int = 0, activation: Optional[str] = "relu"):
+        super().__init__()
+        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, 1, padding)
+        self.activation = activation
+
+    def gates(self):
+        return (self.conv2d,)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return activate(conv(self.conv2d, upsample2x_bilinear(x)),
+                        self.activation)
+
+    def fused_weights(self, dtype: torch.dtype
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The weight [25, Cout, C] in ``dtype`` and the bias [Cout] in
+        float32 in the layout of ops.upsample_conv (K8); cached per weight
+        version and dtype."""
+        return self._folded("fused", dtype, lambda ws, dt: kernel_weights(
+            ws[0], self.conv2d.bias, dt))
+
+    def composed_weights(self, dtype: torch.dtype) -> torch.Tensor:
+        """``compose_upsample_conv_kernel`` of the weight, in ``dtype``;
+        cached per weight version and dtype, differentiable under
+        autograd."""
+        return self._folded("composed", dtype, lambda ws, dt:
+                            compose_upsample_conv_kernel(ws[0]).to(dt))
+
+
+# -- composed transposed-conv formulation of bilinear-2x + 5x5 conv ---------
+#
+# The half-pixel bilinear 2x is a stride-2 transposed conv with the stencil
+# c = [.25, .75, .75, .25], so the whole layer is ONE stride-2 transposed
+# conv with the composed 8-tap kernel k_eff[t] = sum_d w[d] c[t + d + 1],
+# t in [-3, 4], per axis: no 2x intermediate in device memory.  Edge
+# padding x by 2 reproduces the resize's clamp; the conv's zero padding at
+# the outer 2 rows and columns of the 2x image differs, so those are
+# restitched exactly from 4-pixel slabs of the two-stage layer (JAX
+# layers.py:345-408).
+
+_C4 = (0.25, 0.75, 0.75, 0.25)     # c[t], t in [-1..2]
+
+
+def _composed_kernel_1d() -> torch.Tensor:
+    """[8, 5]: k_eff's taps t = -3..4 against w's taps d = -2..2."""
+    k1 = torch.zeros(8, 5)
+    for ti, t in enumerate(range(-3, 5)):
+        for di, d in enumerate(range(-2, 3)):
+            if 0 <= t + d + 1 < 4:
+                k1[ti, di] = _C4[t + d + 1]
+    return k1
+
+
+def compose_upsample_conv_kernel(w: torch.Tensor) -> torch.Tensor:
+    """OIHW w [Cout, C, 5, 5] -> the composed kernel [C, Cout, 8, 8] in
+    float32, in ``F.conv_transpose2d``'s layout for stride 2 and padding 7
+    on a 2-edge-padded input (JAX ``compose_upsample_conv_kernel`` returns
+    the same taps flipped, HWIO, for a dilated correlation)."""
+    k1 = _composed_kernel_1d().to(w.device)
+    return torch.einsum("au,oiuv,bv->ioab", k1, w.float(), k1)
+
+
+def upsample_conv_layer_composed(layer: UpsampleConvLayer, x: torch.Tensor,
+                                 activation: Optional[str] = "relu"
+                                 ) -> torch.Tensor:
+    """The two-stage layer (norm-free) as ONE stride-2 transposed conv plus
+    the exact border restitch, the counterpart of JAX
+    ``upsample_conv_layer_composed_apply``; NCHW-shaped in and out, in x's
+    dtype.  Plain library ops, so differentiable; it equals the two-stage
+    layer up to float summation order."""
+    b = layer.conv2d.bias
+    b = None if b is None else b.to(x.dtype)
+    # edge padding by 2 as one gather in NHWC, so that x's channels_last
+    # memory carries through (the library's replicate pad returns NCHW
+    # memory on CUDA, and the NCHW resize of the slabs is several times
+    # slower than the NHWC one)
+    H, W = x.shape[2:]
+    rows = torch.arange(-2, H + 2, device=x.device).clamp(0, H - 1)
+    cols = torch.arange(-2, W + 2, device=x.device).clamp(0, W - 1)
+    xe = to_nchw(to_nhwc(x)[:, rows[:, None], cols[None, :]])
+    y = F.conv_transpose2d(xe, layer.composed_weights(x.dtype), b, stride=2,
+                           padding=7)
+
+    def ref_up(xs):
+        xs = xs.contiguous(memory_format=torch.channels_last)
+        return conv(layer.conv2d, upsample2x_bilinear(xs))
+
+    y[:, :, :2] = ref_up(x[:, :, :4])[:, :, :2]
+    y[:, :, -2:] = ref_up(x[:, :, -4:])[:, :, -2:]
+    y[..., :2] = ref_up(x[..., :4])[..., :2]
+    y[..., -2:] = ref_up(x[..., -4:])[..., -2:]
+    # corners: both clamps interact; 4x4 corner slabs give them exactly
+    y[..., :2, :2] = ref_up(x[..., :4, :4])[..., :2, :2]
+    y[..., :2, -2:] = ref_up(x[..., :4, -4:])[..., :2, -2:]
+    y[..., -2:, :2] = ref_up(x[..., -4:, :4])[..., -2:, :2]
+    y[..., -2:, -2:] = ref_up(x[..., -4:, -4:])[..., -2:, -2:]
+    return activate(y, activation)
+
+
+class ResidualBlock(nn.Module):
+    """Two 3x3 convs with an identity skip (submodules.py:182-215)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, channels, 3, 1, 1)
+        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = conv(self.conv2, torch.relu(conv(self.conv1, x)))
+        return torch.relu(out + x)
 
 
 def _fold_taps(w: torch.Tensor, dtype) -> torch.Tensor:

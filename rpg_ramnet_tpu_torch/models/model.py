@@ -13,6 +13,8 @@ public tensors are NHWC.
     forward_package_batched_decode   one package, full cells, its K+1
                                      decodes as one batched pass (the
                                      per-package streaming engine)
+    forward_sequence                 L packages of forward_package: the
+                                     chunked engines' in-scan route
     forward_sequence_precomputed     a chunk of packages (inference):
                                      batched x side, sequential h side, one
                                      batched decode
@@ -142,21 +144,28 @@ def _stack(snaps):
 
 
 def _decode_flat(net, cfg: ModelConfig, flat, sel_keys: Sequence[str],
-                 l: int, b: int) -> Dict[str, torch.Tensor]:
+                 l: int, b: int, allow_fused_decoder: bool = False,
+                 allow_composed: bool = False) -> Dict[str, torch.Tensor]:
     """One decoder pass over per-scale stacks of snapshots, ordered
     (package, key, batch), regrouped into per-key [L, B, H, W, 1]
-    predictions."""
-    pred = to_nhwc(statenet.forward_decoder_supers(net, cfg, flat))
+    predictions.  allow_fused_decoder, allow_composed: let the
+    fused_decoder and composed_decoder policies pick the decoder layers
+    (statenet.forward_decoder_supers)."""
+    pred = to_nhwc(statenet.forward_decoder_supers(
+        net, cfg, flat, allow_fused=allow_fused_decoder,
+        allow_composed=allow_composed))
     grouped = pred.reshape((l, len(sel_keys), b) + pred.shape[1:])
     return {key: grouped[:, i] for i, key in enumerate(sel_keys)}
 
 
 def _decode_snapshots(net, cfg: ModelConfig, snaps, sel_keys: Sequence[str],
-                      l: int, b: int) -> Dict[str, torch.Tensor]:
+                      l: int, b: int, allow_fused_decoder: bool = False,
+                      allow_composed: bool = False) -> Dict[str, torch.Tensor]:
     """_decode_flat of a list of per-step snapshots."""
     if not snaps:
         return {}
-    return _decode_flat(net, cfg, _stack(snaps), sel_keys, l, b)
+    return _decode_flat(net, cfg, _stack(snaps), sel_keys, l, b,
+                        allow_fused_decoder, allow_composed)
 
 
 def _steps_nhwc(g: torch.Tensor) -> torch.Tensor:
@@ -196,7 +205,7 @@ def _chunk_cells(net, cfg: ModelConfig, supers, gx_ev, gx_im,
         if sel_pos != list(range(loop + 1)):
             per_pkg = per_pkg[:, sel_pos]
         flat.append(to_nchw(per_pkg.reshape((-1,) + snaps.shape[1:])))
-    preds = (_decode_flat(net, cfg, tuple(flat), sel_keys, l, b)
+    preds = (_decode_flat(net, cfg, tuple(flat), sel_keys, l, b, True, True)
              if sel_keys else {})
     return tuple(new_supers), preds
 
@@ -241,7 +250,8 @@ def _stream_cells(net, cfg: ModelConfig, supers, gx_ev, gx_im,
         supers = one_step(supers, t, None)
         if "image" in sel_keys:
             snaps.append(tuple(to_nchw(s) for s in supers))
-    return supers, _decode_snapshots(net, cfg, snaps, sel_keys, l, b)
+    return supers, _decode_snapshots(net, cfg, snaps, sel_keys, l, b, True,
+                                     True)
 
 
 class ERGB2DepthRecurrent(nn.Module):
@@ -276,13 +286,18 @@ class ERGB2DepthRecurrent(nn.Module):
 
     def forward_package(self, state, pkg,
                         decode_keys: Optional[Sequence[str]] = None,
-                        allow_fused: bool = False):
+                        allow_fused: bool = False,
+                        allow_fused_decoder: bool = False,
+                        allow_composed: bool = False):
         """One datapackage: K event steps then the image step, decoding
         after every step (model.py:176-217), with the whole cells: the
         reference semantics.  decode_keys: decode only these keys (all
         when None); the recurrence is unchanged.  allow_fused: let the
         fused_gru policy run the cells as kernels K4, K3 and K5 (inference
-        only).  Returns (state, {key: [B, H, W, 1]})."""
+        only).  allow_fused_decoder, allow_composed: let the fused_decoder
+        policy run decoder layers as kernel K8 (inference only) and the
+        composed_decoder policy as the composed layers.  Returns (state,
+        {key: [B, H, W, 1]})."""
         _check_no_reset(pkg)
         net, cfg = self.statenetphasedrecurrent, self.cfg
         state = statenet.map_state(to_nchw, state)
@@ -292,24 +307,48 @@ class ERGB2DepthRecurrent(nn.Module):
                                               times=t, allow_fused=allow_fused)
             if decode_keys is None or key in decode_keys:
                 preds[key] = to_nhwc(statenet.forward_decoder_supers(
-                    net, cfg, statenet.decoder_view(cfg, state)))
+                    net, cfg, statenet.decoder_view(cfg, state),
+                    allow_fused=allow_fused_decoder,
+                    allow_composed=allow_composed))
         return statenet.map_state(to_nhwc, state), preds
 
     def forward_package_batched_decode(self, state, pkg,
-                                       allow_fused: bool = False):
+                                       allow_fused: bool = False,
+                                       allow_fused_decoder: bool = False,
+                                       allow_composed: bool = False):
         """forward_package with the K+1 decodes of the package run as ONE
         decoder pass over the stacked per-step super states (model.py:
         291-314).  Decodes never feed the state, so the predictions equal
-        forward_package's.  Returns (state, {key: [B, H, W, 1]})."""
+        forward_package's.  The flags as forward_package's.  Returns
+        (state, {key: [B, H, W, 1]})."""
         net, cfg = self.statenetphasedrecurrent, self.cfg
         keys = prediction_keys(cfg)
         b = pkg["image"].shape[0]
         state, snaps = _package_snapshot_step(
             net, cfg, statenet.map_state(to_nchw, state), pkg, keys,
             allow_fused)
-        pred = to_nhwc(statenet.forward_decoder_supers(net, cfg, snaps))
+        pred = to_nhwc(statenet.forward_decoder_supers(
+            net, cfg, snaps, allow_fused=allow_fused_decoder,
+            allow_composed=allow_composed))
         preds = {key: pred[i * b:(i + 1) * b] for i, key in enumerate(keys)}
         return statenet.map_state(to_nhwc, state), preds
+
+    def forward_sequence(self, state, seq,
+                         decode_keys: Optional[Sequence[str]] = None):
+        """L packages of forward_package in order, decoding after every
+        step (model.py:597-636 for inference: no remat, no norm stats):
+        the reference semantics, bit-identical to per-package streaming.
+        seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
+        and in the phased regime 'times_events' [B, L, K] and
+        'times_image' [B, L].  Returns (state, {key: [L, B, H, W, 1]})."""
+        _check_no_reset(seq)
+        per_key: Dict[str, List[torch.Tensor]] = {}
+        for t in range(seq["image"].shape[1]):
+            pkg = {k: seq[k][:, t] for k in _SEQ_KEYS if k in seq}
+            state, preds = self.forward_package(state, pkg, decode_keys)
+            for k, v in preds.items():
+                per_key.setdefault(k, []).append(v)
+        return state, {k: torch.stack(v) for k, v in per_key.items()}
 
     @torch.inference_mode()
     def forward_sequence_precomputed(self, state, seq,
@@ -337,7 +376,9 @@ class ERGB2DepthRecurrent(nn.Module):
              the first two raise ValueError unless the state combination
              is ConvGRU, the batch 1, no reset mask is given and the
              kernels take the super states;
-          3. one decoder pass over the snapshots of the selected keys.
+          3. one decoder pass over the snapshots of the selected keys,
+             K8 and the composed layers allowed (their policies decide),
+             as JAX's three branches allow them.
 
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
         decode_keys: decode only these of prediction_keys (all when None).
@@ -385,14 +426,15 @@ class ERGB2DepthRecurrent(nn.Module):
                 net, cfg, supers, [g[t] for g in gx_ev],
                 [g[t] for g in gx_im], sel_keys, loop, allow_fused=True)
             snaps.extend(pkg_snaps)
-        preds = _decode_snapshots(net, cfg, snaps, sel_keys, l, b)
+        preds = _decode_snapshots(net, cfg, snaps, sel_keys, l, b, True, True)
         return statenet.map_state(
             to_nhwc, state._replace(super_states=supers)), preds
 
     def forward_sequence_batched_decode(
             self, state, seq, decode_keys: Optional[Sequence[str]] = None,
             remat: bool = False, squeeze_preds: bool = False,
-            package_precompute: bool = False, allow_fused: bool = False):
+            package_precompute: bool = False, allow_fused: bool = False,
+            allow_fused_decoder: bool = False, allow_composed: bool = False):
         """A window of L packages with every decode deferred
         (model.py:317-393): a loop over the packages runs only the state
         updates and keeps the snapshots of the selected keys, then ONE
@@ -409,6 +451,8 @@ class ERGB2DepthRecurrent(nn.Module):
         cells with package_precompute, else the whole cells (K5, and the
         phased and ConvLSTM cells K4 and K3), which have no gradient (they
         raise under autograd).
+        allow_fused_decoder, allow_composed: the decode's flags, as
+        forward_package's (K8 has no gradient; the composed layers do).
 
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
         and in the phased regime 'times_events' [B, L, K] and
@@ -443,7 +487,8 @@ class ERGB2DepthRecurrent(nn.Module):
                 state, stacked = step(state, pkg)
             snaps.append(stacked)
         preds = _decode_snapshots(net, cfg, snaps if sel_keys else [],
-                                  sel_keys, l, b)
+                                  sel_keys, l, b, allow_fused_decoder,
+                                  allow_composed)
         if squeeze_preds:
             preds = {k: v[..., 0] for k, v in preds.items()}
         return statenet.map_state(to_nhwc, state), preds

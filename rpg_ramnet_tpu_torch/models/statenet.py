@@ -4,7 +4,8 @@ Counterpart of ``rpg_ramnet_tpu/models/statenet.py`` for two recipes: the
 flagship (recurrent_block_type='conv', state_combination='convgru') with
 its ConvLSTM state-combination variant, and the phased irregular-timestamp
 regime (recurrent_block_type='convlstm', use_phased_arch, ConvLSTM or
-ConvGRU state combination); sum skips, no norm, upsample-conv decoders.
+ConvGRU state combination); sum skips, no norm, upsample-conv decoders,
+as two-stage layers, the fused decoder kernel K8 or the composed layers.
 ``StateNet`` holds the parameters under the upstream names
 (StateNetPhasedRecurrent, RAM_Net/model/statenet.py); the functions below
 are the JAX module's, on NCHW-shaped channels_last tensors.
@@ -22,11 +23,12 @@ import torch
 import torch.nn as nn
 
 from ..core.config import ModelConfig
-from ..ops import gru_hside, gru_pair
+from ..ops import gru_hside, gru_pair, upsample_conv
 from ..utils.layout import to_nchw, to_nhwc
 from .layers import (ConvGRU, ConvLayer, PhasedLSTMGate, RecurrentConvLayer,
                      RecurrentPhasedConvLayer, ResidualBlock,
-                     UpsampleConvLayer, activate, init_conv_)
+                     UpsampleConvLayer, activate, init_conv_,
+                     upsample_conv_layer_composed)
 
 
 class ModalityState(NamedTuple):
@@ -86,12 +88,6 @@ def check_supported(cfg: ModelConfig) -> None:
         if getattr(cfg, name) not in ("auto", "on", "off"):
             raise ValueError(f"{name} must be auto/on/off, got "
                              f"{getattr(cfg, name)!r}")
-    if cfg.fused_decoder == "on":
-        unported.append("fused_decoder='on' (the fused upsample-conv "
-                        "kernel K8, ROADMAP queue 2, K8)")
-    if cfg.composed_decoder == "on":
-        unported.append("composed_decoder='on' (the composed decoder, "
-                        "ROADMAP queue 1, item 2)")
     if unported:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
@@ -336,17 +332,89 @@ def decoder_view(cfg: ModelConfig, state: StateNetState) -> Tuple:
     return supers_decoder_view(cfg, state.super_states)
 
 
+def _use_fused_decoder(cfg: ModelConfig, x: torch.Tensor, cout: int,
+                       skip: Optional[torch.Tensor] = None) -> bool:
+    """cfg.fused_decoder policy for one upsample-conv layer on NCHW-shaped
+    x (and skip): the fused decoder kernel K8 (ops/upsample_conv.py) only
+    for 'on', and only where ``upsample_conv.supports`` holds (bf16,
+    channels_last memory, the kernel's channel multiples): on a CUDA
+    tensor that is the kernel, on a CPU tensor its plain version.  'auto'
+    is off, as in JAX (statenet.py:442-480): K8's measured verdict is in
+    PERF.md."""
+    if cfg.fused_decoder != "on":
+        return False
+    return upsample_conv.supports(to_nhwc(x), cout,
+                                  None if skip is None else to_nhwc(skip))
+
+
+COMPOSED_AUTO_MIN_BATCH = 24
+
+
+def composed_auto(device_type: str, dtype: torch.dtype, batch: int) -> bool:
+    """Whether composed_decoder='auto' takes the composed layers for a
+    decode batch on this device: bf16 batches of at least
+    COMPOSED_AUTO_MIN_BATCH on CUDA (re-derived on the H100, see
+    _use_composed_decoder), never on the CPU (JAX engages it on the TPU
+    alone)."""
+    return (device_type == "cuda" and dtype == torch.bfloat16
+            and batch >= COMPOSED_AUTO_MIN_BATCH)
+
+
+def _use_composed_decoder(cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """cfg.composed_decoder policy for one upsample-conv layer: the
+    composed stride-2 transposed-conv formulation
+    (layers.upsample_conv_layer_composed; library ops, differentiable).
+    'on' always, 'off' never, 'auto' per ``composed_auto``.  Callers gate
+    with allow_composed, so paths whose contract is the two-stage layer's
+    bits keep them (statenet.py:483-514 of the JAX package).
+
+    'auto' on CUDA: bf16 decode batches >= 24.  The rule engages it only
+    if the composed layers beat the two-stage ones summed over the three
+    flagship decoder layers at batch 96 (the chunked engine's decode
+    batch).  chip_smoke.py phase 16 (NVIDIA H100 80GB HBM3, 700.00 W),
+    bf16, microseconds per layer, skip sum included, 256->128 / 128->64 /
+    64->32: at batch 96 composed 3784.6 / 5320.4 / 9792.9 (sum 18898.0),
+    two-stage 3823.6 / 7484.2 / 15413.8 (sum 26721.6): 0.71x, so it
+    engages; at batch 6 composed 1636.7 / 1715.7 / 1901.6 against
+    two-stage 282.4 / 498.5 / 1035.4, a loss, hence the batch gate.  The
+    chunked forward ran 7% faster with them; the engine's maps/s did not
+    resolve it (PERF.md)."""
+    if cfg.composed_decoder == "off":
+        return False
+    if cfg.composed_decoder == "on":
+        return True
+    return composed_auto(x.device.type, x.dtype, x.shape[0])
+
+
 def forward_decoder_supers(net: StateNet, cfg: ModelConfig,
-                           supers: Sequence[torch.Tensor]) -> torch.Tensor:
+                           supers: Sequence[torch.Tensor],
+                           allow_fused: bool = False,
+                           allow_composed: bool = False) -> torch.Tensor:
     """The shared decoder on per-scale hidden states: resblocks on the
     deepest, then upsample-conv layers with sum skips of the shallower
-    ones, the 1x1 pred conv and the activation in float32 [N, 1, H, W]."""
+    ones, the 1x1 pred conv and the activation in float32 [N, 1, H, W].
+
+    Per layer, as JAX statenet.py:544-599 (the ported recipes are all
+    norm-free upsample-conv decoders with sum skips):
+    allow_fused and the fused_decoder policy: the skip sum, the upsample
+    and the conv as kernel K8 (inference only); else the skip is summed,
+    then allow_composed and the composed_decoder policy: the composed
+    transposed-conv layer; else the two-stage layer."""
     x = supers[-1]
     for rb in net.resblocks:
         x = rb(x)
     n = cfg.num_encoders
     for i, dec in enumerate(net.decoders):
-        if i > 0:
-            x = x + supers[n - i - 1]   # _skip, skip_type='sum'
-        x = dec(x)
+        skip = supers[n - i - 1] if i > 0 else None
+        if allow_fused and _use_fused_decoder(cfg, x, dec.conv2d.out_channels,
+                                              skip):
+            x = to_nchw(upsample_conv.upsample_conv_fused(
+                dec, to_nhwc(x), None if skip is None else to_nhwc(skip)))
+            continue
+        if skip is not None:
+            x = x + skip                # _skip, skip_type='sum'
+        if allow_composed and _use_composed_decoder(cfg, x):
+            x = upsample_conv_layer_composed(dec, x, "relu")
+        else:
+            x = dec(x)
     return activate(net.pred(x).float(), cfg.activation)

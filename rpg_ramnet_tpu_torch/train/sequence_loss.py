@@ -127,9 +127,13 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
         if not deferred:
             raise NotImplementedError(_IN_SCAN)
         seq = {"events": batch["events"], "image": batch["image"]}
+        # the composed decoder layers on the L*B*|keys|-deep decode batch
+        # (differentiable; statenet._use_composed_decoder's policy), never
+        # K8, which has no gradient (sequence_loss.py:190-200 of JAX)
         _, preds = model.forward_sequence_batched_decode(
             state0, seq, decode_keys=keys, remat=remat, squeeze_preds=True,
-            package_precompute=pre_x, allow_fused=allow_fused)
+            package_precompute=pre_x, allow_fused=allow_fused,
+            allow_composed=True)
         l_steps = batch["image"].shape[1]
         total_si = total_grad = total_mse = 0.0
         per_key: Dict[str, torch.Tensor] = {}

@@ -10,7 +10,10 @@ pair cell K9, the gx-streaming cells K10a and K10b, the resident-state
 cell K11) against their plain versions, K11 on many steps and tiles with a
 grid smaller than the tiles (a stale or raced read of h shows at its
 step), an oversized cooperative grid raising, and the precomputed path
-under each variant against fused_gru='off'.
+under each variant against fused_gru='off', the fused decoder kernel K8
+against its plain version at the flagship layers and ragged shapes, its
+refusals, the composed layer against the two-stage one, and both decoder
+options through the chunked and per-package engines (K8's launch counts).
 
 They skip without a CUDA device.  This file imports nothing of JAX, so it
 also runs where JAX is absent:
@@ -496,3 +499,126 @@ def test_chunked_variants_kernels_vs_off(device):
         for k in p_off:
             assert torch.isfinite(p[k]).all()
             assert (p[k] - p_off[k]).abs().max().item() <= 5e-2, (over, k)
+
+
+# the flagship decoder layers at 256x512 (B, C, Cout, H, W of the input),
+# at the per-package decode batch 6, and ragged ones: odd H and W, C = 48
+# (16-channel slabs), Cout = 24 (three n8 tiles), Cout = 96 (two channel
+# slices, the second partial)
+DECODER_LAYERS = [(6, 256, 128, 32, 64), (6, 128, 64, 64, 128),
+                  (6, 64, 32, 128, 256), (3, 48, 24, 13, 27),
+                  (2, 32, 96, 9, 17)]
+
+
+def _decoder_inputs(shape, device, seed=0):
+    from rpg_ramnet_tpu_torch.models.layers import UpsampleConvLayer, init_conv_
+    B, C, Cout, H, W = shape
+    gen = torch.Generator().manual_seed(seed)
+    layer = UpsampleConvLayer(C, Cout, 5, padding=2)
+    init_conv_(layer.conv2d, gen)
+    layer.to(device)
+    x = torch.randn(B, H, W, C, generator=gen).to(device, torch.bfloat16)
+    skip = torch.randn(B, H, W, C, generator=gen).to(device, torch.bfloat16)
+    return layer, x, skip
+
+
+@pytest.mark.parametrize("with_skip", [True, False], ids=["skip", "no_skip"])
+@pytest.mark.parametrize("shape", DECODER_LAYERS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_upsample_conv_kernel_matches_plain(device, shape, with_skip):
+    """K8 against its plain version (the two-stage layer in bf16): max abs
+    error over the plain version's max magnitude within 2e-2, and against
+    the float32 plain version alike; one launch per call."""
+    from rpg_ramnet_tpu_torch.ops import upsample_conv
+    layer, x, skip = _decoder_inputs(shape, device)
+    skip = skip if with_skip else None
+    w, b = layer.conv2d.weight, layer.conv2d.bias
+    n0 = upsample_conv.upsample_conv_fused.launches
+    with torch.no_grad():
+        got = upsample_conv.upsample_conv_fused(layer, x, skip)
+        want = upsample_conv.upsample_conv_fused_plain(w, b, x, skip)
+        want32 = upsample_conv.upsample_conv_fused_plain(
+            w, b, x.float(), None if skip is None else skip.float())
+    torch.cuda.synchronize()
+    assert upsample_conv.upsample_conv_fused.launches == n0 + 1
+    assert got.shape == want.shape and got.is_contiguous()
+    assert _rel_err(got, want) <= 2e-2
+    assert _rel_err(got, want32) <= 2e-2
+
+
+def test_upsample_conv_kernel_refuses(device):
+    """No fallback: a float32 input, an NCHW-contiguous input and autograd
+    raise on the card."""
+    from rpg_ramnet_tpu_torch.ops import upsample_conv
+    layer, x, _ = _decoder_inputs((2, 32, 16, 8, 8), device)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="K8"):
+            upsample_conv.upsample_conv_fused(layer, x.float())
+        with pytest.raises(ValueError, match="K8"):
+            upsample_conv.upsample_conv_fused(
+                layer, x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        upsample_conv.upsample_conv_fused(layer, x)
+
+
+def test_composed_layer_matches_two_stage(device):
+    """The composed layer (library transposed conv and the border
+    restitch) against the two-stage layer on the card, bf16, at the
+    flagship's widest-map layer."""
+    from rpg_ramnet_tpu_torch.models.layers import upsample_conv_layer_composed
+    from rpg_ramnet_tpu_torch.utils.layout import to_nchw
+    layer, x, skip = _decoder_inputs((6, 64, 32, 128, 256), device)
+    s = to_nchw(x + skip)
+    with torch.no_grad():
+        got = upsample_conv_layer_composed(layer, s)
+        want = layer(s)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 2e-2
+
+
+def test_decoder_options_through_engines(device):
+    """A small flagship-shaped bf16 model: with fused_decoder='on' the
+    chunked engine launches K8 three times per chunk (one decode of the
+    chunk, three layers) and the per-package engine three times per
+    package; with composed_decoder='on' never; both within 5e-2 of the
+    default decoder."""
+    from rpg_ramnet_tpu_torch.eval import StreamingInference, run_chunked_streaming
+    from rpg_ramnet_tpu_torch.ops import upsample_conv
+    cfg = ModelConfig(num_encoders=3, base_num_channels=16,
+                      recurrent_block_type="conv", state_combination="convgru",
+                      num_residual_blocks=1, every_x_rgb_frame=2,
+                      compute_dtype="bfloat16")
+    base = ERGB2DepthRecurrent(cfg, device=device)
+    gen = torch.Generator().manual_seed(5)
+    items = [{"events": torch.randn(1, 2, 64, 96, 5, generator=gen).numpy(),
+              "image": torch.rand(1, 64, 96, 1, generator=gen).numpy()}
+             for _ in range(5)]
+
+    class Data:
+        datasets = [items]
+
+    def chunked(model):
+        out = {}
+        run_chunked_streaming(Data(), model, chunk=2,
+                              on_prediction=lambda g, p, it, pos: out.__setitem__(g, p))
+        return out
+
+    def per_package(model):
+        eng = StreamingInference(model, batched_decode=True)
+        return {i: eng.step({"events": it["events"][0], "image": it["image"][0]})
+                for i, it in enumerate(items)}
+
+    for run, per_run in ((chunked, 3 * 3), (per_package, 3 * 5)):
+        want = run(base)
+        for over, launches in (({"fused_decoder": "on"}, per_run),
+                               ({"composed_decoder": "on"}, 0)):
+            model = ERGB2DepthRecurrent(dataclasses.replace(cfg, **over),
+                                        device=device)
+            model.load_state_dict(base.state_dict())
+            n0 = upsample_conv.upsample_conv_fused.launches
+            got = run(model)
+            torch.cuda.synchronize()
+            assert upsample_conv.upsample_conv_fused.launches - n0 == launches
+            for g in want:
+                for k in want[g]:
+                    assert abs(got[g][k] - want[g][k]).max() <= 5e-2, (over, g, k)

@@ -101,3 +101,37 @@ def test_layer_matches_jax(models, name):
         got = port_fn(net, *[torch.from_numpy(x) for x in xs]).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=ATOL)
+
+
+def test_conv_gru_orthogonal_init_matches_jax():
+    """The port's ConvGRU init meets
+    tests/test_init_parity.py::test_conv_gru_orthogonal_init's
+    expectations, as JAX's ``conv_gru_init`` does: zero biases and
+    orthonormal rows of each gate weight's (out, in*k*k) flattening
+    (torch's ``orthogonal_``); and the model's init reaches every gate of
+    both state combinations."""
+    from rpg_ramnet_tpu_torch.models.layers import ConvGRU
+
+    def check(gate_w, gate_b):
+        flat = gate_w.reshape(gate_w.shape[0], -1)
+        np.testing.assert_allclose(flat @ flat.T, np.eye(len(flat)),
+                                   atol=1e-5)
+        assert np.all(gate_b == 0)
+
+    cell = ConvGRU(16, 16)
+    cell.reset_parameters_(torch.Generator().manual_seed(1))
+    p = JL.conv_gru_init(jax.random.PRNGKey(1), 16, 16, 3)
+    for gate in ("reset_gate", "update_gate", "out_gate"):
+        conv = getattr(cell, gate)
+        assert tuple(conv.weight.shape) == (16, 32, 3, 3)
+        check(conv.weight.detach().numpy(), conv.bias.detach().numpy())
+        check(np.transpose(np.asarray(p[gate]["weight"]), (3, 2, 0, 1)),
+              np.asarray(p[gate]["bias"]))
+    model = ERGB2DepthRecurrent(ModelConfig.from_dict(CFG),
+                                generator=torch.Generator().manual_seed(2))
+    grus = [m for m in model.modules() if isinstance(m, ConvGRU)]
+    assert len(grus) == 2 * CFG["num_encoders"]
+    for g in grus:
+        for conv in g.gates():
+            check(conv.weight.detach().float().numpy(),
+                  conv.bias.detach().numpy())

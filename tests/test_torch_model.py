@@ -168,12 +168,14 @@ def test_chunked_streaming_carries_pads_and_resets():
             for k in want:
                 np.testing.assert_allclose(p[k], want[k][t, 0], atol=ATOL_F32)
         offset += seq["image"].shape[1]
-    engine = SequenceScanInference(model, chunk=CHUNK, precompute_x=True)
+    engine = SequenceScanInference(model, chunk=CHUNK, batched_decode=True,
+                                   precompute_x=True)
     out = engine.run_sequence(seqs[0]["events"][0], seqs[0]["image"][0])
     np.testing.assert_allclose(out["image"][2], got[2][1]["image"], atol=0)
     # float32 without precompute_x: forward_sequence_batched_decode, the
     # whole cells per step, as the JAX engine
-    plain = SequenceScanInference(model, chunk=CHUNK).run_sequence(
+    plain = SequenceScanInference(model, chunk=CHUNK, batched_decode=True
+                                  ).run_sequence(
         seqs[0]["events"][0], seqs[0]["image"][0])
     np.testing.assert_allclose(plain["image"], out["image"], atol=ATOL_F32)
 

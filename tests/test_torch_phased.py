@@ -362,7 +362,8 @@ def test_resolve_precompute_follows_supports_x_precompute(cfg, dtype, want,
                         lambda s, seq, **kw: seen.append(("pre", kw)) or (s, {}))
     monkeypatch.setattr(model, "forward_sequence_batched_decode",
                         lambda s, seq, **kw: seen.append(("bd", kw)) or (s, {}))
-    engine = inference.SequenceScanInference(model, chunk=2)
+    engine = inference.SequenceScanInference(model, chunk=2,
+                                             batched_decode=True)
     engine.run_sequence(np.zeros((2, K, H, W, 5), np.float32),
                         np.zeros((2, H, W, 1), np.float32))
     assert seen[0][0] == ("pre" if want else "bd")

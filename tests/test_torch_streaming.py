@@ -9,7 +9,8 @@ JAX with fused_gru='on' and its Pallas kernel in interpret mode, at 5e-2
 on the sigmoid predictions; the host pieces of the live path
 (``CropParameters``, ``EventPreprocessor``, ``UnsharpMaskFilter``, both
 event readers, metrics, ``optimal_scale``) against the JAX package's; and
-the checkpoint loader and the unported options.
+the checkpoint loader, the unported options and the decoder's opt-in
+ones.
 """
 import dataclasses
 import os
@@ -146,11 +147,19 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
         model.forward_package(model.init_state(1, H, W),
                               {**pkg, "reset": torch.zeros(1, dtype=torch.bool)})
-    for name, match in (("fused_decoder", "K8"),
-                        ("composed_decoder", "queue 1, item 2")):
-        with pytest.raises(NotImplementedError, match=match):
-            ERGB2DepthRecurrent(ModelConfig.from_dict({**CFG, name: "on"}))
-        ERGB2DepthRecurrent(ModelConfig.from_dict({**CFG, name: "off"}))
+    # the decoder's opt-in formulations are ported: both configs build
+    # and run one package on the CPU (K8's plain version where its gate
+    # holds, the composed layers), as the default does
+    want = inference.StreamingInference(model).step(_packages()[0])
+    for name in ("fused_decoder", "composed_decoder"):
+        for mode in ("on", "off"):
+            other = ERGB2DepthRecurrent(ModelConfig.from_dict({**CFG,
+                                                               name: mode}))
+            other.load_state_dict(model.state_dict())
+            got = inference.StreamingInference(other).step(_packages()[0])
+            assert sorted(got) == sorted(want)
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k], atol=ATOL_F32)
 
 
 @pytest.mark.parametrize("hw", [(260, 346), (256, 512), (17, 30)],
