@@ -17,10 +17,13 @@ event log; and the phased irregular-timestamp regime (BASELINE config 3:
 the same recipe with phased ConvLSTM encoders and the ConvLSTM state
 combination, set in code as the JAX bench does) at 256x352 through the eval
 entry point, per package and chunked, with the flagship's ConvLSTM
-state-combination variant on the chunked engine; and the decoder's opt-in
+state-combination variant on the chunked engine; the decoder's opt-in
 formulations (fused_decoder='on': kernel K8; composed_decoder='on')
-through the chunked engine and the eval entry point's per-package engine.
-It imports nothing of JAX or of the JAX package.
+through the chunked engine and the eval entry point's per-package engine;
+and TBPTT training of the phased regime (fused_gru='on', B=8, L=10, crop
+224, through the training entry point) with a first step of the
+ConvLSTM state combination.  It imports nothing of JAX or of the JAX
+package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel);
@@ -95,7 +98,22 @@ Phases, each printed as one JSON line:
                    layers, K8 and the composed layers in mirrored turns
                    and their chunk's forward alone (ms per chunk),
                    per-package latency with K8, and per layer K8, the
-                   two-stage and the composed layer at both batches.
+                   two-stage and the composed layer at both batches;
+ 17. kernel_train_lstm K3-res and K4-res against their plain versions at
+                   the phased training shapes (B=8) and one ragged shape,
+                   and the ConvLSTMHside and PhasedCell Functions'
+                   gradients against the plain layers' autograd in float32;
+ 18. train_phased  the phased recipe's first step (loss, every gradient,
+                   tau and phase included) against fused_gru='off', then
+                   the entry point for TRAIN_STEPS steps and one
+                   validation batch on a synthetic split with timestamps:
+                   finite losses, the K4-res, K3-res, K4 and K3 launch
+                   counts, peak memory; the flagship with the ConvLSTM
+                   state combination and precompute_x: its first step
+                   against 'off' and K3-res's count;
+ 19. timing_train_phased phased training sequences/s with 'on' and 'off',
+                   K3-res and K4-res per cell against their plain
+                   versions.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -172,17 +190,27 @@ DECODER_VARIANTS = (("k8", {"fused_decoder": "on"}),
                     ("composed", {"composed_decoder": "on"}))
 TWO_STAGE = {"composed_decoder": "off"}        # neither option, at any batch
 DECODER_SEQ_LENGTHS = (6, 3)
+# phased training (BASELINE config 3's MVSEC fine-tuning recipe, JAX
+# bench.py:1075-1082 train_phased_bf16_deferred_seq_per_sec_B8_L10_224):
+# the phased overrides with spatial_resolution = the crop, fused_gru 'on'
+# (phased configs cannot precompute the x side), B=8, L=10, 224^2, two
+# steps (cut: the data); its cell shapes at the three scales
+PHASED_TRAIN_B = 8
+PHASED_TRAIN_CELLS = ((8, 112, 112, 64), (8, 56, 56, 128), (8, 28, 28, 256))
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
-# bytes / C^2): K1 reads h, gx and writes h'; K1-res also acts; K2 reads
-# g, h, acts and writes dh, dgx; K5 reads x, h and writes h'; K3 reads h,
-# c, gx (4C) and writes h', c'; K4 also reads the f32 tau and phase and
-# writes three maps; a K11 step reads gx and writes its snapshot (h0 and
-# the events and image weights once per launch, counted per step here:
-# far below the operations' time)
+# bytes / C^2[, bytes per pixel of the map / C, read once whatever the
+# batch]): K1 reads h, gx and writes h'; K1-res also acts; K2 reads g, h,
+# acts and writes dh, dgx; K5 reads x, h and writes h'; K3 reads h, c, gx
+# (4C) and writes h', c'; K3-res also acts (4C); K4 reads h, c, gx, the
+# f32 tau and phase [H, W, C] and writes three maps; K4-res also acts; a
+# K11 step reads gx and writes its snapshot (h0 and the events and image
+# weights once per launch, counted per step here: far below the
+# operations' time)
 CELL_WORK = {"k1": (27, 10, 54), "k1_res": (27, 16, 54), "k2": (27, 18, 54),
-             "k5": (54, 6, 108), "k3": (36, 16, 72), "k4": (36, 26, 72),
+             "k5": (54, 6, 108), "k3": (36, 16, 72), "k3_res": (36, 24, 72),
+             "k4": (36, 18, 72, 8), "k4_res": (36, 26, 72, 8),
              "k11_step": (27, 8, 108)}
 
 
@@ -425,12 +453,12 @@ def max_pred_diff(a, b):
                for g in a for k in a[g])
 
 
-def write_train_data(root, K, seed):
-    """Synthetic on-disk splits at the crop size: one training sequence
-    with TRAIN_STEPS * TRAIN_B windows of TRAIN_L packages (step_size 1)
-    and one validation sequence with two windows."""
+def write_train_data(root, K, seed, batch=TRAIN_B):
+    """Synthetic on-disk splits at the crop size, timestamps included: one
+    training sequence with TRAIN_STEPS * batch windows of TRAIN_L packages
+    (step_size 1) and one validation sequence with two windows."""
     from rpg_ramnet_tpu_torch.data import generate_split
-    for split, windows, s in (("train", TRAIN_STEPS * TRAIN_B, seed),
+    for split, windows, s in (("train", TRAIN_STEPS * batch, seed),
                               ("val", 2, seed + 100)):
         generate_split(os.path.join(root, split), n_sequences=1, seed=s,
                        n_frames=TRAIN_L * K + K * (windows - 1),
@@ -453,14 +481,16 @@ def train_config(tmp):
     return raw
 
 
-def first_step_vs_off(cfg, root, dev, seed):
-    """Loss and every parameter gradient of one window batch with the
-    kernels (fused_gru 'auto') and with the plain layer ('off'), from the
-    same weights.  Returns the batch, both models and the comparison."""
+def first_step_vs_off(cfg, root, dev, seed, counters):
+    """Loss and every parameter gradient of one window batch
+    (cfg.batch_size windows, with timestamps where cfg.use_phased_arch)
+    with the kernels (cfg.model.fused_gru, 'auto' or 'on') and with the
+    plain layers ('off'), from the same weights.  counters: {name:
+    (wrapper, launches expected with the kernels)}; 'off' must launch
+    none.  Returns the batch, both models and the comparison."""
     import torch
     from rpg_ramnet_tpu_torch.data import BatchLoader, concatenate_subfolders
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
-    from rpg_ramnet_tpu_torch.ops import gru_hside
     from rpg_ramnet_tpu_torch.train.sequence_loss import (make_sequence_loss,
                                                           pack_train_batch)
     split = cfg.train_data
@@ -469,37 +499,42 @@ def first_step_vs_off(cfg, root, dev, seed):
         split.depth_folder, split.frame_folder, TRAIN_L, step_size=1,
         clip_distance=split.clip_distance,
         every_x_rgb_frame=split.every_x_rgb_frame,
-        reg_factor=split.reg_factor)
-    batch = pack_train_batch(next(iter(BatchLoader(ds, TRAIN_B, shuffle=False))),
+        reg_factor=split.reg_factor, use_phased_arch=cfg.use_phased_arch)
+    b = cfg.batch_size
+    batch = pack_train_batch(next(iter(BatchLoader(ds, b, shuffle=False))),
                              dev)
-    models, losses, grads = {}, {}, {}
-    for mode in ("auto", "off"):
+    kern = cfg.model.fused_gru
+    models, losses, grads, launched = {}, {}, {}, {}
+    for mode in (kern, "off"):
         c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                                fused_gru=mode))
         model = ERGB2DepthRecurrent(c.model, device=dev,
                                     generator=torch.Generator().manual_seed(seed))
-        n_res = gru_hside.conv_gru_hside_res.launches
+        n0 = {k: w.launches for k, (w, _) in counters.items()}
         loss, _ = make_sequence_loss(c, remat=True)(
-            model, model.init_state(TRAIN_B, TRAIN_CROP, TRAIN_CROP), batch)
+            model, model.init_state(b, TRAIN_CROP, TRAIN_CROP), batch)
         loss.backward()
         torch.cuda.synchronize()
-        if (mode == "off") != (gru_hside.conv_gru_hside_res.launches == n_res):
-            raise AssertionError(f"fused_gru={mode!r}: K1-res launched "
-                                 f"{gru_hside.conv_gru_hside_res.launches - n_res}")
+        launched[mode] = {k: w.launches - n0[k] for k, (w, _) in counters.items()}
         models[mode], losses[mode] = model, loss.item()
         grads[mode] = {n: p.grad.float() for n, p in model.named_parameters()}
         model.zero_grad(set_to_none=True)
+    want = {kern: {k: n for k, (_, n) in counters.items()},
+            "off": {k: 0 for k in counters}}
+    if launched != want:
+        raise AssertionError(f"first step launches {launched}, expected {want}")
     cos = {n: torch.nn.functional.cosine_similarity(
-        grads["auto"][n].flatten(), grads["off"][n].flatten(), dim=0).item()
+        grads[kern][n].flatten(), grads["off"][n].flatten(), dim=0).item()
         for n in grads["off"]}
     worst = min(cos, key=cos.get)
-    out = {"loss_kernels": losses["auto"], "loss_off": losses["off"],
-           "loss_rel_diff": abs(losses["auto"] - losses["off"]) / abs(losses["off"]),
+    out = {"fused_gru": kern, "launches": launched[kern],
+           "loss_kernels": losses[kern], "loss_off": losses["off"],
+           "loss_rel_diff": abs(losses[kern] - losses["off"]) / abs(losses["off"]),
            "loss_tol": LOSS_TOL, "grad_cos_min": cos[worst],
            "grad_cos_min_tensor": worst,
            "grad_cos_median": sorted(cos.values())[len(cos) // 2],
            "cos_tol": COS_TOL, "tensors": len(cos)}
-    if not (math.isfinite(losses["auto"]) and out["loss_rel_diff"] <= LOSS_TOL
+    if not (math.isfinite(losses[kern]) and out["loss_rel_diff"] <= LOSS_TOL
             and out["grad_cos_min"] >= COS_TOL):
         raise AssertionError(f"first step, kernels vs fused_gru='off': {out}")
     return batch, models, out
@@ -507,8 +542,8 @@ def first_step_vs_off(cfg, root, dev, seed):
 
 def time_training(cfg, models, batch, steps=2):
     """Training sequences/s of one window batch through make_train_step,
-    kernels ('auto') and plain layer ('off'), in turns off, on, on, off
-    after one warm-up step each."""
+    kernels (the models' key other than 'off') and plain layers ('off'),
+    in turns off, on, on, off after one warm-up step each."""
     import torch
     from rpg_ramnet_tpu_torch.train.optim import make_optimizer
     from rpg_ramnet_tpu_torch.train.train_step import make_train_step
@@ -518,8 +553,9 @@ def time_training(cfg, models, batch, steps=2):
         step_fns[mode] = make_train_step(c, model,
                                          make_optimizer(c, model.parameters()))
         step_fns[mode](batch)
+    kern = next(m for m in models if m != "off")
     walls = []
-    for mode in ("off", "auto", "auto", "off"):
+    for mode in ("off", kern, kern, "off"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -528,39 +564,33 @@ def time_training(cfg, models, batch, steps=2):
         walls.append(time.perf_counter() - t0)
         if not math.isfinite(aux["loss"]):
             raise AssertionError(f"non-finite loss in timing ({mode}): {aux}")
-    seqs = TRAIN_B * steps
+    seqs = batch["image"].shape[0] * steps
     return {"train_seq_per_s": seqs / min(walls[1], walls[2]),
             "train_off_seq_per_s": seqs / min(walls[0], walls[3]),
             "train_wall_s_off_on_on_off": walls, "steps_per_run": steps}
 
 
-def run_training(raw, tmp, K):
+def run_training(raw, tmp, counters):
     """The entry point in-process on the synthetic split, with every
-    launch count set to 0 just before; returns the trainer, its log and
-    the counts read just after."""
+    launch count in counters ({name: (wrapper, expected launches)}) set to
+    0 just before; returns its log, the counts read just after and the
+    peak memory."""
     import torch
-    from rpg_ramnet_tpu_torch.ops import gru_hside
     from rpg_ramnet_tpu_torch.train.__main__ import main as train_main
     cfg_path = os.path.join(tmp, "train_config.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f)
     os.environ["PREPROCESSED_DATASETS_FOLDER"] = os.path.join(tmp, "data")
-    counters = (gru_hside.conv_gru_hside, gru_hside.conv_gru_hside_res,
-                gru_hside.conv_gru_hside_bwd)
-    for c in counters:
-        c.launches = 0
+    for w, _ in counters.values():
+        w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = train_main(["-c", cfg_path])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, res, bwd = (c.launches for c in counters)
+    got = {k: w.launches for k, (w, _) in counters.items()}
+    want = {k: n for k, (_, n) in counters.items()}
     log = trainer.jsonl.entries[0]
-    cells = 3 * (K + 1) * TRAIN_L          # h-side cells per window
-    # each checkpointed package runs its forward twice (the recompute)
-    want = {"k1_res": 2 * cells * TRAIN_STEPS, "k2": cells * TRAIN_STEPS,
-            "k1_validation": cells}
-    got = {"k1_res": res, "k2": bwd, "k1_validation": k1}
     if got != want:
         raise AssertionError(f"launch counts {got}, expected {want}")
     losses = [log["train_loss"], log["val_loss"]]
@@ -583,11 +613,13 @@ def cell_bound(kind, shapes):
     per shape the larger of its MACs at the bf16 dense peak and its bytes
     (each input read and each output written once, weights included) at
     the HBM rate; bound_by names the side that gives most of the sum."""
-    macs, io, wts = CELL_WORK[kind]
+    macs, io, wts, *shared = CELL_WORK[kind]
+    shared = shared[0] if shared else 0
     by = {"operations": 0.0, "bytes": 0.0}
     for B, H, W, C in shapes:
         t_ops = 2 * macs * C * C * B * H * W / PEAK_FLOPS
-        t_bytes = (io * C * B * H * W + wts * C * C) / HBM_BYTES_PER_S
+        t_bytes = ((io * B + shared) * C * H * W
+                   + wts * C * C) / HBM_BYTES_PER_S
         by["operations" if t_ops >= t_bytes else "bytes"] += max(t_ops, t_bytes)
     return sum(by.values()) * 1e3, max(by, key=by.get)
 
@@ -1122,6 +1154,186 @@ def phased_phases(cfg, K, dev, gen, seed, dataset, packages, first_chunk,
           "lstm_cells": lstm_cells, "nvidia_smi": smi})
 
     return {"k3_errs": k3_errs, "k4_errs": k4_errs, "counts": ph_counts,
+            "cells": lstm_cells}
+
+
+def lstm_layer_grads(mod, x, c0, h0, gx, t, cots, kind, fused):
+    """Gradients of sum(out * cot) through the ConvLSTMHside Function (kind
+    'lstm_hside', on gx) or the phased layer (on x): fused, on bf16 inputs,
+    the Functions (K3-res, K4-res, float32 master weights, the live tau
+    and phase); plain, on float32 inputs, autograd through
+    ConvLSTM.hside or PhasedConvLSTM.forward(fused=False).  Inputs NHWC;
+    returns the inputs' gradients, then the parameters'."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
+    dt = torch.bfloat16 if fused else torch.float32
+    mod.zero_grad()
+    if kind == "lstm_hside":
+        ins = [v.to(dt).requires_grad_() for v in (c0, h0, gx)]
+        c0, h0, gx = ins
+        if fused:
+            outs = gru_hside.conv_lstm_hside(c0, h0, gx, mod.lstm.hside_weights())
+        else:
+            outs = [to_nhwc(v) for v in mod.lstm.hside(
+                to_nchw(gx), (to_nchw(c0), to_nchw(h0)))]
+        params = [mod.lstm.Gates.weight]
+    else:
+        ins = [v.to(dt).requires_grad_() for v in (x, c0, h0)]
+        x, c0, h0 = ins
+        y, (hn, cn) = mod(to_nchw(x), t, (to_nchw(c0), to_nchw(h0)),
+                          fused=fused)
+        outs = [to_nhwc(v) for v in (y, hn, cn)]
+        params = list(mod.parameters())
+    sum((o.float() * g).sum() for o, g in zip(outs, cots)).backward()
+    return [v.grad for v in ins] + [p.grad.clone() for p in params]
+
+
+def train_lstm_kernel_check(dev, gen):
+    """Per shape (the phased training shapes, B=8, and a ragged one with a
+    strided gx): K3-res (h', c', acts) and K4-res (h_t, h_new, c_new,
+    acts) against their plain versions (max abs error), and the
+    ConvLSTMHside and PhasedCell Functions' gradients against autograd
+    through the plain layers in float32 on the same values (max abs error
+    over the plain one's max magnitude: inputs, then weights, bias, tau,
+    phase)."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import PhasedConvLSTM, init_conv_
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    rows = []
+    for shape in PHASED_TRAIN_CELLS + (RAGGED_TRAIN_CELL,):
+        h, c, gx, w4, tau, phase, t = make_lstm_inputs(
+            shape, dev, gen, strided_gx=shape == RAGGED_TRAIN_CELL)
+        with torch.no_grad():
+            k3 = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+                gru_hside.conv_lstm_hside_res(h, c, gx, w4),
+                gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4)))
+            k4 = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+                phased_cell.conv_lstm_phased_res(h, c, gx, w4, tau, phase, t),
+                phased_cell.conv_lstm_phased_res_plain(h, c, gx, w4, tau,
+                                                       phase, t)))
+        B, Hc, Wc, C = shape
+        mod = PhasedConvLSTM(C, C, Hc, Wc)
+        init_conv_(mod.lstm.Gates, gen)
+        mod.phased_cell.reset_parameters_(gen)
+        mod.to(dev)
+        x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16).float()
+        cots = [torch.randn(shape, generator=gen).to(dev) for _ in range(3)]
+        fn_rel = {}
+        for kind in ("lstm_hside", "phased"):
+            args = (mod, x, h.float(), c.float(), gx.float(), t, cots, kind)
+            fn_rel[kind] = [rel_err(a, b) for a, b in zip(
+                lstm_layer_grads(*args, True), lstm_layer_grads(*args, False))]
+        torch.cuda.synchronize()
+        row = {"shape": list(shape), "k3_res_err": k3, "k4_res_err": k4,
+               "fn_rel": fn_rel}
+        rows.append(row)
+        if not max(k3, k4) <= CELL_TOL:
+            raise AssertionError(f"K3-res/K4-res vs plain at {shape}: {row}")
+        if not max(max(v) for v in fn_rel.values()) <= GRAD_TOL:
+            raise AssertionError(f"LSTM Functions vs plain layers at "
+                                 f"{shape}: {row}")
+        del mod, x, cots
+    return rows
+
+
+def time_train_lstm_cells(dev, gen, iters=20):
+    """Microseconds per cell of K3-res and K4-res and of their plain
+    versions at the phased training shapes, in turns plain, kernel,
+    kernel, plain."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    rows = []
+    for shape in PHASED_TRAIN_CELLS:
+        h, c, gx, w4, tau, phase, t = make_lstm_inputs(shape, dev, gen)
+        row = {"shape": list(shape)}
+        for name, kern, plain in (
+                ("k3_res", lambda: gru_hside.conv_lstm_hside_res(h, c, gx, w4),
+                 lambda: gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4)),
+                ("k4_res", lambda: phased_cell.conv_lstm_phased_res(
+                    h, c, gx, w4, tau, phase, t),
+                 lambda: phased_cell.conv_lstm_phased_res_plain(
+                    h, c, gx, w4, tau, phase, t))):
+            with torch.no_grad():
+                p1, k1, k2, p2 = (cuda_time_us(f, iters)
+                                  for f in (plain, kern, kern, plain))
+            row.update({f"{name}_kernel_us": min(k1, k2),
+                        f"{name}_plain_us": min(p1, p2),
+                        f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2]})
+        rows.append(row)
+    return rows
+
+
+def phased_train_config(tmp):
+    """The flagship training config with the phased overrides (use_phased_arch
+    at both levels, spatial_resolution = the crop), fused_gru 'on', no
+    x precompute, batch PHASED_TRAIN_B."""
+    raw = train_config(tmp)
+    raw["name"] = "smoke_train_phased"
+    raw["use_phased_arch"] = True
+    raw["model"].update(PHASED, spatial_resolution=[TRAIN_CROP, TRAIN_CROP],
+                        fused_gru="on")
+    raw["trainer"]["precompute_x"] = False
+    raw["data_loader"]["batch_size"] = PHASED_TRAIN_B
+    return raw
+
+
+def phased_train_phases(K, dev, gen, seed, smi):
+    """Phases 17-19: K3-res and K4-res and their Functions against their
+    plain versions; phased training through the entry point and the
+    ConvLSTM state combination's first step; their times.  Returns what
+    the kernels line reads."""
+    import torch
+    from rpg_ramnet_tpu_torch.core.config import Config
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+
+    # 17. the training cells against their plain versions on the card
+    rows = train_lstm_kernel_check(dev, gen)
+    emit({"phase": "kernel_train_lstm", "cell_tol": CELL_TOL,
+          "grad_tol": GRAD_TOL, "cells": rows})
+
+    # 18. phased training at full width through the entry point, and the
+    #     ConvLSTM state combination's first step with precompute_x
+    cells = 3 * (K + 1) * TRAIN_L          # cells of one kind per window
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_phased_train_") as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_train_data(data, K, seed + 11, batch=PHASED_TRAIN_B)
+        data_s = time.perf_counter() - t0
+        raw = phased_train_config(tmp)
+        pcfg = Config.from_dict(raw)
+        # each checkpointed package runs its forward twice (the recompute)
+        batch, pmodels, first = first_step_vs_off(
+            pcfg, data, dev, seed,
+            {"k4_res": (phased_cell.conv_lstm_phased_res, 2 * cells),
+             "k3_res": (gru_hside.conv_lstm_hside_res, 2 * cells)})
+        trained = run_training(raw, tmp, {
+            "k4_res": (phased_cell.conv_lstm_phased_res, 2 * cells * TRAIN_STEPS),
+            "k3_res": (gru_hside.conv_lstm_hside_res, 2 * cells * TRAIN_STEPS),
+            "k4_validation": (phased_cell.conv_lstm_phased, cells),
+            "k3_validation": (gru_hside.conv_lstm_hside, cells)})
+        lraw = train_config(tmp)
+        lraw["model"]["state_combination"] = "convlstm"
+        lraw["data_loader"]["batch_size"] = PHASED_TRAIN_B
+        _, _, lstm_first = first_step_vs_off(
+            Config.from_dict(lraw), data, dev, seed + 1,
+            {"k3_res": (gru_hside.conv_lstm_hside_res, 2 * cells)})
+    check_no_jax()
+    emit({"phase": "train_phased", "config": CONFIG,
+          "model": raw["model"], "use_phased_arch": raw["use_phased_arch"],
+          "B": PHASED_TRAIN_B, "L": TRAIN_L, "crop": TRAIN_CROP, "K": K,
+          "steps": TRAIN_STEPS, "data_write_s": data_s,
+          "first_step_vs_off": first, **trained,
+          "lstm_state_combination_first_step_vs_off": lstm_first})
+
+    # 19. phased training throughput, K3-res and K4-res per cell
+    timing = time_training(pcfg, pmodels, batch)
+    del pmodels, batch
+    torch.cuda.empty_cache()
+    lstm_cells = time_train_lstm_cells(dev, gen)
+    emit({"phase": "timing_train_phased", **timing, "cells": lstm_cells,
+          "nvidia_smi": smi})
+    return {"rows": rows, "launches": trained["launches"],
             "cells": lstm_cells}
 
 
@@ -1677,9 +1889,17 @@ def main() -> int:
         data_s = time.perf_counter() - t0
         raw = train_config(tmp)
         tcfg = Config.from_dict(raw)
+        # per step K1-res twice per h-side cell (each checkpointed package
+        # runs its forward twice, the recompute) and K2 once; K1 once per
+        # cell of the validation window
+        n_cells = 3 * (K + 1) * TRAIN_L
         batch, tmodels, first = first_step_vs_off(
-            tcfg, os.path.join(tmp, "data"), dev, args.seed)
-        trained = run_training(raw, tmp, K)
+            tcfg, os.path.join(tmp, "data"), dev, args.seed,
+            {"k1_res": (gru_hside.conv_gru_hside_res, 2 * n_cells)})
+        trained = run_training(raw, tmp, {
+            "k1_res": (gru_hside.conv_gru_hside_res, 2 * n_cells * TRAIN_STEPS),
+            "k2": (gru_hside.conv_gru_hside_bwd, n_cells * TRAIN_STEPS),
+            "k1_validation": (gru_hside.conv_gru_hside, n_cells)})
     check_no_jax()
     emit({"phase": "train", "config": CONFIG, "precompute_x": True,
           "B": TRAIN_B, "L": TRAIN_L, "crop": TRAIN_CROP, "K": K,
@@ -1811,6 +2031,9 @@ def main() -> int:
           "bound_ms_batch96": decoder_bound(96),
           "bound_ms_batch6": decoder_bound(6), "nvidia_smi": smi})
 
+    # 17-19. phased and ConvLSTM training: K3-res, K4-res
+    ph_train = phased_train_phases(K, dev, gen, args.seed, smi)
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     vus = vox_times["us"]
     flagship_keys = ["x".join(map(str, c)) for c in FLAGSHIP_CELLS]
@@ -1900,7 +2123,21 @@ def main() -> int:
               composed_rule["sum_us_batch96"]["k8"] / 1e3,
               composed_rule["sum_us_batch96"]["two_stage"] / 1e3,
               decoder_bound(96),
-              composed_rule["sum_us_batch96"]["composed"] / 1e3)]})
+              composed_rule["sum_us_batch96"]["composed"] / 1e3),
+        entry("lstm_hside_res", "lstm_hside.cu",
+              "rpg_ramnet_tpu/ops/gru_hside.py:356",
+              ph_train["launches"]["k3_res"],
+              max(r["k3_res_err"] for r in ph_train["rows"]),
+              sum(r["k3_res_kernel_us"] for r in ph_train["cells"]) / 1e3,
+              sum(r["k3_res_plain_us"] for r in ph_train["cells"]) / 1e3,
+              cell_bound("k3_res", PHASED_TRAIN_CELLS)),
+        entry("phased_cell_res", "lstm_hside.cu",
+              "rpg_ramnet_tpu/ops/phased_cell.py:97",
+              ph_train["launches"]["k4_res"],
+              max(r["k4_res_err"] for r in ph_train["rows"]),
+              sum(r["k4_res_kernel_us"] for r in ph_train["cells"]) / 1e3,
+              sum(r["k4_res_plain_us"] for r in ph_train["cells"]) / 1e3,
+              cell_bound("k4_res", PHASED_TRAIN_CELLS))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,11 +1,13 @@
 // Fused ConvLSTM h-side cell (kernel K3) and the phased ConvLSTM cell
-// (kernel K4) for NVIDIA Hopper, sm_90a.
+// (kernel K4) for NVIDIA Hopper, sm_90a, and their residual variants for
+// training (K3-res, K4-res).
 //
 // Replaces the Pallas TPU kernels rpg_ramnet_tpu/ops/gru_hside.py::_run_lstm
-// (_lstm_kernel, K3) and rpg_ramnet_tpu/ops/phased_cell.py::_run_phased
-// (_phased_kernel, K4).  From the conv operand h [B,H,W,C], the cell input
-// c [B,H,W,C] and the precomputed x-side gate pre-activations gx [B,H,W,4C]
-// (in | remember | out | cell, biases folded in):
+// (_lstm_kernel, K3; _lstm_kernel_res, K3-res) and
+// rpg_ramnet_tpu/ops/phased_cell.py::_run_phased (_phased_kernel, K4;
+// _phased_kernel_res, K4-res).  From the conv operand h [B,H,W,C], the
+// cell input c [B,H,W,C] and the precomputed x-side gate pre-activations
+// gx [B,H,W,4C] (in | remember | out | cell, biases folded in):
 //
 //     g = conv3x3(h, W4) + gx                 i, f, o = sigmoid(g_i, g_f, g_o)
 //     u = tanh(g_u)                           c' = f * c + i * u
@@ -24,13 +26,18 @@
 //           leak * phi              elsewhere
 //     h_t = c'   c_t = h'   h_new = k h_t + (1 - k) h0   c_new = k c_t + (1 - k) c0
 //
-// and writes (h_t, h_new, c_new).  t - phase, the divisions and the region
+// and writes (h_t, h_new, c_new).  The residual variants (a second
+// compile-time flag) also write acts = (i, f, o, u) [B,H,W,4C] in bf16, the
+// gate activations the backward (ops/gru_hside.py::conv_lstm_hside_bwd)
+// reads: they already sit in the thread's registers, so the flag only adds
+// the stores (8*C bytes per pixel).  t - phase, the divisions and the region
 // products are taken with __fsub_rn / __fdiv_rn / __fmul_rn: a contracted
 // FMA there could move phi across a region boundary.
 //
 // What bounds it on this card.  Per pixel the cell must move h, c, gx and its
-// outputs (16*C bytes for K3; 20*C plus 8*C of f32 tau and phase for K4) and
-// do 36*C^2 multiply-adds: 4.5*C flop per byte for K3, 288 to 1152 at the
+// outputs (16*C bytes for K3; 20*C plus 8*C of f32 tau and phase for K4;
+// 8*C more for the acts of the residual variants) and do 36*C^2
+// multiply-adds: 4.5*C flop per byte for K3, 288 to 1152 at the
 // phased widths C = 64, 128, 256, at or above the H100's bf16 ridge (~295
 // flop/B).  So the conv belongs on the tensor cores, fed from shared memory.
 //
@@ -99,14 +106,15 @@ __device__ __forceinline__ float blend(float k, float a, float b) {
   return __fadd_rn(__fmul_rn(k, a), __fmul_rn(__fsub_rn(1.0f, k), b));
 }
 
-template <bool kPhased>
+template <bool kPhased, bool kRes>
 __global__ void __launch_bounds__(kThreads)
 lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
                   const bf16* __restrict__ gx, const bf16* __restrict__ w4,
                   const float* __restrict__ tau, const float* __restrict__ phase,
                   const float* __restrict__ times, bf16* __restrict__ out0,
-                  bf16* __restrict__ out1, bf16* __restrict__ out2, int H, int W,
-                  int C, long long gx_bstride, int TH, int TW, float leak,
+                  bf16* __restrict__ out1, bf16* __restrict__ out2,
+                  bf16* __restrict__ acts, int H, int W, int C,
+                  long long gx_bstride, int TH, int TW, float leak,
                   float ratio_on) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ps = C + kPad;              // pixel pitch in shared memory
@@ -180,7 +188,7 @@ lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
           const float2 gu = ld_bf2(gp + 3 * C + ch);
           const float2 cv = ld_bf2(cb + pix * C + ch);
           const int e = 2 * half;
-          float cell[2], hid[2];
+          float cell[2], hid[2], act[4][2];
           const float pre[4][2] = {{gi.x, gi.y}, {gf.x, gf.y}, {go.x, go.y}, {gu.x, gu.y}};
           const float cin[2] = {cv.x, cv.y};
 #pragma unroll
@@ -191,6 +199,15 @@ lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
             const float ug = tanhf(acc[3][mi][ni][e + j] + pre[3][j]);
             cell[j] = fg * cin[j] + ig * ug;
             hid[j] = og * tanhf(cell[j]);
+            act[0][j] = ig;
+            act[1][j] = fg;
+            act[2][j] = og;
+            act[3][j] = ug;
+          }
+          if (kRes) {   // acts in gx's gate order, at gx's pixel pitch 4C
+            bf16* ap = acts + ((size_t)b * H * W + pix) * C4 + ch;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) st_bf2(ap + q * C, act[q][0], act[q][1]);
           }
           if (!kPhased) {
             st_bf2(out0 + o + ch, hid[0], hid[1]);
@@ -213,24 +230,26 @@ lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
   }
 }
 
-template <bool kPhased>
+template <bool kPhased, bool kRes>
 int launch(const void* h, const void* c, const void* gx, const void* w4,
            const void* tau, const void* phase, const void* times, void* out0,
-           void* out1, void* out2, int B, int H, int W, int C, long long gx_bstride,
-           int tile_h, int tile_w, float leak, float ratio_on, void* stream) {
+           void* out1, void* out2, void* acts, int B, int H, int W, int C,
+           long long gx_bstride, int tile_h, int tile_w, float leak, float ratio_on,
+           void* stream) {
   // the h tile with its 1-pixel halo (ops/gru_hside.py::smem_bytes_lstm)
   const size_t smem = (size_t)(tile_h + 2) * (tile_w + 2) * (size_t)(C + kPad) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_hside_kernel<kPhased>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      lstm_hside_kernel<kPhased, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, B);
-  lstm_hside_kernel<kPhased><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  lstm_hside_kernel<kPhased, kRes><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(c),
       static_cast<const bf16*>(gx), static_cast<const bf16*>(w4),
       static_cast<const float*>(tau), static_cast<const float*>(phase),
       static_cast<const float*>(times), static_cast<bf16*>(out0),
-      static_cast<bf16*>(out1), static_cast<bf16*>(out2), H, W, C, gx_bstride,
-      tile_h, tile_w, leak, ratio_on);
+      static_cast<bf16*>(out1), static_cast<bf16*>(out2), static_cast<bf16*>(acts),
+      H, W, C, gx_bstride, tile_h, tile_w, leak, ratio_on);
   return (int)cudaGetLastError();
 }
 
@@ -247,8 +266,21 @@ int ramnet_lstm_hside_forward(const void* h, const void* c, const void* gx,
                               const void* w4, void* hid, void* cell, int B, int H,
                               int W, int C, long long gx_bstride, int tile_h,
                               int tile_w, void* stream) {
-  return launch<false>(h, c, gx, w4, nullptr, nullptr, nullptr, hid, cell, nullptr,
-                       B, H, W, C, gx_bstride, tile_h, tile_w, 0.0f, 0.0f, stream);
+  return launch<false, false>(h, c, gx, w4, nullptr, nullptr, nullptr, hid, cell,
+                              nullptr, nullptr, B, H, W, C, gx_bstride, tile_h, tile_w,
+                              0.0f, 0.0f, stream);
+}
+
+// K3-res: K3 that also writes acts [B,H,W,4C] bf16 contiguous, 16-byte
+// aligned: the gate activations (i, f, o, u).  Otherwise as
+// ramnet_lstm_hside_forward.
+int ramnet_lstm_hside_forward_res(const void* h, const void* c, const void* gx,
+                                  const void* w4, void* hid, void* cell, void* acts,
+                                  int B, int H, int W, int C, long long gx_bstride,
+                                  int tile_h, int tile_w, void* stream) {
+  return launch<false, true>(h, c, gx, w4, nullptr, nullptr, nullptr, hid, cell,
+                             nullptr, acts, B, H, W, C, gx_bstride, tile_h, tile_w,
+                             0.0f, 0.0f, stream);
 }
 
 // K4: one phased ConvLSTM cell from the state (c0, h0): c0 is the conv
@@ -261,8 +293,23 @@ int ramnet_lstm_phased_forward(const void* c0, const void* h0, const void* gx,
                                int B, int H, int W, int C, long long gx_bstride,
                                int tile_h, int tile_w, float leak, float ratio_on,
                                void* stream) {
-  return launch<true>(c0, h0, gx, w4, tau, phase, t, h_t, h_new, c_new, B, H, W, C,
-                      gx_bstride, tile_h, tile_w, leak, ratio_on, stream);
+  return launch<true, false>(c0, h0, gx, w4, tau, phase, t, h_t, h_new, c_new,
+                             nullptr, B, H, W, C, gx_bstride, tile_h, tile_w, leak,
+                             ratio_on, stream);
+}
+
+// K4-res: K4 that also writes acts [B,H,W,4C] bf16 contiguous, 16-byte
+// aligned, as ramnet_lstm_hside_forward_res.  Otherwise as
+// ramnet_lstm_phased_forward.
+int ramnet_lstm_phased_forward_res(const void* c0, const void* h0, const void* gx,
+                                   const void* w4, const void* tau, const void* phase,
+                                   const void* t, void* h_t, void* h_new, void* c_new,
+                                   void* acts, int B, int H, int W, int C,
+                                   long long gx_bstride, int tile_h, int tile_w,
+                                   float leak, float ratio_on, void* stream) {
+  return launch<true, true>(c0, h0, gx, w4, tau, phase, t, h_t, h_new, c_new, acts,
+                            B, H, W, C, gx_bstride, tile_h, tile_w, leak, ratio_on,
+                            stream);
 }
 
 const char* ramnet_cuda_error_string(int err) {

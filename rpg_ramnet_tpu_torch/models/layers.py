@@ -446,9 +446,14 @@ class PhasedLSTMGate(nn.Module):
         return self.tau.view(c, h, w), self.phase.view(c, h, w)
 
     def nhwc(self, c: int, h: int, w: int):
-        """(tau, phase) permuted once to the kernel's [H, W, C], float32,
-        contiguous: copies, never aliases of the parameters, cached per
-        parameter version."""
+        """(tau, phase) permuted to the kernel's [H, W, C], float32,
+        contiguous.  Under autograd, permuted anew from the live parameters
+        through differentiable ops, so gradients reach them; otherwise
+        copies, never aliases of the parameters, cached per parameter
+        version."""
+        if torch.is_grad_enabled():
+            return tuple(v.float().view(c, h, w).permute(1, 2, 0).contiguous()
+                         for v in (self.tau, self.phase))
         key = tuple((p.data_ptr(), p._version) for p in (self.tau, self.phase))
         if self._cache is None or self._cache[0] != key:
             with torch.no_grad():
@@ -487,14 +492,16 @@ class PhasedConvLSTM(nn.Module):
         return is (c_t, h_t).  The blend runs in float32 and is cast back
         to the state's dtype.  fused: the x/h split and kernel K4
         (ops/phased_cell.py), on the kernel's plain version for CPU
-        tensors."""
+        tensors; under autograd the ``PhasedCell`` Function (K4-res) on the
+        float32 master weight, folded anew, and the live tau and phase."""
         c0, h0 = state
         C = self.lstm.hidden_size
         if fused:
             gx = self.lstm.x_gates(x)
             h_t, h_new, c_new = conv_lstm_phased(
                 to_nhwc(c0), to_nhwc(h0), to_nhwc(gx),
-                self.lstm.hside_weights(c0.dtype),
+                self.lstm.hside_weights(
+                    None if torch.is_grad_enabled() else c0.dtype),
                 *self.phased_cell.nhwc(C, self.height, self.width), times)
             return to_nchw(h_t), (to_nchw(h_new), to_nchw(c_new))
         c_t, h_t = self.lstm(x, (c0, h0))

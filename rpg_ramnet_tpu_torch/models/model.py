@@ -116,7 +116,7 @@ def _package_snapshot_step_pre(net, cfg: ModelConfig, state, pkg,
     (state-independent for recurrent_block_type='conv'), leaving only the
     K+1 h-side cells sequential; gx memory stays bounded to one package.
     allow_fused: let the fused_gru policy pick the h-side kernels, which
-    are differentiable for the ConvGRU (ops/gru_hside.py::ConvGRUHside)."""
+    are differentiable (ops/gru_hside.py::ConvGRUHside, ConvLSTMHside)."""
     loop = event_loop_range(cfg)
     ev = pkg["events"]                       # [B, K, H, W, Ce]
     b = ev.shape[0]
@@ -293,8 +293,9 @@ class ERGB2DepthRecurrent(nn.Module):
         after every step (model.py:176-217), with the whole cells: the
         reference semantics.  decode_keys: decode only these keys (all
         when None); the recurrence is unchanged.  allow_fused: let the
-        fused_gru policy run the cells as kernels K4, K3 and K5 (inference
-        only).  allow_fused_decoder, allow_composed: let the fused_decoder
+        fused_gru policy run the cells as kernels K4, K3 and K5 (K4 and K3
+        differentiable through their Functions, K5 inference only).
+        allow_fused_decoder, allow_composed: let the fused_decoder
         policy run decoder layers as kernel K8 (inference only) and the
         composed_decoder policy as the composed layers.  Returns (state,
         {key: [B, H, W, 1]})."""
@@ -449,8 +450,9 @@ class ERGB2DepthRecurrent(nn.Module):
         (_package_snapshot_step_pre; trainer.precompute_x).
         allow_fused: let the fused_gru policy pick the kernels: the h-side
         cells with package_precompute, else the whole cells (K5, and the
-        phased and ConvLSTM cells K4 and K3), which have no gradient (they
-        raise under autograd).
+        phased and ConvLSTM cells K4 and K3).  Under autograd the h-side
+        and ConvLSTM cells run their Functions (K1-res, K3-res, K4-res);
+        K5 has no gradient and raises, as the JAX kernel.
         allow_fused_decoder, allow_composed: the decode's flags, as
         forward_package's (K8 has no gradient; the composed layers do).
 

@@ -201,10 +201,13 @@ def use_fused_cell(cfg: ModelConfig, h: torch.Tensor,
 
 def _lstm_hside(cell, gx: torch.Tensor, state):
     """The ConvLSTM cell's h side as kernel K3 (its plain version for CPU
-    tensors) on the cached folded weight: NCHW (hidden, cell)."""
+    tensors) on the cached folded weight, or under autograd as the
+    ``ConvLSTMHside`` Function (K3-res) on the float32 master weight,
+    folded anew: NCHW (hidden, cell)."""
     h, c = state
     hid, cell_new = gru_hside.conv_lstm_hside(
-        to_nhwc(h), to_nhwc(c), to_nhwc(gx), cell.hside_weights(h.dtype))
+        to_nhwc(h), to_nhwc(c), to_nhwc(gx),
+        cell.hside_weights(None if torch.is_grad_enabled() else h.dtype))
     return to_nchw(hid), to_nchw(cell_new)
 
 
@@ -217,8 +220,9 @@ def forward_modality(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
     step's timestamps for the phased encoders (zeros when None).
     allow_fused: let the fused_gru policy run the phased encoder cells as
     kernel K4, the ConvLSTM state combination as kernel K3 (after its x
-    side) and the ConvGRU one as kernel K5, all inference only, instead of
-    the plain layers (statenet.py:230-290)."""
+    side) and the ConvGRU one as kernel K5, instead of the plain layers
+    (statenet.py:230-290).  Under autograd K4 and K3 are their Functions
+    (K4-res, K3-res, with gradients); K5 is inference only and raises."""
     head, encoders, combs = net.branch(modality)
     enc_states = (state.events if modality == "events"
                   else state.image).encoders
@@ -280,10 +284,11 @@ def combine_hside(net: StateNet, cfg: ModelConfig, supers: Sequence,
     """One modality step of per-scale h-side completion from precomputed
     x-side gates; supers are per-scale tensors (ConvGRU) or (hidden, cell)
     pairs (ConvLSTM).  allow_fused: let the fused_gru policy pick the
-    h-side kernels (ops/gru_hside.py: K1, or K3 for the ConvLSTM, which
-    has no gradient yet).  Under autograd the GRU cell is the
-    ``ConvGRUHside`` Function on the float32 master weights, folded anew
-    per call; otherwise K1 on the cached folded weights in h's dtype.
+    h-side kernels (ops/gru_hside.py: K1, or K3 for the ConvLSTM).  Under
+    autograd the cells are the ``ConvGRUHside`` and ``ConvLSTMHside``
+    Functions (K1-res, K3-res) on the float32 master weights, folded anew
+    per call; otherwise K1 and K3 on the cached folded weights in h's
+    dtype.
     With ``fused_pair='on'``, where the policy takes the fused cell for
     scales 0 and 1 and ``gru_pair.supports_pair`` holds, those two run as
     one launch (K9, inference only; statenet.py:416-431), the rest per

@@ -48,9 +48,13 @@ cell) order with the biases folded in (``ConvLSTM.x_gates``):
     i, f, o = sigmoid(conv3x3(h, W4) + gx[i, f, o]);  u = tanh(... + gx[u])
     c' = f * c + i * u;   h' = o * tanh(c')
 
-with w4 [9, 4C, C] = ``ConvLSTM.hside_weights``.  Inference only here: it
-raises under autograd (the VJP, ``_lstm_hside_bwd``, comes with training).
-The phased cell K4 is the same source with a template flag
+with w4 [9, 4C, C] = ``ConvLSTM.hside_weights``.  When a gradient is
+needed it runs ``ConvLSTMHside``, the counterpart of ``_lstm_hside_cell``'s
+custom VJP: its forward runs K3-res (``_lstm_kernel_res``), which also
+writes acts [B, H, W, 4C] = (i, f, o, u) in h's dtype, and its backward
+``conv_lstm_hside_bwd`` (``_lstm_hside_bwd``: elementwise gate grads and
+two library convolutions, XLA in the JAX package too).  The phased cell K4
+and its residual variant K4-res are the same source with a template flag
 (``ops/phased_cell.py``).
 """
 from __future__ import annotations
@@ -255,6 +259,14 @@ def lstm_gates_plain(h: torch.Tensor, gx: torch.Tensor, w4: torch.Tensor):
             torch.sigmoid(g[:, 2 * C:3 * C]), torch.tanh(g[:, 3 * C:]))
 
 
+def _lstm_cell_plain(h, c, gx, w4):
+    """(h', c', (i, f, o, u)) NCHW in the work dtype."""
+    gates = lstm_gates_plain(h, gx, w4)
+    i, f, o, u = gates
+    cell = f * to_nchw(c).to(i.dtype) + i * u
+    return o * torch.tanh(cell), cell, gates
+
+
 def conv_lstm_hside_plain(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
                           w4: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -262,30 +274,69 @@ def conv_lstm_hside_plain(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
     (h', c') rounded to h's dtype, h' from the unrounded c'.  The CPU
     implementation of ``conv_lstm_hside`` and the kernel's oracle on the
     card."""
-    i, f, o, u = lstm_gates_plain(h, gx, w4)
-    cell = f * to_nchw(c).to(i.dtype) + i * u
-    hid = o * torch.tanh(cell)
+    hid, cell, _ = _lstm_cell_plain(h, c, gx, w4)
     return (to_nhwc(hid.to(h.dtype)).contiguous(),
             to_nhwc(cell.to(h.dtype)).contiguous())
 
 
+def conv_lstm_hside_res_plain(h: torch.Tensor, c: torch.Tensor,
+                              gx: torch.Tensor, w4: torch.Tensor
+                              ) -> Tuple[torch.Tensor, ...]:
+    """K3-res in plain PyTorch: (h', c') as ``conv_lstm_hside_plain`` and
+    acts [B, H, W, 4C] = (i, f, o, u) rounded to h's dtype."""
+    hid, cell, gates = _lstm_cell_plain(h, c, gx, w4)
+    return tuple(to_nhwc(v.to(h.dtype)).contiguous()
+                 for v in (hid, cell, torch.cat(gates, 1)))
+
+
+def _wgrad(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The gradient of a bias-free 3x3 'same' conv's weight from its
+    NHWC input x and the NCHW-shaped output cotangent d, as a library
+    convolution in x's dtype (f32 accumulation), folded [9, rows, C]: the
+    counterpart of ``_dconv_w``."""
+    rows, C = d.shape[1], x.shape[-1]
+    w = torch.nn.grad.conv2d_weight(to_nchw(x), (rows, C, 3, 3),
+                                    d.to(x.dtype), padding=1)
+    return w.permute(2, 3, 0, 1).reshape(9, rows, C)
+
+
 def hside_weight_grads(h: torch.Tensor, acts: torch.Tensor,
                        dgx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The h-side weight gradients, folded [9, 2C, C] and [9, C, C], as
-    library convolutions in h's dtype (f32 accumulation): W_ur's from h and
-    dgx's (z, r) part, W_o's from a = bf16(r*h) and dgx's o part.  The
-    counterpart of ``_dconv_w`` in ``_gru_hside_bwd_xla``."""
+    """The h-side weight gradients, folded [9, 2C, C] and [9, C, C]
+    (``_wgrad``): W_ur's from h and dgx's (z, r) part, W_o's from
+    a = bf16(r*h) and dgx's o part, as ``_gru_hside_bwd_xla``."""
     C = h.shape[-1]
     dt = _work_dtype(h)
     a = (acts[..., C:2 * C].to(dt) * h.to(dt)).to(h.dtype)
-    ds = to_nchw(dgx.to(h.dtype))
+    ds = to_nchw(dgx)
+    return _wgrad(h, ds[:, :2 * C]), _wgrad(a, ds[:, 2 * C:])
 
-    def wgrad(x, d, rows):
-        w = torch.nn.grad.conv2d_weight(to_nchw(x), (rows, C, 3, 3), d,
-                                        padding=1)
-        return w.permute(2, 3, 0, 1).reshape(9, rows, C)
 
-    return wgrad(h, ds[:, :2 * C], 2 * C), wgrad(a, ds[:, 2 * C:], C)
+def conv_lstm_hside_bwd(g_hid: torch.Tensor, g_cell: torch.Tensor,
+                        h: torch.Tensor, c: torch.Tensor,
+                        cell_new: torch.Tensor, acts: torch.Tensor,
+                        w4: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The ConvLSTM h-side cell's backward, the counterpart of
+    ``_lstm_hside_bwd``: from the cotangents of (h', c') and the residuals
+    (h, c, c' and acts = (i, f, o, u) of K3-res), (dh, dc, dgx, dw4).  The
+    gate gradients in the work dtype from acts; dh by a transposed
+    convolution of dgx rounded to h's dtype with w4 rounded to h's dtype,
+    f32 accumulation; dw4 folded [9, 4C, C] by ``_wgrad``; dc = dc' * f.
+    dh and dc in h's dtype, dgx in the work dtype (the caller rounds it
+    to gx's), dw4 in h's dtype.  Library convolutions and elementwise ops,
+    as the JAX package leaves them to XLA: no kernel."""
+    C = h.shape[-1]
+    dt = _work_dtype(h)
+    i, f, o, u = acts.to(dt).split(C, dim=-1)
+    t = torch.tanh(cell_new.to(dt))
+    gh = g_hid.to(dt)
+    dcn = gh * o * (1.0 - t * t) + g_cell.to(dt)
+    dg = torch.cat([(dcn * u) * i * (1.0 - i), (dcn * c.to(dt)) * f * (1.0 - f),
+                    (gh * t) * o * (1.0 - o), (dcn * i) * (1.0 - u * u)], -1)
+    ds = to_nchw(dg.to(h.dtype))
+    dh = F.conv_transpose2d(ds.to(dt), _oihw(w4.to(h.dtype), dt), None, 1, 1)
+    return (to_nhwc(dh.to(h.dtype)).contiguous(), (dcn * f).to(h.dtype), dg,
+            _wgrad(h, ds))
 
 
 # -- the kernels ------------------------------------------------------------
@@ -325,15 +376,22 @@ _FULL_SIGNATURES = {
                                      _I, _I, _I, _P)),
     **_ERR,
 }
+_F = ctypes.c_float
 _LSTM_SIGNATURES = {
     "ramnet_lstm_hside_forward": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _L, _I, _I, _P)),
+    "ramnet_lstm_hside_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                           _I, _I, _L, _I, _I, _P)),
     "ramnet_lstm_phased_forward": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _I, _L, _I, _I,
-                                        ctypes.c_float, ctypes.c_float, _P)),
+                                        _F, _F, _P)),
+    "ramnet_lstm_phased_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _P, _P, _P, _I, _I, _I, _I, _L,
+                                            _I, _I, _F, _F, _P)),
     **_ERR,
 }
-# csrc/<name>.cu; lstm_hside holds K3 and the phased cell K4, gru_cells the
+# csrc/<name>.cu; lstm_hside holds K3, the phased cell K4 and their residual
+# variants K3-res and K4-res, gru_cells the
 # pair and gx-streaming cells K9, K10a, K10b (ops/gru_pair.py,
 # ops/gru_stream.py), gru_chunk the whole-chunk cell K11 (ops/gru_chunk.py)
 SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full", "lstm_hside",
@@ -359,7 +417,8 @@ def library_full():
 
 
 def library_lstm():
-    """The built and loaded K3/K4 library (nvcc on first use)."""
+    """The built and loaded K3/K4 (and K3-res/K4-res) library (nvcc on first
+    use)."""
     from .. import kernels
     return kernels.library("lstm_hside", _LSTM_SIGNATURES)
 
@@ -499,20 +558,18 @@ def check_lstm(h, c, gx, w4) -> None:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
 
 
-def raise_under_autograd(name: str, *tensors,
-                         why: str = "its backward comes with phased/ConvLSTM "
-                                    "training, ROADMAP queue 1, item 17"
-                         ) -> None:
+def raise_under_autograd(name: str, *tensors, why: str) -> None:
     """The inference-only kernels have no gradient: raise when autograd
-    would need one.  why: where the gradient comes from, or why none."""
+    would need one.  why: why none."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no gradient yet (inference only; "
-                           f"{why}): run it under no_grad or inference_mode")
+        raise RuntimeError(f"{name} has no gradient (inference only; {why}): "
+                           "run it under no_grad or inference_mode")
 
 
-def launch_lstm(h, c, gx, w4, phased=None):
+def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False):
     """K3 (phased None: returns (h', c')) or K4 (phased = (tau, phase, t,
-    leak, ratio_on): returns (h_t, h_new, c_new)) on h's stream."""
+    leak, ratio_on): returns (h_t, h_new, c_new)) on h's stream; with
+    residuals K3-res or K4-res, which also return acts [B, H, W, 4C]."""
     h, c, w4 = h.contiguous(), c.contiguous(), w4.to(h.dtype).contiguous()
     _check_launch(h, c, gx, w4)
     B, H, W, C = h.shape
@@ -520,26 +577,30 @@ def launch_lstm(h, c, gx, w4, phased=None):
     th, tw = _tile(h, smem_bytes_lstm)
     lib = library_lstm()
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    n_out = 2 if phased is None else 3
+    outs = tuple(torch.empty_like(h) for _ in range(n_out))
+    if residuals:
+        outs += (torch.empty((B, H, W, 4 * C), dtype=h.dtype,
+                             device=h.device),)
+    ptrs = [o.data_ptr() for o in outs]
     if phased is None:
-        hid, cell = torch.empty_like(h), torch.empty_like(h)
-        err = lib.ramnet_lstm_hside_forward(
-            h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
-            hid.data_ptr(), cell.data_ptr(), B, H, W, C, gx_bstride, th, tw,
-            stream)
+        fn = (lib.ramnet_lstm_hside_forward_res if residuals
+              else lib.ramnet_lstm_hside_forward)
+        err = fn(h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
+                 *ptrs, B, H, W, C, gx_bstride, th, tw, stream)
         _raise_on(err, lib, "lstm_hside")
-        return hid, cell
+        return outs
     tau, phase, t, leak, ratio_on = phased
     t = t.contiguous()
     if any(x.dtype != torch.float32 or not x.is_contiguous()
            or x.data_ptr() % 16 for x in (tau, phase)) or t.dtype != torch.float32:
         raise ValueError("tau, phase and t must be float32, tau and phase "
                          "contiguous and 16-byte aligned")
-    outs = tuple(torch.empty_like(h) for _ in range(3))
-    err = lib.ramnet_lstm_phased_forward(
-        h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
-        tau.data_ptr(), phase.data_ptr(), t.data_ptr(),
-        *(o.data_ptr() for o in outs), B, H, W, C, gx_bstride, th, tw,
-        float(leak), float(ratio_on), stream)
+    fn = (lib.ramnet_lstm_phased_forward_res if residuals
+          else lib.ramnet_lstm_phased_forward)
+    err = fn(h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
+             tau.data_ptr(), phase.data_ptr(), t.data_ptr(), *ptrs, B, H, W, C,
+             gx_bstride, th, tw, float(leak), float(ratio_on), stream)
     _raise_on(err, lib, "lstm_phased")
     return outs
 
@@ -646,16 +707,60 @@ def conv_gru_full(x: torch.Tensor, h: torch.Tensor, w_ur: torch.Tensor,
         return _launch_full(x, h, w_ur, w_o, b_ur, b_o)
 
 
+def conv_lstm_hside_res(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
+                        w4: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(h', c', acts): K3-res for CUDA tensors, ``conv_lstm_hside_res_plain``
+    for CPU tensors.  ``conv_lstm_hside_res.launches`` counts kernel
+    launches."""
+    check_lstm(h, c, gx, w4)
+    if _device_of(h) == "cpu":
+        return conv_lstm_hside_res_plain(h, c, gx, w4)
+    with torch.cuda.device(h.device):
+        out = launch_lstm(h, c, gx, w4, residuals=True)
+    conv_lstm_hside_res.launches += 1
+    return out
+
+
+class ConvLSTMHside(torch.autograd.Function):
+    """(h', c') = cell(h, c, gx, w4) with gradients for all four inputs.
+    The forward runs K3-res and saves (h, c, c', acts, the weight in h's
+    dtype) when a gradient is needed, K3 otherwise; the backward is
+    ``conv_lstm_hside_bwd``.  The weight may be the float32 master: it is
+    rounded to h's dtype for the kernel and its gradient is returned in
+    its own dtype, dgx in gx's."""
+
+    @staticmethod
+    def forward(ctx, h, c, gx, w4):
+        wk = w4.to(h.dtype).contiguous()
+        if not any(ctx.needs_input_grad):
+            return conv_lstm_hside(h, c, gx, wk)
+        hid, cell, acts = conv_lstm_hside_res(h, c, gx, wk)
+        ctx.save_for_backward(h, c, cell, acts, wk)
+        ctx.dtypes = (gx.dtype, w4.dtype)
+        return hid, cell
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_hid, g_cell):
+        h, c, cell, acts, wk = ctx.saved_tensors
+        dh, dc, dgx, dw = conv_lstm_hside_bwd(g_hid, g_cell, h, c, cell, acts,
+                                              wk)
+        gx_dt, w_dt = ctx.dtypes
+        return dh, dc, dgx.to(gx_dt), dw.to(w_dt)
+
+
 def conv_lstm_hside(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
                     w4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h', c') [B, H, W, C] of the ConvLSTM h-side cell from NHWC h
     (the conv operand), c (the cell input), gx [B, H, W, 4C] and
-    ``ConvLSTM.hside_weights`` (rounded to h's dtype): K3 for CUDA
-    tensors, ``conv_lstm_hside_plain`` for CPU tensors.  Inference only:
-    raises when autograd would need a gradient.
+    ``ConvLSTM.hside_weights`` (rounded to h's dtype).  When autograd needs
+    a gradient of any input this is ``ConvLSTMHside``; otherwise K3 for
+    CUDA tensors and ``conv_lstm_hside_plain`` for CPU tensors.
     ``conv_lstm_hside.launches`` counts K3's launches."""
     check_lstm(h, c, gx, w4)
-    raise_under_autograd("conv_lstm_hside", h, c, gx, w4)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (h, c, gx, w4)):
+        return ConvLSTMHside.apply(h, c, gx, w4)
     if _device_of(h) == "cpu":
         return conv_lstm_hside_plain(h, c, gx, w4)
     with torch.cuda.device(h.device):
@@ -669,3 +774,4 @@ conv_gru_hside_res.launches = 0
 conv_gru_hside_bwd.launches = 0
 conv_gru_full.launches = 0
 conv_lstm_hside.launches = 0
+conv_lstm_hside_res.launches = 0

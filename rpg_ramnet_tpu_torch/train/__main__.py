@@ -81,7 +81,7 @@ def main(argv: Optional[Sequence[str]] = None):
             step_size=split.step_size, clip_distance=split.clip_distance,
             every_x_rgb_frame=split.every_x_rgb_frame,
             normalize=cfg.normalize, scale_factor=split.scale_factor,
-            reg_factor=split.reg_factor)
+            reg_factor=split.reg_factor, use_phased_arch=cfg.use_phased_arch)
 
     crop = cfg.crop_size
     train_ds = build(cfg.train_data, Compose([RandomRotationFlip(0.0, 0.5, 0.0),

@@ -69,20 +69,21 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
                        training: bool = True):
     """Returns loss_fn(model, state0, batch) -> (scalar, aux dict).
 
-    batch: pack_train_batch's tensors.  state0: the model's zero state.
-    The deferred-decode branch of the JAX package (sequence_loss.py:174):
-    trainer.deferred_decode with remat_chunk 1, the package's x side
-    batched when trainer.precompute_x holds (then the h-side cells may run
-    the fused kernels), every package checkpointed when ``remat``.  The
-    in-scan branch raises NotImplementedError."""
+    batch: pack_train_batch's tensors, with 'times_events' [B, L, K] and
+    'times_image' [B, L] for the phased regime.  state0: the model's zero
+    state.  The deferred-decode branch of the JAX package
+    (sequence_loss.py:174): trainer.deferred_decode with remat_chunk 1, the
+    package's x side batched when trainer.precompute_x holds, every
+    package checkpointed when ``remat``.  The cells may run the kernels
+    where precompute_x holds or fused_gru is 'on' (JAX's allow_fused):
+    the ConvGRU and ConvLSTM h-side cells (ConvGRUHside, ConvLSTMHside)
+    with precompute_x, else the phased encoders' cells (PhasedCell) and
+    the ConvLSTM state combination's (ConvLSTMHside).  The in-scan branch
+    and the configurations ``statenet.check_supported`` names raise
+    NotImplementedError."""
     mcfg = cfg.model
     tr = cfg.trainer
-    if mcfg.use_phased_arch or mcfg.state_combination == "convlstm":
-        raise NotImplementedError(
-            "training the phased regime and the ConvLSTM state combination "
-            "is not ported yet (the K3/K4 residual kernels behind an "
-            "autograd.Function, timestamps in the loader): ROADMAP queue 1, "
-            "item 17")
+    statenet.check_supported(mcfg)
     keys = supervised_keys(cfg)
     lc = tr.loss_composition
     weights = {k: (tr.loss_weights[list(lc).index(k)] if lc else 1.0)
@@ -126,7 +127,8 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
     def loss_fn(model, state0, batch):
         if not deferred:
             raise NotImplementedError(_IN_SCAN)
-        seq = {"events": batch["events"], "image": batch["image"]}
+        seq = {k: batch[k] for k in ("events", "image", "times_events",
+                                     "times_image") if k in batch}
         # the composed decoder layers on the L*B*|keys|-deep decode batch
         # (differentiable; statenet._use_composed_decoder's policy), never
         # K8, which has no gradient (sequence_loss.py:190-200 of JAX)

@@ -4,8 +4,11 @@ path with the kernel against the plain layer, one training step with
 the kernels against fused_gru='off', the whole-cell kernel K5 and the
 voxelizers K6 and K7 against their plain versions, the per-package
 engine with K5 against fused_gru='off', the ConvLSTM cells K3 and K4
-against their plain versions, the phased per-package engine with the
-kernels against fused_gru='off', the chunked path's launch variants (the
+and their residual variants K3-res and K4-res against their plain
+versions, the ConvLSTMHside and PhasedCell Functions against the plain
+layers' autograd, one training step of the phased recipe and of the
+ConvLSTM state combination with the kernels against fused_gru='off', the
+phased per-package engine with the kernels against fused_gru='off', the chunked path's launch variants (the
 pair cell K9, the gx-streaming cells K10a and K10b, the resident-state
 cell K11) against their plain versions, K11 on many steps and tiles with a
 grid smaller than the tiles (a stale or raced read of h shows at its
@@ -354,6 +357,158 @@ def test_phased_engine_kernels_vs_off(device):
             assert np.abs(p_on[k] - p_off[k]).max() <= 5e-2
     assert (gru_hside.conv_lstm_hside.launches - n[0],
             phased_cell.conv_lstm_phased.launches - n[1]) == (3 * 3 * 3, 3 * 3 * 3)
+
+
+@pytest.mark.parametrize("shape", [(8, 28, 28, 256), (3, 30, 45, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_res_kernels_match_plain(device, shape):
+    """K3-res (h', c', acts) and K4-res (h_t, h_new, c_new, acts), bf16,
+    one cell, gx a strided view: within 2e-2 of their plain versions, one
+    launch each, and their outputs equal K3's and K4's."""
+    from rpg_ramnet_tpu_torch.ops import phased_cell
+    h, c, gx, w4, tau, phase, t = _lstm_inputs(shape, device, seed=shape[2])
+    n3, n4 = (gru_hside.conv_lstm_hside_res.launches,
+              phased_cell.conv_lstm_phased_res.launches)
+    with torch.no_grad():
+        got3 = gru_hside.conv_lstm_hside_res(h, c, gx, w4)
+        want3 = gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4)
+        got4 = phased_cell.conv_lstm_phased_res(h, c, gx, w4, tau, phase, t)
+        want4 = phased_cell.conv_lstm_phased_res_plain(h, c, gx, w4, tau,
+                                                       phase, t)
+        fwd3 = gru_hside.conv_lstm_hside(h, c, gx, w4)
+        fwd4 = phased_cell.conv_lstm_phased(h, c, gx, w4, tau, phase, t)
+    torch.cuda.synchronize()
+    assert (gru_hside.conv_lstm_hside_res.launches - n3,
+            phased_cell.conv_lstm_phased_res.launches - n4) == (1, 1)
+    for a, b in zip(got3 + got4, want3 + want4):
+        assert a.shape == b.shape
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2
+    for a, b in zip(got3[:2] + got4[:3], fwd3 + fwd4):
+        assert torch.equal(a, b)
+
+
+def _lstm_layer_grads(mod, x, c0, h0, gx, t, cots, kind, fused):
+    """Gradients of sum(out * cot) through the ConvLSTMHside Function
+    (kind 'lstm_hside', on gx) or the phased layer (on x), fused (bf16
+    inputs: the Functions, K3-res and K4-res) or plain (float32 inputs:
+    ConvLSTM.hside, PhasedConvLSTM.forward(fused=False))."""
+    from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
+    dt = torch.bfloat16 if fused else torch.float32
+    mod.zero_grad()
+    ins = [v.to(dt).requires_grad_() for v in (x, c0, h0, gx)]
+    x, c0, h0, gx = ins
+    if kind == "lstm_hside":
+        if fused:
+            outs = gru_hside.conv_lstm_hside(c0, h0, gx, mod.lstm.hside_weights())
+        else:
+            outs = [to_nhwc(v) for v in mod.lstm.hside(
+                to_nchw(gx), (to_nchw(c0), to_nchw(h0)))]
+        params = [mod.lstm.Gates.weight]
+    else:
+        y, (hn, cn) = mod(to_nchw(x), t, (to_nchw(c0), to_nchw(h0)),
+                          fused=fused)
+        outs = [to_nhwc(v) for v in (y, hn, cn)]
+        params = list(mod.parameters())
+    sum((o.float() * g).sum() for o, g in zip(outs, cots)).backward()
+    return [v.grad for v in ins if v.grad is not None] + [
+        p.grad.clone() for p in params]
+
+
+@pytest.mark.parametrize("kind", ["lstm_hside", "phased"])
+def test_lstm_functions_kernels_match_plain_layers(device, kind):
+    """The ConvLSTMHside and PhasedCell Functions on the card (bf16,
+    float32 master weights, the live tau and phase) against autograd
+    through the plain layers in float32 on the same values: every
+    gradient (inputs, weights, tau, phase) within 2e-2 of the plain one's
+    largest magnitude; one K3-res or K4-res launch."""
+    from rpg_ramnet_tpu_torch.models.layers import PhasedConvLSTM
+    from rpg_ramnet_tpu_torch.ops import phased_cell
+    B, H, W, C = 3, 30, 45, 96
+    gen = torch.Generator().manual_seed(1)
+    mod = PhasedConvLSTM(C, C, H, W)
+    torch.nn.init.uniform_(mod.lstm.Gates.weight, -0.05, 0.05, generator=gen)
+    mod.phased_cell.reset_parameters_(gen)
+    mod.to(device)
+
+    def bf16_valued(*shape, scale=1.0):
+        v = (torch.rand(*shape, generator=gen) * 2 - 1) * scale
+        return v.to(device, torch.bfloat16).float()
+
+    x, c0 = bf16_valued(B, H, W, C), bf16_valued(B, H, W, C)
+    h0, gx = bf16_valued(B, H, W, C, scale=2.0), bf16_valued(B, H, W, 4 * C)
+    t = (torch.rand(B, generator=gen) * 3).to(device)
+    cots = [torch.randn(B, H, W, C, generator=gen).to(device) for _ in range(3)]
+    counter = (gru_hside.conv_lstm_hside_res if kind == "lstm_hside"
+               else phased_cell.conv_lstm_phased_res)
+    n = counter.launches
+    got = _lstm_layer_grads(mod, x, c0, h0, gx, t, cots, kind, True)
+    torch.cuda.synchronize()
+    assert counter.launches - n == 1
+    want = _lstm_layer_grads(mod, x, c0, h0, gx, t, cots, kind, False)
+    assert len(got) == len(want) == (4 if kind == "lstm_hside" else 7)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and _rel_err(a, b) <= 2e-2
+
+
+@pytest.mark.parametrize("recipe", ["phased", "lstm_comb"])
+def test_lstm_training_step_kernels_vs_off(device, recipe):
+    """One TBPTT loss and backward of a small bf16 model of each recipe
+    with the kernels and with fused_gru='off', from the same weights: the
+    phased recipe with fused_gru='on' runs K4-res in its encoders and
+    K3-res in its state combination, the ConvLSTM combination with
+    precompute_x under 'auto' K3-res, each twice per cell (the
+    recompute); the loss within 2e-2 relative and every parameter
+    gradient (tau and phase included) at cosine >= 0.95 of 'off'."""
+    from rpg_ramnet_tpu_torch.core.config import Config, TrainerConfig
+    from rpg_ramnet_tpu_torch.ops import phased_cell
+    from rpg_ramnet_tpu_torch.train.sequence_loss import make_sequence_loss
+    B, L, K, H, W = 2, 3, 2, 64, 96
+    phased = recipe == "phased"
+    mcfg = ModelConfig(num_encoders=3, base_num_channels=16,
+                       recurrent_block_type="convlstm" if phased else "conv",
+                       state_combination="convlstm", use_phased_arch=phased,
+                       spatial_resolution=(H, W), num_residual_blocks=1,
+                       every_x_rgb_frame=K, compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"events": torch.randn(B, L, K, H, W, 5, generator=gen),
+             "image": torch.rand(B, L, H, W, 1, generator=gen),
+             "depth_events": torch.rand(B, L, K, H, W, 1, generator=gen),
+             "depth_image": torch.rand(B, L, H, W, 1, generator=gen)}
+    if phased:
+        stamps = torch.cumsum(torch.rand(B, L * (K + 1), generator=gen) * 0.1, 1)
+        stamps = stamps.view(B, L, K + 1)
+        batch.update(times_events=stamps[..., :K].contiguous(),
+                     times_image=stamps[..., K].contiguous())
+    batch = {k: v.to(device) for k, v in batch.items()}
+    out, weights = {}, None
+    for mode in ("on" if phased else "auto", "off"):
+        cfg = Config(model=dataclasses.replace(mcfg, fused_gru=mode),
+                     use_phased_arch=phased, grad_loss_weight=0.25,
+                     trainer=TrainerConfig(deferred_decode=True,
+                                           precompute_x=not phased,
+                                           sequence_length=L))
+        model = ERGB2DepthRecurrent(cfg.model, device=device)
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        n = (gru_hside.conv_lstm_hside_res.launches,
+             phased_cell.conv_lstm_phased_res.launches)
+        loss, _ = make_sequence_loss(cfg, remat=True)(
+            model, model.init_state(B, H, W), batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (gru_hside.conv_lstm_hside_res.launches - n[0],
+                    phased_cell.conv_lstm_phased_res.launches - n[1])
+        cells = 2 * 3 * (K + 1) * L
+        want = (0, 0) if mode == "off" else (cells, cells if phased else 0)
+        assert launched == want
+        out[mode] = (loss.item(), {k: p.grad.float().flatten()
+                                   for k, p in model.named_parameters()})
+    (l_on, g_on), (l_off, g_off) = out.values()
+    assert abs(l_on - l_off) <= 2e-2 * abs(l_off)
+    for k, g in g_off.items():
+        cos = torch.nn.functional.cosine_similarity(g_on[k], g, dim=0)
+        assert cos.item() >= 0.95, k
 
 
 def _gru_weights(C, seed, device):

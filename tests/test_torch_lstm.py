@@ -232,7 +232,10 @@ def test_phased_layer_matches_jax(fused):
 @pytest.mark.parametrize("cell_kind", ["lstm_hside", "phased"])
 def test_wrappers_contract(cell_kind):
     """A CPU tensor gets the plain version (no launch counted);
-    fused_gru='on' on a CPU tensor raises; autograd raises."""
+    fused_gru='on' on a CPU tensor raises; under autograd the wrapper is
+    its Function (ConvLSTMHside, PhasedCell) on the plain versions: the
+    same values, gradients for every input (no launch counted); a wrong
+    shape raises."""
     tdt, _, cell, _, gate, _, c0, h0, gx, t = _phased_inputs(5, "bf16")
     with torch.no_grad():
         w4 = cell.hside_weights(tdt)
@@ -256,30 +259,44 @@ def test_wrappers_contract(cell_kind):
                                    to_nchw(args[0]), "lstm")
     assert not statenet.use_fused_cell(ModelConfig(fused_gru="auto"),
                                        to_nchw(args[0].float()), "lstm")
-    grad = [a.clone().requires_grad_() if i == 0 else a
-            for i, a in enumerate(args)]
-    with pytest.raises(RuntimeError, match="no gradient"):
-        fn(*grad, *extra)
+    grad = [a.clone().float().requires_grad_() if i == 3
+            else a.clone().requires_grad_() for i, a in enumerate(args)]
+    extra_grad = [v.clone().requires_grad_() for v in extra[:2]] + extra[2:]
+    outs = fn(*grad, *extra_grad)
+    for a, b in zip(outs, plain(*args, *extra)):
+        assert a.grad_fn is not None and torch.equal(a.detach(), b)
+    sum(o.float().sum() for o in outs).backward()
+    for v in grad + extra_grad[:2]:
+        assert v.grad is not None and v.grad.dtype == v.dtype
+        assert torch.isfinite(v.grad).all() and v.grad.abs().max() > 0
+    assert fn.launches == n0
     with pytest.raises(ValueError, match="must be"):
         fn(args[0], args[1], args[2][..., :-8], w4, *extra)
 
 
 def test_phased_gate_params_init_and_cache():
-    """Upstream init ranges; the [H, W, C] cache is a copy of the
-    parameters, refreshed when they change, never an alias."""
+    """Upstream init ranges; without autograd the [H, W, C] cache is a copy
+    of the parameters, refreshed when they change, never an alias; under
+    autograd a fresh permute of the live parameters that carries their
+    gradient."""
     gate = PhasedLSTMGate(C * H * W)
     gate.reset_parameters_(torch.Generator().manual_seed(0))
     tau = gate.tau.detach()
     assert tau.min() >= 0.02 * 0.999 and tau.max() <= 50.0 * 1.001
     assert (gate.phase.detach() >= 0).all() and (gate.phase.detach() <= tau).all()
-    t1, p1 = gate.nhwc(C, H, W)
-    assert t1.shape == (H, W, C) and t1.is_contiguous()
-    assert torch.equal(t1.permute(2, 0, 1), gate.tau.detach().view(C, H, W))
-    assert t1.data_ptr() != gate.tau.data_ptr()
-    assert gate.nhwc(C, H, W)[0] is t1           # cached
     with torch.no_grad():
+        t1, p1 = gate.nhwc(C, H, W)
+        assert t1.shape == (H, W, C) and t1.is_contiguous()
+        assert torch.equal(t1.permute(2, 0, 1), gate.tau.detach().view(C, H, W))
+        assert t1.data_ptr() != gate.tau.data_ptr()
+        assert gate.nhwc(C, H, W)[0] is t1           # cached
         gate.tau.mul_(2.0)
-    t2, _ = gate.nhwc(C, H, W)
+        t2, _ = gate.nhwc(C, H, W)
     assert torch.equal(t2, t1 * 2.0) and not torch.equal(t1, t2)
+    t3, p3 = gate.nhwc(C, H, W)
+    assert t3 is not t2 and torch.equal(t3, t2) and t3.is_contiguous()
+    (t3.sum() + 2 * p3.sum()).backward()
+    assert torch.equal(gate.tau.grad, torch.ones_like(gate.tau))
+    assert torch.equal(gate.phase.grad, torch.full_like(gate.phase, 2.0))
     cell = PhasedConvLSTM(C, C, H, W)
     assert cell.phased_cell.tau.shape == (C * H * W,)

@@ -31,7 +31,7 @@ from rpg_ramnet_tpu.models import ERGB2DepthRecurrent as JaxModel
 from rpg_ramnet_tpu.ops import gru_hside as jax_gru_hside
 
 from rpg_ramnet_tpu_torch.compat import params_from_jax, params_to_state_dict
-from rpg_ramnet_tpu_torch.core.config import Config, ModelConfig
+from rpg_ramnet_tpu_torch.core.config import Config, ModelConfig, TrainerConfig
 from rpg_ramnet_tpu_torch.data import concatenate_subfolders
 from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
 from rpg_ramnet_tpu_torch.eval import inference
@@ -462,11 +462,30 @@ def test_params_load_strict(recipe, tmp_path):
 
 @pytest.mark.parametrize("recipe", ["phased", "lstm_comb"])
 def test_training_and_unported_raise(recipe):
-    """Training either recipe raises, naming the next slice; plain convlstm
-    encoders (no use_phased_arch) stay unported."""
+    """Either recipe trains: make_sequence_loss builds, and one window's
+    loss is finite with a gradient for every parameter.  Plain convlstm
+    encoders (no use_phased_arch) stay unported, in check_supported and
+    in make_sequence_loss."""
     mcfg = ModelConfig.from_dict(PHASED if recipe == "phased" else LSTM_COMB)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_sequence_loss(Config(model=mcfg))
+    cfg = Config(model=mcfg, use_phased_arch=recipe == "phased",
+                 trainer=TrainerConfig(deferred_decode=True))
+    model = ERGB2DepthRecurrent(mcfg)
+    seq = _sequence(n=2)
+    rng = np.random.RandomState(1)
+    batch = {k: torch.from_numpy(v) for k, v in seq.items()}
+    batch["depth_events"] = torch.from_numpy(
+        rng.rand(1, 2, K, H, W, 1).astype(np.float32))
+    batch["depth_image"] = torch.from_numpy(
+        rng.rand(1, 2, H, W, 1).astype(np.float32))
+    loss, _ = make_sequence_loss(cfg, remat=True)(
+        model, model.init_state(1, H, W), batch)
+    loss.backward()
+    assert np.isfinite(loss.item())
+    for name, p in model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    unported = dataclasses.replace(mcfg, recurrent_block_type="convlstm",
+                                   use_phased_arch=False)
     with pytest.raises(NotImplementedError, match="without use_phased_arch"):
-        statenet.check_supported(dataclasses.replace(
-            mcfg, recurrent_block_type="convlstm", use_phased_arch=False))
+        statenet.check_supported(unported)
+    with pytest.raises(NotImplementedError, match="without use_phased_arch"):
+        make_sequence_loss(Config(model=unported))
