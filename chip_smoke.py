@@ -45,19 +45,31 @@ Phases, each printed as one JSON line:
                    K1-res and K2 per cell against their plain versions;
   8. kernel_stream K5 against its plain version at the three per-package
                    shapes and one ragged shape; K6 (with and without stats)
-                   and K7 (float32 and bf16 factors) against the plain
-                   scatter at 1M events on 5x260x346 and on a sparse
-                   padded case;
+                   and K7 (float32 and bf16 factors) on each of their
+                   paths (one-pass, tiled) against their plain versions
+                   on 5x260x346 at 1M events, one stream window (`live`),
+                   800 ragged windows in one launch sequence (`batch800`,
+                   one window empty), a sparse padded case, 2^17 events
+                   in one band of rows and 1M unsorted events;
   9. stream        the per-package engine through the eval entry point on
                    two sequences (40 and 8 packages): K5's launch count,
                    finite predictions in [0, 1], all of them against
                    fused_gru='off'; then the stream entry point on 20
-                   windows of 0.35 events per pixel: K6's launch count,
-                   every window's grid against its plain version, finite
-                   depth maps, and again with --voxel_backend pallas (K7);
+                   windows of 0.35 events per pixel with --voxel_backend
+                   auto (K6), pallas (K7) and scatter, in turns forward
+                   and back: the launch counts, every window's grid
+                   against its plain version, finite depth maps, K7's
+                   against K6's, the wall per window of each backend;
+                   the voxelizer entry point on batch800's windows with
+                   K6 and K7 (one launch sequence each, the tiled path)
+                   against the plain scatter;
  10. timing_stream per-package latency (median, p90) and depth maps/s with
                    K5 and with 'off', K5 per cell against its plain
-                   version, the voxelizers' Mev/s at 1M events;
+                   version, the voxelizers' device time (torch.profiler)
+                   and wrapper time (CUDA events) at 1M, live and
+                   batch800 on the path each size picks and K6 on the
+                   other, beside index_add_'s and (at 1M) the plain
+                   versions', in mirrored turns;
  11. kernel_phased K3 and K4 against their plain versions at the three
                    phased shapes and one ragged shape, K3 at the three
                    flagship shapes;
@@ -159,6 +171,15 @@ VOX_TOL = 1e-4                      # relative to the grid's magnitude, as
                                     # tests/test_ops.py:97 (atomic order)
 VOX_BF16_TOL = 5e-2                 # bf16 factors, tests/test_ops.py:85
 STREAM_WINDOWS, STREAM_EVENTS_PER_PIXEL = 20, 0.35
+# the voxelizers' timing sizes, (windows, events per window) on VOX_GRID:
+# the JAX bench's leg (bench.py:735), one window of the stream entry, and
+# one training batch's windows (B=16 x L=10 x K=5) at the raw pipeline's
+# 32768 bucket (rpg_ramnet_tpu/data/raw_pipeline.py:27)
+VOX_SIZES = {"1M": (1, VOX_EVENTS),
+             "live": (1, int(VOX_GRID[1] * VOX_GRID[2] * STREAM_EVENTS_PER_PIXEL)),
+             "batch800": (800, 32768)}
+VOX_TURNS = 2       # mirrored rounds: each call is timed 2 * VOX_TURNS times
+STREAM_BACKENDS = ("auto", "pallas", "scatter")   # phase 9's voxel backends
 # the phased regime (BASELINE config 3, bench.py:615-621 of the JAX
 # package): MVSEC-sized 256x352, two sequences, the tail one shorter than a
 # chunk (cut: the data); its h-side shapes at the three scales, and a
@@ -337,6 +358,33 @@ def cuda_time_us(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) * 1e3 / iters
+
+
+def device_time_us(fn, calls):
+    """(device us per call, {kernel name: us per call}) of fn: the kernel,
+    memset and copy durations torch.profiler records over ``calls`` calls
+    after one warm-up call.  Where the profiler records no device time,
+    the CUDA events time of a CUDA graph's replay of the calls (no
+    names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0.0) + e.device_time / calls
+    if sum(names.values()) > 0:
+        return sum(names.values()), names
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_time_us(graph.replay, 3) / calls, {}
 
 
 def time_train_cells(dev, gen, iters=20):
@@ -624,12 +672,14 @@ def cell_bound(kind, shapes):
     return sum(by.values()) * 1e3, max(by, key=by.get)
 
 
-def voxel_bound(n_events):
-    """(least ms, 'bytes') of one voxel grid: the events read once (16
-    bytes each) and the 5x260x346 float32 grid written once; the few
-    float32 operations per event are far below the bytes' time."""
+def voxel_bound(n_events, windows=1):
+    """(least ms, 'bytes') of the voxel grids of ``windows`` windows of
+    n_events each: the events read once (16 bytes each) and each
+    5x260x346 float32 grid written once; the few float32 operations per
+    event are far below the bytes' time."""
     nb, h, w = VOX_GRID
-    return (16 * n_events + 4 * nb * h * w) / HBM_BYTES_PER_S * 1e3, "bytes"
+    return (windows * (16 * n_events + 4 * nb * h * w)
+            / HBM_BYTES_PER_S * 1e3, "bytes")
 
 
 def make_full_cell_inputs(shape, dev, gen):
@@ -662,10 +712,56 @@ def make_events(n, n_valid, dev, seed):
     return torch.from_numpy(ev.astype(np.float32)).to(dev)
 
 
+def voxel_case(name, dev, seed):
+    """(events, n_valid) of a voxelizer check on VOX_GRID: 1M and `live`
+    (one window each), batch800 (VOX_SIZES' windows with ragged counts,
+    one window empty), a sparse padded window, VOX_SKEWED_EVENTS all in
+    one band of rows (skewed) and 1M with all but the first and last
+    shuffled."""
+    import torch
+    if name in ("1M", "live"):
+        n = VOX_SIZES[name][1]
+        return make_events(n, n, dev, seed), n
+    if name == "batch800":
+        B, n = VOX_SIZES[name]
+        gen = torch.Generator().manual_seed(seed)
+        counts = torch.randint(n // 2, n + 1, (B,), generator=gen)
+        counts[1], counts[2], counts[3] = 0, 1, n
+        return make_window_batch(counts, n, dev, seed)
+    if name == "sparse_padded":
+        return make_events(4096, 64, dev, seed), 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if name == "skewed":
+        ev = make_events(VOX_SKEWED_EVENTS, VOX_SKEWED_EVENTS, dev, seed)
+        ev[:, 2] = torch.randint(16, 18, (VOX_SKEWED_EVENTS,), device=dev,
+                                 generator=gen).float()
+        return ev, VOX_SKEWED_EVENTS
+    if name != "unsorted":
+        raise KeyError(name)
+    ev = make_events(VOX_EVENTS, VOX_EVENTS, dev, seed)
+    ev[1:-1] = ev[1 + torch.randperm(VOX_EVENTS - 2, device=dev, generator=gen)]
+    return ev, VOX_EVENTS
+
+
+VOX_CHECKS = ("1M", "live", "batch800", "sparse_padded", "skewed", "unsorted")
+# skewed: every event in rows 16-17, one band of the tiled path's plan.  The
+# function's own bf16 rounding (K7 bf16 against the float32 grid) grows as
+# the root of the contributions per cell: 0.076-0.091 with 2^20 events in
+# two rows, 0.040-0.042 with 2^18 (the plain scatter on the CPU, seeds
+# 0-2), so 2^17 keeps the function inside VOX_BF16_TOL
+VOX_SKEWED_EVENTS = 1 << 17
+VOX_MATMUL_WINDOWS = 8   # batch800's windows that K7 bf16's plain version takes
+
+
 def stream_kernel_check(dev, gen, seed):
-    """K5 against its plain version per shape (max abs error); K6 with and
-    without stats and K7 with float32 and bf16 factors against the plain
-    scatter at 1M events and on a sparse padded case."""
+    """K5 against its plain version per shape (max abs error); per case of
+    VOX_CHECKS and per path of the kernels (one-pass, tiled), K6 with and
+    without stats and K7 with float32 factors against the plain scatter
+    (max abs error, and relative to the grid's magnitude), K7 with bf16
+    factors against its plain version (the bf16 one-hot product; at
+    batch800 on its first VOX_MATMUL_WINDOWS windows) and against the
+    float32 grid, and the stats per window against the plain grid's,
+    relative."""
     import torch
     from rpg_ramnet_tpu_torch.ops import gru_hside, voxel
     k5 = {}
@@ -681,36 +777,72 @@ def stream_kernel_check(dev, gen, seed):
     nb, hh, ww = VOX_GRID
     kw = dict(num_bins=nb, height=hh, width=ww)
     vox = {}
-    for name, (n, n_valid) in (("1M", (VOX_EVENTS, VOX_EVENTS)),
-                               ("sparse_padded", (4096, 64))):
-        ev = make_events(n, n_valid, dev, seed)
+    for name in VOX_CHECKS:
+        ev, n_valid = voxel_case(name, dev, seed)
         want = voxel.events_to_voxel_grid_scatter(ev, n_valid, **kw)
-        k6 = voxel.events_to_voxel_grid_sortseg(ev, n_valid, **kw)
-        k6s, stats = voxel.events_to_voxel_grid_sortseg(ev, n_valid,
-                                                        with_stats=True, **kw)
-        k7 = voxel.events_to_voxel_grid_pallas(ev, n_valid, **kw)
-        k7b = voxel.events_to_voxel_grid_pallas(
-            ev, n_valid, factor_dtype=torch.bfloat16, **kw)
-        torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        row = {f: (g - want).abs().max().item()
-               for f, g in (("k6", k6), ("k6_stats", k6s), ("k7_f32", k7),
-                            ("k7_bf16", k7b))}
+        sub = slice(None) if ev.dim() == 2 else slice(0, VOX_MATMUL_WINDOWS)
+        want_b = voxel.events_to_voxel_grid_matmul(
+            ev[sub], n_valid if ev.dim() == 2 else n_valid[sub],
+            factor_dtype=torch.bfloat16, **kw)
         # each stat against its own magnitude (the sum against the sum of
         # |values|, as its cancellations are the atomics' rounding)
         want_stats = voxel.voxel_stats(want)
-        scales = (want_stats[0], want.abs().sum(), want_stats[2])
-        row["stats_rel_err"] = max(
-            abs(a.item() - b.item()) / max(s.item(), 1.0)
-            for a, b, s in zip(stats, want_stats, scales))
-        row["grid_max_abs"] = scale
-        vox[name] = row
+        scales = (want_stats[0], want.abs().sum((-3, -2, -1)), want_stats[2])
+        scale = want.abs().max().item()
         tol = VOX_TOL * max(scale, 1.0)
-        if not (max(row["k6"], row["k6_stats"], row["k7_f32"]) <= tol
-                and row["stats_rel_err"] <= VOX_TOL
-                and row["k7_bf16"] <= VOX_BF16_TOL):
-            raise AssertionError(f"voxelizers vs plain ({name}): {row}")
+        vox[name] = {"grid_max_abs": scale,
+                     "windows": 1 if ev.dim() == 2 else ev.shape[0]}
+        for path in voxel.PATHS:
+            k6 = voxel.events_to_voxel_grid_sortseg(ev, n_valid, path=path, **kw)
+            k6s, stats = voxel.events_to_voxel_grid_sortseg(
+                ev, n_valid, with_stats=True, path=path, **kw)
+            k7 = voxel.events_to_voxel_grid_pallas(ev, n_valid, path=path, **kw)
+            k7b = voxel.events_to_voxel_grid_pallas(
+                ev, n_valid, factor_dtype=torch.bfloat16, path=path, **kw)
+            torch.cuda.synchronize()
+            row = {f: (g - want).abs().max().item()
+                   for f, g in (("k6", k6), ("k6_stats", k6s), ("k7_f32", k7),
+                                ("k7_bf16", k7b))}
+            row["k7_bf16_vs_plain"] = (k7b[sub] - want_b).abs().max().item()
+            row["stats_rel_err"] = max(
+                ((a - b).abs() / s.clamp(min=1.0)).max().item()
+                for a, b, s in zip(stats, want_stats, scales))
+            vox[name][path] = row
+            if not (max(row["k6"], row["k6_stats"], row["k7_f32"],
+                        row["k7_bf16_vs_plain"]) <= tol
+                    and row["stats_rel_err"] <= VOX_TOL
+                    and row["k7_bf16"] <= VOX_BF16_TOL):
+                raise AssertionError(f"voxelizers vs plain ({name}, {path}): {row}")
+            del k6, k6s, k7, k7b, stats
+        del ev, want, want_b
     return k5, vox
+
+
+def run_batch_entry(dev, seed):
+    """The voxelizer entry point on batch800's windows (the raw pipeline's
+    per-batch call), K6 ('auto') and K7 ('pallas'), with their counts set
+    to 0 just before: per backend the counts by path read just after and
+    the max abs error to the plain scatter over the grid's magnitude."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import voxel
+    nb, h, w = VOX_GRID
+    kw = dict(num_bins=nb, height=h, width=w)
+    ev, counts = voxel_case("batch800", dev, seed)
+    want = voxel.events_to_voxel_grid_scatter(ev, counts, **kw)
+    scale = max(want.abs().max().item(), 1.0)
+    out = {}
+    for backend, f in (("auto", voxel.events_to_voxel_grid_sortseg),
+                       ("pallas", voxel.events_to_voxel_grid_pallas)):
+        f.launches = 0
+        f.path_launches = dict.fromkeys(voxel.PATHS, 0)
+        got = voxel.events_to_voxel_grid(ev, counts, backend=backend, **kw)
+        torch.cuda.synchronize()
+        out[backend] = {"launches": f.launches, "by_path": dict(f.path_launches),
+                        "shape": list(got.shape),
+                        "finite": bool(got.isfinite().all()),
+                        "max_rel_err": (got - want).abs().max().item() / scale}
+        del got
+    return out
 
 
 def write_stream_data(root, K, seed):
@@ -795,7 +927,8 @@ def run_eval_entry(cfg_path, ckpt, root, counters=None, crop=(H, W),
 def run_stream_entry(cfg_path, ckpt, log, backend):
     """``python -m rpg_ramnet_tpu_torch.stream``'s main in-process on the
     event log with the given voxel backend, the K6 and K7 counts set to 0
-    just before; returns the depth maps and the counts read just after."""
+    just before; returns the depth maps, the counts (and by path) read
+    just after and the wall seconds of the run."""
     import torch
     from rpg_ramnet_tpu_torch.ops import voxel
     from rpg_ramnet_tpu_torch.stream import main as stream_main
@@ -804,12 +937,17 @@ def run_stream_entry(cfg_path, ckpt, log, backend):
     counters = (voxel.events_to_voxel_grid_sortseg, voxel.events_to_voxel_grid_pallas)
     for c in counters:
         c.launches = 0
+        c.path_launches = dict.fromkeys(voxel.PATHS, 0)
+    t0 = time.perf_counter()
     stream_main(["-i", log, "--path_to_model", ckpt, "--config", cfg_path,
                  "--height", str(h), "--width", str(w),
                  "--num_events_per_pixel", str(STREAM_EVENTS_PER_PIXEL),
                  "--voxel_backend", backend], on_window=depths.__setitem__)
     torch.cuda.synchronize()
-    return depths, {"k6": counters[0].launches, "k7": counters[1].launches}
+    wall = time.perf_counter() - t0
+    return depths, {"k6": counters[0].launches, "k7": counters[1].launches,
+                    "by_path": {k: dict(c.path_launches)
+                                for k, c in zip(("k6", "k7"), counters)}}, wall
 
 
 def window_grid_check(log, dev):
@@ -897,34 +1035,116 @@ def time_full_cells(dev, gen, iters=50):
     return rows
 
 
-def time_voxelizers(dev, seed, iters=20):
-    """Microseconds per grid at 1M events on 5x260x346 and Mev/s: K6
-    (without and with stats), K7 (float32 and bf16 factors), their plain
-    versions and the one index_add_ call on precomputed contributions."""
+def make_window_batch(counts, n, dev, seed):
+    """[len(counts), n, 4] float32 events as make_events's, one window per
+    count, made on the card: rows past each window's count zero."""
+    import torch
+    nb, h, w = VOX_GRID
+    counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
+    B = counts.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ev = torch.stack(
+        [torch.rand(B, n, device=dev, generator=gen).sort(dim=1).values * 0.05,
+         torch.randint(0, w, (B, n), device=dev, generator=gen).float(),
+         torch.randint(0, h, (B, n), device=dev, generator=gen).float(),
+         torch.randint(0, 2, (B, n), device=dev, generator=gen).float()], -1)
+    ev[torch.arange(n, device=dev) >= counts[:, None]] = 0
+    return ev, counts
+
+
+def index_add_inputs(ev, n_valid, cells):
+    """The flat indices (window offsets added) and values of every
+    window's contributions, those outside the grid as (0, 0.0): what the
+    one index_add_ call that computes the grids takes."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import voxel
+    nb, h, w = VOX_GRID
+    idx, vals, ok = voxel._contributions(ev, n_valid, nb, h, w)
+    if ev.dim() == 3:
+        idx = idx + torch.arange(ev.shape[0], device=ev.device)[:, None] * cells
+    return (torch.where(ok, idx, 0).reshape(-1),
+            torch.where(ok, vals, 0.0).reshape(-1))
+
+
+def spread(values):
+    import numpy as np
+    return {"min": min(values), "median": float(np.median(values)),
+            "runs": values}
+
+
+def time_voxelizers(dev, seed, sizes=tuple(VOX_SIZES)):
+    """Per size of VOX_SIZES: device us per call (torch.profiler's
+    durations, per kernel too) and wrapper us per call (CUDA events around
+    back-to-back calls, host work included) of K6 (without and with
+    stats), K7 (float32 and bf16 factors) on the path the size picks, K6
+    on the other path, and the one index_add_ call that computes the grids
+    from precomputed contributions (with the grid's zero_(), so the grid
+    is written whole as the kernels write it), in mirrored turns; min,
+    median and every run of each, Mev/s and the share of the bound at the
+    least device time.  At 1M also the plain versions (the scatter in the
+    turns, the one-hot product in two turns of one call); at batch800 the
+    wrapper time of the single-window K6 calls over the same windows."""
     import torch
     from rpg_ramnet_tpu_torch.ops import voxel
     nb, h, w = VOX_GRID
     kw = dict(num_bins=nb, height=h, width=w)
-    n = VOX_EVENTS
-    ev = make_events(n, n, dev, seed)
-    idx, vals, ok = voxel._contributions(ev, n, nb, h, w)
-    idx, vals = torch.where(ok, idx, 0), torch.where(ok, vals, 0.0)
-    grid = torch.zeros(nb * h * w, device=dev)
-    calls = {
-        "k6": lambda: voxel.events_to_voxel_grid_sortseg(ev, n, **kw),
-        "k6_stats": lambda: voxel.events_to_voxel_grid_sortseg(
-            ev, n, with_stats=True, **kw),
-        "k7_f32": lambda: voxel.events_to_voxel_grid_pallas(ev, n, **kw),
-        "k7_bf16": lambda: voxel.events_to_voxel_grid_pallas(
-            ev, n, factor_dtype=torch.bfloat16, **kw),
-        "scatter_plain": lambda: voxel.events_to_voxel_grid_scatter(ev, n, **kw),
-        "index_add_only": lambda: grid.index_add_(0, idx, vals),
-    }
-    us = {k: cuda_time_us(f, iters) for k, f in calls.items()}
-    us["matmul_plain"] = cuda_time_us(
-        lambda: voxel.events_to_voxel_grid_matmul(ev, n, **kw), 2)
-    return {"events": n, "grid": list(VOX_GRID), "us": us,
-            "mev_per_s": {k: n / v for k, v in us.items()}}
+    out = {}
+    for name in sizes:
+        B, n = VOX_SIZES[name]
+        if B == 1:
+            ev, n_valid = make_events(n, n, dev, seed), n
+        else:
+            ev, n_valid = make_window_batch([n] * B, n, dev, seed)
+        idx, vals = index_add_inputs(ev, n_valid, nb * h * w)
+        grid = torch.empty(B * nb * h * w, device=dev)
+        path = voxel._launch_plan(B, n, nb, h, w)[0]
+        other = next(p for p in voxel.PATHS if p != path)
+        calls = {
+            "index_add": lambda: grid.zero_().index_add_(0, idx, vals),
+            "k6": lambda: voxel.events_to_voxel_grid_sortseg(ev, n_valid, **kw),
+            "k6_stats": lambda: voxel.events_to_voxel_grid_sortseg(
+                ev, n_valid, with_stats=True, **kw),
+            "k7_f32": lambda: voxel.events_to_voxel_grid_pallas(ev, n_valid, **kw),
+            "k7_bf16": lambda: voxel.events_to_voxel_grid_pallas(
+                ev, n_valid, factor_dtype=torch.bfloat16, **kw),
+            f"k6_{other}": lambda: voxel.events_to_voxel_grid_sortseg(
+                ev, n_valid, path=other, **kw),
+        }
+        if name == "1M":
+            calls["plain_scatter"] = lambda: voxel.events_to_voxel_grid_scatter(
+                ev, n_valid, **kw)
+        reps = 20 if B == 1 else 3
+        dev_us = {k: [] for k in calls}
+        wrap_us = {k: [] for k in calls}
+        per_kernel = {}
+        for _ in range(VOX_TURNS):
+            for k in list(calls) + list(reversed(calls)):
+                t, per_kernel[k] = device_time_us(calls[k], reps)
+                dev_us[k].append(t)
+                wrap_us[k].append(cuda_time_us(calls[k], reps))
+        bound_ms, _ = voxel_bound(n, B)
+        row = {"windows": B, "events_per_window": n, "bound_us": bound_ms * 1e3,
+               "path": path, "other_path": other,
+               "device_us": {k: spread(v) for k, v in dev_us.items()},
+               "wrapper_us": {k: spread(v) for k, v in wrap_us.items()},
+               "device_us_per_kernel": per_kernel,
+               "mev_per_s": {k: B * n / min(v) for k, v in dev_us.items()},
+               "bound_share": {k: bound_ms * 1e3 / min(v)
+                               for k, v in dev_us.items()}}
+        if name == "1M":
+            def matmul():
+                return voxel.events_to_voxel_grid_matmul(ev, n_valid, **kw)
+            turns = [(device_time_us(matmul, 1)[0], cuda_time_us(matmul, 1))
+                     for _ in range(2)]
+            row["device_us"]["plain_matmul"] = spread([t[0] for t in turns])
+            row["wrapper_us"]["plain_matmul"] = spread([t[1] for t in turns])
+        if B > 1:
+            row["k6_single_window_calls_wrapper_us"] = cuda_time_us(
+                lambda: [voxel.events_to_voxel_grid_sortseg(e, n, **kw)
+                         for e in ev], 1)
+        out[name] = row
+        del ev, idx, vals, grid, calls
+    return out
 
 
 def make_lstm_inputs(shape, dev, gen, strided_gx=False):
@@ -1944,15 +2164,32 @@ def main() -> int:
         if not (eval_err <= SLICE_TOL):
             raise AssertionError(f"per-package engine, K5 vs fused_gru='off': "
                                  f"{eval_err} > {SLICE_TOL}")
-        depths_k6, stream_counts = run_stream_entry(*files["off"], log, "auto")
-        depths_k7, k7_counts = run_stream_entry(*files["off"], log, "pallas")
+        # the stream entry per voxel backend, in turns forward and back:
+        # K6 ('auto'), K7 ('pallas'), the plain index_add_ ('scatter')
+        runs = [(b, run_stream_entry(*files["off"], log, b)) for b in
+                STREAM_BACKENDS + STREAM_BACKENDS[::-1]]
+        depths_k6, stream_counts, _ = runs[0][1]
+        depths_k7, k7_counts, _ = runs[1][1]
         window_err, windows = window_grid_check(log, dev)
+    run_counts = {b: [r[1] for bb, r in runs if bb == b] for b in STREAM_BACKENDS}
+    want_counts = {"auto": {"k6": windows, "k7": 0}, "pallas": {"k6": 0, "k7": windows},
+                   "scatter": {"k6": 0, "k7": 0}}
     if (windows != STREAM_WINDOWS or len(depths_k6) != windows
-            or stream_counts != {"k6": windows, "k7": 0}
-            or k7_counts != {"k6": 0, "k7": windows}):
+            or any({k: c[k] for k in ("k6", "k7")} != want_counts[b]
+                   or any(sum(c["by_path"][k].values()) != c[k] for k in ("k6", "k7"))
+                   for b in STREAM_BACKENDS for c in run_counts[b])):
         raise AssertionError(f"stream: {windows} windows, {len(depths_k6)} "
-                             f"depth maps, launches {stream_counts} (K6 run), "
-                             f"{k7_counts} (K7 run)")
+                             f"depth maps, launches per backend {run_counts}")
+    # the batch path: one training batch's windows through the entry point,
+    # one launch sequence per backend, on the tiled path (grids beyond L2)
+    batch_run = run_batch_entry(dev, args.seed)
+    if any(r["launches"] != 1 or r["by_path"]["tiled"] != 1 or not r["finite"]
+           or r["shape"] != [VOX_SIZES["batch800"][0], *VOX_GRID]
+           or not r["max_rel_err"] <= VOX_TOL for r in batch_run.values()):
+        raise AssertionError(f"batch path: {batch_run}")
+    window_wall_ms = {b: {"min": min(r[2] for bb, r in runs if bb == b) / windows * 1e3,
+                          "runs": [r[2] / windows * 1e3 for bb, r in runs if bb == b]}
+                      for b in STREAM_BACKENDS}
     import numpy as np
     if not all(np.isfinite(d).all() for d in depths_k6.values()):
         raise AssertionError("non-finite depth maps in the stream")
@@ -1970,8 +2207,9 @@ def main() -> int:
           "eval_entry_wall_s": eval_wall, "data_write_s": stream_data_s,
           "stream_windows": windows, "stream_launches": stream_counts,
           "stream_k7_launches": k7_counts, "window_grid_max_rel_err": window_err,
-          "depth_k7_vs_k6_max_abs_err": stream_k7_err,
-          "events_per_window": int(vh * vw * STREAM_EVENTS_PER_PIXEL)})
+          "depth_k7_vs_k6_max_abs_err": stream_k7_err, "batch_path": batch_run,
+          "events_per_window": int(vh * vw * STREAM_EVENTS_PER_PIXEL),
+          "window_wall_ms_per_backend": window_wall_ms})
 
     # 10. per-package latency, K5 per cell, the voxelizers' rates
     off_stream = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="off"),
@@ -2035,7 +2273,8 @@ def main() -> int:
     ph_train = phased_train_phases(K, dev, gen, args.seed, smi)
 
     src = "rpg_ramnet_tpu_torch/csrc/"
-    vus = vox_times["us"]
+    v1m = vox_times["1M"]
+    vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
     flagship_keys = ["x".join(map(str, c)) for c in FLAGSHIP_CELLS]
     S = CHUNK * (K + 1)
     k11_bound = cell_bound("k11_step", FLAGSHIP_CELLS)
@@ -2073,15 +2312,25 @@ def main() -> int:
               sum(r["kernel_us"] for r in full_cells) / 1e3,
               sum(r["plain_us"] for r in full_cells) / 1e3,
               cell_bound("k5", FLAGSHIP_CELLS)),
-        entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
-              stream_counts["k6"],
-              max(max(r["k6"], r["k6_stats"]) for r in vox_errs.values()),
-              vus["k6"] / 1e3, vus["scatter_plain"] / 1e3,
-              voxel_bound(VOX_EVENTS), vus["index_add_only"] / 1e3),
-        entry("voxel_onehot", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:242",
-              k7_counts["k7"], max(r["k7_f32"] for r in vox_errs.values()),
-              vus["k7_f32"] / 1e3, vus["matmul_plain"] / 1e3,
-              voxel_bound(VOX_EVENTS), vus["index_add_only"] / 1e3),
+        dict(entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
+                   stream_counts["k6"] + batch_run["auto"]["launches"],
+                   max(max(r[p]["k6"], r[p]["k6_stats"]) for r in vox_errs.values()
+                       for p in voxel.PATHS),
+                   vdev["k6"], vdev["plain_scatter"], voxel_bound(VOX_EVENTS),
+                   vdev["index_add"]),
+             launches_by_path={"stream": stream_counts["by_path"]["k6"],
+                               "batch": batch_run["auto"]["by_path"]},
+             path_at_1m=v1m["path"],
+             plain_wrapper_ms=v1m["wrapper_us"]["plain_scatter"]["min"] / 1e3),
+        dict(entry("voxel_onehot", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:242",
+                   k7_counts["k7"] + batch_run["pallas"]["launches"],
+                   max(r[p]["k7_f32"] for r in vox_errs.values() for p in voxel.PATHS),
+                   vdev["k7_f32"], vdev["plain_matmul"], voxel_bound(VOX_EVENTS),
+                   vdev["index_add"]),
+             launches_by_path={"stream": k7_counts["by_path"]["k7"],
+                               "batch": batch_run["pallas"]["by_path"]},
+             path_at_1m=v1m["path"],
+             plain_wrapper_ms=v1m["wrapper_us"]["plain_matmul"]["min"] / 1e3),
         entry("lstm_hside", "lstm_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:368",
               ph["counts"][0], max(ph["k3_errs"].values()),
               sum(r["k3_kernel_us"] for r in ph["cells"]) / 1e3,

@@ -2,7 +2,9 @@
 the ConvGRUHside Function against their plain versions, the precomputed
 path with the kernel against the plain layer, one training step with
 the kernels against fused_gru='off', the whole-cell kernel K5 and the
-voxelizers K6 and K7 against their plain versions, the per-package
+voxelizers K6 and K7 against their plain versions (single windows and
+window batches in one launch sequence, unsorted, skewed and outside
+events, ragged and wide grids), the per-package
 engine with K5 against fused_gru='off', the ConvLSTM cells K3 and K4
 and their residual variants K3-res and K4-res against their plain
 versions, the ConvLSTMHside and PhasedCell Functions against the plain
@@ -229,29 +231,134 @@ def _events(n, n_valid, height, width, seed):
     return ev
 
 
+def _check_voxelizers(ev, n_valid, matmul=True, **kw):
+    """K6 (with and without stats) and K7 (float32 and bf16 factors) on
+    events [N, 4] or a batch [B, N, 4], one launch sequence each, on the
+    path the launch's size picks (K6 through the 'auto' entry point) and
+    on each path by name: the grids and the stats within atol/rtol 1e-4
+    of the plain scatter's (the atomics' order), the grids also within
+    1e-4 of the plain grid's magnitude and the stats within 1e-4 of their
+    own (the sum against the sum of |values|); K7 bf16 within 1e-4 of its
+    plain version's magnitude (the same rounding) and 0.05 of the float32
+    grid.  matmul=False skips K7 bf16's plain version (the one-hot
+    product), too slow on a wide grid."""
+    from rpg_ramnet_tpu_torch.ops import voxel
+    want = voxel.events_to_voxel_grid_scatter(ev, n_valid, **kw)
+    want_b = voxel.events_to_voxel_grid_matmul(
+        ev, n_valid, factor_dtype=torch.bfloat16, **kw) if matmul else None
+    ref = voxel.voxel_stats(want)
+    scales = (ref[0], want.abs().sum((-3, -2, -1)), ref[2])
+    tol = 1e-4 * max(want.abs().max().item(), 1.0)
+    wrappers = (voxel.events_to_voxel_grid_sortseg, voxel.events_to_voxel_grid_pallas)
+    for path in (None,) + tuple(voxel.PATHS):
+        before = [(f.launches, dict(f.path_launches)) for f in wrappers]
+        k6 = (voxel.events_to_voxel_grid(ev, n_valid, **kw) if path is None     # 'auto'
+              else voxel.events_to_voxel_grid_sortseg(ev, n_valid, path=path, **kw))
+        k6s, stats = voxel.events_to_voxel_grid_sortseg(ev, n_valid, with_stats=True,
+                                                        path=path, **kw)
+        k7 = voxel.events_to_voxel_grid_pallas(ev, n_valid, path=path, **kw)
+        k7b = voxel.events_to_voxel_grid_pallas(ev, n_valid, factor_dtype=torch.bfloat16,
+                                                path=path, **kw)
+        torch.cuda.synchronize()
+        for f, (n, by_path) in zip(wrappers, before):
+            assert f.launches - n == 2
+            if path is not None:
+                assert f.path_launches[path] - by_path[path] == 2
+        for got in (k6, k6s, k7):
+            assert got.shape == want.shape and got.dtype == torch.float32
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            assert (got - want).abs().max().item() <= tol
+        if matmul:
+            assert (k7b - want_b).abs().max().item() <= tol
+        assert (k7b - want).abs().max().item() <= 0.05
+        for got, r, sc in zip(stats, ref, scales):
+            assert got.shape == r.shape
+            torch.testing.assert_close(got, r, atol=1e-4, rtol=1e-4)
+            assert ((got - r).abs() / sc.clamp(min=1.0)).max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("n,n_valid", [(200_000, 200_000), (4096, 64)])
 def test_voxel_kernels_match_plain(device, n, n_valid):
-    """K6 (with and without stats) and K7 (float32 factors) within 1e-4 of
-    the index_add_ scatter; K7 with bfloat16 factors within 0.05."""
+    """One window on 5x260x346 (a width that is not a multiple of 4, so
+    the tiles' 16-byte stores start unaligned): dense, and sparse with
+    padding; n_valid = 0 launches nothing and gives zeros."""
     from rpg_ramnet_tpu_torch.ops import voxel
     ev = _events(n, n_valid, 260, 346, seed=n).to(device)
     kw = dict(num_bins=5, height=260, width=346)
-    want = voxel.events_to_voxel_grid_scatter(ev, n_valid, **kw)
-    n6, n7 = (voxel.events_to_voxel_grid_sortseg.launches,
-              voxel.events_to_voxel_grid_pallas.launches)
-    k6 = voxel.events_to_voxel_grid(ev, n_valid, **kw)           # 'auto'
-    k6s, stats = voxel.events_to_voxel_grid_sortseg(ev, n_valid, with_stats=True, **kw)
-    k7 = voxel.events_to_voxel_grid_pallas(ev, n_valid, **kw)
-    k7b = voxel.events_to_voxel_grid_pallas(ev, n_valid,
-                                            factor_dtype=torch.bfloat16, **kw)
-    torch.cuda.synchronize()
-    assert (voxel.events_to_voxel_grid_sortseg.launches - n6,
-            voxel.events_to_voxel_grid_pallas.launches - n7) == (2, 2)
-    for got in (k6, k6s, k7):
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    assert (k7b - want).abs().max().item() <= 0.05
-    for got, ref in zip(stats, voxel.voxel_stats(want)):
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    _check_voxelizers(ev, n_valid, **kw)
+    n6 = voxel.events_to_voxel_grid_sortseg.launches
+    grid, stats = voxel.events_to_voxel_grid_sortseg(ev, 0, with_stats=True, **kw)
+    assert voxel.events_to_voxel_grid_sortseg.launches == n6
+    assert grid.shape == (5, 260, 346) and not grid.any()
+    assert not torch.stack(stats).any()
+
+
+def test_voxel_path_by_size(device):
+    """The kernel's size rule: one window of 5x260x346 (its grid in L2)
+    takes the one-pass path, a training batch's 800 windows the tiled
+    path; a launch beyond the kernels (too many windows, a band wider
+    than a block's shared memory) raises before anything runs."""
+    from rpg_ramnet_tpu_torch.ops import voxel
+    assert voxel._launch_plan(1, 1 << 20, 5, 260, 346)[0] == "one_pass"
+    assert voxel._launch_plan(800, 32_768, 5, 260, 346)[0] == "tiled"
+    assert voxel._launch_plan(1, 1 << 20, 5, 260, 346, "tiled")[0] == "tiled"
+    with pytest.raises(ValueError):
+        voxel._launch_plan(70_000, 64, 1, 8, 8)
+    with pytest.raises(ValueError):
+        voxel._launch_plan(1, 64, 1, 1, 60_000, "tiled")
+
+
+def _voxel_case(name, device):
+    """(events, n_valid, grid kwargs) of the batched and irregular cases."""
+    gen = torch.Generator().manual_seed(len(name))
+    if name == "ragged_batch":      # a window with no events, one with one
+        counts = torch.tensor([40_000, 12_345, 0, 1, 39_999])
+        ev = torch.stack([_events(40_000, int(c), 260, 346, seed=i)
+                          for i, c in enumerate(counts)])
+        return ev.to(device), counts.to(device), dict(num_bins=5, height=260, width=346)
+    if name == "unsorted":          # first and last stay the extremes
+        ev = _events(300_000, 300_000, 260, 346, seed=5)
+        mid = torch.randperm(299_998, generator=gen) + 1
+        ev[1:-1] = ev[mid]
+        return ev.to(device), 300_000, dict(num_bins=5, height=260, width=346)
+    if name == "skewed":            # every event in one band of rows
+        ev = _events(300_000, 300_000, 260, 346, seed=6)
+        ev[:, 2] = torch.randint(16, 24, (300_000,), generator=gen).float()
+        return ev.to(device), 300_000, dict(num_bins=5, height=260, width=346)
+    if name == "skewed_unsorted_batch":
+        ev = torch.stack([_events(50_000, 50_000, 260, 346, seed=i) for i in range(3)])
+        ev[1, :, 2] = 259.0                       # the last, shorter band
+        ev[2, 1:-1] = ev[2, 1 + torch.randperm(49_998, generator=gen)]
+        return ev.to(device), None, dict(num_bins=5, height=260, width=346)
+    if name == "outside":           # x or y outside the image: dropped
+        ev = _events(100_000, 100_000, 260, 346, seed=7)
+        ev[1:50_000:7, 1] = 346.0
+        ev[2:50_000:11, 2] = -1.0
+        return ev.to(device), 100_000, dict(num_bins=5, height=260, width=346)
+    if name == "odd_grid_batch":    # width 45, a shorter last band
+        ev = torch.stack([_events(9_000, 9_000 - 1000 * i, 370, 45, seed=i)
+                          for i in range(3)])
+        return ev.to(device), torch.tensor([9_000, 8_000, 7_000]), dict(
+            num_bins=3, height=370, width=45)
+    if name == "one_row":
+        ev = _events(5_000, 5_000, 1, 346, seed=8)
+        return ev.to(device), 5_000, dict(num_bins=5, height=1, width=346)
+    if name == "wide_grid_batch":   # rows of 12.8 KB: 4500 tiles per window,
+        ev = torch.stack([_events(100_000, 100_000, 1500, 3200, seed=i)
+                          for i in range(2)])             # > 48 KB of smem
+        return ev.to(device), None, dict(num_bins=3, height=1500, width=3200)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["ragged_batch", "unsorted", "skewed",
+                                  "skewed_unsorted_batch", "outside",
+                                  "odd_grid_batch", "one_row", "wide_grid_batch"])
+def test_voxel_kernels_batched_and_irregular(device, name):
+    """K6 and K7 against their plain versions on window batches (one launch
+    sequence per batch, n_valid = 0 inside one), unsorted and skewed
+    events, events outside the image, ragged and wide grids."""
+    ev, n_valid, kw = _voxel_case(name, device)
+    _check_voxelizers(ev, n_valid, matmul=name != "wide_grid_batch", **kw)
 
 
 def test_per_package_engine_kernel_vs_off(device):
