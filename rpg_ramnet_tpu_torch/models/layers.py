@@ -152,9 +152,10 @@ class UpsampleConvLayer(_FoldedGates):
 
     def fused_weights(self, dtype: torch.dtype
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The weight [25, Cout, C] in ``dtype`` and the bias [Cout] in
-        float32 in the layout of ops.upsample_conv (K8); cached per weight
-        version and dtype."""
+        """The phase, edge and corner weights [144, Cout_pad, C] in
+        ``dtype`` and the bias [Cout] in float32, in the layout of
+        ops.upsample_conv.kernel_weights (K8); cached per weight version
+        and dtype."""
         return self._folded("fused", dtype, lambda ws, dt: kernel_weights(
             ws[0], self.conv2d.bias, dt))
 

@@ -344,8 +344,13 @@ def _use_fused_decoder(cfg: ModelConfig, x: torch.Tensor, cout: int,
     for 'on', and only where ``upsample_conv.supports`` holds (bf16,
     channels_last memory, the kernel's channel multiples): on a CUDA
     tensor that is the kernel, on a CPU tensor its plain version.  'auto'
-    is off, as in JAX (statenet.py:442-480): K8's measured verdict is in
-    PERF.md."""
+    is off, as in JAX (statenet.py:442-480).  Measured by chip_smoke.py
+    phase 16 on an NVIDIA H100 80GB HBM3 at 700 W, the three flagship
+    layers summed, K8 / composed / two-stage layers: 11.33 / 19.20 /
+    26.94 ms at the chunked engine's decode batch 96, 0.85 / 3.22 / 1.82
+    ms at the per-package batch 6; the 16-package chunk's forward 99.0 /
+    107.3 / 114.3 ms.  That is the input to re-deriving 'auto' (PERF.md,
+    ROADMAP)."""
     if cfg.fused_decoder != "on":
         return False
     return upsample_conv.supports(to_nhwc(x), cout,

@@ -8,9 +8,11 @@ Counterpart of ``rpg_ramnet_tpu/ops/upsample_conv.py``
 
 the reference's UpsampleConvLayer (RAM_Net/model/submodules.py:69-97) on
 the sum skip, with the resize's half-pixel centres and edge clamp and the
-conv's zero padding.  The CUDA kernel (``csrc/upsample_conv.cu``) builds
-the 2x tile in shared memory and never writes it to device memory; its
-header says what bounds it and what the design does about it.  It runs
+conv's zero padding.  The CUDA kernel (``csrc/upsample_conv.cu``) never
+forms the 2x image: it runs the four 4x4 phase kernels (``phase_weights``)
+over the clamped low-res tile and subtracts the border terms
+(``edge_weights``) at the image's edge pixels; its header says what
+bounds it and what the design does about it.  It runs
 where ``models/statenet.py::forward_decoder_supers`` is allowed it and
 ``fused_decoder='on'``.
 
@@ -36,14 +38,35 @@ from . import gru_hside
 _P, _I = gru_hside._P, gru_hside._I
 _SIGNATURES = {
     "ramnet_upsample_conv_forward": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                          _I, _I, _I, _P)),
+                                          _I, _I, _I, _I, _I, _P)),
     **gru_hside._ERR,
 }
 SOURCES = ("upsample_conv",)
-TILE = 16          # output tile of one block: 16 x 16 2x pixels
-_LO = TILE // 2 + 4    # the low-res tile it stages, with a 2-pixel halo
-_HI = TILE + 4         # the 2x tile it builds, with a 2-pixel halo
+TILE = 16          # low-res tile of one block: 16 x 16 pixels (32 x 32 out)
+NC = 32            # output channels of one block, per phase
+SLAB = 16          # input channels it stages per pass
 _MAX_BLOCKS_Z = 65535
+
+# Half-pixel bilinear 2x composed with the conv's 5 taps along one axis
+# (JAX layers._S0/_S1): 2x row 2i + p = sum_a S[p][a, u] w[u] applied to
+# the low-res rows i + a - 2 + p, a = 0..3, the rows clamped to the image.
+_S = torch.tensor([[[0.25, 0.00, 0.00, 0.00, 0.00],
+                    [0.75, 0.75, 0.25, 0.00, 0.00],
+                    [0.00, 0.25, 0.75, 0.75, 0.25],
+                    [0.00, 0.00, 0.00, 0.25, 0.75]],
+                   [[0.75, 0.25, 0.00, 0.00, 0.00],
+                    [0.25, 0.75, 0.75, 0.25, 0.00],
+                    [0.00, 0.00, 0.25, 0.75, 0.75],
+                    [0.00, 0.00, 0.00, 0.00, 0.25]]])
+# The conv's taps (ky or kx) that fall outside the 2x image, by phase p of
+# the output's first two rows (2x rows 0, 1: _FIRST) and last two (2H-2,
+# 2H-1: _LAST); columns alike.
+_FIRST = ((0, 1), (0,))
+_LAST = ((4,), (3, 4))
+# blocks of [Cout_pad, C] in the kernel's weight tensor: the phase kernels
+# [p][a][q][b]; the edge terms [side: top, bottom, left, right][p][q][tap];
+# the corner terms [top-left, top-right, bottom-left, bottom-right][p][q]
+_N_MAIN, _N_EDGE, _N_CORNER = 64, 64, 16
 
 
 def library():
@@ -52,50 +75,96 @@ def library():
     return kernels.library("upsample_conv", _SIGNATURES)
 
 
-def slab(C: int) -> Optional[int]:
-    """Input channels the kernel stages per pass: the largest of 64, 32
-    and 16 that divides C (None when none does)."""
-    for cs in (64, 32, 16):
-        if C % cs == 0:
-            return cs
-    return None
-
-
-def smem_bytes(C: int) -> int:
-    """Shared memory of one block: the low-res tile (with a 2-pixel halo)
-    and the 2x tile (with a 2-pixel halo) of one slab, bf16, at pitch
-    slab + 8."""
-    return (_LO * _LO + _HI * _HI) * (slab(C) + 8) * 2
-
-
 def supports(x: torch.Tensor, cout: int,
              skip: Optional[torch.Tensor] = None) -> bool:
     """Whether K8 takes this NHWC input (and skip) and Cout: bf16, 4-D,
     contiguous (channels_last memory of the NCHW view: the wrapper
     copies nothing), C a multiple of 16 (the mma k-step), Cout a multiple
-    of 8 (the mma n-tile), the block's shared memory within Hopper's limit
-    and the grid's batch dimension within CUDA's; skip None or of x's
-    shape, dtype and layout."""
+    of 8 (the mma n-tile) and the grid's batch dimension within CUDA's;
+    skip None or of x's shape, dtype and layout."""
     if (x.dim() != 4 or x.dtype != torch.bfloat16 or not x.is_contiguous()
-            or x.shape[-1] % 16 or cout % 8
-            or smem_bytes(x.shape[-1]) > gru_hside._SMEM_MAX
-            or x.shape[0] * -(-cout // 64) > _MAX_BLOCKS_Z):
+            or x.shape[-1] % SLAB or cout % 8
+            or x.shape[0] * -(-cout // NC) > _MAX_BLOCKS_Z):
         return False
     return skip is None or (skip.shape == x.shape and skip.dtype == x.dtype
                             and skip.is_contiguous())
 
 
+def phase_weights(w: torch.Tensor) -> torch.Tensor:
+    """OIHW w [Cout, C, 5, 5] -> the four phase kernels [2 (p), 2 (q),
+    4 (a), 4 (b), Cout, C] in float32: output pixel (2i + p, 2j + q) of the
+    layer, away from the border, is sum_{a,b} Wp[p, q, a, b] @ s[i + a - 2
+    + p, j + b - 2 + q] over the low-res s, clamped to the image (JAX
+    ``layers._phase_kernels``, there [4, 4, C, Cout] per (p, q))."""
+    S = _S.to(w.device)
+    return torch.einsum("pau,oiuv,qbv->pqaboi", S, w.float(), S)
+
+
+def _taps(taps, axis: int, w: torch.Tensor) -> torch.Tensor:
+    return w.index_select(axis, torch.tensor(taps, device=w.device)).sum(axis)
+
+
+def border_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The sums of w over its taps that fall outside the 2x image at the
+    border, float32, from OIHW w [Cout, C, 5, 5]:
+    rows [2 (first, last), 2 (p), 5 (kx), Cout, C]: over ky, at 2x rows
+    p and 2H - 2 + p (JAX ``prep_weights``'s c_first / c_last);
+    cols [2 (first, last), 2 (q), 5 (ky), Cout, C]: over kx, alike;
+    corners [2 (first, last row), 2 (first, last col), 2 (p), 2 (q), Cout,
+    C]: over both."""
+    wf = w.float().permute(2, 3, 0, 1)                  # [ky, kx, Cout, C]
+    rows = torch.stack([torch.stack([_taps(t, 0, wf) for t in side])
+                        for side in (_FIRST, _LAST)])
+    cols = torch.stack([torch.stack([_taps(t, 1, wf) for t in side])
+                        for side in (_FIRST, _LAST)])
+    corners = torch.stack([torch.stack([torch.stack([torch.stack(
+        [_taps(tx, 0, _taps(ty, 0, wf)) for tx in hs]) for ty in vs])
+        for hs in (_FIRST, _LAST)]) for vs in (_FIRST, _LAST)])
+    return rows, cols, corners
+
+
+def edge_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The border terms in the phase form, float32: edges [4 (top,
+    bottom, left, right), 2 (p), 2 (q), 4 (tap), Cout, C] and corners
+    [4 (top-left, top-right, bottom-left, bottom-right), 2 (p), 2 (q),
+    Cout, C].  On the image's first low-res row (i = 0) the phase form
+    over-counts sum_b edges[0, p, q, b] @ s[0, j + b - 2 + q] (the taps
+    above the 2x image, which the clamped tile extends by the
+    column-upsampled row 0); on the last row edges[1] alike; on the first
+    and last columns edges[2], edges[3] with the tap a over rows
+    i + a - 2 + p of column 0 (W - 1); at the four corner pixels the
+    corner taps, counted in both an edge row and an edge column, come back
+    as corners[k, p, q] @ s[corner]:
+
+        out = phase - top - bottom - left - right + the corners
+    """
+    S = _S.to(w.device)
+    rows, cols, corners = border_weights(w)
+    top_bottom = torch.einsum("spvoi,qbv->spqboi", rows, S)
+    left_right = torch.einsum("squoi,pau->spqaoi", cols, S)
+    return (torch.cat([top_bottom, left_right]),
+            corners.reshape(4, 2, 2, *w.shape[:2]))
+
+
 def kernel_weights(w: torch.Tensor, b: Optional[torch.Tensor],
                    dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's weights: OIHW w [Cout, C, 5, 5] -> [25, Cout, C] (tap
-    ky*5 + kx, output, input) in ``dtype``, contiguous (the tensor cores'
-    B operand), and the bias [Cout] rounded to ``dtype`` as the plain
-    layer rounds it, in float32 (zeros when b is None)."""
-    wk = (w.permute(2, 3, 0, 1).reshape(25, w.shape[0], w.shape[1])
-          .to(dtype).contiguous())
-    bk = (torch.zeros(w.shape[0], device=w.device) if b is None
+    """The kernel's weights: from OIHW w [Cout, C, 5, 5], the phase kernels
+    (as [p][a][q][b]), the edge terms negated and the corner terms, each a
+    [Cout_pad, C] block (zero past Cout), composed in float32 and rounded
+    to ``dtype``: [144, Cout_pad, C], K-contiguous (the tensor cores' B
+    operand); and the bias [Cout] rounded to ``dtype`` as the plain layer
+    rounds it, in float32 (zeros when b is None)."""
+    cout, C = w.shape[:2]
+    edges, corners = edge_weights(w)
+    blocks = torch.cat([
+        phase_weights(w).permute(0, 2, 1, 3, 4, 5).reshape(_N_MAIN, cout, C),
+        -edges.reshape(_N_EDGE, cout, C),
+        corners.reshape(_N_CORNER, cout, C)])
+    wk = F.pad(blocks, (0, 0, 0, -cout % NC)).to(dtype)
+    bk = (torch.zeros(cout, device=w.device) if b is None
           else b.to(dtype).float().contiguous())
-    return wk, bk
+    return wk.contiguous(), bk
 
 
 def _weights(layer_or_w_b) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -147,7 +216,8 @@ def _check(w, b, x, skip, activation) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def _launch(layer_or_w_b, w, b, x, skip, relu: bool) -> torch.Tensor:
+def _launch(layer_or_w_b, w, b, x, skip, relu: bool,
+            border_terms: bool) -> torch.Tensor:
     B, H, W, C = x.shape
     cout = w.shape[0]
     if not supports(x, cout, skip):
@@ -167,7 +237,8 @@ def _launch(layer_or_w_b, w, b, x, skip, relu: bool) -> torch.Tensor:
     err = lib.ramnet_upsample_conv_forward(
         x.data_ptr(), None if skip is None else skip.data_ptr(),
         wk.data_ptr(), bk.data_ptr(), out.data_ptr(), B, H, W, C, cout,
-        slab(C), int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+        wk.shape[1], NC, int(relu), int(border_terms),
+        torch.cuda.current_stream(x.device).cuda_stream)
     gru_hside._raise_on(err, lib, "upsample_conv")
     upsample_conv_fused.launches += 1
     return out
@@ -175,22 +246,28 @@ def _launch(layer_or_w_b, w, b, x, skip, relu: bool) -> torch.Tensor:
 
 def upsample_conv_fused(layer_or_w_b, x: torch.Tensor,
                         skip: Optional[torch.Tensor] = None,
-                        activation: Optional[str] = "relu") -> torch.Tensor:
+                        activation: Optional[str] = "relu", *,
+                        border_terms: bool = True) -> torch.Tensor:
     """relu(conv5x5(upsample2x_bilinear(x + skip), W) + b) [B, 2H, 2W,
     Cout] from NHWC x and skip [B, H, W, C] and an ``UpsampleConvLayer``
     or a (w OIHW, b) pair: K8 for CUDA tensors (raises where ``supports``
     does not hold), ``upsample_conv_fused_plain`` for CPU tensors.
-    activation: 'relu' or None.  Inference only: raises when autograd
-    would need a gradient."""
+    activation: 'relu' or None.  border_terms=False makes the kernel skip
+    its border terms, so the outer two 2x rows and columns are wrong:
+    only to time their share (CPU tensors raise).  Inference only: raises
+    when autograd would need a gradient."""
     w, b = _weights(layer_or_w_b)
     _check(w, b, x, skip, activation)
     gru_hside.raise_under_autograd(
         "upsample_conv_fused", *(t for t in (x, skip, w, b) if t is not None),
         why="as the JAX kernel, it has no VJP")
     if gru_hside._device_of(x) == "cpu":
+        if not border_terms:
+            raise ValueError("border_terms=False is the kernel's alone")
         return upsample_conv_fused_plain(w, b, x, skip, activation)
     with torch.cuda.device(x.device):
-        return _launch(layer_or_w_b, w, b, x, skip, activation == "relu")
+        return _launch(layer_or_w_b, w, b, x, skip, activation == "relu",
+                       border_terms)
 
 
 upsample_conv_fused.launches = 0

@@ -766,10 +766,14 @@ def test_chunked_variants_kernels_vs_off(device):
 # the flagship decoder layers at 256x512 (B, C, Cout, H, W of the input),
 # at the per-package decode batch 6, and ragged ones: odd H and W, C = 48
 # (16-channel slabs), Cout = 24 (three n8 tiles), Cout = 96 (two channel
-# slices, the second partial)
-DECODER_LAYERS = [(6, 256, 128, 32, 64), (6, 128, 64, 64, 128),
-                  (6, 64, 32, 128, 256), (3, 48, 24, 13, 27),
-                  (2, 32, 96, 9, 17)]
+# slices, the second partial); and the border shapes, H, W in {1, 2, 3}
+# (the top and bottom, left and right border terms on the same pixels),
+# at C = 32 with Cout = 24 (a ragged channel slice) and 128
+DECODER_LAYERS = ([(6, 256, 128, 32, 64), (6, 128, 64, 64, 128),
+                   (6, 64, 32, 128, 256), (3, 48, 24, 13, 27),
+                   (2, 32, 96, 9, 17)]
+                  + [(2, 32, cout, h, w) for cout in (24, 128)
+                     for h in (1, 2, 3) for w in (1, 2, 3)])
 
 
 def _decoder_inputs(shape, device, seed=0):
