@@ -28,21 +28,32 @@ package.
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel);
   2. kernel        K1 against its plain PyTorch version on the card, at the
-                   three inference widths and one ragged shape;
+                   three inference widths, one ragged shape and the edge
+                   shapes (H or W below the tile, H = W = 1, C = 16, 48,
+                   96, B = 3), under every (split, combo) plan K1's planner
+                   can pick at each (its own pick through the wrapper's
+                   default path);
   3. slice         two sequences (40 and 8 packages) through the inference
                    path with chunk 16: K1's launch count, finite predictions
                    in [0, 1], the first chunk against fused_gru='off';
-  4. timing        K1 and its plain version per cell, the slice's maps/s;
+  4. timing        K1 and its plain version per cell (device time: the
+                   launches queued behind a sleep kernel; K1 also
+                   unqueued, its wrapper's time; with K1's plan, device us
+                   per launch, weight MB per launch, registers and spills),
+                   the slice's maps/s;
   5. kernel_train  K1-res, K2 and the ConvGRUHside Function against their
                    plain versions at the three training shapes (B=16) and
-                   one ragged shape;
+                   one ragged shape; K1-res (h', acts) also under every
+                   plan kind there and at the edge shapes;
   6. train         the first step's loss and gradients against
                    fused_gru='off', then the entry point for TRAIN_STEPS
                    optimizer steps and one validation batch on a synthetic
                    on-disk split: finite losses, the K1-res, K2 and K1
                    launch counts, peak memory;
   7. timing_train  training sequences/s with the kernels and with 'off',
-                   K1-res and K2 per cell against their plain versions;
+                   K1-res and K2 per cell against their plain versions
+                   (queued, as phase 4; K1-res also its wrapper's time,
+                   its plan, device us, weight MB, registers and spills);
   8. kernel_stream K5 against its plain version at the three per-package
                    shapes and one ragged shape; K6 (with and without stats)
                    and K7 (float32 and bf16 factors) on each of their
@@ -142,6 +153,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -152,11 +164,17 @@ SEQ_LENGTHS = (40, 8)
 CONFIG = "configs/train_e2depth_si_grad_loss_statenet_ergb_tpu_bf16.json"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CELL_TOL = 2e-2    # one cell in bf16: eps 7.8e-3, a few roundings stack
+K1_TOL = 8e-3      # K1, K1-res (h', acts): two bf16 steps near 1, f32 gates
 SLICE_TOL = 5e-2   # sigmoid predictions after L*(K+1) bf16 cells
 # (B, H, W, C): the flagship h-side shapes, and a ragged one with B > 1
 # whose gx is a strided view, as forward_sequence_precomputed passes it
 FLAGSHIP_CELLS = ((1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256))
 RAGGED_CELL = (2, 30, 45, 96)
+# K1's and K1-res's edge shapes: H or W below the tile, H = W = 1, C = 16,
+# 48 and 96, B > 1 with a strided gx
+K1_EDGE_CELLS = ((1, 5, 40, 64), (2, 9, 3, 128), (1, 3, 37, 256),
+                 (1, 1, 1, 64), (2, 1, 1, 256), (1, 20, 24, 16),
+                 (2, 17, 19, 48), (3, 33, 21, 96))
 # training: the flagship recipe's batch, window and crop; its h-side shapes
 # at the three scales, and a ragged one with B > 1 and a strided gx
 TRAIN_B, TRAIN_L, TRAIN_CROP, TRAIN_STEPS = 16, 10, 224, 2
@@ -290,23 +308,98 @@ def make_cell_inputs(shape, dev, gen, strided_gx=False):
     return cell, h, gx, w_ur, w_o
 
 
-def kernel_check(dev, gen):
-    """Max abs error of the kernel against its plain version per shape."""
+def plan_name(plan) -> str:
+    """A K1 plan as tile/split/combo/slab width."""
+    return f"{plan.tile_h}x{plan.tile_w}/s{plan.split}/c{plan.combo}/k{plan.ks}"
+
+
+def k1_plan_errors(shape, dev, gen, residuals):
+    """{plan: max abs error} of K1 (h') or K1-res (h' and acts) against its
+    plain version at one shape (gx strided where B > 1), under every plan
+    kind the planner can pick there; its own pick through the wrapper's
+    default path."""
     import torch
     from rpg_ramnet_tpu_torch.ops import gru_hside
+    _, h, gx, w_ur, w_o = make_cell_inputs(shape, dev, gen,
+                                           strided_gx=shape[0] > 1)
+    if residuals:
+        want = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+    else:
+        want = (gru_hside.conv_gru_hside_plain(h, gx, w_ur, w_o),)
     errs = {}
-    for shape in FLAGSHIP_CELLS + (RAGGED_CELL,):
-        _, h, gx, w_ur, w_o = make_cell_inputs(shape, dev, gen,
-                                               strided_gx=shape == RAGGED_CELL)
-        got = gru_hside.conv_gru_hside(h, gx, w_ur, w_o)
-        want = gru_hside.conv_gru_hside_plain(h, gx, w_ur, w_o)
+    for i, plan in enumerate(gru_hside.k1_plan_kinds(*shape,
+                                                     residuals=residuals)):
+        kw = {"_plan": plan} if i else {}
+        if residuals:
+            got = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o, **kw)
+        else:
+            got = (gru_hside.conv_gru_hside(h, gx, w_ur, w_o, **kw),)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        errs["x".join(map(str, shape))] = err
-        if not (err <= CELL_TOL):
-            raise AssertionError(f"kernel vs plain at {shape}: max abs err "
-                                 f"{err} > {CELL_TOL}")
+        err = max((a.float() - b.float()).abs().max().item()
+                  for a, b in zip(got, want))
+        errs[plan_name(plan)] = err
+        if not (err <= K1_TOL):
+            raise AssertionError(f"K1{'-res' if residuals else ''} vs plain at "
+                                 f"{shape}, plan {plan}: max abs err {err} > "
+                                 f"{K1_TOL}")
     return errs
+
+
+def ptxas_by_kernel(log):
+    """{mangled kernel name: {"registers": n, "spill_stores": b,
+    "spill_loads": b}} from nvcc -Xptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_ptxas(ptxas, residuals, combo=None):
+    """The ptxas entry of K1 (residuals False) or K1-res: of
+    k1_kernel<kRes, MR, NR, MC, NC> for a combo, or with combo None of the
+    first design's gru_hside_kernel<kRes> (when gru_hside_timing.py --root
+    times an older tree)."""
+    flag = f"ILb{int(residuals)}E"
+    for name, info in ptxas.items():
+        if combo is not None and "k1_kernel" in name and \
+                (flag + "".join(f"Li{v}E" for v in combo) + "E") in name:
+            return info
+        if combo is None and "gru_hside_kernel" in name and flag in name:
+            return info
+    return None
+
+
+def kernel_check(dev, gen):
+    """Max abs error of K1 against its plain version per shape and plan."""
+    return {"x".join(map(str, shape)): k1_plan_errors(shape, dev, gen, False)
+            for shape in FLAGSHIP_CELLS + (RAGGED_CELL,) + K1_EDGE_CELLS}
+
+
+def k1_report(kind, shape, fn):
+    """K1's (kind 'k1') or K1-res's plan at shape, its mean device us per
+    launch of fn (torch.profiler), the weight MB one launch streams into
+    shared memory, and the kernel's registers and spills (ptxas)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    plan = gru_hside.plan_k1(*shape, residuals=kind == "k1_res")
+    dev_us, records = launch_device_us(fn, 10)
+    return {"plan": plan._asdict(), "device_us": dev_us,
+            "device_records": records,
+            "weight_mb": gru_hside.k1_weight_bytes(plan, *shape) / 1e6,
+            "ptxas": kernel_ptxas(
+                ptxas_by_kernel(kernels.build_log.get("gru_hside", "")),
+                kind == "k1_res", gru_hside.K1_COMBOS[plan.combo])}
 
 
 def rel_err(got, want):
@@ -322,6 +415,7 @@ def train_kernel_check(dev, gen):
     from rpg_ramnet_tpu_torch.ops import gru_hside
     rows = []
     for shape in TRAIN_CELLS + (RAGGED_TRAIN_CELL,):
+        res_plans = k1_plan_errors(shape, dev, gen, True)
         _, h, gx, w_ur, w_o = make_cell_inputs(
             shape, dev, gen, strided_gx=shape == RAGGED_TRAIN_CELL)
         g = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
@@ -343,23 +437,30 @@ def train_kernel_check(dev, gen):
                "bwd_dgx_abs_err": (dgx.float() - want_dgx.float()).abs().max().item(),
                "bwd_dh_rel": rel_err(dh, want_dh),
                "bwd_dgx_rel": rel_err(dgx, want_dgx),
-               "fn_rel": [rel_err(a, b) for a, b in zip(fn_grads, want_fn)]}
+               "fn_rel": [rel_err(a, b) for a, b in zip(fn_grads, want_fn)],
+               "res_plans": res_plans}
         rows.append(row)
-        if not (max(row["res_h_err"], row["res_acts_err"]) <= CELL_TOL):
+        if not (max(row["res_h_err"], row["res_acts_err"]) <= K1_TOL):
             raise AssertionError(f"K1-res vs plain at {shape}: {row}")
         if not (max([row["bwd_dh_rel"], row["bwd_dgx_rel"]] + row["fn_rel"])
                 <= GRAD_TOL):
             raise AssertionError(f"K2 / Function vs plain at {shape}: {row}")
-    return rows
+    edges = {"x".join(map(str, shape)): k1_plan_errors(shape, dev, gen, True)
+             for shape in K1_EDGE_CELLS}
+    return rows, edges
 
 
-def cuda_time_us(fn, iters):
+def cuda_time_us(fn, iters, queued=False):
     """Microseconds per call of fn by CUDA events over iters calls, after
-    three warm-up calls."""
+    three warm-up calls.  queued: the calls wait behind a sleep kernel, so
+    the events time the device and not the host's launch overhead."""
     import torch
     for _ in range(3):
         fn()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000 * iters)
     t0.record()
     for _ in range(iters):
         fn()
@@ -434,23 +535,29 @@ def time_train_cells(dev, gen, iters=20):
                  lambda: gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)),
                 ("bwd", lambda: gru_hside.conv_gru_hside_bwd(g, h, acts, w_ur, w_o),
                  lambda: gru_hside.conv_gru_hside_bwd_plain(g, h, acts, w_ur, w_o))):
-            p1, k1, k2, p2 = (cuda_time_us(f, iters) for f in (plain, kern, kern, plain))
+            p1, k1, k2, p2 = (cuda_time_us(f, iters, queued=True)
+                              for f in (plain, kern, kern, plain))
             row.update({f"{name}_kernel_us": min(k1, k2),
                         f"{name}_plain_us": min(p1, p2),
                         f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2]})
+            if name == "res":
+                row["res_k1"] = k1_report("k1_res", shape, kern)
+                row["res_k1"]["wrapper_us"] = min(cuda_time_us(kern, iters)
+                                                  for _ in range(2))
         rows.append(row)
     return rows
 
 
 def time_cells(dev, gen, iters=50):
     """Microseconds per cell, kernel and plain version (and the plain
-    layer the 'off' policy runs), in turns plain, kernel, kernel, plain."""
+    layer the 'off' policy runs), in turns plain, kernel, kernel, plain,
+    queued (device time); K1's also unqueued (its wrapper's time)."""
     import torch
     from rpg_ramnet_tpu_torch.ops import gru_hside
     from rpg_ramnet_tpu_torch.utils.layout import to_nchw
 
     def cuda_us(fn):
-        return cuda_time_us(fn, iters)
+        return cuda_time_us(fn, iters, queued=True)
 
     rows = []
     for shape in FLAGSHIP_CELLS:
@@ -461,7 +568,10 @@ def time_cells(dev, gen, iters=50):
         p1, k1, k2, p2 = cuda_us(plain), cuda_us(kern), cuda_us(kern), cuda_us(plain)
         rows.append({"shape": list(shape), "kernel_us": min(k1, k2),
                      "plain_us": min(p1, p2), "plain_layer_bf16_us": cuda_us(layer),
-                     "kernel_us_runs": [k1, k2], "plain_us_runs": [p1, p2]})
+                     "kernel_us_runs": [k1, k2], "plain_us_runs": [p1, p2],
+                     "kernel_wrapper_us": min(cuda_time_us(kern, iters)
+                                              for _ in range(2)),
+                     **k1_report("k1", shape, kern)})
     return rows
 
 
@@ -2074,7 +2184,7 @@ def main() -> int:
     # 2. the kernel against its plain version on the card
     gen = torch.Generator().manual_seed(args.seed)
     errs = kernel_check(dev, gen)
-    emit({"phase": "kernel", "name": "gru_hside", "tol": CELL_TOL,
+    emit({"phase": "kernel", "name": "gru_hside", "tol": K1_TOL,
           "max_abs_err": errs})
 
     # 3. the slice at full width through the main path
@@ -2143,9 +2253,9 @@ def main() -> int:
           "slice_wall_s_off_on_on_off": walls, "nvidia_smi": smi})
 
     # 5. the training kernels against their plain versions on the card
-    train_rows = train_kernel_check(dev, gen)
-    emit({"phase": "kernel_train", "cell_tol": CELL_TOL, "grad_tol": GRAD_TOL,
-          "cells": train_rows})
+    train_rows, res_edges = train_kernel_check(dev, gen)
+    emit({"phase": "kernel_train", "k1_tol": K1_TOL, "grad_tol": GRAD_TOL,
+          "cells": train_rows, "res_edge_plans": res_edges})
 
     # 6. training at full width through the entry point
     from rpg_ramnet_tpu_torch.core.config import Config
@@ -2337,13 +2447,15 @@ def main() -> int:
     print(smi)
     emit({"kernels": [
         entry("gru_hside", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:289",
-              launches, max(errs.values()),
+              launches, max(e for row in errs.values() for e in row.values()),
               sum(r["kernel_us"] for r in cells) / 1e3,
               sum(r["plain_us"] for r in cells) / 1e3,
               cell_bound("k1", FLAGSHIP_CELLS)),
         entry("gru_hside_res", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:124",
               trained["launches"]["k1_res"],
-              max(max(r["res_h_err"], r["res_acts_err"]) for r in train_rows),
+              max([max(r["res_h_err"], r["res_acts_err"], *r["res_plans"].values())
+                   for r in train_rows]
+                  + [e for row in res_edges.values() for e in row.values()]),
               sum(r["res_kernel_us"] for r in train_cells) / 1e3,
               sum(r["res_plain_us"] for r in train_cells) / 1e3,
               cell_bound("k1_res", TRAIN_CELLS)),

@@ -1,7 +1,10 @@
-// One tile of the fused ConvGRU h-side cell: the device code of kernel K1
-// (gru_hside.cu), which its launch variants share: the pair cell K9 and the
-// gx-streaming cells K10a/K10b (gru_cells.cu), and the whole-chunk
-// resident-state cell K11 (gru_chunk.cu).
+// One tile of the fused ConvGRU h-side cell as the launch variants of
+// kernel K1 run it: the pair cell K9 and the gx-streaming cells K10a/K10b
+// (gru_cells.cu), and the whole-chunk resident-state cell K11
+// (gru_chunk.cu).  K1 and K1-res themselves run the staged-weight tile of
+// gru_hside_tile.cuh; this first design reads its weights from L1/L2 per
+// warp item (mma_conv.cuh), and its footprint is the one K11's
+// co-residency is planned on (ops/gru_hside.py::smem_bytes, pick_tile).
 //
 //     z = sigmoid(conv3x3(h, Wz) + gx_z)      r = sigmoid(conv3x3(h, Wr) + gx_r)
 //     a = bf16(r * h)                          o = tanh(conv3x3(a, Wo) + gx_o)

@@ -26,8 +26,9 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# per library built in this process: nvcc's stderr, whose ptxas lines
-# report registers and spills per kernel
+# per library built or loaded in this process: nvcc's stderr (kept beside
+# the built library), whose ptxas lines report registers and spills per
+# kernel
 build_log: Dict[str, str] = {}
 
 _locks: Dict[str, threading.Lock] = {}
@@ -74,8 +75,10 @@ def _build(name: str) -> Path:
                 raise RuntimeError(
                     f"nvcc failed on {src.name} ({proc.returncode}):\n"
                     f"{proc.stdout}\n{proc.stderr}")
+            so.with_suffix(".log").write_text(proc.stderr)
             os.replace(tmp, so)
-            build_log[name] = proc.stderr
+        if name not in build_log and so.with_suffix(".log").exists():
+            build_log[name] = so.with_suffix(".log").read_text()
         return so
 
 

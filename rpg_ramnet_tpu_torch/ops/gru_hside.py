@@ -60,19 +60,22 @@ and its residual variant K4-res are the same source with a template flag
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.layout import to_nchw, to_nhwc
 
-# H x W output tiles the wrappers choose from, largest first.  A K1 block
-# holds the h tile with a 2-pixel halo and a = r*h with a 1-pixel ring in
-# shared memory, a K2 block dpre_o with a 2-pixel ring, [dpre_z | dpre_r]
-# with a 1-pixel ring and da*r at the tile in f32; smaller tiles recompute
-# more of the ring but give more blocks.
+# H x W output tiles pick_tile chooses from, largest first, for K2, K3, K4,
+# K5 and the launch variants K9, K10a, K10b and K11 (gru_cell.cuh).  A block
+# of those holds the h tile with a 2-pixel halo and a = r*h with a 1-pixel
+# ring in shared memory (K9-K11), a K2 block dpre_o with a 2-pixel ring,
+# [dpre_z | dpre_r] with a 1-pixel ring and da*r at the tile in f32;
+# smaller tiles recompute more of the ring but give more blocks.  K1 and
+# K1-res have their own planner (plan_k1, below).
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
 _SMEM_MAX = 232448           # bytes a block may use on Hopper
 _SMEM_TWO_BLOCKS = 110 * 1024
@@ -80,8 +83,9 @@ _MIN_BLOCKS = 128            # about one block per SM of the 132
 
 
 def smem_bytes(tile_h: int, tile_w: int, C: int) -> int:
-    """K1: the h tile with its 2-pixel halo and the a tile with its 1-pixel
-    ring, bf16, at the kernel's pixel pitch of C + 8."""
+    """The launch variants K9, K10a, K10b, K11 (gru_cell.cuh): the h tile
+    with its 2-pixel halo and the a tile with its 1-pixel ring, bf16, at
+    the kernels' pixel pitch of C + 8."""
     return ((tile_h + 4) * (tile_w + 4) + (tile_h + 2) * (tile_w + 2)) \
         * (C + 8) * 2
 
@@ -122,12 +126,203 @@ def pick_tile(B: int, H: int, W: int, C: int, smem=smem_bytes
     return fits[-1]
 
 
+# -- K1's plan -------------------------------------------------------------
+# A K1 block (csrc/gru_hside_tile.cuh) holds the h tile with its 2-pixel
+# halo and the a tile with its 1-pixel ring at pitch C + 8, a ring of
+# weight slabs and a gx tile where its outputs are staged; `split` blocks
+# of a cluster share a pixel tile and take C/split output channels each.
+# Each of its 8 warps owns one job per pass over the weights: (MR, NR)
+# m16 x n8 tiles of r, (MC, NC) of z and of o.  K1-res stages three
+# outputs to K1's one, so the two may get different plans.
+
+K1_COMBOS = ((6, 4, 4, 4), (3, 4, 2, 4), (2, 4, 2, 2))   # (MR, NR, MC, NC)
+_K1_TILE_SIDES = (1, 2, 4, 7, 8, 12, 14, 16)
+_K1_SPLITS = (1, 2)
+_K1_SLABS = (64, 32, 16)   # input channels per weight slab, widest first
+_K1_MIN_SPLIT_C = 128     # the cluster split pays only with wide weights
+_WARPS = 8
+# The planner's cost model: a launch takes waves of blocks, and a block's
+# microseconds are linear in what it does (k1_cost_terms): mma.sync per
+# k16 step on its busiest sub-partition, in passes with two warps on it
+# and with one (latency unhidden); the weight bytes it streams; the h, gx,
+# h' (and acts) bytes it moves; its weight slabs (each a cp.async group
+# and a barrier); a constant, and one more for a cluster and for combo 2.
+# The weights are the non-negative least-squares fit (relative error) of
+# `gru_hside_timing.py --fit gru_hside_sweep.jsonl` to the plans its
+# --sweep timed on an H100 80GB HBM3 at 700 W (936 plans, median error
+# 2.5%, the swept best at the six timed shapes; PERF.md §6).  A wave is one
+# block per SM, 132: at the planned footprints one block fits per SM and
+# 66 clusters of 2 at once (`gru_hside_timing.py`'s max_active_clusters).
+_K1_MODEL = {"mma": 0.00355, "mma_lone": 0.0046, "weight_bytes": 1.8e-05,
+             "io_bytes": 9.82e-05, "slabs": 0.555, "block": 2.59,
+             "split": 2.9, "combo2": 1.88}
+_WAVE_BLOCKS = 132
+
+
+class K1Plan(NamedTuple):
+    """How K1 and K1-res run one shape: the output tile, the blocks per
+    cluster (each C/split channels), the warp jobs (an index of
+    K1_COMBOS) and the input channels per weight slab."""
+    tile_h: int
+    tile_w: int
+    split: int
+    combo: int
+    ks: int
+
+
+def k1_smem_bytes(tile_h: int, tile_w: int, C: int, split: int, ks: int,
+                  residuals: bool = False) -> int:
+    """Shared memory of one K1 (K1-res) block in bytes
+    (csrc/gru_hside_tile.cuh's k1_smem_bytes): the h and a tiles at pitch
+    C + 8, the weight ring, 2 slabs x 2*cn rows at pitch ks + 8, and the gx
+    tile, the larger of the a tile's pixels at pitch cn + 8 and the output
+    tile's at 2*cn + 8 (K1-res 3*cn + 8), bf16; cn = C/split."""
+    cn = C // split
+    gx = max((tile_h + 2) * (tile_w + 2) * (cn + 8),
+             tile_h * tile_w * ((3 if residuals else 2) * cn + 8))
+    return ((tile_h + 4) * (tile_w + 4) * (C + 8)
+            + (tile_h + 2) * (tile_w + 2) * (C + 8)
+            + 2 * 2 * cn * (ks + 8) + gx) * 2
+
+
+def _k1_jobs(plan: K1Plan, C: int) -> Tuple[int, int]:
+    """(r jobs, z/o jobs) of one block."""
+    mr, nr, mc, nc = K1_COMBOS[plan.combo]
+    cn = C // plan.split
+    return (math.ceil((plan.tile_h + 2) * (plan.tile_w + 2) / (16 * mr))
+            * math.ceil(cn / (8 * nr)),
+            math.ceil(plan.tile_h * plan.tile_w / (16 * mc))
+            * math.ceil(cn / (8 * nc)))
+
+
+def k1_blocks(plan: K1Plan, B: int, H: int, W: int) -> int:
+    return (B * math.ceil(H / plan.tile_h) * math.ceil(W / plan.tile_w)
+            * plan.split)
+
+
+def k1_waves(plan: K1Plan, B: int, H: int, W: int) -> int:
+    """The waves of blocks a launch takes, ``_WAVE_BLOCKS`` at once."""
+    return math.ceil(k1_blocks(plan, B, H, W) / _WAVE_BLOCKS)
+
+
+def k1_weight_bytes(plan: K1Plan, B: int, H: int, W: int, C: int) -> int:
+    """The weight bytes one launch streams from L2 into shared memory: per
+    block and pass over the weights, its C/split rows of Wr (phase r) or of
+    Wz and Wo (phase z/o), 9 taps x C inputs, bf16."""
+    jr, jc = _k1_jobs(plan, C)
+    rows = math.ceil(jr / _WARPS) + 2 * math.ceil(jc / _WARPS)
+    return k1_blocks(plan, B, H, W) * rows * (C // plan.split) * 9 * C * 2
+
+
+def check_k1_plan(plan: K1Plan, C: int, residuals: bool = False) -> None:
+    """Raise ValueError unless K1 (residuals: K1-res) can run this plan at
+    width C."""
+    ok = (plan.tile_h >= 1 and plan.tile_w >= 1
+          and plan.split in _K1_SPLITS and (C // 16) % plan.split == 0
+          and 0 <= plan.combo < len(K1_COMBOS) and plan.ks in _K1_SLABS
+          and C % plan.ks == 0)
+    if not ok:
+        raise ValueError(f"K1 cannot run plan {plan} at C={C}: split in "
+                         f"{_K1_SPLITS} dividing C/16, combo < "
+                         f"{len(K1_COMBOS)}, ks in {_K1_SLABS} dividing C")
+    smem = k1_smem_bytes(plan.tile_h, plan.tile_w, C, plan.split, plan.ks,
+                         residuals)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"K1 plan {plan} needs {smem} bytes of shared "
+                         f"memory at C={C}, over {_SMEM_MAX}")
+
+
+def k1_cost_terms(plan: K1Plan, C: int, residuals: bool = False) -> dict:
+    """What one block of a plan does, in the units of ``_K1_MODEL``."""
+    mr, nr, mc, nc = K1_COMBOS[plan.combo]
+    jr, jc = _k1_jobs(plan, C)
+
+    def busiest(jobs, per_job, lone):
+        # per_job summed on the busiest sub-partition over the passes with
+        # two warps on it (lone: with one, whose latency nothing hides)
+        return sum((2 if a > 4 else 1) * per_job for a in (
+            min(_WARPS, jobs - _WARPS * p) for p in range(math.ceil(jobs / _WARPS)))
+            if (a <= 4) == lone)
+
+    pr, pc = math.ceil(jr / _WARPS), math.ceil(jc / _WARPS)
+    cn, th, tw = C // plan.split, plan.tile_h, plan.tile_w
+    return {
+        "mma": (busiest(jr, mr * nr, False) + busiest(jc, 2 * mc * nc, False))
+        * 9 * C / 16,
+        "mma_lone": (busiest(jr, mr * nr, True) + busiest(jc, 2 * mc * nc, True))
+        * 9 * C / 16,
+        "weight_bytes": (pr + 2 * pc) * 9 * C * cn * 2,
+        "io_bytes": ((th + 4) * (tw + 4) * C + (th + 2) * (tw + 2) * cn
+                     + th * tw * (5 if residuals else 3) * cn) * 2,
+        "slabs": (pr + pc) * 9 * (C // plan.ks),
+        "block": 1.0, "split": float(plan.split > 1),
+        "combo2": float(plan.combo == 2)}
+
+
+def _k1_cost(plan: K1Plan, B: int, H: int, W: int, C: int,
+             residuals: bool = False) -> float:
+    """The planner's estimate of a launch's microseconds (``_K1_MODEL``)."""
+    terms = k1_cost_terms(plan, C, residuals)
+    return k1_waves(plan, B, H, W) * sum(_K1_MODEL[k] * v
+                                         for k, v in terms.items())
+
+
+def k1_plans(B: int, H: int, W: int, C: int, max_split: int = 2,
+             residuals: bool = False) -> List[K1Plan]:
+    """Every plan the planner weighs for this shape of K1 (residuals:
+    K1-res): tiles clipped to the image, splits (1 below C = 128, else
+    those dividing C/16 up to max_split), each combo, with the widest slab
+    dividing C that fits in shared memory."""
+    if C % 16:
+        return []
+    plans = []
+    tiles = sorted({(min(th, H), min(tw, W)) for th in _K1_TILE_SIDES
+                    for tw in _K1_TILE_SIDES})
+    for split in _K1_SPLITS:
+        if split > max_split or (C // 16) % split or (
+                split > 1 and C < _K1_MIN_SPLIT_C):
+            continue
+        for th, tw in tiles:
+            for combo in range(len(K1_COMBOS)):
+                for ks in _K1_SLABS:
+                    if C % ks == 0 and k1_smem_bytes(
+                            th, tw, C, split, ks, residuals) <= _SMEM_MAX:
+                        plans.append(K1Plan(th, tw, split, combo, ks))
+                        break
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def plan_k1(B: int, H: int, W: int, C: int, max_split: int = 2,
+            residuals: bool = False) -> Optional[K1Plan]:
+    """The plan of least estimated cost (``_k1_cost``) among ``k1_plans``,
+    the first of equals; None when none fits in shared memory."""
+    plans = k1_plans(B, H, W, C, max_split, residuals)
+    if not plans:
+        return None
+    return min(plans, key=lambda p: _k1_cost(p, B, H, W, C, residuals))
+
+
+def k1_plan_kinds(B: int, H: int, W: int, C: int, residuals: bool = False
+                  ) -> List[K1Plan]:
+    """One plan per (split, combo) the planner can pick at this shape (the
+    cheapest of each), the planner's own first: the plans a card test runs
+    to cover every code path the planner may take."""
+    best = {}
+    for p in sorted(k1_plans(B, H, W, C, residuals=residuals),
+                    key=lambda p: _k1_cost(p, B, H, W, C, residuals)):
+        best.setdefault((p.split, p.combo), p)
+    chosen = plan_k1(B, H, W, C, residuals=residuals)
+    return [chosen] + [p for p in best.values() if p != chosen]
+
+
 def supports(h: torch.Tensor) -> bool:
     """Whether the kernels take this NHWC state's dtype and shape: bf16,
-    4-D, C a multiple of 16 and a forward and a backward tile that fit in
-    shared memory."""
+    4-D, C a multiple of 16, a K1 plan and a tile of the launch variants
+    and of the backward that fit in shared memory."""
     return (h.dtype == torch.bfloat16 and h.dim() == 4
             and h.shape[-1] % 16 == 0 and pick_tile(*h.shape) is not None
+            and plan_k1(*h.shape, residuals=True) is not None
             and pick_tile(*h.shape, smem=smem_bytes_bwd) is not None)
 
 
@@ -361,9 +556,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ERR = {"ramnet_cuda_error_string": (ctypes.c_char_p, (_I,))}
 _FWD_SIGNATURES = {
     "ramnet_gru_hside_forward": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _L, _I, _I, _P)),
+                                      _L, _I, _I, _I, _I, _I, _P)),
     "ramnet_gru_hside_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _I, _I,
-                                          _I, _I, _L, _I, _I, _P)),
+                                          _I, _I, _L, _I, _I, _I, _I, _I,
+                                          _P)),
+    "ramnet_cluster_launch_supported": (_I, (_I,)),
+    "ramnet_gru_hside_max_active_clusters": (_I, (_I,) * 7),
     **_ERR,
 }
 _BWD_SIGNATURES = {
@@ -459,30 +657,52 @@ def _gx_bstride(h, gx, gates: int = 3) -> int:
     return stride
 
 
-def _launch(h, gx, w_ur, w_o, residuals: bool):
+def _k1_plan(h, plan: Optional[K1Plan], residuals: bool) -> K1Plan:
+    """The planner's plan for h's shape, or the given one once checked."""
+    C = h.shape[-1]
+    if plan is None:
+        plan = plan_k1(*h.shape, residuals=residuals)
+        if plan is None:
+            raise ValueError(f"C={C} does not fit K1's shared memory")
+        return plan
+    plan = K1Plan(*plan)
+    check_k1_plan(plan, C, residuals)
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_launch_supported(device: int) -> bool:
+    """Whether the device launches thread-block clusters (asked once)."""
+    return bool(library().ramnet_cluster_launch_supported(device))
+
+
+def _launch(h, gx, w_ur, w_o, residuals: bool, plan=None):
     _check_launch(h, gx, w_ur, w_o)
     if not (h.is_contiguous() and w_ur.is_contiguous()
             and w_o.is_contiguous()):
         raise ValueError("h, w_ur and w_o must be contiguous")
     B, H, W, C = h.shape
     gx_bstride = _gx_bstride(h, gx)
-    th, tw = _tile(h, smem_bytes)
+    plan = _k1_plan(h, plan, residuals)
     lib = library()
+    if plan.split > 1 and not _cluster_launch_supported(h.device.index):
+        raise RuntimeError(f"K1 plan {plan} needs a thread-block cluster "
+                           f"launch, which {h.device} does not support")
     out = torch.empty_like(h)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     if residuals:
         acts = torch.empty((B, H, W, 3 * C), dtype=h.dtype, device=h.device)
         err = lib.ramnet_gru_hside_forward_res(
             h.data_ptr(), gx.data_ptr(), w_ur.data_ptr(), w_o.data_ptr(),
-            out.data_ptr(), acts.data_ptr(), B, H, W, C, gx_bstride, th, tw,
+            out.data_ptr(), acts.data_ptr(), B, H, W, C, gx_bstride, *plan,
             stream)
-        _raise_on(err, lib, "gru_hside_res")
+        _raise_on(err, lib, f"gru_hside_res (plan {plan})")
         conv_gru_hside_res.launches += 1
         return out, acts
     err = lib.ramnet_gru_hside_forward(
         h.data_ptr(), gx.data_ptr(), w_ur.data_ptr(), w_o.data_ptr(),
-        out.data_ptr(), B, H, W, C, gx_bstride, th, tw, stream)
-    _raise_on(err, lib, "gru_hside")
+        out.data_ptr(), B, H, W, C, gx_bstride, *plan, stream)
+    _raise_on(err, lib, f"gru_hside (plan {plan})")
     conv_gru_hside.launches += 1
     return out
 
@@ -612,15 +832,19 @@ def _device_of(h: torch.Tensor) -> str:
 
 
 def conv_gru_hside_res(h: torch.Tensor, gx: torch.Tensor, w_ur: torch.Tensor,
-                       w_o: torch.Tensor
+                       w_o: torch.Tensor, _plan: Optional[K1Plan] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h', acts): K1-res for CUDA tensors, ``conv_gru_hside_res_plain`` for
-    CPU tensors.  ``conv_gru_hside_res.launches`` counts kernel launches."""
+    CPU tensors.  ``conv_gru_hside_res.launches`` counts kernel launches.
+    _plan: a ``K1Plan`` that replaces ``plan_k1``'s (tests and timing;
+    checked on either device)."""
     _check(h, gx, w_ur, w_o)
     if _device_of(h) == "cpu":
+        if _plan is not None:
+            check_k1_plan(K1Plan(*_plan), h.shape[-1], residuals=True)
         return conv_gru_hside_res_plain(h, gx, w_ur, w_o)
     with torch.cuda.device(h.device):
-        return _launch(h, gx, w_ur, w_o, residuals=True)
+        return _launch(h, gx, w_ur, w_o, residuals=True, plan=_plan)
 
 
 def conv_gru_hside_bwd(g: torch.Tensor, h: torch.Tensor, acts: torch.Tensor,
@@ -670,21 +894,25 @@ class ConvGRUHside(torch.autograd.Function):
 
 
 def conv_gru_hside(h: torch.Tensor, gx: torch.Tensor, w_ur: torch.Tensor,
-                   w_o: torch.Tensor) -> torch.Tensor:
+                   w_o: torch.Tensor, _plan: Optional[K1Plan] = None
+                   ) -> torch.Tensor:
     """h' [B, H, W, C] from NHWC h, gx and the folded weights (rounded to
     h's dtype).  When autograd needs a gradient of any input this is
     ``ConvGRUHside``; otherwise K1 for CUDA tensors and
     ``conv_gru_hside_plain`` for CPU tensors.  ``conv_gru_hside.launches``
-    counts K1's launches."""
+    counts K1's launches.  _plan: a ``K1Plan`` that replaces
+    ``plan_k1``'s for K1 (tests and timing; checked on either device)."""
     _check(h, gx, w_ur, w_o)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (h, gx, w_ur, w_o)):
         return ConvGRUHside.apply(h, gx, w_ur, w_o)
     w_ur, w_o = w_ur.to(h.dtype), w_o.to(h.dtype)
     if _device_of(h) == "cpu":
+        if _plan is not None:
+            check_k1_plan(K1Plan(*_plan), h.shape[-1])
         return conv_gru_hside_plain(h, gx, w_ur, w_o)
     with torch.cuda.device(h.device):
-        return _launch(h, gx, w_ur, w_o, residuals=False)
+        return _launch(h, gx, w_ur, w_o, residuals=False, plan=_plan)
 
 
 def conv_gru_full(x: torch.Tensor, h: torch.Tensor, w_ur: torch.Tensor,

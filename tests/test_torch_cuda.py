@@ -127,6 +127,78 @@ def test_function_kernels_match_plain(device):
         assert _rel_err(a, b) <= 2e-2
 
 
+# K1 and K1-res under every (split, combo) the planner can pick for each
+# at each shape (gru_hside.k1_plan_kinds, its own pick first): the flagship,
+# training and ragged cells, H or W below the tile, H = W = 1, C = 16, 48
+# and 96, B = 3; gx is a strided view throughout.  Some shapes also force
+# the split the planner does not pick and the narrower weight slabs.
+K1_CELLS = [(1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256),
+            (16, 112, 112, 64), (16, 56, 56, 128), (16, 28, 28, 256),
+            (2, 30, 45, 96), (3, 30, 45, 96), (1, 5, 40, 64),
+            (2, 9, 3, 128), (1, 3, 37, 256), (1, 1, 1, 64), (2, 1, 1, 256),
+            (1, 20, 24, 16), (2, 17, 19, 48), (1, 33, 21, 96)]
+K1_EXTRA_PLANS = {
+    (1, 32, 64, 256): [gru_hside.K1Plan(8, 8, 2, 2, 32),
+                       gru_hside.K1Plan(4, 14, 2, 0, 32),
+                       gru_hside.K1Plan(4, 4, 1, 1, 16)],
+    (2, 1, 1, 256): [gru_hside.K1Plan(1, 1, 2, 1, 64),
+                     gru_hside.K1Plan(1, 1, 1, 2, 64)],
+    (2, 17, 19, 48): [gru_hside.K1Plan(4, 8, 1, 1, 16)],
+    (1, 20, 24, 16): [gru_hside.K1Plan(8, 8, 1, 0, 16)],
+    (1, 64, 128, 128): [gru_hside.K1Plan(8, 16, 2, 0, 32),
+                        gru_hside.K1Plan(8, 8, 2, 2, 16),
+                        gru_hside.K1Plan(7, 12, 2, 1, 64)],
+}
+
+
+@pytest.mark.parametrize("shape", K1_CELLS, ids=lambda s: "x".join(map(str, s)))
+def test_k1_plans_match_plain(device, shape):
+    """K1's h' and K1-res's h' and acts within 8e-3 of the plain versions
+    (values in [-1, 1]: two bf16 steps near 1) under each plan."""
+    h, gx, _, w_ur, w_o = _cell_inputs(shape, device)
+    want = gru_hside.conv_gru_hside_plain(h, gx, w_ur, w_o)
+    want_h, want_acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+    extra = K1_EXTRA_PLANS.get(shape, [])
+    for plan in gru_hside.k1_plan_kinds(*shape) + extra:
+        n0 = gru_hside.conv_gru_hside.launches
+        got = gru_hside.conv_gru_hside(h, gx, w_ur, w_o, _plan=plan)
+        torch.cuda.synchronize()
+        assert gru_hside.conv_gru_hside.launches == n0 + 1
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 8e-3, (plan, err)
+    for plan in gru_hside.k1_plan_kinds(*shape, residuals=True) + extra:
+        n0 = gru_hside.conv_gru_hside_res.launches
+        got_h, got_acts = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o,
+                                                       _plan=plan)
+        torch.cuda.synchronize()
+        assert gru_hside.conv_gru_hside_res.launches == n0 + 1
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in ((got_h, want_h), (got_acts, want_acts))]
+        assert max(errs) <= 8e-3, (plan, errs)
+
+
+def test_k1_refuses_bad_plans(device):
+    """A plan K1 cannot run raises before the launch; an argument the C
+    entry refuses comes back as the launch's CUDA error text."""
+    h, gx, _, w_ur, w_o = _cell_inputs((1, 16, 16, 96), device)
+    for bad in (gru_hside.K1Plan(8, 8, 4, 0, 32),     # no clusters of 4
+                gru_hside.K1Plan(8, 8, 1, 3, 32),     # no such combo
+                gru_hside.K1Plan(8, 8, 1, 0, 64),     # 64 does not divide 96
+                gru_hside.K1Plan(8, 8, 1, 0, 48),     # no 48-wide slab
+                gru_hside.K1Plan(64, 64, 1, 0, 32)):  # shared memory
+        with pytest.raises(ValueError):
+            gru_hside.conv_gru_hside(h, gx, w_ur, w_o, _plan=bad)
+    lib = gru_hside.library()
+    out = torch.empty_like(h)
+    for split, ks in ((4, 32), (1, 48)):   # the C entry's own check
+        err = lib.ramnet_gru_hside_forward(
+            h.data_ptr(), gx.data_ptr(), w_ur.data_ptr(), w_o.data_ptr(),
+            out.data_ptr(), 1, 16, 16, 96, gx.stride(0), 8, 8, split, 0, ks,
+            torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            gru_hside._raise_on(err, lib, "gru_hside")
+
+
 def test_precomputed_path_kernel_vs_plain_layer(device):
     """A small flagship-shaped model: 'auto' takes the kernel on every
     cell, and its predictions stay within 5e-2 of fused_gru='off'."""
