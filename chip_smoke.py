@@ -26,7 +26,8 @@ ConvLSTM state combination.  It imports nothing of JAX or of the JAX
 package.
 
 Phases, each printed as one JSON line:
-  1. device        the card, its power limit, the nvcc builds (in parallel);
+  1. device        the card, its power limit, the nvcc builds (in parallel;
+                   lstm_hside.cu also with its IEEE gates);
   2. kernel        K1 against its plain PyTorch version on the card, at the
                    three inference widths, one ragged shape and the edge
                    shapes (H or W below the tile, H = W = 1, C = 16, 48,
@@ -126,9 +127,12 @@ Phases, each printed as one JSON line:
                    composed layer at both batches by CUDA events, K8's
                    device time by torch.profiler;
  17. kernel_train_lstm K3-res and K4-res against their plain versions at
-                   the phased training shapes (B=8) and one ragged shape,
-                   and the ConvLSTMHside and PhasedCell Functions'
-                   gradients against the plain layers' autograd in float32;
+                   the phased training shapes (B=8) and one ragged shape
+                   under every plan kind their planner can pick there (max
+                   and mean abs error), and the ConvLSTMHside and
+                   PhasedCell Functions' gradients against the plain
+                   layers' autograd in float32; again with the IEEE-gate
+                   build of the kernels (the planner's plans);
  18. train_phased  the phased recipe's first step (loss, every gradient,
                    tau and phase included) against fused_gru='off', then
                    the entry point for TRAIN_STEPS steps and one
@@ -139,7 +143,9 @@ Phases, each printed as one JSON line:
                    against 'off' and K3-res's count;
  19. timing_train_phased phased training sequences/s with 'on' and 'off',
                    K3-res and K4-res per cell against their plain
-                   versions.
+                   versions (queued, as phase 4; also the kernels' wrapper
+                   time, plan, device us, weight MB, registers and
+                   spills).
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -149,6 +155,7 @@ that last line, if there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -1550,29 +1557,96 @@ def lstm_layer_grads(mod, x, c0, h0, gx, t, cots, kind, fused):
     return [v.grad for v in ins] + [p.grad.clone() for p in params]
 
 
+def abs_errs(got, want):
+    """[max abs error, mean abs error] of got against want."""
+    d = (got.float() - want.float()).abs()
+    return [d.max().item(), d.mean().item()]
+
+
+def lstm_ptxas(ptxas, phased, mr=None):
+    """The ptxas entry of K3-res (phased False) or K4-res: of
+    lstm_kernel<kPhased, MR> for a plan's MR, or with mr None of the first
+    design's lstm_hside_kernel<kPhased, true> (when gru_hside_timing.py
+    --lstm --root times an older tree)."""
+    flag = f"ILb{int(phased)}E"
+    for name, info in ptxas.items():
+        if mr is not None and f"11lstm_kernel{flag}Li{mr}EE" in name:
+            return info
+        if mr is None and "lstm_hside_kernel" in name and f"{flag}Lb1EE" in name:
+            return info
+    return None
+
+
+@contextlib.contextmanager
+def lstm_gates(build):
+    """Within: the ConvLSTM kernels launch from one build of
+    csrc/lstm_hside.cu, 'fast' (the default: the gates on ex2/rcp) or
+    'exact' (gru_hside.LSTM_EXACT_GATES: the IEEE gates)."""
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    built = gru_hside.library_lstm
+    lib = built(gru_hside.LSTM_EXACT_GATES if build == "exact" else ())
+    gru_hside.library_lstm = lambda defines=(): lib
+    try:
+        yield
+    finally:
+        gru_hside.library_lstm = built
+
+
+def lstm_res_calls(inputs, phased):
+    """(kernel, plain) of K3-res (phased False) or K4-res on inputs (h, c,
+    gx, w4, tau, phase, t); the kernel takes the wrapper's _plan."""
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    h, c, gx, w4, tau, phase, t = inputs
+    if phased:
+        return (lambda **kw: phased_cell.conv_lstm_phased_res(
+                    h, c, gx, w4, tau, phase, t, **kw),
+                lambda: phased_cell.conv_lstm_phased_res_plain(
+                    h, c, gx, w4, tau, phase, t))
+    return (lambda **kw: gru_hside.conv_lstm_hside_res(h, c, gx, w4, **kw),
+            lambda: gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4))
+
+
+def lstm_plan_errors(inputs, phased, kinds=True):
+    """{plan: [max abs error, mean abs error]} of K3-res (h', c', acts) or
+    K4-res (h_t, h_new, c_new, acts) against its plain version on inputs,
+    under every plan kind the planner can pick at their shape (kinds
+    False: its own pick alone), its own pick through the wrapper's default
+    path; raises where one is over CELL_TOL."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    shape = tuple(inputs[0].shape)
+    kern, plain = lstm_res_calls(inputs, phased)
+    with torch.no_grad():
+        want = plain()
+        plans = gru_hside.lstm_plan_kinds(*shape, phased=phased)
+        errs = {}
+        for i, plan in enumerate(plans if kinds else plans[:1]):
+            got = kern(**({"_plan": plan} if i else {}))
+            torch.cuda.synchronize()
+            e = [abs_errs(a, b) for a, b in zip(got, want)]
+            errs[plan_name(plan)] = [max(v[0] for v in e), max(v[1] for v in e)]
+            if not (errs[plan_name(plan)][0] <= CELL_TOL):
+                raise AssertionError(f"K{4 if phased else 3}-res vs plain at "
+                                     f"{shape}, plan {plan}: {errs}")
+    return errs
+
+
 def train_lstm_kernel_check(dev, gen):
     """Per shape (the phased training shapes, B=8, and a ragged one with a
     strided gx): K3-res (h', c', acts) and K4-res (h_t, h_new, c_new,
-    acts) against their plain versions (max abs error), and the
-    ConvLSTMHside and PhasedCell Functions' gradients against autograd
-    through the plain layers in float32 on the same values (max abs error
-    over the plain one's max magnitude: inputs, then weights, bias, tau,
-    phase)."""
+    acts) against their plain versions under every plan kind (max and
+    mean abs error), and the ConvLSTMHside and PhasedCell Functions'
+    gradients against autograd through the plain layers in float32 on the
+    same values (max abs error over the plain one's max magnitude, and the
+    mean's: inputs, then weights, bias, tau, phase), each with the fast
+    gates and again with the IEEE gates (the planner's plan)."""
     import torch
     from rpg_ramnet_tpu_torch.models.layers import PhasedConvLSTM, init_conv_
-    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
     rows = []
     for shape in PHASED_TRAIN_CELLS + (RAGGED_TRAIN_CELL,):
-        h, c, gx, w4, tau, phase, t = make_lstm_inputs(
-            shape, dev, gen, strided_gx=shape == RAGGED_TRAIN_CELL)
-        with torch.no_grad():
-            k3 = max((a.float() - b.float()).abs().max().item() for a, b in zip(
-                gru_hside.conv_lstm_hside_res(h, c, gx, w4),
-                gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4)))
-            k4 = max((a.float() - b.float()).abs().max().item() for a, b in zip(
-                phased_cell.conv_lstm_phased_res(h, c, gx, w4, tau, phase, t),
-                phased_cell.conv_lstm_phased_res_plain(h, c, gx, w4, tau,
-                                                       phase, t)))
+        inputs = make_lstm_inputs(shape, dev, gen,
+                                  strided_gx=shape == RAGGED_TRAIN_CELL)
+        h, c, gx, w4, tau, phase, t = inputs
         B, Hc, Wc, C = shape
         mod = PhasedConvLSTM(C, C, Hc, Wc)
         init_conv_(mod.lstm.Gates, gen)
@@ -1580,47 +1654,77 @@ def train_lstm_kernel_check(dev, gen):
         mod.to(dev)
         x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16).float()
         cots = [torch.randn(shape, generator=gen).to(dev) for _ in range(3)]
-        fn_rel = {}
-        for kind in ("lstm_hside", "phased"):
-            args = (mod, x, h.float(), c.float(), gx.float(), t, cots, kind)
-            fn_rel[kind] = [rel_err(a, b) for a, b in zip(
-                lstm_layer_grads(*args, True), lstm_layer_grads(*args, False))]
-        torch.cuda.synchronize()
-        row = {"shape": list(shape), "k3_res_err": k3, "k4_res_err": k4,
-               "fn_rel": fn_rel}
+        row = {"shape": list(shape)}
+        for build in ("fast", "exact"):
+            with lstm_gates(build):
+                cells = {k: lstm_plan_errors(inputs, k == "k4_res", build == "fast")
+                         for k in ("k3_res", "k4_res")}
+                fn_rel, fn_mean = {}, {}
+                for kind in ("lstm_hside", "phased"):
+                    # fresh leaves each time: the plain pass makes its
+                    # float32 inputs require a gradient
+                    args = (mod, x.detach(), h.float(), c.float(), gx.float(), t,
+                            cots, kind)
+                    pairs = list(zip(lstm_layer_grads(*args, True),
+                                     lstm_layer_grads(*args, False)))
+                    fn_rel[kind] = [rel_err(a, b) for a, b in pairs]
+                    fn_mean[kind] = [abs_errs(a, b)[1] / b.float().abs().max().item()
+                                     for a, b in pairs]
+                torch.cuda.synchronize()
+            row[build] = {"cells": cells, "fn_rel": fn_rel, "fn_mean_rel": fn_mean}
+            if not max(max(v) for v in fn_rel.values()) <= GRAD_TOL:
+                raise AssertionError(f"LSTM Functions ({build} gates) vs plain "
+                                     f"layers at {shape}: {row}")
+        row["k3_res_err"] = max(e[0] for e in row["fast"]["cells"]["k3_res"].values())
+        row["k4_res_err"] = max(e[0] for e in row["fast"]["cells"]["k4_res"].values())
         rows.append(row)
-        if not max(k3, k4) <= CELL_TOL:
-            raise AssertionError(f"K3-res/K4-res vs plain at {shape}: {row}")
-        if not max(max(v) for v in fn_rel.values()) <= GRAD_TOL:
-            raise AssertionError(f"LSTM Functions vs plain layers at "
-                                 f"{shape}: {row}")
-        del mod, x, cots
+        del mod, x, cots, inputs
     return rows
+
+
+def lstm_report(phased, shape, fn):
+    """K3-res's (phased False) or K4-res's plan at shape, its mean device
+    us per launch of fn (torch.profiler), the weight MB one launch streams
+    into shared memory, its shared memory, the blocks that fit on an SM and
+    the kernel's registers and spills (ptxas)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    plan = gru_hside.plan_lstm(*shape, phased=phased)
+    dev_us, records = launch_device_us(fn, 10)
+    return {"plan": plan._asdict(), "device_us": dev_us,
+            "device_records": records,
+            "weight_mb": gru_hside.lstm_weight_bytes(plan, *shape) / 1e6,
+            "smem_bytes": gru_hside.lstm_smem_bytes(
+                plan.tile_h, plan.tile_w, shape[-1], plan.split, plan.ks, phased),
+            "blocks_per_sm": gru_hside.library_lstm().ramnet_lstm_blocks_per_sm(
+                int(phased), shape[-1], *plan),
+            "ptxas": lstm_ptxas(
+                ptxas_by_kernel(kernels.build_log.get("lstm_hside", "")), phased,
+                gru_hside.LSTM_COMBOS[plan.combo])}
 
 
 def time_train_lstm_cells(dev, gen, iters=20):
     """Microseconds per cell of K3-res and K4-res and of their plain
-    versions at the phased training shapes, in turns plain, kernel,
-    kernel, plain."""
+    versions at the phased training shapes, queued (device time), in turns
+    plain, kernel, kernel, plain; the kernels also unqueued (the wrapper's
+    time), with their plan, device us per launch, weight MB, registers and
+    spills."""
     import torch
-    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
     rows = []
     for shape in PHASED_TRAIN_CELLS:
-        h, c, gx, w4, tau, phase, t = make_lstm_inputs(shape, dev, gen)
+        inputs = make_lstm_inputs(shape, dev, gen)
         row = {"shape": list(shape)}
-        for name, kern, plain in (
-                ("k3_res", lambda: gru_hside.conv_lstm_hside_res(h, c, gx, w4),
-                 lambda: gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4)),
-                ("k4_res", lambda: phased_cell.conv_lstm_phased_res(
-                    h, c, gx, w4, tau, phase, t),
-                 lambda: phased_cell.conv_lstm_phased_res_plain(
-                    h, c, gx, w4, tau, phase, t))):
+        for name in ("k3_res", "k4_res"):
+            kern, plain = lstm_res_calls(inputs, name == "k4_res")
             with torch.no_grad():
-                p1, k1, k2, p2 = (cuda_time_us(f, iters)
+                p1, k1, k2, p2 = (cuda_time_us(f, iters, queued=True)
                                   for f in (plain, kern, kern, plain))
-            row.update({f"{name}_kernel_us": min(k1, k2),
-                        f"{name}_plain_us": min(p1, p2),
-                        f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2]})
+                row.update({f"{name}_kernel_us": min(k1, k2),
+                            f"{name}_plain_us": min(p1, p2),
+                            f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2],
+                            f"{name}_wrapper_us": min(cuda_time_us(kern, iters)
+                                                      for _ in range(2)),
+                            name: lstm_report(name == "k4_res", shape, kern)})
         rows.append(row)
     return rows
 
@@ -2163,11 +2267,13 @@ def main() -> int:
     dev = require_cuda()
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
-    kernels.build(gru_hside.SOURCES + voxel.SOURCES + upsample_conv.SOURCES)
+    kernels.build(gru_hside.SOURCES + voxel.SOURCES + upsample_conv.SOURCES
+                  + (("lstm_hside", gru_hside.LSTM_EXACT_GATES),))
     gru_hside.library()
     gru_hside.library_bwd()
     gru_hside.library_full()
     gru_hside.library_lstm()
+    gru_hside.library_lstm(gru_hside.LSTM_EXACT_GATES)
     gru_pair.library()
     gru_chunk.library()
     voxel.library()

@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
-"""Time kernels K1 and K1-res (the fused ConvGRU h-side cell) on one GPU.
+"""Time kernels K1 and K1-res (the fused ConvGRU h-side cell), or with
+--lstm K3-res and K4-res (the ConvLSTM training cells), on one GPU.
 
     python3 gru_hside_timing.py [--root DIR] [--plans auto,split1]
                                 [--label NAME] [--sweep] [--gates]
     python3 gru_hside_timing.py --fit SWEEP.jsonl
+    python3 gru_hside_timing.py --lstm [--root DIR] [--plans auto,...]
+                                [--label NAME] [--sweep] [--gates]
+                                [--profile-train]
+    python3 gru_hside_timing.py --lstm --fit SWEEP.jsonl
 
 At the flagship chunked-inference shapes (K1: 1x128x256x64, 1x64x128x128,
 1x32x64x256) and the flagship training shapes (K1-res: B=16 at 112x112x64,
@@ -37,41 +42,75 @@ a CUDA device.
 fit of ``_K1_MODEL`` to them: relative error, non-negative weights, three
 significant digits, with its median and largest error and the planner's
 pick against the swept best at each shape.
+
+--lstm does the same for K3-res and K4-res at the phased training shapes
+(B=8 at 112x112x64, 56x56x128, 28x28x256), one line per plan set, kernel
+and shape with its max and mean abs error against the plain version
+beside the times, the weight MB, the shared memory and the blocks that
+fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the
+plain version's queued time.  Its plan sets: ``auto`` (``plan_lstm``),
+``split1`` (``plan_lstm`` without the split), ``fixed`` (no planner: the
+largest of pick_tile's tiles that fits, warp jobs of 64 pixels, the
+widest slab, no split) and ``fixed_split`` (``fixed`` split in two at C
+>= 128).  --sweep times every plan ``lstm_plans`` weighs within 6x of the
+cost it estimates for its best (the lines ``_LSTM_MODEL`` is fitted to;
+lstm_hside_sweep.jsonl holds the sweep the committed model was fitted
+to), --fit fits ``_LSTM_MODEL``, --gates builds lstm_hside.cu with
+-DRAMNET_LSTM_EXACT_GATES and gives both builds' errors (cells, acts and
+the ConvLSTMHside and PhasedCell Functions' gradients) and times under the
+planner's plans, and --profile-train profiles one phased training step
+(B=8, L=10, 224^2, fused_gru 'on' and 'off') with torch.profiler: device
+ms of K3-res and K4-res, of the Functions' backward split into library
+convolutions and the rest, and of everything else.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
+import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
+import time
 
 import chip_smoke   # this tree's helpers; the package comes from --root
 
 FLAGSHIP_CELLS = ((1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256))
 TRAIN_CELLS = ((16, 112, 112, 64), (16, 56, 56, 128), (16, 28, 28, 256))
+LSTM_CELLS = chip_smoke.PHASED_TRAIN_CELLS
 ITERS = 20   # launches per timed turn
 SWEEP_FILE = "gru_hside_sweep.jsonl"
+LSTM_SWEEP_FILE = "lstm_hside_sweep.jsonl"
 
 
-def fit_model(lines):
-    """(model, report): the ``_K1_MODEL`` weights fitted to sweep lines
-    ({"sweep": "k1" or "k1_res", "shape", "plan", "us"}) by non-negative
-    least squares of the relative error, rounded to three significant
-    digits, and the fit's median and largest relative error and, per
-    shape, the planner's pick under that model against the swept best."""
+def _cost_row(gru_hside, r):
+    """(cost terms, waves) of a sweep line's plan: K1's for "k1" and
+    "k1_res", K3-res's and K4-res's for "k3_res" and "k4_res"."""
+    C = r["shape"][-1]
+    if r["sweep"] in ("k1", "k1_res"):
+        plan = gru_hside.K1Plan(*r["plan"])
+        return (gru_hside.k1_cost_terms(plan, C, r["sweep"] == "k1_res"),
+                gru_hside.plan_waves(plan, *r["shape"][:3]))
+    plan = gru_hside.LstmPlan(*r["plan"])
+    return (gru_hside.lstm_cost_terms(plan, C, r["sweep"] == "k4_res"),
+            gru_hside.plan_waves(plan, *r["shape"][:3]))
+
+
+def fit_model(lines, lstm=False):
+    """(model, report): the ``_K1_MODEL`` weights (lstm: ``_LSTM_MODEL``)
+    fitted to sweep lines ({"sweep": "k1" or "k1_res" (lstm: "k3_res" or
+    "k4_res"), "shape", "plan", "us"}) by non-negative least squares of
+    the relative error, rounded to three significant digits, and the fit's
+    median and largest relative error and, per shape, the planner's pick
+    under that model against the swept best."""
     import numpy as np
     from scipy.optimize import nnls
     from rpg_ramnet_tpu_torch.ops import gru_hside
     rows = [r for r in lines if "sweep" in r]
-    keys = list(gru_hside._K1_MODEL)
+    keys = list(gru_hside._LSTM_MODEL if lstm else gru_hside._K1_MODEL)
     A, t = [], []
     for r in rows:
-        res, plan = r["sweep"] == "k1_res", gru_hside.K1Plan(*r["plan"])
-        terms = gru_hside.k1_cost_terms(plan, r["shape"][-1], res)
-        waves = gru_hside.k1_waves(plan, *r["shape"][:3])
+        terms, waves = _cost_row(gru_hside, r)
         A.append([waves * terms[k] for k in keys])
         t.append(r["us"])
     A, t = np.array(A, dtype=float), np.array(t, dtype=float)
@@ -97,20 +136,10 @@ def fit_model(lines):
 
 
 def exact_gates_library(gru_hside, kernels):
-    """csrc/gru_hside.cu built with -DRAMNET_K1_EXACT_GATES into a
-    temporary directory, loaded with the wrapper's signatures."""
-    out = os.path.join(tempfile.mkdtemp(), "libgru_hside_exact.so")
-    proc = subprocess.run(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-DRAMNET_K1_EXACT_GATES",
-         "-o", out, str(kernels.CSRC / "gru_hside.cu")],
-        capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-    lib = ctypes.CDLL(out)
-    for name, (restype, argtypes) in gru_hside._FWD_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = restype, list(argtypes)
-    return lib
+    """csrc/gru_hside.cu built with -DRAMNET_K1_EXACT_GATES, loaded with the
+    wrapper's signatures."""
+    return kernels.library("gru_hside", gru_hside._FWD_SIGNATURES,
+                           ("RAMNET_K1_EXACT_GATES",))
 
 
 def gate_errors(torch, gru_hside, kernels, cases, dev):
@@ -163,6 +192,270 @@ def gate_errors(torch, gru_hside, kernels, cases, dev):
     return lines
 
 
+def lstm_fixed_plan(gru_hside, shape, phased, split_wide):
+    """A plan without the planner: the largest of pick_tile's tiles that
+    fits with the widest slab, warp jobs of 64 pixels, no split
+    (split_wide: two blocks per tile at C >= 128)."""
+    B, H, W, C = shape
+    split = 2 if split_wide and C >= 128 else 1
+    for th, tw in gru_hside._TILES:
+        for ks in (64, 32, 16):
+            if C % ks == 0 and gru_hside.lstm_smem_bytes(
+                    th, tw, C, split, ks, phased) <= gru_hside._SMEM_MAX:
+                return gru_hside.LstmPlan(min(th, H), min(tw, W), split, 0, ks)
+    raise ValueError(f"no fixed plan fits at {shape}")
+
+
+def lstm_plan_of(gru_hside, plans, kind, shape):
+    phased = kind == "k4_res"
+    if plans == "auto":
+        return gru_hside.plan_lstm(*shape, phased=phased)
+    if plans == "split1":
+        return gru_hside.plan_lstm(*shape, phased=phased, max_split=1)
+    if plans in ("fixed", "fixed_split"):
+        return lstm_fixed_plan(gru_hside, shape, phased, plans == "fixed_split")
+    return None
+
+
+def lstm_function_grads(torch, gru_hside, phased_cell, inputs, phased, cots,
+                        fused):
+    """Gradients of sum(out * cot) over every tensor input of the
+    ConvLSTMHside (phased: PhasedCell) Function (fused) or of the plain
+    version under autograd, on the same bf16 inputs."""
+    h, c, gx, w4, tau, phase, t = inputs
+    args = [v.detach().clone().requires_grad_()
+            for v in ((h, c, gx, w4, tau, phase, t) if phased else (h, c, gx, w4))]
+    if phased:
+        outs = (phased_cell.PhasedCell.apply(*args) if fused
+                else phased_cell.conv_lstm_phased_res_plain(*args)[:3])
+    else:
+        outs = (gru_hside.ConvLSTMHside.apply(*args) if fused
+                else gru_hside.conv_lstm_hside_res_plain(*args)[:2])
+    return torch.autograd.grad(outs, args, cots[:len(outs)])
+
+
+def lstm_gate_errors(torch, gru_hside, phased_cell, cases, dev):
+    """Per kernel and shape under the planner's plan, for the built kernel
+    ("fast") and the IEEE gates' ("exact"): [max abs error, mean abs
+    error, the plain version's max magnitude] of each output, acts and
+    each gradient of the Function against the plain versions, and each
+    build's device us per launch (queued, least of mirrored turns)."""
+    gen = torch.Generator().manual_seed(1)
+    lines = []
+    for kind, shape, inputs in cases:
+        phased = kind == "k4_res"
+        kern, plain = chip_smoke.lstm_res_calls(inputs, phased)
+        cots = [torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(3)]
+        with torch.no_grad():
+            want = plain()
+        want_g = lstm_function_grads(torch, gru_hside, phased_cell, inputs,
+                                     phased, cots, False)
+        row = {"gates": kind, "shape": list(shape)}
+        turns = {}
+        for build in ("fast", "exact", "exact", "fast"):
+            with chip_smoke.lstm_gates(build):
+                if build not in row:
+                    with torch.no_grad():
+                        got = kern()
+                    got_g = lstm_function_grads(torch, gru_hside, phased_cell,
+                                                inputs, phased, cots, True)
+                    torch.cuda.synchronize()
+                    row[build] = [chip_smoke.abs_errs(a, b) + [b.float().abs().max().item()]
+                                  for a, b in zip(got + got_g, want + want_g)]
+                with torch.no_grad():
+                    turns.setdefault(build, []).append(
+                        chip_smoke.cuda_time_us(kern, ITERS, queued=True))
+        row["names"] = (["h_t", "h_new", "c_new", "acts", "dc0", "dh0", "dgx", "dw4",
+                         "dtau", "dphase", "dt"] if phased else
+                        ["h", "c", "acts", "dh", "dc", "dgx", "dw4"])
+        row["us"] = {b: min(v) for b, v in turns.items()}
+        row["us_turns"] = turns
+        lines.append(row)
+    return lines
+
+
+def step_split(torch, prof, steps):
+    """A profiled training step's device ms per step: all of it, K3-res's
+    and K4-res's kernels, the ConvLSTMHside and PhasedCell Functions'
+    backward split into library convolutions (kernels under an op whose
+    name holds 'conv') and the rest (the elementwise chain), and what is
+    left; the backward nodes counted; the 15 kernels of most time."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    kernels = {}
+    for e in events:
+        if e.device_type == cuda:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time / steps
+    total = sum(kernels.values())
+    fwd = {k: sum(v for n, v in kernels.items()
+                  if f"lstm_kernel<{'true' if k == 'k4' else 'false'}," in n)
+           for k in ("k3", "k4")}
+    bwd = {"ConvLSTMHside": [0.0, 0.0, 0], "PhasedCell": [0.0, 0.0, 0]}
+
+    def walk(e, fn, conv):
+        conv = conv or "conv" in e.name
+        bwd[fn][0 if conv else 1] += dev_us(e) / steps
+        for ch in e.cpu_children:
+            walk(ch, fn, conv)
+
+    for e in events:
+        if e.device_type == cuda:
+            continue
+        for fn in bwd:
+            if f"{fn}Backward" in e.name:
+                p = e.cpu_parent
+                while p is not None and f"{fn}Backward" not in p.name:
+                    p = p.cpu_parent
+                if p is None:   # the outermost event of this backward
+                    bwd[fn][2] += 1
+                    walk(e, fn, False)
+    out = {"device_ms": total / 1e3, "k3_res_ms": fwd["k3"] / 1e3,
+           "k4_res_ms": fwd["k4"] / 1e3}
+    for fn, (conv, rest, n) in bwd.items():
+        out[f"{fn}_bwd"] = {"library_conv_ms": conv / 1e3, "rest_ms": rest / 1e3,
+                            "nodes_per_step": n / steps}
+    out["rest_ms"] = out["device_ms"] - out["k3_res_ms"] - out["k4_res_ms"] - sum(
+        sum(v[:2]) for v in bwd.values()) / 1e3
+    out["top_kernels_ms"] = {n: v / 1e3 for n, v in sorted(
+        kernels.items(), key=lambda kv: -kv[1])[:15]}
+    return out
+
+
+def profile_train(torch, dev, seed=0, steps=1):
+    """One phased training step (B=8, L=10, 224^2, chip_smoke's phased
+    recipe) with fused_gru 'on' and 'off', after a warm-up step each:
+    the host wall ms of the step and ``step_split`` of its torch.profiler
+    trace."""
+    from torch.profiler import ProfilerActivity, profile
+    from rpg_ramnet_tpu_torch.core.config import Config, ModelConfig
+    from rpg_ramnet_tpu_torch.models import event_loop_range
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    from rpg_ramnet_tpu_torch.train.optim import make_optimizer
+    from rpg_ramnet_tpu_torch.train.train_step import make_train_step
+    K = event_loop_range(ModelConfig.load(os.path.join(chip_smoke.ROOT, chip_smoke.CONFIG)))
+    cells = 3 * (K + 1) * chip_smoke.TRAIN_L
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ramnet_profile_train_") as tmp:
+        data = os.path.join(tmp, "data")
+        chip_smoke.write_train_data(data, K, seed + 11, batch=chip_smoke.PHASED_TRAIN_B)
+        cfg = Config.from_dict(chip_smoke.phased_train_config(tmp))
+        batch, models, _ = chip_smoke.first_step_vs_off(
+            cfg, data, dev, seed,
+            {"k4_res": (phased_cell.conv_lstm_phased_res, 2 * cells),
+             "k3_res": (gru_hside.conv_lstm_hside_res, 2 * cells)})
+    for mode, model in models.items():
+        c = dataclasses.replace(cfg, model=model.cfg)
+        step = make_train_step(c, model, make_optimizer(c, model.parameters()))
+        step(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
+        out[mode] = {"wall_ms": wall * 1e3, **step_split(torch, prof, steps)}
+    return out
+
+
+def lstm_main(args, torch) -> int:
+    """--lstm: K3-res and K4-res (see the module's docstring)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    dev = torch.device("cuda")
+    smi = chip_smoke.nvidia_smi_line()
+    lib = gru_hside.library_lstm()
+    ptxas = chip_smoke.ptxas_by_kernel(kernels.build_log.get("lstm_hside", ""))
+    planned = hasattr(gru_hside, "plan_lstm")
+    sets = args.plans.split(",") if planned else ["default"]
+    label = args.label or ("tree" if planned else "default")
+    gen = torch.Generator().manual_seed(0)
+    cases = []
+    for shape in LSTM_CELLS:
+        inputs = chip_smoke.make_lstm_inputs(shape, dev, gen)
+        cases += [(kind, shape, inputs) for kind in ("k3_res", "k4_res")]
+
+    def call(kind, plan, inputs):
+        kern = chip_smoke.lstm_res_calls(inputs, kind == "k4_res")[0]
+        return (lambda: kern(_plan=plan)) if plan is not None else kern
+
+    times, wrapper = {}, {}
+    with torch.no_grad():
+        for plan_set in sets + sets[::-1]:   # mirrored turns
+            for kind, shape, inputs in cases:
+                fn = call(kind, lstm_plan_of(gru_hside, plan_set, kind, shape), inputs)
+                key = (plan_set, kind, shape)
+                times.setdefault(key, []).append(
+                    chip_smoke.cuda_time_us(fn, ITERS, queued=True))
+                wrapper.setdefault(key, []).append(chip_smoke.cuda_time_us(fn, ITERS))
+    lines, sums, plain_us = [], {}, {}
+    for plan_set in sets:   # one line each, printed as it comes
+        for kind, shape, inputs in cases:
+            phased = kind == "k4_res"
+            plan = lstm_plan_of(gru_hside, plan_set, kind, shape)
+            key = (plan_set, kind, shape)
+            fn = call(kind, plan, inputs)
+            plain = chip_smoke.lstm_res_calls(inputs, phased)[1]
+            with torch.no_grad():
+                want, got = plain(), fn()
+                if (kind, shape) not in plain_us:
+                    plain_us[(kind, shape)] = min(
+                        chip_smoke.cuda_time_us(plain, ITERS, queued=True)
+                        for _ in range(2))
+                dev_us, records = chip_smoke.launch_device_us(fn, 10)
+            e = [chip_smoke.abs_errs(a, b) for a, b in zip(got, want)]
+            row = {"label": label, "plans": plan_set, "kernel": kind,
+                   "shape": list(shape), "plan": plan._asdict() if plan else None,
+                   "us": min(times[key]), "us_turns": times[key],
+                   "wrapper_us": min(wrapper[key]), "wrapper_us_turns": wrapper[key],
+                   "device_us": dev_us, "device_records": records,
+                   "plain_us": plain_us[(kind, shape)],
+                   "max_abs_err": max(v[0] for v in e),
+                   "mean_abs_err": max(v[1] for v in e)}
+            if plan is not None:
+                row.update({
+                    "weight_mb": gru_hside.lstm_weight_bytes(plan, *shape) / 1e6,
+                    "smem_bytes": gru_hside.lstm_smem_bytes(
+                        plan.tile_h, plan.tile_w, shape[-1], plan.split, plan.ks, phased),
+                    "blocks_per_sm": lib.ramnet_lstm_blocks_per_sm(
+                        int(phased), shape[-1], *plan)})
+            row["ptxas"] = chip_smoke.lstm_ptxas(
+                ptxas, phased, gru_hside.LSTM_COMBOS[plan.combo] if plan else None)
+            for name, v in (("us", row["us"]), ("wrapper_us", row["wrapper_us"])):
+                sums[f"{plan_set}_{kind}_{name}"] = sums.get(
+                    f"{plan_set}_{kind}_{name}", 0.0) + v
+            print(json.dumps(row), flush=True)
+    if args.sweep and planned:
+        with torch.no_grad():
+            for kind, shape, inputs in cases:
+                phased = kind == "k4_res"
+                plans = gru_hside.lstm_plans(*shape, phased=phased)
+                best = min(gru_hside._lstm_cost(p, *shape, phased) for p in plans)
+                for plan in plans:
+                    if gru_hside._lstm_cost(plan, *shape, phased) > 6 * best:
+                        continue
+                    lines.append({
+                        "sweep": kind, "shape": list(shape), "plan": list(plan),
+                        "us": chip_smoke.cuda_time_us(call(kind, plan, inputs), 10,
+                                                      queued=True)})
+    if args.gates and planned:
+        lines += lstm_gate_errors(torch, gru_hside, phased_cell, cases, dev)
+    if args.profile_train:
+        del cases
+        torch.cuda.empty_cache()
+        lines.append({"profile_train": profile_train(torch, dev)})
+    lines.append({"label": label, "summary": sums, "nvidia_smi": smi,
+                  "torch": torch.__version__, "cuda": torch.version.cuda})
+    for row in lines:
+        print(json.dumps(row), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None)
@@ -171,19 +464,24 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--gates", action="store_true")
     ap.add_argument("--fit", default=None, metavar="SWEEP.jsonl")
+    ap.add_argument("--lstm", action="store_true")
+    ap.add_argument("--profile-train", action="store_true")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
     if args.fit:
         with open(args.fit) as f:
-            model, report = fit_model([json.loads(line) for line in f if line.strip()])
-        print(json.dumps({"_K1_MODEL": model}))
+            model, report = fit_model([json.loads(line) for line in f if line.strip()],
+                                      lstm=args.lstm)
+        print(json.dumps({"_LSTM_MODEL" if args.lstm else "_K1_MODEL": model}))
         print(json.dumps(report))
         return 0
     import torch
     if not torch.cuda.is_available():
         print("gru_hside_timing: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.lstm:
+        return lstm_main(args, torch)
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.ops import gru_hside
     dev = torch.device("cuda")

@@ -26,20 +26,22 @@
 //           leak * phi              elsewhere
 //     h_t = c'   c_t = h'   h_new = k h_t + (1 - k) h0   c_new = k c_t + (1 - k) c0
 //
-// and writes (h_t, h_new, c_new).  The residual variants (a second
-// compile-time flag) also write acts = (i, f, o, u) [B,H,W,4C] in bf16, the
-// gate activations the backward (ops/gru_hside.py::conv_lstm_hside_bwd)
-// reads: they already sit in the thread's registers, so the flag only adds
-// the stores (8*C bytes per pixel).  t - phase, the divisions and the region
+// and writes (h_t, h_new, c_new).  t - phase, the divisions and the region
 // products are taken with __fsub_rn / __fdiv_rn / __fmul_rn: a contracted
 // FMA there could move phi across a region boundary.
 //
-// What bounds it on this card.  Per pixel the cell must move h, c, gx and its
-// outputs (16*C bytes for K3; 20*C plus 8*C of f32 tau and phase for K4;
-// 8*C more for the acts of the residual variants) and do 36*C^2
-// multiply-adds: 4.5*C flop per byte for K3, 288 to 1152 at the
-// phased widths C = 64, 128, 256, at or above the H100's bf16 ridge (~295
-// flop/B).  So the conv belongs on the tensor cores, fed from shared memory.
+// The residual variants for training, K3-res and K4-res, also write acts =
+// (i, f, o, u) [B,H,W,4C] in bf16, the gate activations the backward
+// (ops/gru_hside.py::conv_lstm_hside_bwd) reads.  They run on their own
+// tile (lstm_hside_tile.cuh, whose header says what bounds them and what
+// its design does about it) under a plan the wrapper passes; K3 and K4 keep
+// the first design below.
+//
+// What bounds K3 and K4 on this card.  Per pixel the cell must move h, c,
+// gx and its outputs (16*C bytes for K3; 20*C plus 8*C of f32 tau and phase
+// for K4) and do 36*C^2 multiply-adds: 4.5*C flop per byte for K3, 288 to
+// 1152 at the phased widths C = 64, 128, 256, at or above the H100's bf16
+// ridge (~295 flop/B).  So the conv belongs on the tensor cores, fed from shared memory.
 //
 // What the design does about it.  As on the TPU, nothing but the inputs and
 // the outputs touches device memory (c' of K4 never leaves registers): one
@@ -55,7 +57,7 @@
 // tile per C (ops/gru_hside.py::smem_bytes_lstm); wgmma and TMA weight
 // staging are the next steps.
 
-#include "mma_conv.cuh"
+#include "lstm_hside_tile.cuh"
 
 namespace {
 
@@ -93,27 +95,13 @@ __device__ __forceinline__ void conv3x3_mma_gates(Acc (&acc)[4],
   }
 }
 
-// k(t) of one feature (phased_cell.py::_phased_cell_math's time gate).
-__device__ __forceinline__ float time_gate(float t, float tau, float phase,
-                                           float leak, float ratio_on) {
-  const float phi = __fdiv_rn(fabsf(fmodf(__fsub_rn(t, phase), tau)), tau);
-  const float k_up = __fdiv_rn(__fmul_rn(2.0f, phi), ratio_on);
-  const float k = phi < ratio_on ? __fsub_rn(2.0f, k_up) : __fmul_rn(leak, phi);
-  return phi < __fmul_rn(0.5f, ratio_on) ? k_up : k;
-}
-
-__device__ __forceinline__ float blend(float k, float a, float b) {
-  return __fadd_rn(__fmul_rn(k, a), __fmul_rn(__fsub_rn(1.0f, k), b));
-}
-
-template <bool kPhased, bool kRes>
+template <bool kPhased>
 __global__ void __launch_bounds__(kThreads)
 lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
                   const bf16* __restrict__ gx, const bf16* __restrict__ w4,
                   const float* __restrict__ tau, const float* __restrict__ phase,
                   const float* __restrict__ times, bf16* __restrict__ out0,
-                  bf16* __restrict__ out1, bf16* __restrict__ out2,
-                  bf16* __restrict__ acts, int H, int W, int C,
+                  bf16* __restrict__ out1, bf16* __restrict__ out2, int H, int W, int C,
                   long long gx_bstride, int TH, int TW, float leak,
                   float ratio_on) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -188,7 +176,7 @@ lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
           const float2 gu = ld_bf2(gp + 3 * C + ch);
           const float2 cv = ld_bf2(cb + pix * C + ch);
           const int e = 2 * half;
-          float cell[2], hid[2], act[4][2];
+          float cell[2], hid[2];
           const float pre[4][2] = {{gi.x, gi.y}, {gf.x, gf.y}, {go.x, go.y}, {gu.x, gu.y}};
           const float cin[2] = {cv.x, cv.y};
 #pragma unroll
@@ -199,15 +187,6 @@ lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
             const float ug = tanhf(acc[3][mi][ni][e + j] + pre[3][j]);
             cell[j] = fg * cin[j] + ig * ug;
             hid[j] = og * tanhf(cell[j]);
-            act[0][j] = ig;
-            act[1][j] = fg;
-            act[2][j] = og;
-            act[3][j] = ug;
-          }
-          if (kRes) {   // acts in gx's gate order, at gx's pixel pitch 4C
-            bf16* ap = acts + ((size_t)b * H * W + pix) * C4 + ch;
-#pragma unroll
-            for (int q = 0; q < 4; ++q) st_bf2(ap + q * C, act[q][0], act[q][1]);
           }
           if (!kPhased) {
             st_bf2(out0 + o + ch, hid[0], hid[1]);
@@ -230,26 +209,81 @@ lstm_hside_kernel(const bf16* __restrict__ h, const bf16* __restrict__ c,
   }
 }
 
-template <bool kPhased, bool kRes>
+template <bool kPhased>
 int launch(const void* h, const void* c, const void* gx, const void* w4,
            const void* tau, const void* phase, const void* times, void* out0,
-           void* out1, void* out2, void* acts, int B, int H, int W, int C,
-           long long gx_bstride, int tile_h, int tile_w, float leak, float ratio_on,
-           void* stream) {
+           void* out1, void* out2, int B, int H, int W, int C, long long gx_bstride,
+           int tile_h, int tile_w, float leak, float ratio_on, void* stream) {
   // the h tile with its 1-pixel halo (ops/gru_hside.py::smem_bytes_lstm)
   const size_t smem = (size_t)(tile_h + 2) * (tile_w + 2) * (size_t)(C + kPad) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_hside_kernel<kPhased, kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      lstm_hside_kernel<kPhased>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h, B);
-  lstm_hside_kernel<kPhased, kRes><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  lstm_hside_kernel<kPhased><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(h), static_cast<const bf16*>(c),
       static_cast<const bf16*>(gx), static_cast<const bf16*>(w4),
       static_cast<const float*>(tau), static_cast<const float*>(phase),
       static_cast<const float*>(times), static_cast<bf16*>(out0),
-      static_cast<bf16*>(out1), static_cast<bf16*>(out2), static_cast<bf16*>(acts),
-      H, W, C, gx_bstride, tile_h, tile_w, leak, ratio_on);
+      static_cast<bf16*>(out1), static_cast<bf16*>(out2), H, W, C, gx_bstride, tile_h,
+      tile_w, leak, ratio_on);
+  return (int)cudaGetLastError();
+}
+
+// A warp's job in m16 tiles (MR) per plan "combo", ops/gru_hside.py::
+// LSTM_COMBOS in the same order; null for none.
+template <bool kPhased>
+void (*lstm_kernel_of(int combo))(const LstmArgs) {
+  switch (combo) {
+    case 0: return lstm_kernel<kPhased, 4>;
+    case 1: return lstm_kernel<kPhased, 3>;
+    case 2: return lstm_kernel<kPhased, 2>;
+    default: return nullptr;
+  }
+}
+
+// K3-res (phased false) or K4-res on the tile under a plan: the tile_h x
+// tile_w output tile, `split` blocks per tile (1 or 2, (C/16) % split ==
+// 0), the warp jobs `combo` and ks input channels per weight slab (16, 32
+// or 64, dividing C).
+template <bool kPhased>
+int launch_res(const void* h, const void* c, const void* gx, const void* w4,
+               const void* tau, const void* phase, const void* times, void* out0,
+               void* out1, void* out2, void* acts, int B, int H, int W, int C,
+               long long gx_bstride, int tile_h, int tile_w, int split, int combo, int ks,
+               float leak, float ratio_on, void* stream) {
+  void (*kern)(const LstmArgs) = lstm_kernel_of<kPhased>(combo);
+  if (!kern || C % 16 || (split != 1 && split != 2) || (C / 16) % split ||
+      (ks != 16 && ks != 32 && ks != 64) || C % ks || tile_h < 1 || tile_w < 1)
+    return (int)cudaErrorInvalidValue;
+  LstmArgs a;
+  a.h = static_cast<const bf16*>(h);
+  a.c = static_cast<const bf16*>(c);
+  a.gx = static_cast<const bf16*>(gx);
+  a.w4 = static_cast<const bf16*>(w4);
+  a.tau = static_cast<const float*>(tau);
+  a.phase = static_cast<const float*>(phase);
+  a.times = static_cast<const float*>(times);
+  a.out[0] = static_cast<bf16*>(out0);
+  a.out[1] = static_cast<bf16*>(out1);
+  a.out[2] = static_cast<bf16*>(out2);
+  a.acts = static_cast<bf16*>(acts);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.gx_bstride = gx_bstride;
+  a.TH = tile_h;
+  a.TW = tile_w;
+  a.split = split;
+  a.ks = ks;
+  a.leak = leak;
+  a.ratio_on = ratio_on;
+  const size_t smem = lstm_smem_bytes(tile_h, tile_w, C, split, ks, kPhased);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(((W + tile_w - 1) / tile_w) * split, (H + tile_h - 1) / tile_h, B);
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -266,21 +300,22 @@ int ramnet_lstm_hside_forward(const void* h, const void* c, const void* gx,
                               const void* w4, void* hid, void* cell, int B, int H,
                               int W, int C, long long gx_bstride, int tile_h,
                               int tile_w, void* stream) {
-  return launch<false, false>(h, c, gx, w4, nullptr, nullptr, nullptr, hid, cell,
-                              nullptr, nullptr, B, H, W, C, gx_bstride, tile_h, tile_w,
-                              0.0f, 0.0f, stream);
+  return launch<false>(h, c, gx, w4, nullptr, nullptr, nullptr, hid, cell, nullptr, B, H,
+                       W, C, gx_bstride, tile_h, tile_w, 0.0f, 0.0f, stream);
 }
 
-// K3-res: K3 that also writes acts [B,H,W,4C] bf16 contiguous, 16-byte
-// aligned: the gate activations (i, f, o, u).  Otherwise as
-// ramnet_lstm_hside_forward.
+// K3-res: the cell on the tile (lstm_hside_tile.cuh), also writing acts
+// [B,H,W,4C] bf16 contiguous, 16-byte aligned: the gate activations (i, f,
+// o, u).  The plan: tile_h x tile_w output tile, split, combo, ks
+// (launch_res).  Otherwise as ramnet_lstm_hside_forward.
 int ramnet_lstm_hside_forward_res(const void* h, const void* c, const void* gx,
                                   const void* w4, void* hid, void* cell, void* acts,
                                   int B, int H, int W, int C, long long gx_bstride,
-                                  int tile_h, int tile_w, void* stream) {
-  return launch<false, true>(h, c, gx, w4, nullptr, nullptr, nullptr, hid, cell,
-                             nullptr, acts, B, H, W, C, gx_bstride, tile_h, tile_w,
-                             0.0f, 0.0f, stream);
+                                  int tile_h, int tile_w, int split, int combo, int ks,
+                                  void* stream) {
+  return launch_res<false>(h, c, gx, w4, nullptr, nullptr, nullptr, hid, cell, nullptr,
+                           acts, B, H, W, C, gx_bstride, tile_h, tile_w, split, combo, ks,
+                           0.0f, 0.0f, stream);
 }
 
 // K4: one phased ConvLSTM cell from the state (c0, h0): c0 is the conv
@@ -293,23 +328,42 @@ int ramnet_lstm_phased_forward(const void* c0, const void* h0, const void* gx,
                                int B, int H, int W, int C, long long gx_bstride,
                                int tile_h, int tile_w, float leak, float ratio_on,
                                void* stream) {
-  return launch<true, false>(c0, h0, gx, w4, tau, phase, t, h_t, h_new, c_new,
-                             nullptr, B, H, W, C, gx_bstride, tile_h, tile_w, leak,
-                             ratio_on, stream);
+  return launch<true>(c0, h0, gx, w4, tau, phase, t, h_t, h_new, c_new, B, H, W, C,
+                      gx_bstride, tile_h, tile_w, leak, ratio_on, stream);
 }
 
-// K4-res: K4 that also writes acts [B,H,W,4C] bf16 contiguous, 16-byte
-// aligned, as ramnet_lstm_hside_forward_res.  Otherwise as
+// K4-res: the phased cell on the tile, also writing acts as
+// ramnet_lstm_hside_forward_res, under its plan.  Otherwise as
 // ramnet_lstm_phased_forward.
 int ramnet_lstm_phased_forward_res(const void* c0, const void* h0, const void* gx,
                                    const void* w4, const void* tau, const void* phase,
                                    const void* t, void* h_t, void* h_new, void* c_new,
                                    void* acts, int B, int H, int W, int C,
-                                   long long gx_bstride, int tile_h, int tile_w,
-                                   float leak, float ratio_on, void* stream) {
-  return launch<true, true>(c0, h0, gx, w4, tau, phase, t, h_t, h_new, c_new, acts,
-                            B, H, W, C, gx_bstride, tile_h, tile_w, leak, ratio_on,
-                            stream);
+                                   long long gx_bstride, int tile_h, int tile_w, int split,
+                                   int combo, int ks, float leak, float ratio_on,
+                                   void* stream) {
+  return launch_res<true>(c0, h0, gx, w4, tau, phase, t, h_t, h_new, c_new, acts, B, H, W,
+                          C, gx_bstride, tile_h, tile_w, split, combo, ks, leak, ratio_on,
+                          stream);
+}
+
+// How many blocks of a K3-res (phased 0) or K4-res plan fit on one SM at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 where the
+// query fails.
+int ramnet_lstm_blocks_per_sm(int phased, int C, int tile_h, int tile_w, int split, int combo,
+                              int ks) {
+  void (*kern)(const LstmArgs) =
+      phased ? lstm_kernel_of<true>(combo) : lstm_kernel_of<false>(combo);
+  if (!kern || split < 1) return -1;
+  const size_t smem = lstm_smem_bytes(tile_h, tile_w, C, split, ks, phased != 0);
+  int n = 0;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads, smem) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return n;
 }
 
 const char* ramnet_cuda_error_string(int err) {

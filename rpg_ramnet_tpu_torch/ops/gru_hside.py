@@ -55,7 +55,9 @@ writes acts [B, H, W, 4C] = (i, f, o, u) in h's dtype, and its backward
 ``conv_lstm_hside_bwd`` (``_lstm_hside_bwd``: elementwise gate grads and
 two library convolutions, XLA in the JAX package too).  The phased cell K4
 and its residual variant K4-res are the same source with a template flag
-(``ops/phased_cell.py``).
+(``ops/phased_cell.py``).  K3-res and K4-res run on their own tile
+(``csrc/lstm_hside_tile.cuh``) under a plan per shape (``plan_lstm``); K3
+and K4 keep the first design's tile (``pick_tile``).
 """
 from __future__ import annotations
 
@@ -107,7 +109,7 @@ def smem_bytes_full(tile_h: int, tile_w: int, C: int) -> int:
 
 def smem_bytes_lstm(tile_h: int, tile_w: int, C: int) -> int:
     """K3 and K4: the conv operand's tile with a 1-pixel halo, bf16, at
-    pitch C + 8."""
+    pitch C + 8.  (K3-res and K4-res: ``lstm_smem_bytes``.)"""
     return (tile_h + 2) * (tile_w + 2) * (C + 8) * 2
 
 
@@ -136,10 +138,13 @@ def pick_tile(B: int, H: int, W: int, C: int, smem=smem_bytes
 # outputs to K1's one, so the two may get different plans.
 
 K1_COMBOS = ((6, 4, 4, 4), (3, 4, 2, 4), (2, 4, 2, 2))   # (MR, NR, MC, NC)
-_K1_TILE_SIDES = (1, 2, 4, 7, 8, 12, 14, 16)
-_K1_SPLITS = (1, 2)
-_K1_SLABS = (64, 32, 16)   # input channels per weight slab, widest first
-_K1_MIN_SPLIT_C = 128     # the cluster split pays only with wide weights
+# K1's and K3-res's/K4-res's plans alike: tile sides, blocks per tile, input
+# channels per weight slab (widest first) and the least width that splits
+# (the split pays only with wide weights)
+_TILE_SIDES = (1, 2, 4, 7, 8, 12, 14, 16)
+_SPLITS = (1, 2)
+_SLABS = (64, 32, 16)
+_MIN_SPLIT_C = 128
 _WARPS = 8
 # The planner's cost model: a launch takes waves of blocks, and a block's
 # microseconds are linear in what it does (k1_cost_terms): mma.sync per
@@ -195,14 +200,15 @@ def _k1_jobs(plan: K1Plan, C: int) -> Tuple[int, int]:
             * math.ceil(cn / (8 * nc)))
 
 
-def k1_blocks(plan: K1Plan, B: int, H: int, W: int) -> int:
+def plan_blocks(plan, B: int, H: int, W: int) -> int:
+    """The blocks a launch of a K1 or K3-res/K4-res plan runs."""
     return (B * math.ceil(H / plan.tile_h) * math.ceil(W / plan.tile_w)
             * plan.split)
 
 
-def k1_waves(plan: K1Plan, B: int, H: int, W: int) -> int:
+def plan_waves(plan, B: int, H: int, W: int) -> int:
     """The waves of blocks a launch takes, ``_WAVE_BLOCKS`` at once."""
-    return math.ceil(k1_blocks(plan, B, H, W) / _WAVE_BLOCKS)
+    return math.ceil(plan_blocks(plan, B, H, W) / _WAVE_BLOCKS)
 
 
 def k1_weight_bytes(plan: K1Plan, B: int, H: int, W: int, C: int) -> int:
@@ -211,20 +217,20 @@ def k1_weight_bytes(plan: K1Plan, B: int, H: int, W: int, C: int) -> int:
     Wz and Wo (phase z/o), 9 taps x C inputs, bf16."""
     jr, jc = _k1_jobs(plan, C)
     rows = math.ceil(jr / _WARPS) + 2 * math.ceil(jc / _WARPS)
-    return k1_blocks(plan, B, H, W) * rows * (C // plan.split) * 9 * C * 2
+    return plan_blocks(plan, B, H, W) * rows * (C // plan.split) * 9 * C * 2
 
 
 def check_k1_plan(plan: K1Plan, C: int, residuals: bool = False) -> None:
     """Raise ValueError unless K1 (residuals: K1-res) can run this plan at
     width C."""
     ok = (plan.tile_h >= 1 and plan.tile_w >= 1
-          and plan.split in _K1_SPLITS and (C // 16) % plan.split == 0
-          and 0 <= plan.combo < len(K1_COMBOS) and plan.ks in _K1_SLABS
+          and plan.split in _SPLITS and (C // 16) % plan.split == 0
+          and 0 <= plan.combo < len(K1_COMBOS) and plan.ks in _SLABS
           and C % plan.ks == 0)
     if not ok:
         raise ValueError(f"K1 cannot run plan {plan} at C={C}: split in "
-                         f"{_K1_SPLITS} dividing C/16, combo < "
-                         f"{len(K1_COMBOS)}, ks in {_K1_SLABS} dividing C")
+                         f"{_SPLITS} dividing C/16, combo < "
+                         f"{len(K1_COMBOS)}, ks in {_SLABS} dividing C")
     smem = k1_smem_bytes(plan.tile_h, plan.tile_w, C, plan.split, plan.ks,
                          residuals)
     if smem > _SMEM_MAX:
@@ -263,33 +269,52 @@ def _k1_cost(plan: K1Plan, B: int, H: int, W: int, C: int,
              residuals: bool = False) -> float:
     """The planner's estimate of a launch's microseconds (``_K1_MODEL``)."""
     terms = k1_cost_terms(plan, C, residuals)
-    return k1_waves(plan, B, H, W) * sum(_K1_MODEL[k] * v
+    return plan_waves(plan, B, H, W) * sum(_K1_MODEL[k] * v
                                          for k, v in terms.items())
+
+
+def _plans(make, H: int, W: int, C: int, max_split: int, combos: int,
+           smem) -> list:
+    """Every plan make(tile_h, tile_w, split, combo, ks) of tiles clipped
+    to the image, splits (1 below C = _MIN_SPLIT_C, else those dividing
+    C/16 up to max_split) and combos, each with the widest slab dividing C
+    whose footprint smem(tile_h, tile_w, split, ks) fits in shared
+    memory."""
+    if C % 16:
+        return []
+    plans = []
+    tiles = sorted({(min(th, H), min(tw, W)) for th in _TILE_SIDES
+                    for tw in _TILE_SIDES})
+    for split in _SPLITS:
+        if split > max_split or (C // 16) % split or (
+                split > 1 and C < _MIN_SPLIT_C):
+            continue
+        for th, tw in tiles:
+            for combo in range(combos):
+                for ks in _SLABS:
+                    if C % ks == 0 and smem(th, tw, split, ks) <= _SMEM_MAX:
+                        plans.append(make(th, tw, split, combo, ks))
+                        break
+    return plans
+
+
+def _plan_kinds(plans, cost, chosen) -> list:
+    """One plan per (split, combo) among plans (the cheapest of each by
+    cost), chosen first: the plans a card test runs to cover every code
+    path a planner may take."""
+    best = {}
+    for p in sorted(plans, key=cost):
+        best.setdefault((p.split, p.combo), p)
+    return [chosen] + [p for p in best.values() if p != chosen]
 
 
 def k1_plans(B: int, H: int, W: int, C: int, max_split: int = 2,
              residuals: bool = False) -> List[K1Plan]:
     """Every plan the planner weighs for this shape of K1 (residuals:
-    K1-res): tiles clipped to the image, splits (1 below C = 128, else
-    those dividing C/16 up to max_split), each combo, with the widest slab
-    dividing C that fits in shared memory."""
-    if C % 16:
-        return []
-    plans = []
-    tiles = sorted({(min(th, H), min(tw, W)) for th in _K1_TILE_SIDES
-                    for tw in _K1_TILE_SIDES})
-    for split in _K1_SPLITS:
-        if split > max_split or (C // 16) % split or (
-                split > 1 and C < _K1_MIN_SPLIT_C):
-            continue
-        for th, tw in tiles:
-            for combo in range(len(K1_COMBOS)):
-                for ks in _K1_SLABS:
-                    if C % ks == 0 and k1_smem_bytes(
-                            th, tw, C, split, ks, residuals) <= _SMEM_MAX:
-                        plans.append(K1Plan(th, tw, split, combo, ks))
-                        break
-    return plans
+    K1-res) (``_plans``)."""
+    return _plans(K1Plan, H, W, C, max_split, len(K1_COMBOS),
+                  lambda th, tw, split, ks: k1_smem_bytes(th, tw, C, split, ks,
+                                                          residuals))
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,15 +330,171 @@ def plan_k1(B: int, H: int, W: int, C: int, max_split: int = 2,
 
 def k1_plan_kinds(B: int, H: int, W: int, C: int, residuals: bool = False
                   ) -> List[K1Plan]:
-    """One plan per (split, combo) the planner can pick at this shape (the
-    cheapest of each), the planner's own first: the plans a card test runs
-    to cover every code path the planner may take."""
-    best = {}
-    for p in sorted(k1_plans(B, H, W, C, residuals=residuals),
-                    key=lambda p: _k1_cost(p, B, H, W, C, residuals)):
-        best.setdefault((p.split, p.combo), p)
-    chosen = plan_k1(B, H, W, C, residuals=residuals)
-    return [chosen] + [p for p in best.values() if p != chosen]
+    """One plan per (split, combo) the planner can pick at this shape, the
+    planner's own first (``_plan_kinds``)."""
+    return _plan_kinds(k1_plans(B, H, W, C, residuals=residuals),
+                       lambda p: _k1_cost(p, B, H, W, C, residuals),
+                       plan_k1(B, H, W, C, residuals=residuals))
+
+
+# -- K3-res's and K4-res's plan ----------------------------------------------
+# A K3-res (K4-res) block (csrc/lstm_hside_tile.cuh) holds the conv
+# operand's tile with its 1-pixel halo at pitch C + 8, a ring of two weight
+# slabs (one tap x ks inputs x the block's 4*cn gate rows) and the io tile,
+# where gx and c arrive and acts and the outputs are staged (K4-res also
+# tau and phase in float32); `split` blocks share a pixel tile and take
+# C/split channels each.  Each of its 8 warps owns one job per pass over
+# the weights: 16*MR pixels x 16 channels x the 4 gates.  K3 and K4 keep
+# pick_tile's tile (smem_bytes_lstm).
+
+LSTM_COMBOS = (4, 3, 2)   # MR: m16 tiles of a warp job
+# The planner's cost model, in the terms of lstm_cost_terms: a launch takes
+# waves of blocks (_WAVE_BLOCKS at once: one block fits per SM), a block's
+# microseconds are linear in what it does.  The weights are the
+# non-negative least-squares fit of `gru_hside_timing.py --lstm --fit
+# lstm_hside_sweep.jsonl` to the plans its --sweep timed on an H100 80GB
+# HBM3 at 700 W (1099 plans, median error 2.9%, within 5% of the swept best
+# at the six timed shapes; PERF.md §6).
+_LSTM_MODEL = {"mma": 0.00209, "mma_lone": 0.00303, "weight_bytes": 1.76e-05,
+               "io_bytes": 8.01e-05, "slabs": 0.673, "time_gate": 0.000618,
+               "a_conflicts": 0.000348, "block": 1.53}
+
+
+class LstmPlan(NamedTuple):
+    """How K3-res and K4-res run one shape: the output tile, the blocks
+    per tile (each C/split channels), the warp jobs (an index of
+    LSTM_COMBOS) and the input channels per weight slab."""
+    tile_h: int
+    tile_w: int
+    split: int
+    combo: int
+    ks: int
+
+
+def lstm_smem_bytes(tile_h: int, tile_w: int, C: int, split: int, ks: int,
+                    phased: bool = False) -> int:
+    """Shared memory of one K3-res (phased: K4-res) block in bytes
+    (csrc/lstm_hside_tile.cuh's lstm_smem_bytes): the h tile with its
+    1-pixel halo at pitch C + 8, the weight ring, 2 slabs x 4*cn rows at
+    pitch ks + 8, and the io tile, 6*cn + 8 per output pixel (K4-res 7*cn +
+    8), bf16; cn = C/split."""
+    cn, px = C // split, tile_h * tile_w
+    return ((tile_h + 2) * (tile_w + 2) * (C + 8) + 2 * 4 * cn * (ks + 8)
+            + px * ((7 if phased else 6) * cn + 8)) * 2
+
+
+def lstm_jobs(plan: LstmPlan, C: int) -> int:
+    """The warp jobs of one block: 16*MR pixels x 16 channels each."""
+    return (math.ceil(plan.tile_h * plan.tile_w / (16 * LSTM_COMBOS[plan.combo]))
+            * (C // plan.split // 16))
+
+
+def lstm_weight_bytes(plan: LstmPlan, B: int, H: int, W: int, C: int) -> int:
+    """The weight bytes one launch streams from L2 into shared memory: per
+    block and pass over the weights its 4*C/split gate rows, 9 taps x C
+    inputs, bf16."""
+    passes = math.ceil(lstm_jobs(plan, C) / _WARPS)
+    return (plan_blocks(plan, B, H, W) * passes * 4 * (C // plan.split)
+            * 9 * C * 2)
+
+
+def check_lstm_plan(plan: LstmPlan, C: int, phased: bool = False) -> None:
+    """Raise ValueError unless K3-res (phased: K4-res) can run this plan at
+    width C."""
+    ok = (plan.tile_h >= 1 and plan.tile_w >= 1 and C % 16 == 0
+          and plan.split in _SPLITS and (C // 16) % plan.split == 0
+          and 0 <= plan.combo < len(LSTM_COMBOS) and plan.ks in _SLABS
+          and C % plan.ks == 0)
+    if not ok:
+        raise ValueError(f"K3-res/K4-res cannot run plan {plan} at C={C}: "
+                         f"C % 16 == 0, split in {_SPLITS} dividing "
+                         f"C/16, combo < {len(LSTM_COMBOS)}, ks in "
+                         f"{_SLABS} dividing C")
+    smem = lstm_smem_bytes(plan.tile_h, plan.tile_w, C, plan.split, plan.ks,
+                           phased)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"K3-res/K4-res plan {plan} needs {smem} bytes of "
+                         f"shared memory at C={C}, over {_SMEM_MAX}")
+
+
+def _lstm_a_conflicts(plan: LstmPlan, C: int) -> int:
+    """The extra shared-memory wavefronts of a block's A-fragment ldmatrix
+    per k16 step, summed over its jobs: the 8 pixels of a matrix load
+    conflict where their h-tile indices cy*(tile_w+2) + cx repeat mod 8 (the
+    pixel pitch C + 8 is an odd multiple of 16 bytes when C % 16 == 0), as
+    they do where a group wraps a tile row narrower than 8 or not a
+    multiple of it."""
+    mr, th, tw = LSTM_COMBOS[plan.combo], plan.tile_h, plan.tile_w
+    n_c, extra = th * tw, 0
+    for m in range(0, math.ceil(n_c / (16 * mr)) * 16 * mr, 8):
+        pix = {min(m + r, n_c - 1) for r in range(8)}
+        banks = [((p // tw) * (tw + 2) + p % tw) % 8 for p in pix]
+        extra += max(banks.count(b) for b in banks) - 1
+    return 2 * extra * (C // plan.split // 16)
+
+
+def lstm_cost_terms(plan: LstmPlan, C: int, phased: bool = False) -> dict:
+    """What one block of a plan does, in the units of ``_LSTM_MODEL``:
+    mma.sync per k16 step on its busiest sub-partition, over the passes
+    with two warps on it and with one (latency unhidden); the weight bytes
+    it streams; the h, c, gx, outputs and acts (and tau, phase) bytes it
+    moves; its weight slabs (each a cp.async group and a barrier); K4-res's
+    time gates (one per pixel and channel); its A-fragment bank conflicts
+    over the K walk; a constant."""
+    jobs = lstm_jobs(plan, C)
+    per_job = 8 * LSTM_COMBOS[plan.combo]   # 4 gates x MR x 2 n8 tiles
+    warps = [min(_WARPS, jobs - _WARPS * p)
+             for p in range(math.ceil(jobs / _WARPS))]
+    cn, th, tw = C // plan.split, plan.tile_h, plan.tile_w
+    return {
+        "mma": sum(2 * per_job for a in warps if a > 4) * 9 * C / 16,
+        "mma_lone": sum(per_job for a in warps if a <= 4) * 9 * C / 16,
+        "weight_bytes": len(warps) * 9 * 4 * cn * C * 2,
+        "io_bytes": ((th + 2) * (tw + 2) * C
+                     + th * tw * ((13 if phased else 11) * cn)) * 2
+        + (th * tw * 2 * cn * 4 if phased else 0),
+        "slabs": len(warps) * 9 * (C // plan.ks),
+        "time_gate": th * tw * cn if phased else 0,
+        "a_conflicts": len(warps) * _lstm_a_conflicts(plan, C) * 9 * C / 16,
+        "block": 1.0}
+
+
+def _lstm_cost(plan: LstmPlan, B: int, H: int, W: int, C: int,
+               phased: bool = False) -> float:
+    """The planner's estimate of a launch's microseconds (``_LSTM_MODEL``)."""
+    terms = lstm_cost_terms(plan, C, phased)
+    return plan_waves(plan, B, H, W) * sum(_LSTM_MODEL[k] * v
+                                           for k, v in terms.items())
+
+
+def lstm_plans(B: int, H: int, W: int, C: int, phased: bool = False,
+               max_split: int = 2) -> List[LstmPlan]:
+    """Every plan the planner weighs for this shape of K3-res (phased:
+    K4-res) (``_plans``)."""
+    return _plans(LstmPlan, H, W, C, max_split, len(LSTM_COMBOS),
+                  lambda th, tw, split, ks: lstm_smem_bytes(th, tw, C, split, ks,
+                                                            phased))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_lstm(B: int, H: int, W: int, C: int, phased: bool = False,
+              max_split: int = 2) -> Optional[LstmPlan]:
+    """K3-res's (phased: K4-res's) plan: the least estimated cost
+    (``_lstm_cost``) among ``lstm_plans``, the first of equals; None when
+    none fits in shared memory.  K3 and K4 keep pick_tile's tile."""
+    plans = lstm_plans(B, H, W, C, phased, max_split)
+    if not plans:
+        return None
+    return min(plans, key=lambda p: _lstm_cost(p, B, H, W, C, phased))
+
+
+def lstm_plan_kinds(B: int, H: int, W: int, C: int, phased: bool = False
+                    ) -> List[LstmPlan]:
+    """One plan per (split, combo) the planner can pick at this shape, the
+    planner's own first (``_plan_kinds``)."""
+    return _plan_kinds(lstm_plans(B, H, W, C, phased),
+                       lambda p: _lstm_cost(p, B, H, W, C, phased),
+                       plan_lstm(B, H, W, C, phased))
 
 
 def supports(h: torch.Tensor) -> bool:
@@ -335,11 +516,14 @@ def supports_full(h: torch.Tensor) -> bool:
 
 
 def supports_lstm(h: torch.Tensor) -> bool:
-    """Whether K3 and K4 take this NHWC state: bf16, 4-D, C a multiple of
-    16 and a tile that fits their shared memory."""
+    """Whether K3 and K4 (and under autograd K3-res and K4-res) take this
+    NHWC state: bf16, 4-D, C a multiple of 16, a tile that fits K3's and
+    K4's shared memory and a plan of K4-res (whose footprint is K3-res's
+    or more)."""
     return (h.dtype == torch.bfloat16 and h.dim() == 4
             and h.shape[-1] % 16 == 0
-            and pick_tile(*h.shape, smem=smem_bytes_lstm) is not None)
+            and pick_tile(*h.shape, smem=smem_bytes_lstm) is not None
+            and plan_lstm(*h.shape, phased=True) is not None)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -579,13 +763,15 @@ _LSTM_SIGNATURES = {
     "ramnet_lstm_hside_forward": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                        _I, _L, _I, _I, _P)),
     "ramnet_lstm_hside_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                           _I, _I, _L, _I, _I, _P)),
+                                           _I, _I, _L, _I, _I, _I, _I, _I,
+                                           _P)),
     "ramnet_lstm_phased_forward": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _I, _L, _I, _I,
                                         _F, _F, _P)),
     "ramnet_lstm_phased_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _P, _P, _P, _I, _I, _I, _I, _L,
-                                            _I, _I, _F, _F, _P)),
+                                            _I, _I, _I, _I, _I, _F, _F, _P)),
+    "ramnet_lstm_blocks_per_sm": (_I, (_I,) * 7),
     **_ERR,
 }
 # csrc/<name>.cu; lstm_hside holds K3, the phased cell K4 and their residual
@@ -614,11 +800,17 @@ def library_full():
     return kernels.library("gru_full", _FULL_SIGNATURES)
 
 
-def library_lstm():
+# K3-res and K4-res with the IEEE gates (expf, a correctly rounded division,
+# tanhf) in place of ex2/rcp: the build their errors and times are measured
+# against (csrc/lstm_hside_tile.cuh)
+LSTM_EXACT_GATES = ("RAMNET_LSTM_EXACT_GATES",)
+
+
+def library_lstm(defines=()):
     """The built and loaded K3/K4 (and K3-res/K4-res) library (nvcc on first
-    use)."""
+    use); ``LSTM_EXACT_GATES`` for the IEEE-gate build."""
     from .. import kernels
-    return kernels.library("lstm_hside", _LSTM_SIGNATURES)
+    return kernels.library("lstm_hside", _LSTM_SIGNATURES, defines)
 
 
 def _raise_on(err: int, lib, what: str) -> None:
@@ -786,15 +978,36 @@ def raise_under_autograd(name: str, *tensors, why: str) -> None:
                            "run it under no_grad or inference_mode")
 
 
-def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False):
+def _lstm_plan(h, plan: Optional[LstmPlan], phased: bool) -> LstmPlan:
+    """The planner's plan of K3-res (phased: K4-res) for h's shape, or the
+    given one once checked."""
+    C = h.shape[-1]
+    if plan is None:
+        plan = plan_lstm(*h.shape, phased=phased)
+        if plan is None:
+            raise ValueError(f"C={C} does not fit K3-res/K4-res's shared "
+                             "memory")
+        return plan
+    plan = LstmPlan(*plan)
+    check_lstm_plan(plan, C, phased)
+    return plan
+
+
+def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False,
+                plan: Optional[LstmPlan] = None):
     """K3 (phased None: returns (h', c')) or K4 (phased = (tau, phase, t,
     leak, ratio_on): returns (h_t, h_new, c_new)) on h's stream; with
-    residuals K3-res or K4-res, which also return acts [B, H, W, 4C]."""
+    residuals K3-res or K4-res, which also return acts [B, H, W, 4C], on
+    their tile under ``plan`` (``plan_lstm``'s when None)."""
     h, c, w4 = h.contiguous(), c.contiguous(), w4.to(h.dtype).contiguous()
     _check_launch(h, c, gx, w4)
     B, H, W, C = h.shape
     gx_bstride = _gx_bstride(h, gx, gates=4)
-    th, tw = _tile(h, smem_bytes_lstm)
+    if residuals:
+        plan = _lstm_plan(h, plan, phased is not None)
+        tiling = tuple(plan)
+    else:
+        tiling = _tile(h, smem_bytes_lstm)
     lib = library_lstm()
     stream = torch.cuda.current_stream(h.device).cuda_stream
     n_out = 2 if phased is None else 3
@@ -807,8 +1020,9 @@ def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False):
         fn = (lib.ramnet_lstm_hside_forward_res if residuals
               else lib.ramnet_lstm_hside_forward)
         err = fn(h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
-                 *ptrs, B, H, W, C, gx_bstride, th, tw, stream)
-        _raise_on(err, lib, "lstm_hside")
+                 *ptrs, B, H, W, C, gx_bstride, *tiling, stream)
+        _raise_on(err, lib, f"lstm_hside (plan {plan})" if residuals
+                  else "lstm_hside")
         return outs
     tau, phase, t, leak, ratio_on = phased
     t = t.contiguous()
@@ -820,8 +1034,9 @@ def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False):
           else lib.ramnet_lstm_phased_forward)
     err = fn(h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
              tau.data_ptr(), phase.data_ptr(), t.data_ptr(), *ptrs, B, H, W, C,
-             gx_bstride, th, tw, float(leak), float(ratio_on), stream)
-    _raise_on(err, lib, "lstm_phased")
+             gx_bstride, *tiling, float(leak), float(ratio_on), stream)
+    _raise_on(err, lib, f"lstm_phased (plan {plan})" if residuals
+              else "lstm_phased")
     return outs
 
 
@@ -936,15 +1151,19 @@ def conv_gru_full(x: torch.Tensor, h: torch.Tensor, w_ur: torch.Tensor,
 
 
 def conv_lstm_hside_res(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
-                        w4: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                        w4: torch.Tensor, _plan: Optional[LstmPlan] = None
+                        ) -> Tuple[torch.Tensor, ...]:
     """(h', c', acts): K3-res for CUDA tensors, ``conv_lstm_hside_res_plain``
     for CPU tensors.  ``conv_lstm_hside_res.launches`` counts kernel
-    launches."""
+    launches.  _plan: an ``LstmPlan`` that replaces ``plan_lstm``'s (tests
+    and timing; checked on either device)."""
     check_lstm(h, c, gx, w4)
     if _device_of(h) == "cpu":
+        if _plan is not None:
+            check_lstm_plan(LstmPlan(*_plan), h.shape[-1])
         return conv_lstm_hside_res_plain(h, c, gx, w4)
     with torch.cuda.device(h.device):
-        out = launch_lstm(h, c, gx, w4, residuals=True)
+        out = launch_lstm(h, c, gx, w4, residuals=True, plan=_plan)
     conv_lstm_hside_res.launches += 1
     return out
 

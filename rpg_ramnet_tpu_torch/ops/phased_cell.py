@@ -34,7 +34,7 @@ K4's and K4-res's launches.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -119,20 +119,26 @@ def _check(c0, h0, gx, w4, tau, phase, t) -> None:
 def conv_lstm_phased_res(c0: torch.Tensor, h0: torch.Tensor, gx: torch.Tensor,
                          w4: torch.Tensor, tau: torch.Tensor,
                          phase: torch.Tensor, t: torch.Tensor,
-                         leak: float = LEAK, ratio_on: float = RATIO_ON
+                         leak: float = LEAK, ratio_on: float = RATIO_ON,
+                         _plan: Optional[gru_hside.LstmPlan] = None
                          ) -> Tuple[torch.Tensor, ...]:
     """(h_t, h_new, c_new, acts): K4-res for CUDA tensors,
     ``conv_lstm_phased_res_plain`` for CPU tensors.
-    ``conv_lstm_phased_res.launches`` counts kernel launches."""
+    ``conv_lstm_phased_res.launches`` counts kernel launches.  _plan: a
+    ``gru_hside.LstmPlan`` that replaces ``plan_lstm``'s (tests and timing;
+    checked on either device)."""
     _check(c0, h0, gx, w4, tau, phase, t)
     if gru_hside._device_of(c0) == "cpu":
+        if _plan is not None:
+            gru_hside.check_lstm_plan(gru_hside.LstmPlan(*_plan),
+                                      c0.shape[-1], phased=True)
         return conv_lstm_phased_res_plain(c0, h0, gx, w4, tau, phase, t, leak,
                                           ratio_on)
     with torch.cuda.device(c0.device):
         out = gru_hside.launch_lstm(
             c0, h0, gx, w4,
             (tau, phase, t.reshape(-1).float(), leak, ratio_on),
-            residuals=True)
+            residuals=True, plan=_plan)
     conv_lstm_phased_res.launches += 1
     return out
 

@@ -538,32 +538,56 @@ def test_phased_engine_kernels_vs_off(device):
             phased_cell.conv_lstm_phased.launches - n[1]) == (3 * 3 * 3, 3 * 3 * 3)
 
 
-@pytest.mark.parametrize("shape", [(8, 28, 28, 256), (3, 30, 45, 96)],
+# forced K3-res/K4-res plans beyond the planner's kinds: a split of 2 at
+# C = 96 (48 channels a block), ragged tiles, 1x1 tiles, a tile larger
+# than the image, 16-channel slabs
+LSTM_EXTRA_PLANS = {(3, 30, 45, 96): (gru_hside.LstmPlan(7, 12, 2, 0, 32),
+                                      gru_hside.LstmPlan(4, 16, 1, 2, 16)),
+                    (2, 5, 3, 48): (gru_hside.LstmPlan(1, 1, 1, 2, 16),
+                                    gru_hside.LstmPlan(8, 8, 1, 1, 16))}
+
+
+@pytest.mark.parametrize("shape", [(8, 112, 112, 64), (8, 56, 56, 128),
+                                   (8, 28, 28, 256), (3, 30, 45, 96),
+                                   (2, 5, 3, 48)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_lstm_res_kernels_match_plain(device, shape):
     """K3-res (h', c', acts) and K4-res (h_t, h_new, c_new, acts), bf16,
-    one cell, gx a strided view: within 2e-2 of their plain versions, one
-    launch each, and their outputs equal K3's and K4's."""
+    one cell, gx a strided view: within 2e-2 of their plain versions under
+    every plan kind the planner can pick at the shape (split 1 and 2) and
+    the forced plans of LSTM_EXTRA_PLANS, one launch each; their outputs
+    within 2e-2 of K3's and K4's."""
     from rpg_ramnet_tpu_torch.ops import phased_cell
     h, c, gx, w4, tau, phase, t = _lstm_inputs(shape, device, seed=shape[2])
-    n3, n4 = (gru_hside.conv_lstm_hside_res.launches,
-              phased_cell.conv_lstm_phased_res.launches)
     with torch.no_grad():
-        got3 = gru_hside.conv_lstm_hside_res(h, c, gx, w4)
         want3 = gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4)
-        got4 = phased_cell.conv_lstm_phased_res(h, c, gx, w4, tau, phase, t)
         want4 = phased_cell.conv_lstm_phased_res_plain(h, c, gx, w4, tau,
                                                        phase, t)
         fwd3 = gru_hside.conv_lstm_hside(h, c, gx, w4)
         fwd4 = phased_cell.conv_lstm_phased(h, c, gx, w4, tau, phase, t)
-    torch.cuda.synchronize()
-    assert (gru_hside.conv_lstm_hside_res.launches - n3,
-            phased_cell.conv_lstm_phased_res.launches - n4) == (1, 1)
-    for a, b in zip(got3 + got4, want3 + want4):
-        assert a.shape == b.shape
-        assert (a.float() - b.float()).abs().max().item() <= 2e-2
-    for a, b in zip(got3[:2] + got4[:3], fwd3 + fwd4):
-        assert torch.equal(a, b)
+    extra = LSTM_EXTRA_PLANS.get(shape, ())
+    for phased, fn, want, fwd in (
+            (False, lambda **kw: gru_hside.conv_lstm_hside_res(h, c, gx, w4, **kw),
+             want3, fwd3),
+            (True, lambda **kw: phased_cell.conv_lstm_phased_res(
+                h, c, gx, w4, tau, phase, t, **kw), want4, fwd4)):
+        counter = (phased_cell.conv_lstm_phased_res if phased
+                   else gru_hside.conv_lstm_hside_res)
+        kinds = gru_hside.lstm_plan_kinds(*shape, phased=phased)
+        if shape[-1] >= 128:
+            assert {p.split for p in kinds} == {1, 2}
+        for i, plan in enumerate(kinds + list(extra)):
+            n = counter.launches
+            with torch.no_grad():
+                got = fn(**({"_plan": plan} if i else {}))
+            torch.cuda.synchronize()
+            assert counter.launches - n == 1
+            for a, b in zip(got, want):
+                assert a.shape == b.shape
+                err = (a.float() - b.float()).abs().max().item()
+                assert err <= 2e-2, (plan, err)
+            for a, b in zip(got, fwd):
+                assert (a.float() - b.float()).abs().max().item() <= 2e-2, plan
 
 
 def _lstm_layer_grads(mod, x, c0, h0, gx, t, cots, kind, fused):

@@ -60,7 +60,7 @@ def test_k1_plan_fits(cell, C):
             assert 1 <= p.tile_h <= H and 1 <= p.tile_w <= W
             assert math.ceil(H / p.tile_h) * p.tile_h >= H
             assert math.ceil(W / p.tile_w) * p.tile_w >= W
-            assert gru_hside.k1_blocks(p, B, H, W) == (
+            assert gru_hside.plan_blocks(p, B, H, W) == (
                 B * math.ceil(H / p.tile_h) * math.ceil(W / p.tile_w)
                 * p.split)
         if C == 64:
@@ -127,7 +127,7 @@ def test_split_cuts_weight_bytes(shape):
         if C >= 128:
             by_split = {}
             for p in gru_hside.k1_plans(*shape, residuals=res):
-                if gru_hside.k1_blocks(p, B, H, W) >= 128:
+                if gru_hside.plan_blocks(p, B, H, W) >= 128:
                     w = gru_hside.k1_weight_bytes(p, *shape)
                     by_split[p.split > 1] = min(w, by_split.get(p.split > 1, w))
             assert by_split[True] < by_split[False]
