@@ -44,8 +44,9 @@ Phases, each printed as one JSON line:
                    the slice's maps/s;
   5. kernel_train  K1-res, K2 and the ConvGRUHside Function against their
                    plain versions at the three training shapes (B=16) and
-                   one ragged shape; K1-res (h', acts) also under every
-                   plan kind there and at the edge shapes;
+                   one ragged shape; K1-res (h', acts) and K2 (dh, dgx:
+                   max and mean error) also under every plan kind there
+                   and at the edge shapes;
   6. train         the first step's loss and gradients against
                    fused_gru='off', then the entry point for TRAIN_STEPS
                    optimizer steps and one validation batch on a synthetic
@@ -53,8 +54,9 @@ Phases, each printed as one JSON line:
                    launch counts, peak memory;
   7. timing_train  training sequences/s with the kernels and with 'off',
                    K1-res and K2 per cell against their plain versions
-                   (queued, as phase 4; K1-res also its wrapper's time,
-                   its plan, device us, weight MB, registers and spills);
+                   (queued, as phase 4; each kernel also its wrapper's
+                   time, its plan, device us, weight MB, registers and
+                   spills);
   8. kernel_stream K5 against its plain version at the three per-package
                    shapes and one ragged shape; K6 (with and without stats)
                    and K7 (float32 and bf16 factors) on each of their
@@ -315,9 +317,23 @@ def make_cell_inputs(shape, dev, gen, strided_gx=False):
     return cell, h, gx, w_ur, w_o
 
 
+def make_bwd_inputs(shape, dev, gen):
+    """(g, h, acts, w_ur, w_o) of one K2 call: make_cell_inputs' h and
+    weights, acts from the plain K1-res on them, g ~ N(0, 1); bf16 on
+    ``dev``."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    _, h, gx, w_ur, w_o = make_cell_inputs(shape, dev, gen)
+    g = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+    _, acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+    return g, h, acts, w_ur, w_o
+
+
 def plan_name(plan) -> str:
-    """A K1 plan as tile/split/combo/slab width."""
-    return f"{plan.tile_h}x{plan.tile_w}/s{plan.split}/c{plan.combo}/k{plan.ks}"
+    """A K1 or K3-res/K4-res plan as tile/split/combo/slab width, a K2 plan
+    (no split) as tile/combo/slab width."""
+    split = f"/s{plan.split}" if hasattr(plan, "split") else ""
+    return f"{plan.tile_h}x{plan.tile_w}{split}/c{plan.combo}/k{plan.ks}"
 
 
 def k1_plan_errors(shape, dev, gen, residuals):
@@ -387,6 +403,42 @@ def kernel_ptxas(ptxas, residuals, combo=None):
     return None
 
 
+def k2_ptxas(ptxas, combo=None):
+    """The ptxas entry of K2: of k2_kernel<MR, NR, MC, NC> for a combo, or
+    with combo None of the first design's gru_hside_bwd_kernel (when
+    gru_hside_timing.py --root times an older tree)."""
+    for name, info in ptxas.items():
+        if combo is not None and "k2_kernel" in name and \
+                "I" + "".join(f"Li{v}E" for v in combo) + "E" in name:
+            return info
+        if combo is None and "gru_hside_bwd_kernel" in name:
+            return info
+    return None
+
+
+def k2_plan_errors(shape, dev, gen):
+    """{plan: [dh, dgx max abs error over the plain version's max
+    magnitude, and their mean abs errors]} of K2 at one shape under every
+    plan kind its planner can pick there (its own pick through the
+    wrapper's default path), against its plain version."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    g, h, acts, w_ur, w_o = make_bwd_inputs(shape, dev, gen)
+    want = gru_hside.conv_gru_hside_bwd_plain(g, h, acts, w_ur, w_o)
+    errs = {}
+    for i, plan in enumerate(gru_hside.k2_plan_kinds(*shape)):
+        kw = {"_plan": plan} if i else {}
+        got = gru_hside.conv_gru_hside_bwd(g, h, acts, w_ur, w_o, **kw)
+        torch.cuda.synchronize()
+        e = [rel_err(a, b) for a, b in zip(got, want)]
+        errs[plan_name(plan)] = e + [(a.float() - b.float()).abs().mean().item()
+                                     for a, b in zip(got, want)]
+        if not (max(e) <= GRAD_TOL):
+            raise AssertionError(f"K2 vs plain at {shape}, plan {plan}: "
+                                 f"relative errors {e} > {GRAD_TOL}")
+    return errs
+
+
 def kernel_check(dev, gen):
     """Max abs error of K1 against its plain version per shape and plan."""
     return {"x".join(map(str, shape)): k1_plan_errors(shape, dev, gen, False)
@@ -417,7 +469,9 @@ def rel_err(got, want):
 def train_kernel_check(dev, gen):
     """K1-res (h', acts: max abs error), K2 (dh, dgx) and the ConvGRUHside
     Function (dh, dgx, dw_ur, dw_o; max abs error over the plain version's
-    max magnitude) against their plain versions, per shape."""
+    max magnitude) against their plain versions, per shape; K1-res and K2
+    also under every plan kind their planners can pick, there and at the
+    edge shapes."""
     import torch
     from rpg_ramnet_tpu_torch.ops import gru_hside
     rows = []
@@ -452,7 +506,9 @@ def train_kernel_check(dev, gen):
         if not (max([row["bwd_dh_rel"], row["bwd_dgx_rel"]] + row["fn_rel"])
                 <= GRAD_TOL):
             raise AssertionError(f"K2 / Function vs plain at {shape}: {row}")
-    edges = {"x".join(map(str, shape)): k1_plan_errors(shape, dev, gen, True)
+        row["bwd_plans"] = k2_plan_errors(shape, dev, gen)
+    edges = {"x".join(map(str, shape)): {"k1_res": k1_plan_errors(shape, dev, gen, True),
+                                         "k2": k2_plan_errors(shape, dev, gen)}
              for shape in K1_EDGE_CELLS}
     return rows, edges
 
@@ -528,7 +584,9 @@ def launch_device_us(fn, calls):
 
 def time_train_cells(dev, gen, iters=20):
     """Microseconds per cell of K1-res and K2 and of their plain versions
-    at the training shapes, in turns plain, kernel, kernel, plain."""
+    at the training shapes, in turns plain, kernel, kernel, plain; each
+    kernel also unqueued (its wrapper's time), with its plan, device us
+    per launch, weight MB per launch, registers and spills."""
     from rpg_ramnet_tpu_torch.ops import gru_hside
     import torch
     rows = []
@@ -551,8 +609,27 @@ def time_train_cells(dev, gen, iters=20):
                 row["res_k1"] = k1_report("k1_res", shape, kern)
                 row["res_k1"]["wrapper_us"] = min(cuda_time_us(kern, iters)
                                                   for _ in range(2))
+            else:
+                row["bwd_k2"] = k2_report(shape, kern)
+                row["bwd_k2"]["wrapper_us"] = min(cuda_time_us(kern, iters)
+                                                  for _ in range(2))
         rows.append(row)
     return rows
+
+
+def k2_report(shape, fn):
+    """K2's plan at shape, its mean device us per launch of fn
+    (torch.profiler), the weight MB one launch streams into shared memory,
+    and the kernel's registers and spills (ptxas)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    plan = gru_hside.plan_k2(*shape)
+    dev_us, records = launch_device_us(fn, 10)
+    return {"plan": plan._asdict(), "device_us": dev_us,
+            "device_records": records,
+            "weight_mb": gru_hside.k2_weight_bytes(plan, *shape) / 1e6,
+            "ptxas": k2_ptxas(ptxas_by_kernel(kernels.build_log.get("gru_hside_bwd", "")),
+                              gru_hside.K2_COMBOS[plan.combo])}
 
 
 def time_cells(dev, gen, iters=50):
@@ -2361,7 +2438,7 @@ def main() -> int:
     # 5. the training kernels against their plain versions on the card
     train_rows, res_edges = train_kernel_check(dev, gen)
     emit({"phase": "kernel_train", "k1_tol": K1_TOL, "grad_tol": GRAD_TOL,
-          "cells": train_rows, "res_edge_plans": res_edges})
+          "cells": train_rows, "edge_plans": res_edges})
 
     # 6. training at full width through the entry point
     from rpg_ramnet_tpu_torch.core.config import Config
@@ -2561,17 +2638,18 @@ def main() -> int:
               trained["launches"]["k1_res"],
               max([max(r["res_h_err"], r["res_acts_err"], *r["res_plans"].values())
                    for r in train_rows]
-                  + [e for row in res_edges.values() for e in row.values()]),
+                  + [e for row in res_edges.values() for e in row["k1_res"].values()]),
               sum(r["res_kernel_us"] for r in train_cells) / 1e3,
               sum(r["res_plain_us"] for r in train_cells) / 1e3,
               cell_bound("k1_res", TRAIN_CELLS)),
-        entry("gru_hside_bwd", "gru_hside_bwd.cu",
-              "rpg_ramnet_tpu/ops/gru_hside.py:535", trained["launches"]["k2"],
-              max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
-                  for r in train_rows),
-              sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
-              sum(r["bwd_plain_us"] for r in train_cells) / 1e3,
-              cell_bound("k2", TRAIN_CELLS)),
+        dict(entry("gru_hside_bwd", "gru_hside_bwd.cu",
+                   "rpg_ramnet_tpu/ops/gru_hside.py:535", trained["launches"]["k2"],
+                   max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
+                       for r in train_rows),
+                   sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
+                   sum(r["bwd_plain_us"] for r in train_cells) / 1e3,
+                   cell_bound("k2", TRAIN_CELLS)),
+             wrapper_ms=sum(r["bwd_k2"]["wrapper_us"] for r in train_cells) / 1e3),
         entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
               k5_launches, max(k5_errs.values()),
               sum(r["kernel_us"] for r in full_cells) / 1e3,

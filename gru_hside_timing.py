@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Time kernels K1 and K1-res (the fused ConvGRU h-side cell), or with
---lstm K3-res and K4-res (the ConvLSTM training cells), on one GPU.
+"""Time kernels K1 and K1-res (the fused ConvGRU h-side cell), with --bwd
+K2 (its backward), or with --lstm K3-res and K4-res (the ConvLSTM training
+cells), on one GPU.
 
     python3 gru_hside_timing.py [--root DIR] [--plans auto,split1]
                                 [--label NAME] [--sweep] [--gates]
     python3 gru_hside_timing.py --fit SWEEP.jsonl
+    python3 gru_hside_timing.py --bwd [--root DIR] [--label NAME] [--sweep]
+                                [--profile-train]
+    python3 gru_hside_timing.py --bwd --fit SWEEP.jsonl
     python3 gru_hside_timing.py --lstm [--root DIR] [--plans auto,...]
                                 [--label NAME] [--sweep] [--gates]
                                 [--profile-train]
@@ -42,6 +46,24 @@ a CUDA device.
 fit of ``_K1_MODEL`` to them: relative error, non-negative weights, three
 significant digits, with its median and largest error and the planner's
 pick against the swept best at each shape.
+
+--bwd does the same for K2 at the training shapes, one line per plan set
+and shape: the plan, queued and wrapper us (mirrored turns), the device
+us per call by torch.profiler (all its kernels: the first design's
+wrapper also ran two weight-folding copies) and per kernel, the weight
+MB one launch streams (the first design's per-item reads where the tree
+has no planner), registers and spills, the plain version's queued us and
+the max errors of dh and dgx over the plain version's magnitude.  Its one
+plan set: ``auto`` (``plan_k2``).  --sweep times every plan ``k2_plans``
+weighs within 6x of the cost it estimates for its best, the least of two
+timings each (the lines ``_K2_MODEL`` is fitted to;
+gru_hside_bwd_sweep.jsonl holds the sweep the committed model was fitted
+to), --fit fits ``_K2_MODEL``, and
+--profile-train profiles one flagship training step (B=16, L=10, 224^2,
+precompute_x, fused_gru 'auto' and 'off') with torch.profiler: device ms
+of K1-res and K2, of the ConvGRUHside Function's backward split into
+library convolutions and the rest (the a = r*h pass, casts), and of
+everything else.
 
 --lstm does the same for K3-res and K4-res at the phased training shapes
 (B=8 at 112x112x64, 56x56x128, 28x28x256), one line per plan set, kernel
@@ -81,12 +103,18 @@ LSTM_CELLS = chip_smoke.PHASED_TRAIN_CELLS
 ITERS = 20   # launches per timed turn
 SWEEP_FILE = "gru_hside_sweep.jsonl"
 LSTM_SWEEP_FILE = "lstm_hside_sweep.jsonl"
+BWD_SWEEP_FILE = "gru_hside_bwd_sweep.jsonl"
 
 
 def _cost_row(gru_hside, r):
     """(cost terms, waves) of a sweep line's plan: K1's for "k1" and
-    "k1_res", K3-res's and K4-res's for "k3_res" and "k4_res"."""
+    "k1_res", K2's for "k2", K3-res's and K4-res's for "k3_res" and
+    "k4_res"."""
     C = r["shape"][-1]
+    if r["sweep"] == "k2":
+        plan = gru_hside.K2Plan(*r["plan"])
+        return (gru_hside.k2_cost_terms(plan, C),
+                gru_hside.plan_waves(plan, *r["shape"][:3]))
     if r["sweep"] in ("k1", "k1_res"):
         plan = gru_hside.K1Plan(*r["plan"])
         return (gru_hside.k1_cost_terms(plan, C, r["sweep"] == "k1_res"),
@@ -96,18 +124,20 @@ def _cost_row(gru_hside, r):
             gru_hside.plan_waves(plan, *r["shape"][:3]))
 
 
-def fit_model(lines, lstm=False):
-    """(model, report): the ``_K1_MODEL`` weights (lstm: ``_LSTM_MODEL``)
-    fitted to sweep lines ({"sweep": "k1" or "k1_res" (lstm: "k3_res" or
-    "k4_res"), "shape", "plan", "us"}) by non-negative least squares of
-    the relative error, rounded to three significant digits, and the fit's
-    median and largest relative error and, per shape, the planner's pick
-    under that model against the swept best."""
+def fit_model(lines, lstm=False, bwd=False):
+    """(model, report): the ``_K1_MODEL`` weights (lstm: ``_LSTM_MODEL``;
+    bwd: ``_K2_MODEL``) fitted to sweep lines ({"sweep": "k1" or "k1_res"
+    (lstm: "k3_res" or "k4_res"; bwd: "k2"), "shape", "plan", "us"}) by
+    non-negative least squares of the relative error, rounded to three
+    significant digits, and the fit's median and largest relative error
+    and, per shape, the planner's pick under that model against the swept
+    best."""
     import numpy as np
     from scipy.optimize import nnls
     from rpg_ramnet_tpu_torch.ops import gru_hside
     rows = [r for r in lines if "sweep" in r]
-    keys = list(gru_hside._LSTM_MODEL if lstm else gru_hside._K1_MODEL)
+    keys = list(gru_hside._K2_MODEL if bwd else
+                gru_hside._LSTM_MODEL if lstm else gru_hside._K1_MODEL)
     A, t = [], []
     for r in rows:
         terms, waves = _cost_row(gru_hside, r)
@@ -275,48 +305,69 @@ def lstm_gate_errors(torch, gru_hside, phased_cell, cases, dev):
     return lines
 
 
-def step_split(torch, prof, steps):
-    """A profiled training step's device ms per step: all of it, K3-res's
-    and K4-res's kernels, the ConvLSTMHside and PhasedCell Functions'
-    backward split into library convolutions (kernels under an op whose
-    name holds 'conv') and the rest (the elementwise chain), and what is
-    left; the backward nodes counted; the 15 kernels of most time."""
+def _kernel_ms(torch, prof, steps):
+    """{kernel name: device us per step} of a profiled run of steps."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time / steps
+    return kernels
+
+
+def _backward_split(torch, prof, steps, functions, node_self=True):
+    """Per autograd Function in ``functions``: [library conv us, other us,
+    outermost backward nodes, {op name: us}] per step, the device time of
+    every op under its outermost backward node (node_self: and of the node
+    itself, where the profiler puts kernels launched by hand), split by
+    whether an op's name (or an enclosing op's) holds 'conv'."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    kernels = {}
-    for e in events:
-        if e.device_type == cuda:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time / steps
-    total = sum(kernels.values())
-    fwd = {k: sum(v for n, v in kernels.items()
-                  if f"lstm_kernel<{'true' if k == 'k4' else 'false'}," in n)
-           for k in ("k3", "k4")}
-    bwd = {"ConvLSTMHside": [0.0, 0.0, 0], "PhasedCell": [0.0, 0.0, 0]}
+    out = {fn: [0.0, 0.0, 0, {}] for fn in functions}
 
     def walk(e, fn, conv):
         conv = conv or "conv" in e.name
-        bwd[fn][0 if conv else 1] += dev_us(e) / steps
+        out[fn][0 if conv else 1] += dev_us(e) / steps
+        out[fn][3][e.name] = out[fn][3].get(e.name, 0.0) + dev_us(e) / steps
         for ch in e.cpu_children:
             walk(ch, fn, conv)
 
-    for e in events:
-        if e.device_type == cuda:
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
             continue
-        for fn in bwd:
+        for fn in functions:
             if f"{fn}Backward" in e.name:
                 p = e.cpu_parent
                 while p is not None and f"{fn}Backward" not in p.name:
                     p = p.cpu_parent
                 if p is None:   # the outermost event of this backward
-                    bwd[fn][2] += 1
-                    walk(e, fn, False)
+                    out[fn][2] += 1
+                    if node_self:
+                        walk(e, fn, False)
+                        continue
+                    for ch in e.cpu_children:
+                        walk(ch, fn, False)
+    return out
+
+
+def step_split(torch, prof, steps):
+    """A profiled phased training step's device ms per step: all of it,
+    K3-res's and K4-res's kernels, the ConvLSTMHside and PhasedCell
+    Functions' backward split into library convolutions (kernels under an
+    op whose name holds 'conv') and the rest (the elementwise chain), and
+    what is left; the backward nodes counted; the 15 kernels of most
+    time."""
+    kernels = _kernel_ms(torch, prof, steps)
+    total = sum(kernels.values())
+    fwd = {k: sum(v for n, v in kernels.items()
+                  if f"lstm_kernel<{'true' if k == 'k4' else 'false'}," in n)
+           for k in ("k3", "k4")}
+    bwd = _backward_split(torch, prof, steps, ("ConvLSTMHside", "PhasedCell"))
     out = {"device_ms": total / 1e3, "k3_res_ms": fwd["k3"] / 1e3,
            "k4_res_ms": fwd["k4"] / 1e3}
-    for fn, (conv, rest, n) in bwd.items():
+    for fn, (conv, rest, n, _) in bwd.items():
         out[f"{fn}_bwd"] = {"library_conv_ms": conv / 1e3, "rest_ms": rest / 1e3,
                             "nodes_per_step": n / steps}
     out["rest_ms"] = out["device_ms"] - out["k3_res_ms"] - out["k4_res_ms"] - sum(
@@ -326,11 +377,43 @@ def step_split(torch, prof, steps):
     return out
 
 
-def profile_train(torch, dev, seed=0, steps=1):
-    """One phased training step (B=8, L=10, 224^2, chip_smoke's phased
-    recipe) with fused_gru 'on' and 'off', after a warm-up step each:
-    the host wall ms of the step and ``step_split`` of its torch.profiler
-    trace."""
+def gru_step_split(torch, prof, steps):
+    """A profiled flagship training step's device ms per step: all of it,
+    K1-res's and K2's kernels (by name), the ops under the ConvGRUHside
+    Function's outermost backward node (K2, as the node's own time; with
+    per-package checkpointing also the recompute of the package's forward,
+    K1-res under "ConvGRUHside" among it; the weight gradients' library
+    convolutions, aten::convolution_backward; the a = r*h product and the
+    casts) split by whether an op's name holds 'conv', with the ops of most
+    time, and the device time outside that node; the 15 kernels of most
+    time."""
+    kernels = _kernel_ms(torch, prof, steps)
+    total = sum(kernels.values())
+    k1_res = sum(v for n, v in kernels.items() if "k1_kernel<true" in n
+                 or "gru_hside_kernel<true" in n)
+    k2 = sum(v for n, v in kernels.items() if "k2_kernel" in n
+             or "gru_hside_bwd_kernel" in n)
+    conv, rest, n, ops = _backward_split(torch, prof, steps, ("ConvGRUHside",),
+                                         node_self=False)["ConvGRUHside"]
+    out = {"device_ms": total / 1e3, "k1_res_ms": k1_res / 1e3, "k2_ms": k2 / 1e3,
+           "ConvGRUHside_bwd": {"node_ms": (conv + rest) / 1e3,
+                                "library_conv_ms": conv / 1e3, "other_ms": rest / 1e3,
+                                "nodes_per_step": n / steps,
+                                "ops_ms": {k: v / 1e3 for k, v in sorted(
+                                    ops.items(), key=lambda kv: -kv[1])[:12]}},
+           "outside_node_ms": (total - conv - rest) / 1e3}
+    out["top_kernels_ms"] = {n: v / 1e3 for n, v in sorted(
+        kernels.items(), key=lambda kv: -kv[1])[:15]}
+    return out
+
+
+def profile_train(torch, dev, seed=0, steps=1, recipe="phased"):
+    """One training step with the kernels and with fused_gru 'off', after
+    a warm-up step each: the phased recipe (B=8, L=10, 224^2,
+    chip_smoke's phased_train_config, fused_gru 'on') or the flagship
+    ("gru": B=16, L=10, 224^2, train_config with precompute_x, 'auto'):
+    the host wall ms of the step and ``step_split`` (``gru_step_split``)
+    of its torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
     from rpg_ramnet_tpu_torch.core.config import Config, ModelConfig
     from rpg_ramnet_tpu_torch.models import event_loop_range
@@ -342,12 +425,20 @@ def profile_train(torch, dev, seed=0, steps=1):
     out = {}
     with tempfile.TemporaryDirectory(prefix="ramnet_profile_train_") as tmp:
         data = os.path.join(tmp, "data")
-        chip_smoke.write_train_data(data, K, seed + 11, batch=chip_smoke.PHASED_TRAIN_B)
-        cfg = Config.from_dict(chip_smoke.phased_train_config(tmp))
-        batch, models, _ = chip_smoke.first_step_vs_off(
-            cfg, data, dev, seed,
-            {"k4_res": (phased_cell.conv_lstm_phased_res, 2 * cells),
-             "k3_res": (gru_hside.conv_lstm_hside_res, 2 * cells)})
+        if recipe == "gru":
+            chip_smoke.write_train_data(data, K, seed + 11)
+            cfg = Config.from_dict(chip_smoke.train_config(tmp))
+            counters = {"k1_res": (gru_hside.conv_gru_hside_res, 2 * cells),
+                        "k2": (gru_hside.conv_gru_hside_bwd, cells)}
+        else:
+            chip_smoke.write_train_data(data, K, seed + 11,
+                                        batch=chip_smoke.PHASED_TRAIN_B)
+            cfg = Config.from_dict(chip_smoke.phased_train_config(tmp))
+            counters = {"k4_res": (phased_cell.conv_lstm_phased_res, 2 * cells),
+                        "k3_res": (gru_hside.conv_lstm_hside_res, 2 * cells)}
+        batch, models, first = chip_smoke.first_step_vs_off(cfg, data, dev, seed, counters)
+    out["first_step_vs_off"] = first
+    split = gru_step_split if recipe == "gru" else step_split
     for mode, model in models.items():
         c = dataclasses.replace(cfg, model=model.cfg)
         step = make_train_step(c, model, make_optimizer(c, model.parameters()))
@@ -359,8 +450,104 @@ def profile_train(torch, dev, seed=0, steps=1):
                 step(batch)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / steps
-        out[mode] = {"wall_ms": wall * 1e3, **step_split(torch, prof, steps)}
+        out[mode] = {"wall_ms": wall * 1e3, **split(torch, prof, steps)}
+    if recipe == "gru":
+        out["seq_per_s"] = chip_smoke.time_training(cfg, models, batch)
     return out
+
+
+def k2_first_design_weight_bytes(gru_hside, B, H, W, C):
+    """The weight bytes of one launch of the first K2 design: per
+    block (pick_tile with smem_bytes_bwd) and 32-pixel x 16-channel warp
+    item, 9 taps x 16 channels x the contraction (C for da on the 1-pixel
+    ring, 2C for dh on the tile), bf16."""
+    th, tw = gru_hside.pick_tile(B, H, W, C, smem=gru_hside.smem_bytes_bwd)
+    blocks = B * -(-H // th) * -(-W // tw)
+    items = (-(-(th + 2) * (tw + 2) // 32) * C // 16, -(-th * tw // 32) * C // 16)
+    return blocks * (items[0] * 9 * 16 * C + items[1] * 9 * 16 * 2 * C) * 2
+
+
+def bwd_main(args, torch) -> int:
+    """--bwd: K2 (see the module's docstring)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    dev = torch.device("cuda")
+    smi = chip_smoke.nvidia_smi_line()
+    gru_hside.library_bwd()   # built here, so the build log has its ptxas report
+    ptxas = chip_smoke.ptxas_by_kernel(kernels.build_log.get("gru_hside_bwd", ""))
+    planned = hasattr(gru_hside, "plan_k2")
+    sets = (args.plans or "auto").split(",") if planned else ["default"]
+    label = args.label or ("tree" if planned else "default")
+    gen = torch.Generator().manual_seed(0)
+    cases = [(s, chip_smoke.make_bwd_inputs(s, dev, gen)) for s in TRAIN_CELLS]
+
+    def plan_of(plan_set, shape):
+        if plan_set == "auto":
+            return gru_hside.plan_k2(*shape)
+        if plan_set == "default":
+            return None
+        raise ValueError(f"--bwd has no plan set {plan_set!r}")
+
+    def call(plan, inputs):
+        kw = {"_plan": plan} if plan is not None else {}
+        return lambda: gru_hside.conv_gru_hside_bwd(*inputs, **kw)
+
+    times, wrapper = {}, {}
+    for plan_set in sets + sets[::-1]:   # mirrored turns
+        for shape, inputs in cases:
+            fn = call(plan_of(plan_set, shape), inputs)
+            key = (plan_set, shape)
+            times.setdefault(key, []).append(chip_smoke.cuda_time_us(fn, ITERS, queued=True))
+            wrapper.setdefault(key, []).append(chip_smoke.cuda_time_us(fn, ITERS))
+    lines, sums, plain_us = [], {}, {}
+    for plan_set in sets:
+        for shape, inputs in cases:
+            plan = plan_of(plan_set, shape)
+            key = (plan_set, shape)
+            fn = call(plan, inputs)
+            plain = lambda: gru_hside.conv_gru_hside_bwd_plain(*inputs)  # noqa: E731
+            got, want = fn(), plain()
+            if shape not in plain_us:
+                plain_us[shape] = min(chip_smoke.cuda_time_us(plain, ITERS, queued=True)
+                                      for _ in range(2))
+            dev_us, names = chip_smoke.device_time_us(fn, 10)
+            row = {"label": label, "plans": plan_set, "shape": list(shape),
+                   "plan": plan._asdict() if plan else None,
+                   "us": min(times[key]), "us_turns": times[key],
+                   "wrapper_us": min(wrapper[key]), "wrapper_us_turns": wrapper[key],
+                   "device_us_per_call": dev_us, "device_us_by_kernel": names,
+                   "plain_us": plain_us[shape],
+                   "rel_err": [chip_smoke.rel_err(a, b) for a, b in zip(got, want)],
+                   "weight_mb": (gru_hside.k2_weight_bytes(plan, *shape) if plan else
+                                 k2_first_design_weight_bytes(gru_hside, *shape)) / 1e6}
+            if plan is not None:
+                row["smem_bytes"] = gru_hside.k2_smem_bytes(
+                    plan.tile_h, plan.tile_w, shape[-1], plan.ks)
+            row["ptxas"] = chip_smoke.k2_ptxas(
+                ptxas, gru_hside.K2_COMBOS[plan.combo] if plan else None)
+            for name, v in (("us", row["us"]), ("wrapper_us", row["wrapper_us"])):
+                sums[f"{plan_set}_k2_{name}"] = sums.get(f"{plan_set}_k2_{name}", 0.0) + v
+            print(json.dumps(row), flush=True)
+    if args.sweep and planned:
+        for shape, inputs in cases:
+            plans = gru_hside.k2_plans(*shape)
+            best = min(gru_hside._k2_cost(p, *shape) for p in plans)
+            for plan in plans:
+                if gru_hside._k2_cost(plan, *shape) > 6 * best:
+                    continue
+                lines.append({"sweep": "k2", "shape": list(shape), "plan": list(plan),
+                              "us": min(chip_smoke.cuda_time_us(call(plan, inputs), 10,
+                                                                queued=True)
+                                        for _ in range(2))})
+    if args.profile_train:
+        del cases
+        torch.cuda.empty_cache()
+        lines.append({"profile_train": profile_train(torch, dev, recipe="gru")})
+    lines.append({"label": label, "summary": sums, "nvidia_smi": smi,
+                  "torch": torch.__version__, "cuda": torch.version.cuda})
+    for row in lines:
+        print(json.dumps(row), flush=True)
+    return 0
 
 
 def lstm_main(args, torch) -> int:
@@ -372,7 +559,7 @@ def lstm_main(args, torch) -> int:
     lib = gru_hside.library_lstm()
     ptxas = chip_smoke.ptxas_by_kernel(kernels.build_log.get("lstm_hside", ""))
     planned = hasattr(gru_hside, "plan_lstm")
-    sets = args.plans.split(",") if planned else ["default"]
+    sets = (args.plans or "auto,split1").split(",") if planned else ["default"]
     label = args.label or ("tree" if planned else "default")
     gen = torch.Generator().manual_seed(0)
     cases = []
@@ -459,12 +646,13 @@ def lstm_main(args, torch) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None)
-    ap.add_argument("--plans", default="auto,split1")
+    ap.add_argument("--plans", default=None)   # per kernel: see the docstring
     ap.add_argument("--label", default=None)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--gates", action="store_true")
     ap.add_argument("--fit", default=None, metavar="SWEEP.jsonl")
     ap.add_argument("--lstm", action="store_true")
+    ap.add_argument("--bwd", action="store_true")
     ap.add_argument("--profile-train", action="store_true")
     args = ap.parse_args()
     if args.root:
@@ -472,8 +660,9 @@ def main() -> int:
     if args.fit:
         with open(args.fit) as f:
             model, report = fit_model([json.loads(line) for line in f if line.strip()],
-                                      lstm=args.lstm)
-        print(json.dumps({"_LSTM_MODEL" if args.lstm else "_K1_MODEL": model}))
+                                      lstm=args.lstm, bwd=args.bwd)
+        print(json.dumps({"_K2_MODEL" if args.bwd else
+                          "_LSTM_MODEL" if args.lstm else "_K1_MODEL": model}))
         print(json.dumps(report))
         return 0
     import torch
@@ -482,6 +671,8 @@ def main() -> int:
         return 2
     if args.lstm:
         return lstm_main(args, torch)
+    if args.bwd:
+        return bwd_main(args, torch)
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.ops import gru_hside
     dev = torch.device("cuda")
@@ -489,7 +680,7 @@ def main() -> int:
     lib = gru_hside.library()
     ptxas = chip_smoke.ptxas_by_kernel(kernels.build_log.get("gru_hside", ""))
     planned = hasattr(gru_hside, "plan_k1")
-    sets = args.plans.split(",") if planned else ["default"]
+    sets = (args.plans or "auto,split1").split(",") if planned else ["default"]
     label = args.label or ("tree" if planned else "default")
 
     def plan_of(plans, kind, shape):

@@ -29,7 +29,9 @@ channels); the plain versions any float dtype and C % 8 == 0.
 gradient is needed it runs ``ConvGRUHside``, whose forward runs K1-res and
 whose backward runs K2 for dh and dgx and two library convolutions for the
 weight gradients (the counterpart of ``_dconv_w``, which the JAX package
-also leaves to XLA).
+also leaves to XLA).  K2 reads the weights in the forward's layout and runs
+on its own tile (``csrc/gru_hside_bwd_tile.cuh``) under a plan per shape
+(``plan_k2``).
 
 ``conv_gru_full`` is the whole cell on cat(x, h) with biases, for the
 per-package streaming path where no gx exists: kernel K5
@@ -71,13 +73,12 @@ import torch.nn.functional as F
 
 from ..utils.layout import to_nchw, to_nhwc
 
-# H x W output tiles pick_tile chooses from, largest first, for K2, K3, K4,
-# K5 and the launch variants K9, K10a, K10b and K11 (gru_cell.cuh).  A block
+# H x W output tiles pick_tile chooses from, largest first, for K3, K4, K5
+# and the launch variants K9, K10a, K10b and K11 (gru_cell.cuh).  A block
 # of those holds the h tile with a 2-pixel halo and a = r*h with a 1-pixel
-# ring in shared memory (K9-K11), a K2 block dpre_o with a 2-pixel ring,
-# [dpre_z | dpre_r] with a 1-pixel ring and da*r at the tile in f32;
-# smaller tiles recompute more of the ring but give more blocks.  K1 and
-# K1-res have their own planner (plan_k1, below).
+# ring in shared memory (K9-K11); smaller tiles recompute more of the ring
+# but give more blocks.  K1 and K1-res have their own planner (plan_k1,
+# below), K2 its own (plan_k2), K3-res and K4-res theirs (plan_lstm).
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
 _SMEM_MAX = 232448           # bytes a block may use on Hopper
 _SMEM_TWO_BLOCKS = 110 * 1024
@@ -93,8 +94,11 @@ def smem_bytes(tile_h: int, tile_w: int, C: int) -> int:
 
 
 def smem_bytes_bwd(tile_h: int, tile_w: int, C: int) -> int:
-    """K2: dpre_o with a 2-pixel ring (pitch C + 8), [dpre_z | dpre_r] with
-    a 1-pixel ring (pitch 2C + 8), both bf16, and da*r at the tile in f32."""
+    """The first K2 design's footprint (dpre_o with a 2-pixel ring at pitch
+    C + 8, [dpre_z | dpre_r] with a 1-pixel ring at pitch 2C + 8, both
+    bf16, and da*r at the tile in f32), kept as a term of ``supports`` so
+    that the gate gives the answers it gave; K2 runs ``plan_k2``'s plans
+    (``k2_smem_bytes``)."""
     return ((tile_h + 4) * (tile_w + 4) * (C + 8) * 2
             + (tile_h + 2) * (tile_w + 2) * (2 * C + 8) * 2
             + tile_h * tile_w * C * 4)
@@ -201,9 +205,10 @@ def _k1_jobs(plan: K1Plan, C: int) -> Tuple[int, int]:
 
 
 def plan_blocks(plan, B: int, H: int, W: int) -> int:
-    """The blocks a launch of a K1 or K3-res/K4-res plan runs."""
+    """The blocks a launch of a K1, K2 or K3-res/K4-res plan runs (a K2
+    plan has no split)."""
     return (B * math.ceil(H / plan.tile_h) * math.ceil(W / plan.tile_w)
-            * plan.split)
+            * getattr(plan, "split", 1))
 
 
 def plan_waves(plan, B: int, H: int, W: int) -> int:
@@ -304,7 +309,7 @@ def _plan_kinds(plans, cost, chosen) -> list:
     path a planner may take."""
     best = {}
     for p in sorted(plans, key=cost):
-        best.setdefault((p.split, p.combo), p)
+        best.setdefault((getattr(p, "split", 1), p.combo), p)
     return [chosen] + [p for p in best.values() if p != chosen]
 
 
@@ -417,20 +422,29 @@ def check_lstm_plan(plan: LstmPlan, C: int, phased: bool = False) -> None:
                          f"shared memory at C={C}, over {_SMEM_MAX}")
 
 
+def _ldmatrix_conflicts(n_px: int, width: int, pitch: int, mt: int) -> int:
+    """The extra shared-memory wavefronts of the A-fragment ldmatrix loads
+    of one k16 step over n_px pixels (rows of ``width`` pixels) taken in
+    jobs of mt m16 tiles from a source tile ``pitch`` pixels wide: the 8
+    pixels of a matrix load conflict where their source indices y*pitch + x
+    repeat mod 8 (the pixel pitch C + 8 is an odd multiple of 16 bytes when
+    C % 16 == 0), as they do where a group wraps a row narrower than 8 or
+    not a multiple of it."""
+    extra = 0
+    for m in range(0, math.ceil(n_px / (16 * mt)) * 16 * mt, 8):
+        pix = {min(m + r, n_px - 1) for r in range(8)}
+        banks = [((p // width) * pitch + p % width) % 8 for p in pix]
+        extra += max(banks.count(b) for b in banks) - 1
+    return extra
+
+
 def _lstm_a_conflicts(plan: LstmPlan, C: int) -> int:
     """The extra shared-memory wavefronts of a block's A-fragment ldmatrix
-    per k16 step, summed over its jobs: the 8 pixels of a matrix load
-    conflict where their h-tile indices cy*(tile_w+2) + cx repeat mod 8 (the
-    pixel pitch C + 8 is an odd multiple of 16 bytes when C % 16 == 0), as
-    they do where a group wraps a tile row narrower than 8 or not a
-    multiple of it."""
-    mr, th, tw = LSTM_COMBOS[plan.combo], plan.tile_h, plan.tile_w
-    n_c, extra = th * tw, 0
-    for m in range(0, math.ceil(n_c / (16 * mr)) * 16 * mr, 8):
-        pix = {min(m + r, n_c - 1) for r in range(8)}
-        banks = [((p // tw) * (tw + 2) + p % tw) % 8 for p in pix]
-        extra += max(banks.count(b) for b in banks) - 1
-    return 2 * extra * (C // plan.split // 16)
+    per k16 step, summed over its jobs (``_ldmatrix_conflicts`` on the h
+    tile)."""
+    tw = plan.tile_w
+    return 2 * _ldmatrix_conflicts(plan.tile_h * tw, tw, tw + 2,
+                                   LSTM_COMBOS[plan.combo]) * (C // plan.split // 16)
 
 
 def lstm_cost_terms(plan: LstmPlan, C: int, phased: bool = False) -> dict:
@@ -497,10 +511,156 @@ def lstm_plan_kinds(B: int, H: int, W: int, C: int, phased: bool = False
                        plan_lstm(B, H, W, C, phased))
 
 
+# -- K2's plan ---------------------------------------------------------------
+# A K2 block (csrc/gru_hside_bwd_tile.cuh) holds dpre_o with its 2-pixel
+# ring at pitch C + 8, [dpre_z | dpre_r] with its 1-pixel ring at 2C + 8, a
+# ring of two weight slabs (one tap x ks contraction rows x the block's cn
+# channels), the io tile (h and r of its channels on the 1-pixel ring, then
+# dh staged) and g*(1 - z) + da*r at the tile in f32, all C channels (no
+# split: a cluster split of 2 at C >= 128 timed within the run-to-run
+# spread of the best unsplit plan, PERF.md §6).  Each of its 8 warps owns
+# one job per pass over the weights: (MR, NR) m16 x n8 tiles of da, (MC,
+# NC) of dh.
+
+K2_COMBOS = ((4, 4, 2, 8), (3, 4, 2, 4), (2, 4, 1, 4))   # (MR, NR, MC, NC)
+# The planner's cost model, in the terms of k2_cost_terms: a launch takes
+# waves of blocks (_WAVE_BLOCKS at once: one block fits per SM), a block's
+# microseconds are linear in what it does.  The weights are the
+# non-negative least-squares fit of `gru_hside_timing.py --bwd --fit
+# gru_hside_bwd_sweep.jsonl` to the plans its --sweep timed on an H100 80GB
+# HBM3 at 700 W (308 plans, median error 8.7%, within 3.3% of the swept
+# best at the three timed shapes; PERF.md §6).
+_K2_MODEL = {"mma": 0.00832, "mma_lone": 0.0107, "weight_bytes": 9.72e-06,
+             "io_bytes": 4.24e-05, "slabs": 0.184, "a_conflicts": 0.00156}
+
+
+class K2Plan(NamedTuple):
+    """How K2 runs one shape: the output tile, the warp jobs (an index of
+    K2_COMBOS) and the contraction rows per weight slab."""
+    tile_h: int
+    tile_w: int
+    combo: int
+    ks: int
+
+
+def k2_smem_bytes(tile_h: int, tile_w: int, C: int, ks: int) -> int:
+    """Shared memory of one K2 block in bytes
+    (csrc/gru_hside_bwd_tile.cuh's k2_smem_bytes): the dpre_o tile with its
+    2-pixel ring at pitch C + 8, the [dpre_z | dpre_r] tile and the io tile
+    (h and r, later dh) with the 1-pixel ring at 2C + 8, the weight ring, 2
+    slabs x ks rows at pitch C + 8, bf16; the tile's C f32."""
+    ring, px = (tile_h + 2) * (tile_w + 2), tile_h * tile_w
+    return ((tile_h + 4) * (tile_w + 4) * (C + 8) + 2 * ring * (2 * C + 8)
+            + 2 * ks * (C + 8)) * 2 + px * C * 4
+
+
+def _k2_jobs(plan: K2Plan, C: int) -> Tuple[int, int]:
+    """(phase-da jobs, phase-dh jobs) of one block."""
+    mr, nr, mc, nc = K2_COMBOS[plan.combo]
+    return (math.ceil((plan.tile_h + 2) * (plan.tile_w + 2) / (16 * mr))
+            * math.ceil(C / (8 * nr)),
+            math.ceil(plan.tile_h * plan.tile_w / (16 * mc))
+            * math.ceil(C / (8 * nc)))
+
+
+def k2_weight_bytes(plan: K2Plan, B: int, H: int, W: int, C: int) -> int:
+    """The weight bytes one launch streams from L2 into shared memory: per
+    block and pass over the weights, Wo (phase da, 9 taps x C x C) or Wur
+    (phase dh, 9 taps x 2C x C), bf16."""
+    jd, jh = _k2_jobs(plan, C)
+    rows = math.ceil(jd / _WARPS) + 2 * math.ceil(jh / _WARPS)
+    return plan_blocks(plan, B, H, W) * rows * C * 9 * C * 2
+
+
+def check_k2_plan(plan: K2Plan, C: int) -> None:
+    """Raise ValueError unless K2 can run this plan at width C."""
+    ok = (plan.tile_h >= 1 and plan.tile_w >= 1 and C % 16 == 0
+          and 0 <= plan.combo < len(K2_COMBOS) and plan.ks in _SLABS
+          and C % plan.ks == 0)
+    if not ok:
+        raise ValueError(f"K2 cannot run plan {plan} at C={C}: C % 16 == 0, "
+                         f"combo < {len(K2_COMBOS)}, ks in {_SLABS} "
+                         "dividing C")
+    smem = k2_smem_bytes(plan.tile_h, plan.tile_w, C, plan.ks)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"K2 plan {plan} needs {smem} bytes of shared "
+                         f"memory at C={C}, over {_SMEM_MAX}")
+
+
+def k2_cost_terms(plan: K2Plan, C: int) -> dict:
+    """What one block of a plan does, in the units of ``_K2_MODEL``:
+    mma.sync per k16 step on its busiest sub-partition, over the passes
+    with two warps on it and with one (latency unhidden); the weight bytes
+    it streams; the g, h, acts, dh and dgx bytes it moves (g, z, o on the
+    2-pixel ring and h on the 1-pixel ring for all C, h and r of its
+    channels there, its dgx and dh at the tile); its weight slabs (each a
+    cp.async group and a barrier); its A-fragment bank conflicts over the
+    K walk (``_ldmatrix_conflicts`` on the dpre_o and [dpre_z | dpre_r]
+    tiles).  (A constant per block, as K1's model has, fitted to 0 on K2's
+    sweep.)"""
+    mr, nr, mc, nc = K2_COMBOS[plan.combo]
+    jd, jh = _k2_jobs(plan, C)
+
+    def busiest(jobs, per_job, lone):
+        return sum((2 if a > 4 else 1) * per_job for a in (
+            min(_WARPS, jobs - _WARPS * p) for p in range(math.ceil(jobs / _WARPS)))
+            if (a <= 4) == lone)
+
+    pd, ph = math.ceil(jd / _WARPS), math.ceil(jh / _WARPS)
+    th, tw = plan.tile_h, plan.tile_w
+    return {
+        "mma": (busiest(jd, mr * nr, False) + 2 * busiest(jh, mc * nc, False))
+        * 9 * C / 16,
+        "mma_lone": (busiest(jd, mr * nr, True) + 2 * busiest(jh, mc * nc, True))
+        * 9 * C / 16,
+        "weight_bytes": (pd + 2 * ph) * 9 * C * C * 2,
+        "io_bytes": ((th + 4) * (tw + 4) * 3 * C
+                     + (th + 2) * (tw + 2) * 3 * C + th * tw * 4 * C) * 2,
+        "slabs": (pd + 2 * ph) * 9 * (C // plan.ks),
+        "a_conflicts": (pd * math.ceil(C / (8 * nr)) * _ldmatrix_conflicts(
+            (th + 2) * (tw + 2), tw + 2, tw + 4, mr)
+            + 2 * ph * math.ceil(C / (8 * nc)) * _ldmatrix_conflicts(
+                th * tw, tw, tw + 2, mc)) * 9 * C / 16}
+
+
+def _k2_cost(plan: K2Plan, B: int, H: int, W: int, C: int) -> float:
+    """The planner's estimate of a launch's microseconds (``_K2_MODEL``)."""
+    terms = k2_cost_terms(plan, C)
+    return plan_waves(plan, B, H, W) * sum(_K2_MODEL[k] * v
+                                         for k, v in terms.items())
+
+
+def k2_plans(B: int, H: int, W: int, C: int) -> List[K2Plan]:
+    """Every plan the planner weighs for this shape of K2 (``_plans``
+    without a split)."""
+    return _plans(lambda th, tw, split, combo, ks: K2Plan(th, tw, combo, ks),
+                  H, W, C, 1, len(K2_COMBOS),
+                  lambda th, tw, split, ks: k2_smem_bytes(th, tw, C, ks))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_k2(B: int, H: int, W: int, C: int) -> Optional[K2Plan]:
+    """K2's plan: the least estimated cost (``_k2_cost``) among
+    ``k2_plans``, the first of equals; None when none fits in shared
+    memory."""
+    plans = k2_plans(B, H, W, C)
+    if not plans:
+        return None
+    return min(plans, key=lambda p: _k2_cost(p, B, H, W, C))
+
+
+def k2_plan_kinds(B: int, H: int, W: int, C: int) -> List[K2Plan]:
+    """One plan per combo the planner can pick at this shape, the
+    planner's own first (``_plan_kinds``)."""
+    return _plan_kinds(k2_plans(B, H, W, C),
+                       lambda p: _k2_cost(p, B, H, W, C), plan_k2(B, H, W, C))
+
+
 def supports(h: torch.Tensor) -> bool:
     """Whether the kernels take this NHWC state's dtype and shape: bf16,
     4-D, C a multiple of 16, a K1 plan and a tile of the launch variants
-    and of the backward that fit in shared memory."""
+    and of the first backward design that fit in shared memory (a K2 plan
+    exists wherever they do)."""
     return (h.dtype == torch.bfloat16 and h.dim() == 4
             and h.shape[-1] % 16 == 0 and pick_tile(*h.shape) is not None
             and plan_k1(*h.shape, residuals=True) is not None
@@ -750,7 +910,7 @@ _FWD_SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "ramnet_gru_hside_backward": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _I, _I, _I, _P)),
+                                       _I, _I, _I, _I, _I, _I, _P)),
     **_ERR,
 }
 _FULL_SIGNATURES = {
@@ -849,16 +1009,18 @@ def _gx_bstride(h, gx, gates: int = 3) -> int:
     return stride
 
 
-def _k1_plan(h, plan: Optional[K1Plan], residuals: bool) -> K1Plan:
-    """The planner's plan for h's shape, or the given one once checked."""
+def _resolve_plan(h, plan, make, planner, check, what: str):
+    """planner(*h.shape), the planner's plan for h's shape, or the given
+    plan as make(*plan) once check(plan, C) passes; what names the kernel
+    in the error when no plan fits."""
     C = h.shape[-1]
     if plan is None:
-        plan = plan_k1(*h.shape, residuals=residuals)
+        plan = planner(*h.shape)
         if plan is None:
-            raise ValueError(f"C={C} does not fit K1's shared memory")
+            raise ValueError(f"C={C} does not fit {what}'s shared memory")
         return plan
-    plan = K1Plan(*plan)
-    check_k1_plan(plan, C, residuals)
+    plan = make(*plan)
+    check(plan, C)
     return plan
 
 
@@ -875,7 +1037,10 @@ def _launch(h, gx, w_ur, w_o, residuals: bool, plan=None):
         raise ValueError("h, w_ur and w_o must be contiguous")
     B, H, W, C = h.shape
     gx_bstride = _gx_bstride(h, gx)
-    plan = _k1_plan(h, plan, residuals)
+    plan = _resolve_plan(h, plan, K1Plan,
+                         functools.partial(plan_k1, residuals=residuals),
+                         functools.partial(check_k1_plan, residuals=residuals),
+                         "K1")
     lib = library()
     if plan.split > 1 and not _cluster_launch_supported(h.device.index):
         raise RuntimeError(f"K1 plan {plan} needs a thread-block cluster "
@@ -899,22 +1064,20 @@ def _launch(h, gx, w_ur, w_o, residuals: bool, plan=None):
     return out
 
 
-def _launch_bwd(g, h, acts, w_ur, w_o):
+def _launch_bwd(g, h, acts, w_ur, w_o, plan=None):
     B, H, W, C = h.shape
     g, h, acts = g.contiguous(), h.contiguous(), acts.contiguous()
-    # convT = correlation with the flipped, in/out-swapped weights
-    wb_ur = w_ur.flip(0).transpose(1, 2).contiguous()    # [9, C, 2C]
-    wb_o = w_o.flip(0).transpose(1, 2).contiguous()      # [9, C, C]
-    _check_launch(h, g, acts, wb_ur, wb_o)
-    th, tw = _tile(h, smem_bytes_bwd)
+    w_ur, w_o = w_ur.contiguous(), w_o.contiguous()
+    _check_launch(h, g, acts, w_ur, w_o)
+    plan = _resolve_plan(h, plan, K2Plan, plan_k2, check_k2_plan, "K2")
     lib = library_bwd()
     dh = torch.empty_like(h)
     dgx = torch.empty((B, H, W, 3 * C), dtype=h.dtype, device=h.device)
     err = lib.ramnet_gru_hside_backward(
-        g.data_ptr(), h.data_ptr(), acts.data_ptr(), wb_ur.data_ptr(),
-        wb_o.data_ptr(), dh.data_ptr(), dgx.data_ptr(), B, H, W, C, th, tw,
+        g.data_ptr(), h.data_ptr(), acts.data_ptr(), w_ur.data_ptr(),
+        w_o.data_ptr(), dh.data_ptr(), dgx.data_ptr(), B, H, W, C, *plan,
         torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on(err, lib, "gru_hside_bwd")
+    _raise_on(err, lib, f"gru_hside_bwd (plan {plan})")
     conv_gru_hside_bwd.launches += 1
     return dh, dgx
 
@@ -978,21 +1141,6 @@ def raise_under_autograd(name: str, *tensors, why: str) -> None:
                            "run it under no_grad or inference_mode")
 
 
-def _lstm_plan(h, plan: Optional[LstmPlan], phased: bool) -> LstmPlan:
-    """The planner's plan of K3-res (phased: K4-res) for h's shape, or the
-    given one once checked."""
-    C = h.shape[-1]
-    if plan is None:
-        plan = plan_lstm(*h.shape, phased=phased)
-        if plan is None:
-            raise ValueError(f"C={C} does not fit K3-res/K4-res's shared "
-                             "memory")
-        return plan
-    plan = LstmPlan(*plan)
-    check_lstm_plan(plan, C, phased)
-    return plan
-
-
 def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False,
                 plan: Optional[LstmPlan] = None):
     """K3 (phased None: returns (h', c')) or K4 (phased = (tau, phase, t,
@@ -1004,7 +1152,11 @@ def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False,
     B, H, W, C = h.shape
     gx_bstride = _gx_bstride(h, gx, gates=4)
     if residuals:
-        plan = _lstm_plan(h, plan, phased is not None)
+        kw = {"phased": phased is not None}
+        plan = _resolve_plan(h, plan, LstmPlan,
+                             functools.partial(plan_lstm, **kw),
+                             functools.partial(check_lstm_plan, **kw),
+                             "K3-res/K4-res")
         tiling = tuple(plan)
     else:
         tiling = _tile(h, smem_bytes_lstm)
@@ -1063,17 +1215,22 @@ def conv_gru_hside_res(h: torch.Tensor, gx: torch.Tensor, w_ur: torch.Tensor,
 
 
 def conv_gru_hside_bwd(g: torch.Tensor, h: torch.Tensor, acts: torch.Tensor,
-                       w_ur: torch.Tensor, w_o: torch.Tensor
+                       w_ur: torch.Tensor, w_o: torch.Tensor,
+                       _plan: Optional[K2Plan] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dh, dgx): K2 for CUDA tensors, ``conv_gru_hside_bwd_plain`` for CPU
-    tensors.  ``conv_gru_hside_bwd.launches`` counts kernel launches."""
+    tensors.  ``conv_gru_hside_bwd.launches`` counts kernel launches.
+    _plan: a ``K2Plan`` that replaces ``plan_k2``'s (tests and timing;
+    checked on either device)."""
     _check(h, acts, w_ur, w_o)
     if tuple(g.shape) != tuple(h.shape):
         raise ValueError(f"g must be {tuple(h.shape)}, got {tuple(g.shape)}")
     if _device_of(h) == "cpu":
+        if _plan is not None:
+            check_k2_plan(K2Plan(*_plan), h.shape[-1])
         return conv_gru_hside_bwd_plain(g, h, acts, w_ur, w_o)
     with torch.cuda.device(h.device):
-        return _launch_bwd(g, h, acts, w_ur, w_o)
+        return _launch_bwd(g, h, acts, w_ur, w_o, _plan)
 
 
 class ConvGRUHside(torch.autograd.Function):

@@ -85,46 +85,93 @@ def _rel_err(got, want):
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
-TRAIN_CELLS = [(16, 28, 28, 256), (3, 30, 45, 96)]
+# K2 at the training shapes, the ragged one and K1's edge shapes (H or W
+# below the tile, H = W = 1, C = 16, 48 and 96, B > 1), under every combo
+# its planner can pick there (gru_hside.k2_plan_kinds, its own pick first)
+# and the forced plans below: ragged tiles, a tile beyond the image,
+# narrow slabs
+TRAIN_CELLS = [(16, 112, 112, 64), (16, 56, 56, 128), (16, 28, 28, 256),
+               (3, 30, 45, 96), (1, 5, 40, 64), (2, 9, 3, 128), (1, 3, 37, 256),
+               (1, 1, 1, 64), (2, 1, 1, 256), (1, 20, 24, 16), (2, 17, 19, 48),
+               (3, 33, 21, 96)]
+K2_EXTRA_PLANS = {
+    (16, 28, 28, 256): [gru_hside.K2Plan(4, 4, 0, 16),
+                        gru_hside.K2Plan(3, 8, 1, 32),
+                        gru_hside.K2Plan(5, 5, 0, 16)],
+    (3, 30, 45, 96): [gru_hside.K2Plan(5, 7, 1, 32),
+                      gru_hside.K2Plan(4, 8, 2, 16)],
+    (1, 1, 1, 64): [gru_hside.K2Plan(4, 4, 0, 64)],
+    (2, 17, 19, 48): [gru_hside.K2Plan(8, 8, 1, 16)],
+}
 
 
 @pytest.mark.parametrize("shape", TRAIN_CELLS, ids=lambda s: "x".join(map(str, s)))
 def test_res_and_bwd_kernels_match_plain(device, shape):
     """K1-res: h' and acts within 2e-2 of the plain version (values in
-    [-1, 1]; a few bf16 roundings).  K2: dh and dgx within 2e-2 of the
-    plain version's largest magnitude."""
+    [-1, 1]; a few bf16 roundings).  K2, under every plan kind: dh and dgx
+    within 2e-2 of the plain version's largest magnitude."""
     h, gx, g, w_ur, w_o = _cell_inputs(shape, device)
-    n_res, n_bwd = gru_hside.conv_gru_hside_res.launches, gru_hside.conv_gru_hside_bwd.launches
+    n_res = gru_hside.conv_gru_hside_res.launches
     got_h, got_acts = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o)
     want_h, want_acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
-    dh, dgx = gru_hside.conv_gru_hside_bwd(g, h, want_acts, w_ur, w_o)
     want_dh, want_dgx = gru_hside.conv_gru_hside_bwd_plain(g, h, want_acts, w_ur, w_o)
     torch.cuda.synchronize()
     assert gru_hside.conv_gru_hside_res.launches == n_res + 1
-    assert gru_hside.conv_gru_hside_bwd.launches == n_bwd + 1
     assert (got_h.float() - want_h.float()).abs().max().item() <= 2e-2
     assert (got_acts.float() - want_acts.float()).abs().max().item() <= 2e-2
-    assert _rel_err(dh, want_dh) <= 2e-2
-    assert _rel_err(dgx, want_dgx) <= 2e-2
+    for i, plan in enumerate(gru_hside.k2_plan_kinds(*shape)
+                             + K2_EXTRA_PLANS.get(shape, [])):
+        kw = {"_plan": plan} if i else {}   # the planner's own through the default
+        n_bwd = gru_hside.conv_gru_hside_bwd.launches
+        dh, dgx = gru_hside.conv_gru_hside_bwd(g, h, want_acts, w_ur, w_o, **kw)
+        torch.cuda.synchronize()
+        assert gru_hside.conv_gru_hside_bwd.launches == n_bwd + 1
+        errs = (_rel_err(dh, want_dh), _rel_err(dgx, want_dgx))
+        assert max(errs) <= 2e-2, (plan, errs)
 
 
 def test_function_kernels_match_plain(device):
     """The ConvGRUHside Function on the card (K1-res, K2, library weight
-    gradients) against the plain versions composed: every gradient within
-    2e-2 of the plain one's largest magnitude."""
-    h, gx, g, w_ur, w_o = _cell_inputs((2, 56, 56, 128), device)
-    w_ur, w_o = w_ur.float(), w_o.float()
-    args = [t.clone().requires_grad_() for t in (h, gx, w_ur, w_o)]
-    out = gru_hside.ConvGRUHside.apply(*args)
-    got = torch.autograd.grad(out, args, g)
-    want_h, acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
-    dh, dgx = gru_hside.conv_gru_hside_bwd_plain(
-        g, h, acts, w_ur.to(h.dtype), w_o.to(h.dtype))
-    want = (dh, dgx) + gru_hside.hside_weight_grads(h, acts, dgx)
-    assert (out.float() - want_h.float()).abs().max().item() <= 2e-2
-    for a, b in zip(got, want):
-        assert a.dtype == (torch.float32 if a.dim() == 3 else torch.bfloat16)
-        assert _rel_err(a, b) <= 2e-2
+    gradients) against the plain versions composed, at a training-like
+    shape and at two edge shapes: every gradient
+    within 2e-2 of the plain one's largest magnitude."""
+    for shape in ((2, 56, 56, 128), (1, 5, 40, 64), (2, 9, 3, 256)):
+        h, gx, g, w_ur, w_o = _cell_inputs(shape, device)
+        w_ur, w_o = w_ur.float(), w_o.float()
+        args = [t.clone().requires_grad_() for t in (h, gx, w_ur, w_o)]
+        n_bwd = gru_hside.conv_gru_hside_bwd.launches
+        out = gru_hside.ConvGRUHside.apply(*args)
+        got = torch.autograd.grad(out, args, g)
+        assert gru_hside.conv_gru_hside_bwd.launches == n_bwd + 1
+        want_h, acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+        dh, dgx = gru_hside.conv_gru_hside_bwd_plain(
+            g, h, acts, w_ur.to(h.dtype), w_o.to(h.dtype))
+        want = (dh, dgx) + gru_hside.hside_weight_grads(h, acts, dgx)
+        assert (out.float() - want_h.float()).abs().max().item() <= 2e-2
+        for a, b in zip(got, want):
+            assert a.dtype == (torch.float32 if a.dim() == 3 else torch.bfloat16)
+            assert _rel_err(a, b) <= 2e-2, shape
+
+
+def test_k2_refuses_bad_plans(device):
+    """A plan K2 cannot run raises before the launch; one the C entry
+    refuses (a combo it has not, a 48-wide slab, shared memory over a
+    block's) comes back as the launch's CUDA error text."""
+    h, _, g, w_ur, w_o = _cell_inputs((1, 16, 16, 96), device)
+    acts = torch.rand(1, 16, 16, 288).to(device, torch.bfloat16)
+    for bad in (gru_hside.K2Plan(8, 8, 3, 32), gru_hside.K2Plan(8, 8, 0, 64),
+                gru_hside.K2Plan(8, 8, 0, 48), gru_hside.K2Plan(64, 64, 0, 32)):
+        with pytest.raises(ValueError):
+            gru_hside.conv_gru_hside_bwd(g, h, acts, w_ur, w_o, _plan=bad)
+    lib = gru_hside.library_bwd()
+    dh, dgx = torch.empty_like(h), torch.empty_like(acts)
+    for th, combo, ks in ((8, 3, 32), (8, 0, 48), (64, 0, 32)):
+        err = lib.ramnet_gru_hside_backward(
+            g.data_ptr(), h.data_ptr(), acts.data_ptr(), w_ur.data_ptr(),
+            w_o.data_ptr(), dh.data_ptr(), dgx.data_ptr(), 1, 16, 16, 96, th, th,
+            combo, ks, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            gru_hside._raise_on(err, lib, "gru_hside_bwd")
 
 
 # K1 and K1-res under every (split, combo) the planner can pick for each
