@@ -27,7 +27,8 @@ package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
-                   lstm_hside.cu also with its IEEE gates);
+                   lstm_hside.cu and gru_full.cu also with their IEEE
+                   gates);
   2. kernel        K1 against its plain PyTorch version on the card, at the
                    three inference widths, one ragged shape and the edge
                    shapes (H or W below the tile, H = W = 1, C = 16, 48,
@@ -58,7 +59,11 @@ Phases, each printed as one JSON line:
                    time, its plan, device us, weight MB, registers and
                    spills);
   8. kernel_stream K5 against its plain version at the three per-package
-                   shapes and one ragged shape; K6 (with and without stats)
+                   shapes, one ragged shape and K1's edge shapes, under
+                   every (split, combo) plan K5's planner can pick at each
+                   (its own pick through the wrapper's default path), and
+                   the IEEE-gate build under the planner's plan; K6 (with
+                   and without stats)
                    and K7 (float32 and bf16 factors) on each of their
                    paths (one-pass, tiled) against their plain versions
                    on 5x260x346 at 1M events, one stream window (`live`),
@@ -79,7 +84,10 @@ Phases, each printed as one JSON line:
                    against the plain scatter;
  10. timing_stream per-package latency (median, p90) and depth maps/s with
                    K5 and with 'off', K5 per cell against its plain
-                   version, the voxelizers' device time (torch.profiler)
+                   version and the layer 'off' runs (queued, in mirrored
+                   turns; K5 and the layer also unqueued, their wrappers'
+                   time; K5's plan, device us, weight MB, registers and
+                   spills), the voxelizers' device time (torch.profiler)
                    and wrapper time (CUDA events) at 1M, live and
                    batch800 on the path each size picks and K6 on the
                    other, beside index_add_'s and (at 1M) the plain
@@ -97,7 +105,9 @@ Phases, each printed as one JSON line:
                    under 'auto': K3's count, the first chunk against 'off';
  13. timing_phased phased per-package latency (median, p90) and maps/s,
                    phased chunked maps/s, K3 and K4 per cell against their
-                   plain versions;
+                   plain versions; K3 at the flagship shapes (queued and
+                   wrapper time), where the ConvLSTM state combination
+                   runs it;
  14. kernel_chunked the chunked path's launch variants against their plain
                    versions: K9 at the flagship scales 0+1 and a ragged B=2
                    pair, K10a and K10b at the flagship shapes at a step of
@@ -515,15 +525,23 @@ def train_kernel_check(dev, gen):
 
 def cuda_time_us(fn, iters, queued=False):
     """Microseconds per call of fn by CUDA events over iters calls, after
-    three warm-up calls.  queued: the calls wait behind a sleep kernel, so
-    the events time the device and not the host's launch overhead."""
+    three warm-up calls.  queued: the calls wait behind a sleep kernel
+    (200k cycles a call, or twice the host's enqueue time of one call at
+    2 GHz where that is longer), so the events time the device and not
+    the host's launch overhead."""
     import torch
     for _ in range(3):
         fn()
     t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     if queued:
+        # the sleep outlasts the host's enqueue of the calls (one timed
+        # here), so the events see no gap the host leaves
         torch.cuda.synchronize()
-        torch.cuda._sleep(200_000 * iters)
+        t = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda._sleep(max(200_000, int(4e9 * host_s)) * iters)
     t0.record()
     for _ in range(iters):
         fn()
@@ -979,7 +997,8 @@ VOX_MATMUL_WINDOWS = 8   # batch800's windows that K7 bf16's plain version takes
 
 
 def stream_kernel_check(dev, gen, seed):
-    """K5 against its plain version per shape (max abs error); per case of
+    """K5 against its plain version per shape (max abs error under every
+    plan kind, and the IEEE-gate build's: ``k5_plan_errors``); per case of
     VOX_CHECKS and per path of the kernels (one-pass, tiled), K6 with and
     without stats and K7 with float32 factors against the plain scatter
     (max abs error, and relative to the grid's magnitude), K7 with bf16
@@ -988,17 +1007,9 @@ def stream_kernel_check(dev, gen, seed):
     float32 grid, and the stats per window against the plain grid's,
     relative."""
     import torch
-    from rpg_ramnet_tpu_torch.ops import gru_hside, voxel
-    k5 = {}
-    for shape in FLAGSHIP_CELLS + (RAGGED_CELL,):
-        _, x, h, w = make_full_cell_inputs(shape, dev, gen)
-        with torch.no_grad():
-            got = gru_hside.conv_gru_full(x, h, *w)
-            want = gru_hside.conv_gru_full_plain(x, h, *w)
-        torch.cuda.synchronize()
-        k5["x".join(map(str, shape))] = err = (got.float() - want.float()).abs().max().item()
-        if not (err <= CELL_TOL):
-            raise AssertionError(f"K5 vs plain at {shape}: {err} > {CELL_TOL}")
+    from rpg_ramnet_tpu_torch.ops import voxel
+    k5 = {"x".join(map(str, shape)): k5_plan_errors(shape, dev, gen)
+          for shape in FLAGSHIP_CELLS + (RAGGED_CELL,) + K1_EDGE_CELLS}
     nb, hh, ww = VOX_GRID
     kw = dict(num_bins=nb, height=hh, width=ww)
     vox = {}
@@ -1196,13 +1207,14 @@ def window_grid_check(log, dev):
     return worst, n
 
 
-def time_per_package(models, K, seed, steps=20, h=H, w=W, times=False):
+def time_per_package(models, K, seed, steps=20, h=H, w=W, times=False,
+                     turns=("off", "on", "on", "off")):
     """Per-package latency of StreamingInference.step (batched decode; host
     clock around each step, which ends in the predictions' copy to the
-    host) with the kernels ('on') and the plain cells ('off'), in turns
-    off, on, on, off after three warm-up packages each: median and p90 ms
-    per package, and depth maps/s over each turn.  times: the packages
-    carry timestamps (the phased regime)."""
+    host) with the kernels ('on') and the plain cells ('off'), in
+    ``turns`` (off, on, on, off) after three warm-up packages each: median
+    and p90 ms per package, and depth maps/s over each turn.  times: the
+    packages carry timestamps (the phased regime)."""
     import numpy as np
     from rpg_ramnet_tpu_torch.eval import StreamingInference
     rng = np.random.default_rng(seed)
@@ -1213,7 +1225,7 @@ def time_per_package(models, K, seed, steps=20, h=H, w=W, times=False):
             p["times_events"] = np.float32(0.05 * i + 0.01 * np.arange(K))
             p["times_image"] = p["times_events"][-1]
     runs = []
-    for mode in ("off", "on", "on", "off"):
+    for mode in turns:
         engine = StreamingInference(models[mode], batched_decode=True)
         for i in range(3):
             engine.step(pkgs[i % 4])
@@ -1227,7 +1239,7 @@ def time_per_package(models, K, seed, steps=20, h=H, w=W, times=False):
         runs.append({"mode": mode, "median_ms": float(np.median(lat)),
                      "p90_ms": float(np.percentile(lat, 90)),
                      "maps_per_s": (K + 1) * steps / wall})
-    out = {"runs_off_on_on_off": runs, "packages_per_run": steps}
+    out = {"runs": runs, "packages_per_run": steps}
     for mode in ("on", "off"):
         mine = [r for r in runs if r["mode"] == mode]
         best = min(mine, key=lambda r: r["median_ms"])
@@ -1237,26 +1249,43 @@ def time_per_package(models, K, seed, steps=20, h=H, w=W, times=False):
     return out
 
 
-def time_full_cells(dev, gen, iters=50):
-    """Microseconds per cell of K5 and its plain version at the flagship
-    per-package shapes, in turns plain, kernel, kernel, plain, and of the
-    plain bf16 layer that fused_gru='off' runs."""
-    import torch
+def full_cell_calls(cell, x, h, w, plan=None):
+    """(K5, its plain version, the layer fused_gru='off' runs: the ConvGRU
+    module on bf16 NCHW views, two library convolutions and the gates) on
+    one cell's inputs; the kernel under ``plan`` where one is given."""
     from rpg_ramnet_tpu_torch.ops import gru_hside
     from rpg_ramnet_tpu_torch.utils.layout import to_nchw
+    kw = {"_plan": plan} if plan is not None else {}
+    return (lambda: gru_hside.conv_gru_full(x, h, *w, **kw),
+            lambda: gru_hside.conv_gru_full_plain(x, h, *w),
+            lambda: cell(to_nchw(x), to_nchw(h)))
+
+
+def time_full_cells(dev, gen, iters=50):
+    """Microseconds per cell of K5, its plain version and the 'off' layer
+    (``full_cell_calls``) at the flagship per-package shapes, queued
+    (device time), in mirrored turns plain, layer, kernel, kernel, layer,
+    plain; K5 and the layer also unqueued (their wrappers' time); K5's
+    plan, device us per launch (torch.profiler), the planner's weight MB
+    per launch, registers and spills (``k5_report``)."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
     rows = []
     for shape in FLAGSHIP_CELLS:
         cell, x, h, w = make_full_cell_inputs(shape, dev, gen)
         cell.to(dev)
-        kern = lambda: gru_hside.conv_gru_full(x, h, *w)  # noqa: E731
-        plain = lambda: gru_hside.conv_gru_full_plain(x, h, *w)  # noqa: E731
-        layer = lambda: cell(to_nchw(x), to_nchw(h))  # noqa: E731
+        kern, plain, layer = full_cell_calls(cell, x, h, w)
         with torch.no_grad():
-            p1, k1, k2, p2 = (cuda_time_us(f, iters) for f in (plain, kern, kern, plain))
-            layer_us = cuda_time_us(layer, iters)
-        rows.append({"shape": list(shape), "kernel_us": min(k1, k2),
-                     "plain_us": min(p1, p2), "plain_layer_bf16_us": layer_us,
-                     "us_runs_p_k_k_p": [p1, k1, k2, p2]})
+            p1, l1, k1, k2, l2, p2 = (cuda_time_us(f, iters, queued=True)
+                                      for f in (plain, layer, kern, kern, layer, plain))
+            row = {"shape": list(shape), "kernel_us": min(k1, k2),
+                   "plain_us": min(p1, p2), "plain_layer_bf16_us": min(l1, l2),
+                   "us_runs_p_l_k_k_l_p": [p1, l1, k1, k2, l2, p2],
+                   "kernel_wrapper_us": min(cuda_time_us(kern, iters) for _ in range(2)),
+                   "layer_wrapper_us": min(cuda_time_us(layer, iters) for _ in range(2))}
+            row.update(k5_report(shape, gru_hside.plan_k5(*shape)))
+            row["device_us"], row["device_records"] = launch_device_us(kern, 10)
+        rows.append(row)
     return rows
 
 
@@ -1454,6 +1483,26 @@ def time_lstm_cells(dev, gen, iters=50):
     return rows
 
 
+def time_k3_flagship(dev, gen, iters=50):
+    """Microseconds per cell of K3 at the flagship shapes, where the
+    ConvLSTM state combination runs it on the chunked engine: queued
+    (device time) and unqueued (its wrapper's time), each the least of two
+    turns."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    rows = []
+    for shape in FLAGSHIP_CELLS:
+        h, c, gx, w4, *_ = make_lstm_inputs(shape, dev, gen)
+        kern = lambda: gru_hside.conv_lstm_hside(h, c, gx, w4)  # noqa: E731
+        with torch.no_grad():
+            rows.append({"shape": list(shape),
+                         "k3_kernel_us": min(cuda_time_us(kern, iters, queued=True)
+                                             for _ in range(2)),
+                         "k3_wrapper_us": min(cuda_time_us(kern, iters)
+                                              for _ in range(2))})
+    return rows
+
+
 def write_phased_data(root, K, seed):
     """The phased split: two sequences of PHASED_SEQ_LENGTHS packages at
     PHASED_H x PHASED_W, timestamps included."""
@@ -1595,7 +1644,9 @@ def phased_phases(cfg, K, dev, gen, seed, dataset, packages, first_chunk,
     ph_chunked = time_chunked(ph_models, ph_dataset, PHASED_CHUNK, n_ph_padded,
                               K)
     lstm_cells = time_lstm_cells(dev, gen)
+    k3_flagship = time_k3_flagship(dev, gen)
     emit({"phase": "timing_phased", **ph_latency, "chunked": ph_chunked,
+          "k3_flagship_cells": k3_flagship,
           "lstm_cells": lstm_cells, "nvidia_smi": smi})
 
     return {"k3_errs": k3_errs, "k4_errs": k4_errs, "counts": ph_counts,
@@ -1667,6 +1718,66 @@ def lstm_gates(build):
         yield
     finally:
         gru_hside.library_lstm = built
+
+
+@contextlib.contextmanager
+def k5_gates(build):
+    """Within: K5 launches from one build of csrc/gru_full.cu, 'fast' (the
+    default: the gates on ex2/rcp) or 'exact' (gru_hside.K5_EXACT_GATES:
+    the IEEE gates)."""
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    built = gru_hside.library_full
+    lib = built(gru_hside.K5_EXACT_GATES if build == "exact" else ())
+    gru_hside.library_full = lambda defines=(): lib
+    try:
+        yield
+    finally:
+        gru_hside.library_full = built
+
+
+def k5_ptxas(ptxas, combo):
+    """The ptxas entry of K5's k5_kernel<MR, NR, MC, NC> for a combo."""
+    tag = "I" + "".join(f"Li{v}E" for v in combo) + "E"
+    for name, info in ptxas.items():
+        if "k5_kernel" in name and tag in name:
+            return info
+    return None
+
+
+def k5_report(shape, plan):
+    """K5's plan at shape, the weight MB one launch streams into shared
+    memory as the planner counts them (``k5_weight_bytes``: an estimate,
+    not a measurement), and the kernel's registers and spills (ptxas)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    ptxas = ptxas_by_kernel(kernels.build_log.get("gru_full", ""))
+    return {"plan": plan._asdict(),
+            "weight_mb": gru_hside.k5_weight_bytes(plan, *shape) / 1e6,
+            "ptxas": k5_ptxas(ptxas, gru_hside.K5_COMBOS[plan.combo])}
+
+
+def k5_plan_errors(shape, dev, gen):
+    """{plan: max abs error} of K5 against its plain version at one shape
+    under every plan kind its planner can pick there (its own pick through
+    the wrapper's default path), and the IEEE-gate build's error under the
+    planner's plan ("exact_gates"); raises where one is over CELL_TOL."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    _, x, h, w = make_full_cell_inputs(shape, dev, gen)
+    errs = {}
+    with torch.no_grad():
+        want = gru_hside.conv_gru_full_plain(x, h, *w)
+        runs = [(plan_name(p), {"_plan": p} if i else {})
+                for i, p in enumerate(gru_hside.k5_plan_kinds(*shape))]
+        for name, kw in runs + [("exact_gates", {})]:
+            with k5_gates("exact" if name == "exact_gates" else "fast"):
+                got = gru_hside.conv_gru_full(x, h, *w, **kw)
+            torch.cuda.synchronize()
+            errs[name] = err = (got.float() - want.float()).abs().max().item()
+            if not (err <= CELL_TOL):
+                raise AssertionError(f"K5 vs plain at {shape}, {name}: max abs "
+                                     f"err {err} > {CELL_TOL}")
+    return errs
 
 
 def lstm_res_calls(inputs, phased):
@@ -2345,10 +2456,12 @@ def main() -> int:
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     kernels.build(gru_hside.SOURCES + voxel.SOURCES + upsample_conv.SOURCES
-                  + (("lstm_hside", gru_hside.LSTM_EXACT_GATES),))
+                  + (("lstm_hside", gru_hside.LSTM_EXACT_GATES),
+                     ("gru_full", gru_hside.K5_EXACT_GATES)))
     gru_hside.library()
     gru_hside.library_bwd()
     gru_hside.library_full()
+    gru_hside.library_full(gru_hside.K5_EXACT_GATES)
     gru_hside.library_lstm()
     gru_hside.library_lstm(gru_hside.LSTM_EXACT_GATES)
     gru_pair.library()
@@ -2650,11 +2763,16 @@ def main() -> int:
                    sum(r["bwd_plain_us"] for r in train_cells) / 1e3,
                    cell_bound("k2", TRAIN_CELLS)),
              wrapper_ms=sum(r["bwd_k2"]["wrapper_us"] for r in train_cells) / 1e3),
-        entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
-              k5_launches, max(k5_errs.values()),
-              sum(r["kernel_us"] for r in full_cells) / 1e3,
-              sum(r["plain_us"] for r in full_cells) / 1e3,
-              cell_bound("k5", FLAGSHIP_CELLS)),
+        dict(entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
+                   k5_launches,
+                   max(e for row in k5_errs.values() for k, e in row.items()
+                       if k != "exact_gates"),
+                   sum(r["kernel_us"] for r in full_cells) / 1e3,
+                   sum(r["plain_us"] for r in full_cells) / 1e3,
+                   cell_bound("k5", FLAGSHIP_CELLS)),
+             wrapper_ms=sum(r["kernel_wrapper_us"] for r in full_cells) / 1e3,
+             plan={"x".join(map(str, r["shape"])): r["plan"] for r in full_cells},
+             off_layer_ms=sum(r["plain_layer_bf16_us"] for r in full_cells) / 1e3),
         dict(entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
                    stream_counts["k6"] + batch_run["auto"]["launches"],
                    max(max(r[p]["k6"], r[p]["k6_stats"]) for r in vox_errs.values()

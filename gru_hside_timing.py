@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time kernels K1 and K1-res (the fused ConvGRU h-side cell), with --bwd
-K2 (its backward), or with --lstm K3-res and K4-res (the ConvLSTM training
-cells), on one GPU.
+K2 (its backward), with --full K5 (the whole ConvGRU cell), or with --lstm
+K3-res and K4-res (the ConvLSTM training cells), on one GPU.
 
     python3 gru_hside_timing.py [--root DIR] [--plans auto,split1]
                                 [--label NAME] [--sweep] [--gates]
@@ -9,6 +9,10 @@ cells), on one GPU.
     python3 gru_hside_timing.py --bwd [--root DIR] [--label NAME] [--sweep]
                                 [--profile-train]
     python3 gru_hside_timing.py --bwd --fit SWEEP.jsonl
+    python3 gru_hside_timing.py --full [--root DIR] [--plans auto,split1]
+                                [--label NAME] [--sweep] [--gates]
+                                [--latency-pairs N]
+    python3 gru_hside_timing.py --full --fit SWEEP.jsonl
     python3 gru_hside_timing.py --lstm [--root DIR] [--plans auto,...]
                                 [--label NAME] [--sweep] [--gates]
                                 [--profile-train]
@@ -65,6 +69,26 @@ of K1-res and K2, of the ConvGRUHside Function's backward split into
 library convolutions and the rest (the a = r*h pass, casts), and of
 everything else.
 
+--full does the same for K5 at the flagship per-package shapes (K1's
+three), one line per plan set and shape: the plan, queued and wrapper us
+(mirrored turns), the device us per launch by torch.profiler, the queued
+us of the layer fused_gru='off' runs (two library convolutions and the
+gates, timed in the first and the last turn), the plain version's queued
+us, the max abs error against it, the weight MB one launch streams (the
+first design's per-item reads where the tree has no planner), the shared
+memory, registers and spills.  Its plan sets: ``auto`` (``plan_k5``),
+``split1`` (``plan_k5`` without the cluster split) and ``fixed`` (no
+planner: the largest of pick_tile's tiles that fits with the widest slab,
+combo 1, no split).  --sweep times every
+plan ``k5_plans`` weighs within 6x of the cost it estimates for its best,
+the least of two timings each (the lines ``_K5_MODEL`` is fitted to;
+gru_full_sweep.jsonl holds the sweep the committed model was fitted to),
+--fit fits ``_K5_MODEL``, --gates builds gru_full.cu with
+-DRAMNET_K5_EXACT_GATES and gives both builds' errors and times under the
+planner's plans, and --latency-pairs N times the flagship's per-package
+latency at 256x512 with fused_gru 'on' (K5) and 'off' in N mirrored pairs
+of turns.
+
 --lstm does the same for K3-res and K4-res at the phased training shapes
 (B=8 at 112x112x64, 56x56x128, 28x28x256), one line per plan set, kernel
 and shape with its max and mean abs error against the plain version
@@ -104,13 +128,18 @@ ITERS = 20   # launches per timed turn
 SWEEP_FILE = "gru_hside_sweep.jsonl"
 LSTM_SWEEP_FILE = "lstm_hside_sweep.jsonl"
 BWD_SWEEP_FILE = "gru_hside_bwd_sweep.jsonl"
+FULL_SWEEP_FILE = "gru_full_sweep.jsonl"
 
 
 def _cost_row(gru_hside, r):
     """(cost terms, waves) of a sweep line's plan: K1's for "k1" and
-    "k1_res", K2's for "k2", K3-res's and K4-res's for "k3_res" and
-    "k4_res"."""
+    "k1_res", K2's for "k2", K5's for "k5", K3-res's and K4-res's for
+    "k3_res" and "k4_res"."""
     C = r["shape"][-1]
+    if r["sweep"] == "k5":
+        plan = gru_hside.K5Plan(*r["plan"])
+        return (gru_hside.k5_cost_terms(plan, C),
+                gru_hside.plan_waves(plan, *r["shape"][:3]))
     if r["sweep"] == "k2":
         plan = gru_hside.K2Plan(*r["plan"])
         return (gru_hside.k2_cost_terms(plan, C),
@@ -124,10 +153,11 @@ def _cost_row(gru_hside, r):
             gru_hside.plan_waves(plan, *r["shape"][:3]))
 
 
-def fit_model(lines, lstm=False, bwd=False):
+def fit_model(lines, lstm=False, bwd=False, full=False):
     """(model, report): the ``_K1_MODEL`` weights (lstm: ``_LSTM_MODEL``;
-    bwd: ``_K2_MODEL``) fitted to sweep lines ({"sweep": "k1" or "k1_res"
-    (lstm: "k3_res" or "k4_res"; bwd: "k2"), "shape", "plan", "us"}) by
+    bwd: ``_K2_MODEL``; full: ``_K5_MODEL``) fitted to sweep lines
+    ({"sweep": "k1" or "k1_res" (lstm: "k3_res" or "k4_res"; bwd: "k2";
+    full: "k5"), "shape", "plan", "us"}) by
     non-negative least squares of the relative error, rounded to three
     significant digits, and the fit's median and largest relative error
     and, per shape, the planner's pick under that model against the swept
@@ -136,7 +166,7 @@ def fit_model(lines, lstm=False, bwd=False):
     from scipy.optimize import nnls
     from rpg_ramnet_tpu_torch.ops import gru_hside
     rows = [r for r in lines if "sweep" in r]
-    keys = list(gru_hside._K2_MODEL if bwd else
+    keys = list(gru_hside._K2_MODEL if bwd else gru_hside._K5_MODEL if full else
                 gru_hside._LSTM_MODEL if lstm else gru_hside._K1_MODEL)
     A, t = [], []
     for r in rows:
@@ -550,6 +580,190 @@ def bwd_main(args, torch) -> int:
     return 0
 
 
+def full_main(args, torch) -> int:
+    """--full: K5 (see the module's docstring)."""
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    dev = torch.device("cuda")
+    smi = chip_smoke.nvidia_smi_line()
+    gru_hside.library_full()   # built here, so the build log has its ptxas report
+    planned = hasattr(gru_hside, "plan_k5")
+    sets = (args.plans or "auto").split(",") if planned else ["default"]
+    label = args.label or ("tree" if planned else "default")
+    gen = torch.Generator().manual_seed(0)
+    cases = [(s, chip_smoke.make_full_cell_inputs(s, dev, gen)) for s in FLAGSHIP_CELLS]
+    for _, (cell, *_) in cases:
+        cell.to(dev)
+
+    def plan_of(plan_set, shape):
+        if plan_set == "auto":
+            return gru_hside.plan_k5(*shape)
+        if plan_set == "split1":
+            return gru_hside.plan_k5(*shape, max_split=1)
+        if plan_set == "fixed":
+            return k5_fixed_plan(gru_hside, shape)
+        if plan_set == "default":
+            return None
+        raise ValueError(f"--full has no plan set {plan_set!r}")
+
+    def calls(plan, inputs):
+        cell, x, h, w = inputs
+        return chip_smoke.full_cell_calls(cell, x, h, w, plan)
+
+    times, wrapper, layer_times = {}, {}, {}
+    with torch.no_grad():
+        for turn, plan_set in enumerate(sets + sets[::-1]):   # mirrored turns
+            for shape, inputs in cases:
+                kern, _, layer = calls(plan_of(plan_set, shape), inputs)
+                key = (plan_set, shape)
+                if turn in (0, 2 * len(sets) - 1):   # the 'off' layer, first and last
+                    layer_times.setdefault(shape, []).append(
+                        chip_smoke.cuda_time_us(layer, ITERS, queued=True))
+                times.setdefault(key, []).append(
+                    chip_smoke.cuda_time_us(kern, ITERS, queued=True))
+                wrapper.setdefault(key, []).append(chip_smoke.cuda_time_us(kern, ITERS))
+    lines, sums, plain_us = [], {}, {}
+    for plan_set in sets:
+        for shape, inputs in cases:
+            plan = plan_of(plan_set, shape)
+            key = (plan_set, shape)
+            kern, plain, _ = calls(plan, inputs)
+            with torch.no_grad():
+                got, want = kern(), plain()
+                if shape not in plain_us:
+                    plain_us[shape] = min(chip_smoke.cuda_time_us(plain, ITERS, queued=True)
+                                          for _ in range(2))
+                dev_us, records = chip_smoke.launch_device_us(kern, 10)
+            row = {"label": label, "plans": plan_set, "shape": list(shape),
+                   "us": min(times[key]), "us_turns": times[key],
+                   "wrapper_us": min(wrapper[key]), "wrapper_us_turns": wrapper[key],
+                   "device_us": dev_us, "device_records": records,
+                   "off_layer_us": min(layer_times[shape]),
+                   "off_layer_us_turns": layer_times[shape],
+                   "plain_us": plain_us[shape],
+                   "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                   **k5_report(gru_hside, shape, plan)}
+            if plan is not None:
+                row["smem_bytes"] = gru_hside.k5_smem_bytes(
+                    plan.tile_h, plan.tile_w, shape[-1], plan.split, plan.ks)
+            for name, v in (("us", row["us"]), ("wrapper_us", row["wrapper_us"]),
+                            ("off_layer_us", row["off_layer_us"])):
+                sums[f"{plan_set}_k5_{name}"] = sums.get(f"{plan_set}_k5_{name}", 0.0) + v
+            print(json.dumps(row), flush=True)
+    if args.sweep and planned:
+        with torch.no_grad():
+            for shape, inputs in cases:
+                plans = gru_hside.k5_plans(*shape)
+                best = min(gru_hside._k5_cost(p, *shape) for p in plans)
+                for plan in plans:
+                    if gru_hside._k5_cost(plan, *shape) > 6 * best:
+                        continue
+                    kern = calls(plan, inputs)[0]
+                    lines.append({"sweep": "k5", "shape": list(shape), "plan": list(plan),
+                                  "us": min(chip_smoke.cuda_time_us(kern, 10, queued=True)
+                                            for _ in range(2))})
+    if args.gates and planned:
+        lines += full_gate_errors(torch, gru_hside, cases, calls)
+    if args.latency_pairs:
+        del cases
+        torch.cuda.empty_cache()
+        lines.append({"per_package_pairs": per_package_pairs(torch, dev, args.latency_pairs)})
+    lines.append({"label": label, "summary": sums, "nvidia_smi": smi,
+                  "torch": torch.__version__, "cuda": torch.version.cuda})
+    for row in lines:
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+def k5_first_design_smem_bytes(tile_h, tile_w, C):
+    """The first K5 design's footprint: [x | h] with a 2-pixel halo at
+    pitch 2C + 8 and a = r*h with a 1-pixel ring at pitch C + 8, bf16."""
+    return ((tile_h + 4) * (tile_w + 4) * (2 * C + 8)
+            + (tile_h + 2) * (tile_w + 2) * (C + 8)) * 2
+
+
+def k5_first_design_weight_bytes(gru_hside, B, H, W, C):
+    """The weight bytes of one launch of the first K5 design: per block
+    (pick_tile with its footprint) and 32-pixel x 16-channel warp item,
+    9 taps x 16 channels x the 2C contraction (r on the 1-pixel ring; z and
+    o on the tile), bf16."""
+    th, tw = gru_hside.pick_tile(B, H, W, C, smem=k5_first_design_smem_bytes)
+    blocks = B * -(-H // th) * -(-W // tw)
+    items = (-(-(th + 2) * (tw + 2) // 32) * C // 16, -(-th * tw // 32) * C // 16)
+    return blocks * (items[0] + 2 * items[1]) * 9 * 16 * 2 * C * 2
+
+
+def k5_report(gru_hside, shape, plan):
+    """chip_smoke.k5_report's plan, weight MB and ptxas entry; on a tree
+    from before ``plan_k5`` (plan None) the first design's weight bytes
+    and the ptxas entry of its gru_full_kernel."""
+    if plan is not None:
+        return chip_smoke.k5_report(shape, plan)
+    from rpg_ramnet_tpu_torch import kernels
+    ptxas = chip_smoke.ptxas_by_kernel(kernels.build_log.get("gru_full", ""))
+    return {"plan": None,
+            "weight_mb": k5_first_design_weight_bytes(gru_hside, *shape) / 1e6,
+            "ptxas": next((info for name, info in ptxas.items()
+                           if "gru_full_kernel" in name), None)}
+
+
+def k5_fixed_plan(gru_hside, shape):
+    """A K5 plan without the planner: the largest of pick_tile's tiles that
+    fits with the widest slab, combo 1 (warp jobs of 64 pixels x 32
+    channels of r, 32 x 32 of z and o), no split."""
+    B, H, W, C = shape
+    for th, tw in gru_hside._TILES:
+        for ks in (64, 32, 16):
+            if C % ks == 0 and gru_hside.k5_smem_bytes(th, tw, C, 1, ks) <= gru_hside._SMEM_MAX:
+                return gru_hside.K5Plan(min(th, H), min(tw, W), 1, 1, ks)
+    raise ValueError(f"no fixed plan fits at {shape}")
+
+
+def full_gate_errors(torch, gru_hside, cases, calls):
+    """Per shape under the planner's plan, for the built K5 ("fast") and
+    the IEEE gates' ("exact"): [max abs error, mean abs error] against the
+    plain version, and each build's device us per launch (queued, least of
+    mirrored turns)."""
+    lines = []
+    for shape, inputs in cases:
+        kern, plain, _ = calls(None, inputs)
+        row = {"gates": "k5", "shape": list(shape)}
+        turns = {}
+        with torch.no_grad():
+            want = plain()
+            for build in ("fast", "exact", "exact", "fast"):
+                with chip_smoke.k5_gates(build):
+                    if build not in row:
+                        got = kern()
+                        torch.cuda.synchronize()
+                        row[build] = chip_smoke.abs_errs(got, want)
+                    turns.setdefault(build, []).append(
+                        chip_smoke.cuda_time_us(kern, ITERS, queued=True))
+        row["us"] = {b: min(v) for b, v in turns.items()}
+        row["us_turns"] = turns
+        lines.append(row)
+    return lines
+
+
+def per_package_pairs(torch, dev, pairs, seed=0):
+    """Per-package latency of the flagship's streaming engine at 256x512,
+    fused_gru 'on' (K5) against 'off', in ``pairs`` mirrored pairs of turns
+    (off, on, on, off, ...; chip_smoke.time_per_package), one model's
+    weights in both."""
+    import dataclasses
+    from rpg_ramnet_tpu_torch.core.config import ModelConfig
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
+    cfg = ModelConfig.load(os.path.join(chip_smoke.ROOT, chip_smoke.CONFIG))
+    K = event_loop_range(cfg)
+    models = {}
+    for mode in ("on", "off"):
+        models[mode] = ERGB2DepthRecurrent(
+            dataclasses.replace(cfg, fused_gru=mode), device=dev,
+            generator=torch.Generator().manual_seed(seed))
+    turns = (("off", "on"), ("on", "off")) * (pairs // 2) + (("off", "on"),) * (pairs % 2)
+    return chip_smoke.time_per_package(models, K, seed,
+                                       turns=tuple(m for pair in turns for m in pair))
+
+
 def lstm_main(args, torch) -> int:
     """--lstm: K3-res and K4-res (see the module's docstring)."""
     from rpg_ramnet_tpu_torch import kernels
@@ -653,6 +867,8 @@ def main() -> int:
     ap.add_argument("--fit", default=None, metavar="SWEEP.jsonl")
     ap.add_argument("--lstm", action="store_true")
     ap.add_argument("--bwd", action="store_true")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--latency-pairs", type=int, default=0)
     ap.add_argument("--profile-train", action="store_true")
     args = ap.parse_args()
     if args.root:
@@ -660,8 +876,8 @@ def main() -> int:
     if args.fit:
         with open(args.fit) as f:
             model, report = fit_model([json.loads(line) for line in f if line.strip()],
-                                      lstm=args.lstm, bwd=args.bwd)
-        print(json.dumps({"_K2_MODEL" if args.bwd else
+                                      lstm=args.lstm, bwd=args.bwd, full=args.full)
+        print(json.dumps({"_K2_MODEL" if args.bwd else "_K5_MODEL" if args.full else
                           "_LSTM_MODEL" if args.lstm else "_K1_MODEL": model}))
         print(json.dumps(report))
         return 0
@@ -673,6 +889,8 @@ def main() -> int:
         return lstm_main(args, torch)
     if args.bwd:
         return bwd_main(args, torch)
+    if args.full:
+        return full_main(args, torch)
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.ops import gru_hside
     dev = torch.device("cuda")

@@ -67,24 +67,6 @@ void (*kernel_of(int combo))(const K1Args) {
   }
 }
 
-// The launch configuration of a grid of K1 blocks in clusters of `split`.
-struct K1Config {
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  K1Config(dim3 grid, size_t smem, int split, cudaStream_t stream) {
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = split;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = split > 1 ? 1 : 0;
-  }
-};
-
 template <bool kRes>
 cudaError_t launch_combo(int combo, const K1Args& a, dim3 grid, size_t smem,
                          cudaStream_t stream) {
@@ -93,7 +75,7 @@ cudaError_t launch_combo(int combo, const K1Args& a, dim3 grid, size_t smem,
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  K1Config c(grid, smem, a.split, stream);
+  ClusterLaunch c(grid, smem, a.split, stream);
   err = cudaLaunchKernelEx(&c.cfg, kern, a);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
@@ -182,7 +164,7 @@ int ramnet_gru_hside_max_active_clusters(int res, int C, int tile_h, int tile_w,
     cudaGetLastError();
     return -1;
   }
-  K1Config c(dim3(split * 1024), smem, split, nullptr);
+  ClusterLaunch c(dim3(split * 1024), smem, split, nullptr);
   c.cfg.numAttrs = 1;   // the query takes the cluster's size from the attribute
   int n = 0;
   if (cudaOccupancyMaxActiveClusters(&n, kern, &c.cfg) != cudaSuccess) {

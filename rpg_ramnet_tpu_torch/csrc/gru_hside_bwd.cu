@@ -37,8 +37,6 @@ void (*k2_kernel_of(int combo))(const K2Args) {
   }
 }
 
-constexpr size_t kSmemMax = 232448;   // bytes a block may use on Hopper
-
 // Whether K2 can run the plan at width C (ops/gru_hside.py::check_k2_plan).
 bool k2_plan_ok(int C, int tile_h, int tile_w, int combo, int ks) {
   return C % 16 == 0 && (ks == 16 || ks == 32 || ks == 64) && C % ks == 0 && tile_h >= 1 &&

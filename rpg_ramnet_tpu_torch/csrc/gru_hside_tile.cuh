@@ -66,6 +66,26 @@ struct K1Args {
 };
 
 constexpr int kStages = 2;   // weight slabs in the ring
+constexpr size_t kSmemMax = 232448;   // bytes a block may use on Hopper
+
+// The launch configuration of a grid of blocks in clusters of `split`
+// (K1, K1-res and K5).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(dim3 grid, size_t smem, int split, cudaStream_t stream) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = split > 1 ? 1 : 0;
+  }
+};
 
 // Shared memory of one block in bytes, bf16: the h tile with its 2-pixel
 // halo and the a tile with its 1-pixel ring (both at pixel pitch C + kPad),

@@ -35,7 +35,8 @@ on its own tile (``csrc/gru_hside_bwd_tile.cuh``) under a plan per shape
 
 ``conv_gru_full`` is the whole cell on cat(x, h) with biases, for the
 per-package streaming path where no gx exists: kernel K5
-(``csrc/gru_full.cu``), the counterpart of ``conv_gru_full_fused``
+(``csrc/gru_full.cu``, on its own tile ``csrc/gru_full_tile.cuh`` under a
+plan per shape, ``plan_k5``), the counterpart of ``conv_gru_full_fused``
 (``_run_full``/``_full_kernel``).  Inference only, as the JAX kernel (no
 VJP).  Its weights are ``ConvGRU.full_weights``: w_ur [9, 2C, 2C] (update
 rows, then reset rows; x columns, then h columns), w_o [9, C, 2C], biases
@@ -73,12 +74,13 @@ import torch.nn.functional as F
 
 from ..utils.layout import to_nchw, to_nhwc
 
-# H x W output tiles pick_tile chooses from, largest first, for K3, K4, K5
+# H x W output tiles pick_tile chooses from, largest first, for K3, K4
 # and the launch variants K9, K10a, K10b and K11 (gru_cell.cuh).  A block
 # of those holds the h tile with a 2-pixel halo and a = r*h with a 1-pixel
 # ring in shared memory (K9-K11); smaller tiles recompute more of the ring
 # but give more blocks.  K1 and K1-res have their own planner (plan_k1,
-# below), K2 its own (plan_k2), K3-res and K4-res theirs (plan_lstm).
+# below), K2 its own (plan_k2), K3-res and K4-res theirs (plan_lstm), K5
+# its own (plan_k5).
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
 _SMEM_MAX = 232448           # bytes a block may use on Hopper
 _SMEM_TWO_BLOCKS = 110 * 1024
@@ -102,13 +104,6 @@ def smem_bytes_bwd(tile_h: int, tile_w: int, C: int) -> int:
     return ((tile_h + 4) * (tile_w + 4) * (C + 8) * 2
             + (tile_h + 2) * (tile_w + 2) * (2 * C + 8) * 2
             + tile_h * tile_w * C * 4)
-
-
-def smem_bytes_full(tile_h: int, tile_w: int, C: int) -> int:
-    """K5: [x | h] with a 2-pixel halo at pitch 2C + 8 and a = r*h with a
-    1-pixel ring at pitch C + 8, bf16."""
-    return ((tile_h + 4) * (tile_w + 4) * (2 * C + 8)
-            + (tile_h + 2) * (tile_w + 2) * (C + 8)) * 2
 
 
 def smem_bytes_lstm(tile_h: int, tile_w: int, C: int) -> int:
@@ -216,6 +211,14 @@ def plan_waves(plan, B: int, H: int, W: int) -> int:
     return math.ceil(plan_blocks(plan, B, H, W) / _WAVE_BLOCKS)
 
 
+def _busiest(jobs: int, per_job: int, lone: bool) -> int:
+    """per_job summed on a block's busiest sub-partition over the passes
+    with two warps on it (lone: with one, whose latency nothing hides)."""
+    return sum((2 if a > 4 else 1) * per_job for a in (
+        min(_WARPS, jobs - _WARPS * p) for p in range(math.ceil(jobs / _WARPS)))
+        if (a <= 4) == lone)
+
+
 def k1_weight_bytes(plan: K1Plan, B: int, H: int, W: int, C: int) -> int:
     """The weight bytes one launch streams from L2 into shared memory: per
     block and pass over the weights, its C/split rows of Wr (phase r) or of
@@ -248,19 +251,12 @@ def k1_cost_terms(plan: K1Plan, C: int, residuals: bool = False) -> dict:
     mr, nr, mc, nc = K1_COMBOS[plan.combo]
     jr, jc = _k1_jobs(plan, C)
 
-    def busiest(jobs, per_job, lone):
-        # per_job summed on the busiest sub-partition over the passes with
-        # two warps on it (lone: with one, whose latency nothing hides)
-        return sum((2 if a > 4 else 1) * per_job for a in (
-            min(_WARPS, jobs - _WARPS * p) for p in range(math.ceil(jobs / _WARPS)))
-            if (a <= 4) == lone)
-
     pr, pc = math.ceil(jr / _WARPS), math.ceil(jc / _WARPS)
     cn, th, tw = C // plan.split, plan.tile_h, plan.tile_w
     return {
-        "mma": (busiest(jr, mr * nr, False) + busiest(jc, 2 * mc * nc, False))
+        "mma": (_busiest(jr, mr * nr, False) + _busiest(jc, 2 * mc * nc, False))
         * 9 * C / 16,
-        "mma_lone": (busiest(jr, mr * nr, True) + busiest(jc, 2 * mc * nc, True))
+        "mma_lone": (_busiest(jr, mr * nr, True) + _busiest(jc, 2 * mc * nc, True))
         * 9 * C / 16,
         "weight_bytes": (pr + 2 * pc) * 9 * C * cn * 2,
         "io_bytes": ((th + 4) * (tw + 4) * C + (th + 2) * (tw + 2) * cn
@@ -601,17 +597,12 @@ def k2_cost_terms(plan: K2Plan, C: int) -> dict:
     mr, nr, mc, nc = K2_COMBOS[plan.combo]
     jd, jh = _k2_jobs(plan, C)
 
-    def busiest(jobs, per_job, lone):
-        return sum((2 if a > 4 else 1) * per_job for a in (
-            min(_WARPS, jobs - _WARPS * p) for p in range(math.ceil(jobs / _WARPS)))
-            if (a <= 4) == lone)
-
     pd, ph = math.ceil(jd / _WARPS), math.ceil(jh / _WARPS)
     th, tw = plan.tile_h, plan.tile_w
     return {
-        "mma": (busiest(jd, mr * nr, False) + 2 * busiest(jh, mc * nc, False))
+        "mma": (_busiest(jd, mr * nr, False) + 2 * _busiest(jh, mc * nc, False))
         * 9 * C / 16,
-        "mma_lone": (busiest(jd, mr * nr, True) + 2 * busiest(jh, mc * nc, True))
+        "mma_lone": (_busiest(jd, mr * nr, True) + 2 * _busiest(jh, mc * nc, True))
         * 9 * C / 16,
         "weight_bytes": (pd + 2 * ph) * 9 * C * C * 2,
         "io_bytes": ((th + 4) * (tw + 4) * 3 * C
@@ -656,6 +647,150 @@ def k2_plan_kinds(B: int, H: int, W: int, C: int) -> List[K2Plan]:
                        lambda p: _k2_cost(p, B, H, W, C), plan_k2(B, H, W, C))
 
 
+# -- K5's plan ---------------------------------------------------------------
+# A K5 block (csrc/gru_full_tile.cuh) holds the x and h tiles with their
+# 2-pixel halo and the a tile with its 1-pixel ring at pitch C + 8, a ring
+# of two weight slabs (one tap x ks of the 2C inputs x the block's output
+# rows) and h' staged at the output tile; `split` blocks of a cluster share
+# a pixel tile and take C/split output channels each.  Each of its 8 warps
+# owns one job per pass over the weights: (MR, NR) m16 x n8 tiles of r,
+# (MC, NC) of z and of o.
+
+K5_COMBOS = ((6, 4, 4, 4), (4, 4, 2, 4), (2, 4, 2, 2), (3, 4, 1, 4))
+# The planner's cost model, in the terms of k5_cost_terms: a launch takes
+# waves of blocks (_WAVE_BLOCKS at once: one block fits per SM), a block's
+# microseconds are linear in what it does.  The weights are the
+# non-negative least-squares fit of `gru_hside_timing.py --full --fit
+# gru_full_sweep.jsonl` to the plans its --sweep timed on an H100 80GB HBM3
+# at 700 W (703 plans, median error 1.7%, within 2% of the swept best at
+# the three timed shapes; PERF.md §6).
+_K5_MODEL = {"mma": 0.00372, "mma_lone": 0.0049, "weight_bytes": 1.86e-05,
+             "io_bytes": 0.000117, "slabs": 0.306, "a_conflicts": 0.000763,
+             "block": 2.89, "split": 0.858}
+
+
+class K5Plan(NamedTuple):
+    """How K5 runs one shape: the output tile, the blocks per cluster (each
+    C/split channels), the warp jobs (an index of K5_COMBOS) and the input
+    channels per weight slab."""
+    tile_h: int
+    tile_w: int
+    split: int
+    combo: int
+    ks: int
+
+
+def k5_smem_bytes(tile_h: int, tile_w: int, C: int, split: int,
+                  ks: int) -> int:
+    """Shared memory of one K5 block in bytes (csrc/gru_full_tile.cuh's
+    k5_smem_bytes): the x and h tiles with their 2-pixel halo and the a
+    tile with its 1-pixel ring at pitch C + 8, the weight ring, 2 slabs x
+    2*cn rows at pitch ks + 8, and h' at the output tile at pitch cn + 8,
+    bf16; cn = C/split."""
+    cn = C // split
+    return ((tile_h + 4) * (tile_w + 4) * 2 * (C + 8)
+            + (tile_h + 2) * (tile_w + 2) * (C + 8)
+            + 2 * 2 * cn * (ks + 8) + tile_h * tile_w * (cn + 8)) * 2
+
+
+def _k5_jobs(plan: K5Plan, C: int) -> Tuple[int, int]:
+    """(r jobs, z/o jobs) of one block."""
+    mr, nr, mc, nc = K5_COMBOS[plan.combo]
+    cn = C // plan.split
+    return (math.ceil((plan.tile_h + 2) * (plan.tile_w + 2) / (16 * mr))
+            * math.ceil(cn / (8 * nr)),
+            math.ceil(plan.tile_h * plan.tile_w / (16 * mc))
+            * math.ceil(cn / (8 * nc)))
+
+
+def k5_weight_bytes(plan: K5Plan, B: int, H: int, W: int, C: int) -> int:
+    """The weight bytes one launch streams from L2 into shared memory: per
+    block and pass over the weights, its C/split rows of Wr (phase r) or of
+    Wz and Wo (phase z/o), 9 taps x 2C inputs, bf16."""
+    jr, jc = _k5_jobs(plan, C)
+    rows = math.ceil(jr / _WARPS) + 2 * math.ceil(jc / _WARPS)
+    return plan_blocks(plan, B, H, W) * rows * (C // plan.split) * 9 * 2 * C * 2
+
+
+def check_k5_plan(plan: K5Plan, C: int) -> None:
+    """Raise ValueError unless K5 can run this plan at width C."""
+    ok = (plan.tile_h >= 1 and plan.tile_w >= 1 and C % 16 == 0
+          and plan.split in _SPLITS and (C // 16) % plan.split == 0
+          and 0 <= plan.combo < len(K5_COMBOS) and plan.ks in _SLABS
+          and C % plan.ks == 0)
+    if not ok:
+        raise ValueError(f"K5 cannot run plan {plan} at C={C}: C % 16 == 0, "
+                         f"split in {_SPLITS} dividing C/16, combo < "
+                         f"{len(K5_COMBOS)}, ks in {_SLABS} dividing C")
+    smem = k5_smem_bytes(plan.tile_h, plan.tile_w, C, plan.split, plan.ks)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"K5 plan {plan} needs {smem} bytes of shared "
+                         f"memory at C={C}, over {_SMEM_MAX}")
+
+
+def k5_cost_terms(plan: K5Plan, C: int) -> dict:
+    """What one block of a plan does, in the units of ``_K5_MODEL``:
+    mma.sync per k16 step on its busiest sub-partition, over the passes
+    with two warps on it and with one (latency unhidden); the weight bytes
+    it streams; the x, h and h' bytes it moves; its weight slabs (each a
+    cp.async group and a barrier); its A-fragment bank conflicts over the
+    K walk (``_ldmatrix_conflicts``: phase r on the x and h tiles, phase z/o
+    on them and on the a tile); a constant, and one more for a cluster."""
+    mr, nr, mc, nc = K5_COMBOS[plan.combo]
+    jr, jc = _k5_jobs(plan, C)
+    pr, pc = math.ceil(jr / _WARPS), math.ceil(jc / _WARPS)
+    cn, th, tw = C // plan.split, plan.tile_h, plan.tile_w
+    k16 = 9 * C // 16   # k16 steps of one half of the K walk
+    nj_r, nj_c = math.ceil(cn / (8 * nr)), math.ceil(cn / (8 * nc))
+    conf_x = _ldmatrix_conflicts(th * tw, tw, tw + 4, mc)
+    return {
+        "mma": (_busiest(jr, mr * nr, False) + _busiest(jc, 2 * mc * nc, False))
+        * 2 * k16,
+        "mma_lone": (_busiest(jr, mr * nr, True) + _busiest(jc, 2 * mc * nc, True))
+        * 2 * k16,
+        "weight_bytes": (pr + 2 * pc) * 9 * 2 * C * cn * 2,
+        "io_bytes": ((th + 4) * (tw + 4) * 2 * C + th * tw * cn) * 2,
+        "slabs": (pr + pc) * 18 * (C // plan.ks),
+        "a_conflicts": (2 * nj_r * _ldmatrix_conflicts(
+            (th + 2) * (tw + 2), tw + 2, tw + 4, mr)
+            + nj_c * (2 * conf_x + _ldmatrix_conflicts(th * tw, tw, tw + 2, mc)))
+        * k16,
+        "block": 1.0, "split": float(plan.split > 1)}
+
+
+def _k5_cost(plan: K5Plan, B: int, H: int, W: int, C: int) -> float:
+    """The planner's estimate of a launch's microseconds (``_K5_MODEL``)."""
+    terms = k5_cost_terms(plan, C)
+    return plan_waves(plan, B, H, W) * sum(_K5_MODEL[k] * v
+                                         for k, v in terms.items())
+
+
+def k5_plans(B: int, H: int, W: int, C: int, max_split: int = 2
+             ) -> List[K5Plan]:
+    """Every plan the planner weighs for this shape of K5 (``_plans``)."""
+    return _plans(K5Plan, H, W, C, max_split, len(K5_COMBOS),
+                  lambda th, tw, split, ks: k5_smem_bytes(th, tw, C, split, ks))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_k5(B: int, H: int, W: int, C: int, max_split: int = 2
+            ) -> Optional[K5Plan]:
+    """K5's plan: the least estimated cost (``_k5_cost``) among
+    ``k5_plans``, the first of equals; None when none fits in shared
+    memory."""
+    plans = k5_plans(B, H, W, C, max_split)
+    if not plans:
+        return None
+    return min(plans, key=lambda p: _k5_cost(p, B, H, W, C))
+
+
+def k5_plan_kinds(B: int, H: int, W: int, C: int) -> List[K5Plan]:
+    """One plan per (split, combo) the planner can pick at this shape, the
+    planner's own first (``_plan_kinds``)."""
+    return _plan_kinds(k5_plans(B, H, W, C),
+                       lambda p: _k5_cost(p, B, H, W, C), plan_k5(B, H, W, C))
+
+
 def supports(h: torch.Tensor) -> bool:
     """Whether the kernels take this NHWC state's dtype and shape: bf16,
     4-D, C a multiple of 16, a K1 plan and a tile of the launch variants
@@ -669,10 +804,10 @@ def supports(h: torch.Tensor) -> bool:
 
 def supports_full(h: torch.Tensor) -> bool:
     """Whether K5 takes this NHWC state (and an x of its shape): bf16,
-    4-D, C a multiple of 16 and a tile that fits K5's shared memory."""
+    4-D, C a multiple of 16 and a plan of K5 that fits in shared
+    memory."""
     return (h.dtype == torch.bfloat16 and h.dim() == 4
-            and h.shape[-1] % 16 == 0
-            and pick_tile(*h.shape, smem=smem_bytes_full) is not None)
+            and h.shape[-1] % 16 == 0 and plan_k5(*h.shape) is not None)
 
 
 def supports_lstm(h: torch.Tensor) -> bool:
@@ -915,7 +1050,7 @@ _BWD_SIGNATURES = {
 }
 _FULL_SIGNATURES = {
     "ramnet_gru_full_forward": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _P)),
+                                     _I, _I, _I, _I, _I, _I, _P)),
     **_ERR,
 }
 _F = ctypes.c_float
@@ -954,10 +1089,17 @@ def library_bwd():
     return kernels.library("gru_hside_bwd", _BWD_SIGNATURES)
 
 
-def library_full():
-    """The built and loaded K5 library (nvcc on first use)."""
+# K5 with the IEEE gates (expf, a correctly rounded division, tanhf) in
+# place of ex2/rcp: the build its errors and times are measured against
+# (csrc/gru_full_tile.cuh)
+K5_EXACT_GATES = ("RAMNET_K5_EXACT_GATES",)
+
+
+def library_full(defines=()):
+    """The built and loaded K5 library (nvcc on first use);
+    ``K5_EXACT_GATES`` for the IEEE-gate build."""
     from .. import kernels
-    return kernels.library("gru_full", _FULL_SIGNATURES)
+    return kernels.library("gru_full", _FULL_SIGNATURES, defines)
 
 
 # K3-res and K4-res with the IEEE gates (expf, a correctly rounded division,
@@ -1098,7 +1240,7 @@ def _check_full(x, h, w_ur, w_o, b_ur, b_o) -> None:
             raise ValueError(f"{name} is on {t.device}, h on {h.device}")
 
 
-def _launch_full(x, h, w_ur, w_o, b_ur, b_o):
+def _launch_full(x, h, w_ur, w_o, b_ur, b_o, plan=None):
     x, h = x.to(h.dtype).contiguous(), h.contiguous()
     w_ur, w_o = w_ur.to(h.dtype).contiguous(), w_o.to(h.dtype).contiguous()
     b_ur, b_o = b_ur.float().contiguous(), b_o.float().contiguous()
@@ -1106,14 +1248,17 @@ def _launch_full(x, h, w_ur, w_o, b_ur, b_o):
     if b_ur.data_ptr() % 16 or b_o.data_ptr() % 16:
         raise ValueError("the kernels' tensors must be 16-byte aligned")
     B, H, W, C = h.shape
-    th, tw = _tile(h, smem_bytes_full)
+    plan = _resolve_plan(h, plan, K5Plan, plan_k5, check_k5_plan, "K5")
+    if plan.split > 1 and not _cluster_launch_supported(h.device.index):
+        raise RuntimeError(f"K5 plan {plan} needs a thread-block cluster "
+                           f"launch, which {h.device} does not support")
     lib = library_full()
     out = torch.empty_like(h)
     err = lib.ramnet_gru_full_forward(
         x.data_ptr(), h.data_ptr(), w_ur.data_ptr(), w_o.data_ptr(),
-        b_ur.data_ptr(), b_o.data_ptr(), out.data_ptr(), B, H, W, C, th, tw,
+        b_ur.data_ptr(), b_o.data_ptr(), out.data_ptr(), B, H, W, C, *plan,
         torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on(err, lib, "gru_full")
+    _raise_on(err, lib, f"gru_full (plan {plan})")
     conv_gru_full.launches += 1
     return out
 
@@ -1288,13 +1433,14 @@ def conv_gru_hside(h: torch.Tensor, gx: torch.Tensor, w_ur: torch.Tensor,
 
 
 def conv_gru_full(x: torch.Tensor, h: torch.Tensor, w_ur: torch.Tensor,
-                  w_o: torch.Tensor, b_ur: torch.Tensor, b_o: torch.Tensor
-                  ) -> torch.Tensor:
+                  w_o: torch.Tensor, b_ur: torch.Tensor, b_o: torch.Tensor,
+                  _plan: Optional[K5Plan] = None) -> torch.Tensor:
     """h' [B, H, W, C] of the whole ConvGRU cell from NHWC x and h (of one
     shape) and ``ConvGRU.full_weights``: K5 for CUDA tensors,
     ``conv_gru_full_plain`` for CPU tensors.  Inference only: raises when
     autograd would need a gradient.  ``conv_gru_full.launches`` counts
-    K5's launches."""
+    K5's launches.  _plan: a ``K5Plan`` that replaces ``plan_k5``'s (tests
+    and timing; checked on either device)."""
     _check_full(x, h, w_ur, w_o, b_ur, b_o)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, h, w_ur, w_o, b_ur, b_o)):
@@ -1302,9 +1448,11 @@ def conv_gru_full(x: torch.Tensor, h: torch.Tensor, w_ur: torch.Tensor,
                            "as the JAX kernel): run it under no_grad or "
                            "inference_mode")
     if _device_of(h) == "cpu":
+        if _plan is not None:
+            check_k5_plan(K5Plan(*_plan), h.shape[-1])
         return conv_gru_full_plain(x, h, w_ur, w_o, b_ur, b_o)
     with torch.cuda.device(h.device):
-        return _launch_full(x, h, w_ur, w_o, b_ur, b_o)
+        return _launch_full(x, h, w_ur, w_o, b_ur, b_o, _plan)
 
 
 def conv_lstm_hside_res(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,

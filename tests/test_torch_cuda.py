@@ -340,6 +340,82 @@ def test_full_cell_kernel_matches_plain(device, shape):
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
 
 
+def _full_inputs(shape, device, seed=1):
+    """x, h and a ConvGRU's whole-cell weights with biases in (-0.5, 0.5),
+    bf16 (biases float32) on the card."""
+    B, H, W, C = shape
+    gen = torch.Generator().manual_seed(seed)
+    cell = ConvGRU(C, C)
+    cell.reset_parameters_(gen)
+    with torch.no_grad():
+        for g in cell.gates():
+            g.bias.uniform_(-0.5, 0.5, generator=gen)
+        w = [t.to(device) for t in cell.full_weights(torch.bfloat16)]
+    x = torch.randn(B, H, W, C, generator=gen).to(device, torch.bfloat16)
+    h = (torch.rand(B, H, W, C, generator=gen) * 2 - 1).to(device, torch.bfloat16)
+    return x, h, w
+
+
+# K5 under every (split, combo) its planner can pick at each shape
+# (gru_hside.k5_plan_kinds, its own pick first): the per-package cells, the
+# ragged one and K1's edge shapes (H or W below the tile, H = W = 1, C =
+# 16, 48 and 96, B > 1); some shapes also force the split the planner does
+# not pick, ragged tiles and the narrower weight slabs.
+K5_CELLS = [(1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256),
+            (2, 30, 45, 96), (1, 5, 40, 64), (2, 9, 3, 128), (1, 3, 37, 256),
+            (1, 1, 1, 64), (2, 1, 1, 256), (1, 20, 24, 16), (2, 17, 19, 48),
+            (3, 33, 21, 96)]
+K5_EXTRA_PLANS = {
+    (1, 32, 64, 256): [gru_hside.K5Plan(4, 4, 1, 3, 16),
+                       gru_hside.K5Plan(2, 14, 2, 0, 32)],
+    (1, 64, 128, 128): [gru_hside.K5Plan(8, 8, 2, 2, 16),
+                        gru_hside.K5Plan(7, 12, 1, 1, 16)],
+    (2, 1, 1, 256): [gru_hside.K5Plan(1, 1, 2, 1, 64),
+                     gru_hside.K5Plan(1, 1, 1, 2, 64)],
+    (2, 17, 19, 48): [gru_hside.K5Plan(4, 8, 1, 1, 16)],
+    (1, 20, 24, 16): [gru_hside.K5Plan(8, 8, 1, 0, 16)],
+}
+
+
+@pytest.mark.parametrize("shape", K5_CELLS, ids=lambda s: "x".join(map(str, s)))
+def test_k5_plans_match_plain(device, shape):
+    """K5's h' within 2e-2 of its plain version (a few bf16 roundings)
+    under each plan."""
+    x, h, w = _full_inputs(shape, device)
+    with torch.no_grad():
+        want = gru_hside.conv_gru_full_plain(x, h, *w)
+        for plan in gru_hside.k5_plan_kinds(*shape) + K5_EXTRA_PLANS.get(shape, []):
+            n0 = gru_hside.conv_gru_full.launches
+            got = gru_hside.conv_gru_full(x, h, *w, _plan=plan)
+            torch.cuda.synchronize()
+            assert gru_hside.conv_gru_full.launches == n0 + 1
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 2e-2, (plan, err)
+
+
+def test_k5_refuses_bad_plans(device):
+    """A plan K5 cannot run raises before the launch; an argument the C
+    entry refuses comes back as the launch's CUDA error text."""
+    x, h, w = _full_inputs((1, 16, 16, 96), device)
+    for bad in (gru_hside.K5Plan(8, 8, 4, 0, 32),     # no clusters of 4
+                gru_hside.K5Plan(8, 8, 1, 4, 32),     # no such combo
+                gru_hside.K5Plan(8, 8, 1, 0, 64),     # 64 does not divide 96
+                gru_hside.K5Plan(8, 8, 1, 0, 48),     # no 48-wide slab
+                gru_hside.K5Plan(64, 64, 1, 0, 32)):  # shared memory
+        with torch.no_grad(), pytest.raises(ValueError):
+            gru_hside.conv_gru_full(x, h, *w, _plan=bad)
+    lib = gru_hside.library_full()
+    out = torch.empty_like(h)
+    for split, combo, ks, tile in ((4, 0, 32, 8), (1, 0, 48, 8), (1, 4, 32, 8),
+                                   (1, 0, 32, 64)):   # the C entry's own check
+        err = lib.ramnet_gru_full_forward(
+            x.data_ptr(), h.data_ptr(), w[0].data_ptr(), w[1].data_ptr(),
+            w[2].data_ptr(), w[3].data_ptr(), out.data_ptr(), 1, 16, 16, 96,
+            tile, tile, split, combo, ks, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            gru_hside._raise_on(err, lib, "gru_full")
+
+
 def _events(n, n_valid, height, width, seed):
     gen = torch.Generator().manual_seed(seed)
     ev = torch.stack([torch.rand(n, generator=gen).sort().values * 0.05,

@@ -121,10 +121,11 @@ def test_wrapper_checks():
     # no gradient: inference only
     with pytest.raises(RuntimeError, match="inference"):
         gru_hside.conv_gru_full(x, x, *cell.full_weights())
-    # the flagship per-package shapes fit K5's shared memory
+    # the flagship per-package shapes have a K5 plan within shared memory
     for shape in ((1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256)):
-        th, tw = gru_hside.pick_tile(*shape, smem=gru_hside.smem_bytes_full)
-        assert gru_hside.smem_bytes_full(th, tw, shape[-1]) <= gru_hside._SMEM_MAX
+        p = gru_hside.plan_k5(*shape)
+        assert gru_hside.k5_smem_bytes(p.tile_h, p.tile_w, shape[-1], p.split,
+                                       p.ks) <= gru_hside._SMEM_MAX
         assert gru_hside.supports_full(torch.zeros(shape, dtype=torch.bfloat16))
     assert not gru_hside.supports_full(torch.zeros(1, 8, 8, 8))   # float32
     assert not gru_hside.supports_full(torch.zeros(1, 8, 8, 2048,
