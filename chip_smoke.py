@@ -93,8 +93,11 @@ Phases, each printed as one JSON line:
                    other, beside index_add_'s and (at 1M) the plain
                    versions', in mirrored turns;
  11. kernel_phased K3 and K4 against their plain versions at the three
-                   phased shapes and one ragged shape, K3 at the three
-                   flagship shapes;
+                   phased shapes, one ragged shape and the three flagship
+                   shapes, under every (split, combo) plan their planner
+                   can pick at each (its own pick through the wrapper's
+                   default path), and the IEEE-gate build under the
+                   planner's plan;
  12. phased        the eval entry point on a synthetic on-disk split with
                    timestamps (two sequences, PHASED_SEQ_LENGTHS packages)
                    at 256x352 with fused_gru='on': K4's and K3's launch
@@ -105,9 +108,11 @@ Phases, each printed as one JSON line:
                    under 'auto': K3's count, the first chunk against 'off';
  13. timing_phased phased per-package latency (median, p90) and maps/s,
                    phased chunked maps/s, K3 and K4 per cell against their
-                   plain versions; K3 at the flagship shapes (queued and
-                   wrapper time), where the ConvLSTM state combination
-                   runs it;
+                   plain versions (queued, as phase 4; also the kernels'
+                   wrapper time, plan, device us, weight MB, registers and
+                   spills); K3 at the flagship shapes, where the ConvLSTM
+                   state combination runs it, the same, beside the layer
+                   fused_gru='off' runs there;
  14. kernel_chunked the chunked path's launch variants against their plain
                    versions: K9 at the flagship scales 0+1 and a ragged B=2
                    pair, K10a and K10b at the flagship shapes at a step of
@@ -1401,10 +1406,11 @@ def time_voxelizers(dev, seed, sizes=tuple(VOX_SIZES)):
     return out
 
 
-def make_lstm_inputs(shape, dev, gen, strided_gx=False):
+def make_lstm_inputs(shape, dev, gen, strided_gx=False, with_cell=False):
     """bf16 NHWC h in (-1, 1) and c in (-2, 2), gx ~ N(0, 1), a ConvLSTM's
     folded h-side weight (torch's conv init), a phased gate's [H, W, C]
-    tau and phase (upstream init) and t in (0, 3) s per batch item."""
+    tau and phase (upstream init) and t in (0, 3) s per batch item;
+    with_cell: also the ConvLSTM module on ``dev``, last."""
     import torch
     from rpg_ramnet_tpu_torch.models.layers import (ConvLSTM, PhasedLSTMGate,
                                                     init_conv_)
@@ -1424,61 +1430,54 @@ def make_lstm_inputs(shape, dev, gen, strided_gx=False):
     else:
         gx = torch.randn((B, Hc, Wc, 4 * C), generator=gen).to(dev, torch.bfloat16)
     t = (torch.rand(B, generator=gen) * 3).to(dev)
+    if with_cell:
+        return h, c, gx, w4, tau, phase, t, cell.to(dev)
     return h, c, gx, w4, tau, phase, t
 
 
 def lstm_kernel_check(dev, gen):
-    """Max abs error of K3 (h', c') and K4 (h_t, h_new, c_new) against
-    their plain versions per shape: the phased shapes and a ragged one for
-    both, the flagship shapes for K3."""
-    import torch
-    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    """{shape: {plan: [max abs error, mean abs error]}} of K3 (h', c') and
+    of K4 (h_t, h_new, c_new) against their plain versions at the phased,
+    ragged (strided gx) and flagship shapes, under every plan kind their
+    planner can pick there (``lstm_plan_errors``) and, as "exact_gates",
+    the IEEE-gate build under the planner's plan; raises where one is over
+    CELL_TOL."""
     k3, k4 = {}, {}
     for shape in PHASED_CELLS + (RAGGED_LSTM_CELL,) + FLAGSHIP_CELLS:
-        h, c, gx, w4, tau, phase, t = make_lstm_inputs(
-            shape, dev, gen, strided_gx=shape == RAGGED_LSTM_CELL)
+        inputs = make_lstm_inputs(shape, dev, gen,
+                                  strided_gx=shape == RAGGED_LSTM_CELL)
         key = "x".join(map(str, shape))
-        with torch.no_grad():
-            pairs = list(zip(gru_hside.conv_lstm_hside(h, c, gx, w4),
-                             gru_hside.conv_lstm_hside_plain(h, c, gx, w4)))
-            k3[key] = max((a.float() - b.float()).abs().max().item()
-                          for a, b in pairs)
-            if shape not in FLAGSHIP_CELLS:
-                pairs = zip(phased_cell.conv_lstm_phased(h, c, gx, w4, tau,
-                                                         phase, t),
-                            phased_cell.conv_lstm_phased_plain(h, c, gx, w4, tau,
-                                                               phase, t))
-                k4[key] = max((a.float() - b.float()).abs().max().item()
-                              for a, b in pairs)
-        torch.cuda.synchronize()
-        if not max(k3[key], k4.get(key, 0.0)) <= CELL_TOL:
-            raise AssertionError(f"K3/K4 vs plain at {shape}: {k3[key]}, "
-                                 f"{k4.get(key)} > {CELL_TOL}")
+        for kind, out in (("k3", k3), ("k4", k4)):
+            out[key] = lstm_plan_errors(inputs, kind)
+            with lstm_gates("exact"):
+                out[key]["exact_gates"] = next(iter(
+                    lstm_plan_errors(inputs, kind, kinds=False).values()))
+        del inputs
     return k3, k4
 
 
 def time_lstm_cells(dev, gen, iters=50):
     """Microseconds per cell of K3 and K4 and of their plain versions at
-    the phased shapes, in turns plain, kernel, kernel, plain."""
+    the phased shapes, queued (device time) in turns plain, kernel,
+    kernel, plain; the kernels also unqueued (their wrappers' time), each
+    the least of two turns, with their plan, device us per launch, weight
+    MB, registers and spills (``lstm_report``)."""
     import torch
-    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
     rows = []
     for shape in PHASED_CELLS:
-        h, c, gx, w4, tau, phase, t = make_lstm_inputs(shape, dev, gen)
+        inputs = make_lstm_inputs(shape, dev, gen)
         row = {"shape": list(shape)}
-        for name, kern, plain in (
-                ("k3", lambda: gru_hside.conv_lstm_hside(h, c, gx, w4),
-                 lambda: gru_hside.conv_lstm_hside_plain(h, c, gx, w4)),
-                ("k4", lambda: phased_cell.conv_lstm_phased(
-                    h, c, gx, w4, tau, phase, t),
-                 lambda: phased_cell.conv_lstm_phased_plain(
-                    h, c, gx, w4, tau, phase, t))):
+        for name in ("k3", "k4"):
+            kern, plain = lstm_calls(inputs, name)
             with torch.no_grad():
-                p1, k1, k2, p2 = (cuda_time_us(f, iters)
+                p1, k1, k2, p2 = (cuda_time_us(f, iters, queued=True)
                                   for f in (plain, kern, kern, plain))
-            row.update({f"{name}_kernel_us": min(k1, k2),
-                        f"{name}_plain_us": min(p1, p2),
-                        f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2]})
+                row.update({f"{name}_kernel_us": min(k1, k2),
+                            f"{name}_plain_us": min(p1, p2),
+                            f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2],
+                            f"{name}_wrapper_us": min(cuda_time_us(kern, iters)
+                                                      for _ in range(2)),
+                            name: lstm_report(name, shape, kern)})
         rows.append(row)
     return rows
 
@@ -1487,19 +1486,27 @@ def time_k3_flagship(dev, gen, iters=50):
     """Microseconds per cell of K3 at the flagship shapes, where the
     ConvLSTM state combination runs it on the chunked engine: queued
     (device time) and unqueued (its wrapper's time), each the least of two
-    turns."""
+    turns, beside the layer fused_gru='off' runs there (ConvLSTM.hside on
+    bf16 NCHW views: one library convolution and the gates; queued, in
+    turns layer, kernel, kernel, layer), with K3's plan, device us per
+    launch, weight MB, registers and spills (``lstm_report``)."""
     import torch
-    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.utils.layout import to_nchw
     rows = []
     for shape in FLAGSHIP_CELLS:
-        h, c, gx, w4, *_ = make_lstm_inputs(shape, dev, gen)
-        kern = lambda: gru_hside.conv_lstm_hside(h, c, gx, w4)  # noqa: E731
+        h, c, gx, w4, tau, phase, t, cell = make_lstm_inputs(shape, dev, gen,
+                                                             with_cell=True)
+        kern = lstm_calls((h, c, gx, w4, tau, phase, t), "k3")[0]
+        layer = lambda: cell.hside(to_nchw(gx), (to_nchw(h), to_nchw(c)))  # noqa: E731
         with torch.no_grad():
-            rows.append({"shape": list(shape),
-                         "k3_kernel_us": min(cuda_time_us(kern, iters, queued=True)
-                                             for _ in range(2)),
+            l1, k1, k2, l2 = (cuda_time_us(f, iters, queued=True)
+                              for f in (layer, kern, kern, layer))
+            rows.append({"shape": list(shape), "k3_kernel_us": min(k1, k2),
+                         "off_layer_us": min(l1, l2),
+                         "us_runs_l_k_k_l": [l1, k1, k2, l2],
                          "k3_wrapper_us": min(cuda_time_us(kern, iters)
-                                              for _ in range(2))})
+                                              for _ in range(2)),
+                         "k3": lstm_report("k3", shape, kern)})
     return rows
 
 
@@ -1542,10 +1549,11 @@ def phased_phases(cfg, K, dev, gen, seed, dataset, packages, first_chunk,
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
     from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
 
-    # 11. the ConvLSTM kernels against their plain versions on the card
+    # 11. the ConvLSTM kernels against their plain versions on the card,
+    #     under every plan kind
     k3_errs, k4_errs = lstm_kernel_check(dev, gen)
     emit({"phase": "kernel_phased", "cell_tol": CELL_TOL,
-          "k3_max_abs_err": k3_errs, "k4_max_abs_err": k4_errs})
+          "k3_abs_err": k3_errs, "k4_abs_err": k4_errs})
 
     # 12. the phased regime at 256x352 through the eval entry point, per
     #     package and chunked; the ConvLSTM state combination on the
@@ -1650,7 +1658,7 @@ def phased_phases(cfg, K, dev, gen, seed, dataset, packages, first_chunk,
           "lstm_cells": lstm_cells, "nvidia_smi": smi})
 
     return {"k3_errs": k3_errs, "k4_errs": k4_errs, "counts": ph_counts,
-            "cells": lstm_cells}
+            "cells": lstm_cells, "k3_flagship": k3_flagship}
 
 
 def lstm_layer_grads(mod, x, c0, h0, gx, t, cots, kind, fused):
@@ -1691,18 +1699,12 @@ def abs_errs(got, want):
     return [d.max().item(), d.mean().item()]
 
 
-def lstm_ptxas(ptxas, phased, mr=None):
-    """The ptxas entry of K3-res (phased False) or K4-res: of
-    lstm_kernel<kPhased, MR> for a plan's MR, or with mr None of the first
-    design's lstm_hside_kernel<kPhased, true> (when gru_hside_timing.py
-    --lstm --root times an older tree)."""
-    flag = f"ILb{int(phased)}E"
-    for name, info in ptxas.items():
-        if mr is not None and f"11lstm_kernel{flag}Li{mr}EE" in name:
-            return info
-        if mr is None and "lstm_hside_kernel" in name and f"{flag}Lb1EE" in name:
-            return info
-    return None
+def lstm_ptxas(ptxas, kind, mr):
+    """The ptxas entry of K3, K4, K3-res or K4-res (``lstm_calls``' kind):
+    of lstm_kernel<kPhased, kActs, MR> for a plan's MR."""
+    phased, res = lstm_kind(kind)
+    tag = f"11lstm_kernelILb{int(phased)}ELb{int(res)}ELi{mr}EE"
+    return next((info for name, info in ptxas.items() if tag in name), None)
 
 
 @contextlib.contextmanager
@@ -1780,33 +1782,44 @@ def k5_plan_errors(shape, dev, gen):
     return errs
 
 
-def lstm_res_calls(inputs, phased):
-    """(kernel, plain) of K3-res (phased False) or K4-res on inputs (h, c,
-    gx, w4, tau, phase, t); the kernel takes the wrapper's _plan."""
+def lstm_kind(kind):
+    """(phased, residuals) of an LSTM kernel's kind: "k3", "k4", "k3_res"
+    or "k4_res"."""
+    return kind.startswith("k4"), kind.endswith("_res")
+
+
+def lstm_calls(inputs, kind):
+    """(kernel, plain) of K3, K4, K3-res or K4-res (kind "k3", "k4",
+    "k3_res", "k4_res") on inputs (h, c, gx, w4, tau, phase, t); the
+    kernel takes the wrapper's _plan."""
     from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
     h, c, gx, w4, tau, phase, t = inputs
-    if phased:
-        return (lambda **kw: phased_cell.conv_lstm_phased_res(
-                    h, c, gx, w4, tau, phase, t, **kw),
-                lambda: phased_cell.conv_lstm_phased_res_plain(
-                    h, c, gx, w4, tau, phase, t))
-    return (lambda **kw: gru_hside.conv_lstm_hside_res(h, c, gx, w4, **kw),
-            lambda: gru_hside.conv_lstm_hside_res_plain(h, c, gx, w4))
+    kern, plain = {"k3": (gru_hside.conv_lstm_hside, gru_hside.conv_lstm_hside_plain),
+                   "k3_res": (gru_hside.conv_lstm_hside_res,
+                              gru_hside.conv_lstm_hside_res_plain),
+                   "k4": (phased_cell.conv_lstm_phased,
+                          phased_cell.conv_lstm_phased_plain),
+                   "k4_res": (phased_cell.conv_lstm_phased_res,
+                              phased_cell.conv_lstm_phased_res_plain)}[kind]
+    args = (h, c, gx, w4, tau, phase, t) if lstm_kind(kind)[0] else (h, c, gx, w4)
+    return (lambda **kw: kern(*args, **kw)), (lambda: plain(*args))
 
 
-def lstm_plan_errors(inputs, phased, kinds=True):
-    """{plan: [max abs error, mean abs error]} of K3-res (h', c', acts) or
-    K4-res (h_t, h_new, c_new, acts) against its plain version on inputs,
-    under every plan kind the planner can pick at their shape (kinds
-    False: its own pick alone), its own pick through the wrapper's default
-    path; raises where one is over CELL_TOL."""
+def lstm_plan_errors(inputs, kind, kinds=True):
+    """{plan: [max abs error, mean abs error]} of K3 (h', c'), K4 (h_t,
+    h_new, c_new), K3-res or K4-res (and acts) (``lstm_calls``' kind)
+    against its plain version on inputs, under every plan kind the planner
+    can pick at their shape (kinds False: its own pick alone), its own pick
+    through the wrapper's default path; raises where one is over
+    CELL_TOL."""
     import torch
     from rpg_ramnet_tpu_torch.ops import gru_hside
     shape = tuple(inputs[0].shape)
-    kern, plain = lstm_res_calls(inputs, phased)
+    kern, plain = lstm_calls(inputs, kind)
+    phased, res = lstm_kind(kind)
     with torch.no_grad():
         want = plain()
-        plans = gru_hside.lstm_plan_kinds(*shape, phased=phased)
+        plans = gru_hside.lstm_plan_kinds(*shape, phased=phased, residuals=res)
         errs = {}
         for i, plan in enumerate(plans if kinds else plans[:1]):
             got = kern(**({"_plan": plan} if i else {}))
@@ -1814,8 +1827,8 @@ def lstm_plan_errors(inputs, phased, kinds=True):
             e = [abs_errs(a, b) for a, b in zip(got, want)]
             errs[plan_name(plan)] = [max(v[0] for v in e), max(v[1] for v in e)]
             if not (errs[plan_name(plan)][0] <= CELL_TOL):
-                raise AssertionError(f"K{4 if phased else 3}-res vs plain at "
-                                     f"{shape}, plan {plan}: {errs}")
+                raise AssertionError(f"{kind} vs plain at {shape}, plan {plan}: "
+                                     f"{errs}")
     return errs
 
 
@@ -1845,7 +1858,7 @@ def train_lstm_kernel_check(dev, gen):
         row = {"shape": list(shape)}
         for build in ("fast", "exact"):
             with lstm_gates(build):
-                cells = {k: lstm_plan_errors(inputs, k == "k4_res", build == "fast")
+                cells = {k: lstm_plan_errors(inputs, k, build == "fast")
                          for k in ("k3_res", "k4_res")}
                 fn_rel, fn_mean = {}, {}
                 for kind in ("lstm_hside", "phased"):
@@ -1870,24 +1883,26 @@ def train_lstm_kernel_check(dev, gen):
     return rows
 
 
-def lstm_report(phased, shape, fn):
-    """K3-res's (phased False) or K4-res's plan at shape, its mean device
-    us per launch of fn (torch.profiler), the weight MB one launch streams
-    into shared memory, its shared memory, the blocks that fit on an SM and
-    the kernel's registers and spills (ptxas)."""
+def lstm_report(kind, shape, fn):
+    """The plan of K3, K4, K3-res or K4-res (``lstm_calls``' kind) at
+    shape, its mean device us per launch of fn (torch.profiler), the
+    weight MB one launch streams into shared memory as the planner counts
+    them (``lstm_weight_bytes``), its shared memory, the blocks that fit on
+    an SM and the kernel's registers and spills (ptxas)."""
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.ops import gru_hside
-    plan = gru_hside.plan_lstm(*shape, phased=phased)
+    phased, res = lstm_kind(kind)
+    plan = gru_hside.plan_lstm(*shape, phased=phased, residuals=res)
     dev_us, records = launch_device_us(fn, 10)
     return {"plan": plan._asdict(), "device_us": dev_us,
             "device_records": records,
             "weight_mb": gru_hside.lstm_weight_bytes(plan, *shape) / 1e6,
             "smem_bytes": gru_hside.lstm_smem_bytes(
-                plan.tile_h, plan.tile_w, shape[-1], plan.split, plan.ks, phased),
+                plan.tile_h, plan.tile_w, shape[-1], plan.split, plan.ks, phased, res),
             "blocks_per_sm": gru_hside.library_lstm().ramnet_lstm_blocks_per_sm(
-                int(phased), shape[-1], *plan),
+                int(phased), int(res), shape[-1], *plan),
             "ptxas": lstm_ptxas(
-                ptxas_by_kernel(kernels.build_log.get("lstm_hside", "")), phased,
+                ptxas_by_kernel(kernels.build_log.get("lstm_hside", "")), kind,
                 gru_hside.LSTM_COMBOS[plan.combo])}
 
 
@@ -1903,7 +1918,7 @@ def time_train_lstm_cells(dev, gen, iters=20):
         inputs = make_lstm_inputs(shape, dev, gen)
         row = {"shape": list(shape)}
         for name in ("k3_res", "k4_res"):
-            kern, plain = lstm_res_calls(inputs, name == "k4_res")
+            kern, plain = lstm_calls(inputs, name)
             with torch.no_grad():
                 p1, k1, k2, p2 = (cuda_time_us(f, iters, queued=True)
                                   for f in (plain, kern, kern, plain))
@@ -1912,7 +1927,7 @@ def time_train_lstm_cells(dev, gen, iters=20):
                             f"{name}_us_runs_p_k_k_p": [p1, k1, k2, p2],
                             f"{name}_wrapper_us": min(cuda_time_us(kern, iters)
                                                       for _ in range(2)),
-                            name: lstm_report(name == "k4_res", shape, kern)})
+                            name: lstm_report(name, shape, kern)})
         rows.append(row)
     return rows
 
@@ -2792,17 +2807,26 @@ def main() -> int:
                                "batch": batch_run["pallas"]["by_path"]},
              path_at_1m=v1m["path"],
              plain_wrapper_ms=v1m["wrapper_us"]["plain_matmul"]["min"] / 1e3),
-        entry("lstm_hside", "lstm_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:368",
-              ph["counts"][0], max(ph["k3_errs"].values()),
-              sum(r["k3_kernel_us"] for r in ph["cells"]) / 1e3,
-              sum(r["k3_plain_us"] for r in ph["cells"]) / 1e3,
-              cell_bound("k3", PHASED_CELLS)),
-        entry("phased_cell", "lstm_hside.cu",
-              "rpg_ramnet_tpu/ops/phased_cell.py:113", ph["counts"][1],
-              max(ph["k4_errs"].values()),
-              sum(r["k4_kernel_us"] for r in ph["cells"]) / 1e3,
-              sum(r["k4_plain_us"] for r in ph["cells"]) / 1e3,
-              cell_bound("k4", PHASED_CELLS)),
+        dict(entry("lstm_hside", "lstm_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:368",
+                   ph["counts"][0],
+                   max(e[0] for row in ph["k3_errs"].values() for k, e in row.items()
+                       if k != "exact_gates"),
+                   sum(r["k3_kernel_us"] for r in ph["cells"]) / 1e3,
+                   sum(r["k3_plain_us"] for r in ph["cells"]) / 1e3,
+                   cell_bound("k3", PHASED_CELLS)),
+             wrapper_ms=sum(r["k3_wrapper_us"] for r in ph["cells"]) / 1e3,
+             plan={"x".join(map(str, r["shape"])): r["k3"]["plan"]
+                   for r in ph["cells"] + ph["k3_flagship"]}),
+        dict(entry("phased_cell", "lstm_hside.cu",
+                   "rpg_ramnet_tpu/ops/phased_cell.py:113", ph["counts"][1],
+                   max(e[0] for row in ph["k4_errs"].values() for k, e in row.items()
+                       if k != "exact_gates"),
+                   sum(r["k4_kernel_us"] for r in ph["cells"]) / 1e3,
+                   sum(r["k4_plain_us"] for r in ph["cells"]) / 1e3,
+                   cell_bound("k4", PHASED_CELLS)),
+             wrapper_ms=sum(r["k4_wrapper_us"] for r in ph["cells"]) / 1e3,
+             plan={"x".join(map(str, r["shape"])): r["k4"]["plan"]
+                   for r in ph["cells"]}),
         entry("gru_pair", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_pair.py:69",
               variants["pair"]["launches"]["k9"], max(chunk_errs["k9"].values()),
               chunk_cells["k9"]["kernel_us"] / 1e3,

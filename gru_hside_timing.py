@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time kernels K1 and K1-res (the fused ConvGRU h-side cell), with --bwd
 K2 (its backward), with --full K5 (the whole ConvGRU cell), or with --lstm
-K3-res and K4-res (the ConvLSTM training cells), on one GPU.
+K3 and K4 (the ConvLSTM inference cells) and K3-res and K4-res (their
+training variants), on one GPU.
 
     python3 gru_hside_timing.py [--root DIR] [--plans auto,split1]
                                 [--label NAME] [--sweep] [--gates]
@@ -14,8 +15,10 @@ K3-res and K4-res (the ConvLSTM training cells), on one GPU.
                                 [--latency-pairs N]
     python3 gru_hside_timing.py --full --fit SWEEP.jsonl
     python3 gru_hside_timing.py --lstm [--root DIR] [--plans auto,...]
+                                [--kinds k3,k4,k3_res,k4_res]
                                 [--label NAME] [--sweep] [--gates]
                                 [--profile-train]
+    python3 gru_hside_timing.py --lstm --e2e [--root DIR] [--label NAME]
     python3 gru_hside_timing.py --lstm --fit SWEEP.jsonl
 
 At the flagship chunked-inference shapes (K1: 1x128x256x64, 1x64x128x128,
@@ -89,25 +92,39 @@ planner's plans, and --latency-pairs N times the flagship's per-package
 latency at 256x512 with fused_gru 'on' (K5) and 'off' in N mirrored pairs
 of turns.
 
---lstm does the same for K3-res and K4-res at the phased training shapes
-(B=8 at 112x112x64, 56x56x128, 28x28x256), one line per plan set, kernel
-and shape with its max and mean abs error against the plain version
-beside the times, the weight MB, the shared memory and the blocks that
-fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the
-plain version's queued time.  Its plan sets: ``auto`` (``plan_lstm``),
-``split1`` (``plan_lstm`` without the split), ``fixed`` (no planner: the
+--lstm does the same for K3 and K4 at the phased inference shapes (B=1 at
+128x176x64, 64x88x128, 32x44x256) and K3 also at the flagship ones (K1's,
+where the ConvLSTM state combination runs it), and for K3-res and K4-res
+at the phased training shapes (B=8 at 112x112x64, 56x56x128, 28x28x256)
+(--kinds picks among k3, k4, k3_res, k4_res), one line per plan set,
+kernel and shape with its max and mean abs error against the plain
+version beside the times, the weight MB, the shared memory and the
+blocks that fit on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+and the plain version's queued time.  On a tree whose K3 and K4 take no
+plan (the first design) their plan set is ``default`` and the weight MB
+is the first design's (``lstm_first_design_weight_bytes``).  Its plan
+sets: ``auto`` (``plan_lstm``), ``split1``, ``split2`` and ``split4``
+(``plan_lstm`` with at most that split), ``fixed`` (no planner: the
 largest of pick_tile's tiles that fits, warp jobs of 64 pixels, the
 widest slab, no split) and ``fixed_split`` (``fixed`` split in two at C
 >= 128).  --sweep times every plan ``lstm_plans`` weighs within 6x of the
-cost it estimates for its best (the lines ``_LSTM_MODEL`` is fitted to;
-lstm_hside_sweep.jsonl holds the sweep the committed model was fitted
-to), --fit fits ``_LSTM_MODEL``, --gates builds lstm_hside.cu with
--DRAMNET_LSTM_EXACT_GATES and gives both builds' errors (cells, acts and
-the ConvLSTMHside and PhasedCell Functions' gradients) and times under the
-planner's plans, and --profile-train profiles one phased training step
-(B=8, L=10, 224^2, fused_gru 'on' and 'off') with torch.profiler: device
-ms of K3-res and K4-res, of the Functions' backward split into library
-convolutions and the rest, and of everything else.
+cost it estimates for its best (K3 and K4: splits up to 4), the least of
+two timings each (the lines
+``_LSTM_MODEL`` is fitted to; lstm_hside_sweep.jsonl holds the sweep the
+committed model was fitted to), --fit fits ``_LSTM_MODEL``, --gates builds
+lstm_hside.cu with -DRAMNET_LSTM_EXACT_GATES and gives both builds' errors
+(cells, acts and the ConvLSTMHside and PhasedCell Functions' gradients)
+and times under the planner's plans, and --profile-train profiles one
+phased training step (B=8, L=10, 224^2, fused_gru 'on' and 'off') with
+torch.profiler: device ms of K3-res and K4-res, of the Functions'
+backward split into library convolutions and the rest, and of everything
+else.  --e2e instead times the paths K3 and K4 run on, with the kernels
+and with fused_gru='off' in mirrored turns: the phased per-package
+latency and maps/s and the phased chunked maps/s at 256x352
+(chip_smoke.time_per_package, time_chunked), and the ConvLSTM state
+combination's chunked maps/s at 256x512 (the flagship with
+state_combination 'convlstm', chip_smoke's two sequences); run it once per
+tree (--root) in turns parent, tree, tree, parent to compare two trees.
 """
 from __future__ import annotations
 
@@ -123,7 +140,11 @@ import chip_smoke   # this tree's helpers; the package comes from --root
 
 FLAGSHIP_CELLS = ((1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256))
 TRAIN_CELLS = ((16, 112, 112, 64), (16, 56, 56, 128), (16, 28, 28, 256))
-LSTM_CELLS = chip_smoke.PHASED_TRAIN_CELLS
+# the shapes each LSTM kernel is timed at
+LSTM_CELLS = {"k3": chip_smoke.PHASED_CELLS + chip_smoke.FLAGSHIP_CELLS,
+              "k4": chip_smoke.PHASED_CELLS,
+              "k3_res": chip_smoke.PHASED_TRAIN_CELLS,
+              "k4_res": chip_smoke.PHASED_TRAIN_CELLS}
 ITERS = 20   # launches per timed turn
 SWEEP_FILE = "gru_hside_sweep.jsonl"
 LSTM_SWEEP_FILE = "lstm_hside_sweep.jsonl"
@@ -133,8 +154,8 @@ FULL_SWEEP_FILE = "gru_full_sweep.jsonl"
 
 def _cost_row(gru_hside, r):
     """(cost terms, waves) of a sweep line's plan: K1's for "k1" and
-    "k1_res", K2's for "k2", K5's for "k5", K3-res's and K4-res's for
-    "k3_res" and "k4_res"."""
+    "k1_res", K2's for "k2", K5's for "k5", the LSTM kernels' for "k3",
+    "k4", "k3_res" and "k4_res"."""
     C = r["shape"][-1]
     if r["sweep"] == "k5":
         plan = gru_hside.K5Plan(*r["plan"])
@@ -149,15 +170,16 @@ def _cost_row(gru_hside, r):
         return (gru_hside.k1_cost_terms(plan, C, r["sweep"] == "k1_res"),
                 gru_hside.plan_waves(plan, *r["shape"][:3]))
     plan = gru_hside.LstmPlan(*r["plan"])
-    return (gru_hside.lstm_cost_terms(plan, C, r["sweep"] == "k4_res"),
+    phased, res = chip_smoke.lstm_kind(r["sweep"])
+    return (gru_hside.lstm_cost_terms(plan, C, phased, res),
             gru_hside.plan_waves(plan, *r["shape"][:3]))
 
 
 def fit_model(lines, lstm=False, bwd=False, full=False):
     """(model, report): the ``_K1_MODEL`` weights (lstm: ``_LSTM_MODEL``;
     bwd: ``_K2_MODEL``; full: ``_K5_MODEL``) fitted to sweep lines
-    ({"sweep": "k1" or "k1_res" (lstm: "k3_res" or "k4_res"; bwd: "k2";
-    full: "k5"), "shape", "plan", "us"}) by
+    ({"sweep": "k1" or "k1_res" (lstm: "k3", "k4", "k3_res" or "k4_res";
+    bwd: "k2"; full: "k5"), "shape", "plan", "us"}) by
     non-negative least squares of the relative error, rounded to three
     significant digits, and the fit's median and largest relative error
     and, per shape, the planner's pick under that model against the swept
@@ -252,29 +274,57 @@ def gate_errors(torch, gru_hside, kernels, cases, dev):
     return lines
 
 
-def lstm_fixed_plan(gru_hside, shape, phased, split_wide):
+def lstm_fixed_plan(gru_hside, shape, kind, split_wide):
     """A plan without the planner: the largest of pick_tile's tiles that
     fits with the widest slab, warp jobs of 64 pixels, no split
     (split_wide: two blocks per tile at C >= 128)."""
     B, H, W, C = shape
     split = 2 if split_wide and C >= 128 else 1
+    phased, res = chip_smoke.lstm_kind(kind)
     for th, tw in gru_hside._TILES:
         for ks in (64, 32, 16):
             if C % ks == 0 and gru_hside.lstm_smem_bytes(
-                    th, tw, C, split, ks, phased) <= gru_hside._SMEM_MAX:
+                    th, tw, C, split, ks, phased, res) <= gru_hside._SMEM_MAX:
                 return gru_hside.LstmPlan(min(th, H), min(tw, W), split, 0, ks)
     raise ValueError(f"no fixed plan fits at {shape}")
 
 
 def lstm_plan_of(gru_hside, plans, kind, shape):
-    phased = kind == "k4_res"
+    """The plan of a plan set (see the module's docstring) for an LSTM
+    kernel at shape; None for ``default`` (the wrapper's own)."""
+    phased, res = chip_smoke.lstm_kind(kind)
     if plans == "auto":
-        return gru_hside.plan_lstm(*shape, phased=phased)
-    if plans == "split1":
-        return gru_hside.plan_lstm(*shape, phased=phased, max_split=1)
+        return gru_hside.plan_lstm(*shape, phased=phased, residuals=res)
+    if plans in ("split1", "split2", "split4"):
+        return gru_hside.plan_lstm(*shape, phased=phased, residuals=res,
+                                   max_split=int(plans[-1]))
     if plans in ("fixed", "fixed_split"):
-        return lstm_fixed_plan(gru_hside, shape, phased, plans == "fixed_split")
+        return lstm_fixed_plan(gru_hside, shape, kind, plans == "fixed_split")
     return None
+
+
+def lstm_first_design_smem_bytes(tile_h, tile_w, C):
+    """The first K3/K4 design's footprint: the conv operand's tile with a
+    1-pixel halo at pitch C + 8, bf16."""
+    return (tile_h + 2) * (tile_w + 2) * (C + 8) * 2
+
+
+def lstm_first_design_weight_bytes(gru_hside, B, H, W, C):
+    """The weight bytes of one launch of the first K3/K4 design: per block
+    (pick_tile with its footprint) and 32-pixel x 16-channel warp item, 9
+    taps x 4 gates x 16 channels x the C contraction, bf16.  (With tiles
+    of 32 pixels or more and no ragged edge, 2.25*B*H*W*C^2.)"""
+    th, tw = gru_hside.pick_tile(B, H, W, C, smem=lstm_first_design_smem_bytes)
+    blocks = B * -(-H // th) * -(-W // tw)
+    return blocks * -(-th * tw // 32) * (C // 16) * 9 * 4 * 16 * C * 2
+
+
+def lstm_first_design_ptxas(ptxas, kind):
+    """The ptxas entry of the first design's lstm_hside_kernel<kPhased>
+    (K3, K4) in an older tree's build."""
+    flag = f"ILb{int(chip_smoke.lstm_kind(kind)[0])}E"
+    return next((info for name, info in ptxas.items()
+                 if "lstm_hside_kernel" in name and flag in name), None)
 
 
 def lstm_function_grads(torch, gru_hside, phased_cell, inputs, phased, cots,
@@ -297,20 +347,21 @@ def lstm_function_grads(torch, gru_hside, phased_cell, inputs, phased, cots,
 def lstm_gate_errors(torch, gru_hside, phased_cell, cases, dev):
     """Per kernel and shape under the planner's plan, for the built kernel
     ("fast") and the IEEE gates' ("exact"): [max abs error, mean abs
-    error, the plain version's max magnitude] of each output, acts and
-    each gradient of the Function against the plain versions, and each
-    build's device us per launch (queued, least of mirrored turns)."""
+    error, the plain version's max magnitude] of each output (K3-res,
+    K4-res: acts and each gradient of the Function) against the plain
+    versions, and each build's device us per launch (queued, least of
+    mirrored turns)."""
     gen = torch.Generator().manual_seed(1)
     lines = []
     for kind, shape, inputs in cases:
-        phased = kind == "k4_res"
-        kern, plain = chip_smoke.lstm_res_calls(inputs, phased)
+        phased, res = chip_smoke.lstm_kind(kind)
+        kern, plain = chip_smoke.lstm_calls(inputs, kind)
         cots = [torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
                 for _ in range(3)]
         with torch.no_grad():
             want = plain()
-        want_g = lstm_function_grads(torch, gru_hside, phased_cell, inputs,
-                                     phased, cots, False)
+        want_g = (lstm_function_grads(torch, gru_hside, phased_cell, inputs,
+                                      phased, cots, False) if res else ())
         row = {"gates": kind, "shape": list(shape)}
         turns = {}
         for build in ("fast", "exact", "exact", "fast"):
@@ -318,17 +369,19 @@ def lstm_gate_errors(torch, gru_hside, phased_cell, cases, dev):
                 if build not in row:
                     with torch.no_grad():
                         got = kern()
-                    got_g = lstm_function_grads(torch, gru_hside, phased_cell,
-                                                inputs, phased, cots, True)
+                    got_g = (lstm_function_grads(torch, gru_hside, phased_cell,
+                                                 inputs, phased, cots, True)
+                             if res else ())
                     torch.cuda.synchronize()
                     row[build] = [chip_smoke.abs_errs(a, b) + [b.float().abs().max().item()]
                                   for a, b in zip(got + got_g, want + want_g)]
                 with torch.no_grad():
                     turns.setdefault(build, []).append(
                         chip_smoke.cuda_time_us(kern, ITERS, queued=True))
-        row["names"] = (["h_t", "h_new", "c_new", "acts", "dc0", "dh0", "dgx", "dw4",
-                         "dtau", "dphase", "dt"] if phased else
-                        ["h", "c", "acts", "dh", "dc", "dgx", "dw4"])
+        names = (["h_t", "h_new", "c_new", "acts", "dc0", "dh0", "dgx", "dw4",
+                  "dtau", "dphase", "dt"] if phased else
+                 ["h", "c", "acts", "dh", "dc", "dgx", "dw4"])
+        row["names"] = names if res else names[:3 if phased else 2]
         row["us"] = {b: min(v) for b, v in turns.items()}
         row["us_turns"] = turns
         lines.append(row)
@@ -392,7 +445,7 @@ def step_split(torch, prof, steps):
     kernels = _kernel_ms(torch, prof, steps)
     total = sum(kernels.values())
     fwd = {k: sum(v for n, v in kernels.items()
-                  if f"lstm_kernel<{'true' if k == 'k4' else 'false'}," in n)
+                  if f"lstm_kernel<{'true' if k == 'k4' else 'false'}, true," in n)
            for k in ("k3", "k4")}
     bwd = _backward_split(torch, prof, steps, ("ConvLSTMHside", "PhasedCell"))
     out = {"device_ms": total / 1e3, "k3_res_ms": fwd["k3"] / 1e3,
@@ -764,90 +817,167 @@ def per_package_pairs(torch, dev, pairs, seed=0):
                                        turns=tuple(m for pair in turns for m in pair))
 
 
+def lstm_e2e(args, torch) -> int:
+    """--lstm --e2e: the paths K3 and K4 run on, with the kernels and with
+    fused_gru='off' (see the module's docstring); one JSON line."""
+    from rpg_ramnet_tpu_torch.core.config import ModelConfig
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
+    dev = torch.device("cuda")
+    cs = chip_smoke
+    cfg = ModelConfig.load(os.path.join(cs.ROOT, cs.CONFIG))
+    K = event_loop_range(cfg)
+    seed = 0
+    pcfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list) else v
+                                       for k, v in cs.PHASED.items()})
+    lcfg = dataclasses.replace(cfg, state_combination="convlstm")
+    out = {"label": args.label or "tree", "nvidia_smi": cs.nvidia_smi_line()}
+    for name, c, on in (("phased", pcfg, "on"), ("lstm_state_combination", lcfg, "auto")):
+        models = {}
+        for mode in (on, "off"):
+            models["on" if mode == on else "off"] = ERGB2DepthRecurrent(
+                dataclasses.replace(c, fused_gru=mode), device=dev,
+                generator=torch.Generator().manual_seed(seed + 2))
+        with torch.no_grad():
+            if name == "phased":
+                out["phased_per_package"] = cs.time_per_package(
+                    models, K, seed, h=cs.PHASED_H, w=cs.PHASED_W, times=True)
+                data = cs.SyntheticDataset(cs.PHASED_SEQ_LENGTHS, K, seed,
+                                           h=cs.PHASED_H, w=cs.PHASED_W, times=True)
+                packages = sum(-(-n // cs.PHASED_CHUNK) * cs.PHASED_CHUNK
+                               for n in cs.PHASED_SEQ_LENGTHS)
+                out["phased_chunked"] = cs.time_chunked(models, data, cs.PHASED_CHUNK,
+                                                        packages, K)
+            else:
+                data = cs.SyntheticDataset(cs.SEQ_LENGTHS, K, seed)
+                packages = sum(-(-n // cs.CHUNK) * cs.CHUNK for n in cs.SEQ_LENGTHS)
+                out["lstm_state_combination_chunked"] = cs.time_chunked(
+                    models, data, cs.CHUNK, packages, K)
+        del models
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def lstm_main(args, torch) -> int:
-    """--lstm: K3-res and K4-res (see the module's docstring)."""
+    """--lstm: K3, K4, K3-res and K4-res (see the module's docstring)."""
+    import inspect
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
+    if args.e2e:
+        return lstm_e2e(args, torch)
     dev = torch.device("cuda")
     smi = chip_smoke.nvidia_smi_line()
     lib = gru_hside.library_lstm()
     ptxas = chip_smoke.ptxas_by_kernel(kernels.build_log.get("lstm_hside", ""))
-    planned = hasattr(gru_hside, "plan_lstm")
-    sets = (args.plans or "auto,split1").split(",") if planned else ["default"]
-    label = args.label or ("tree" if planned else "default")
+    # a tree from before K3 and K4 took plans: its planner has no residuals
+    # argument (it plans K3-res and K4-res alone) and its K3 and K4 take none
+    new_api = "residuals" in inspect.signature(gru_hside.plan_lstm).parameters
+    kinds = (args.kinds or "k3,k4,k3_res,k4_res").split(",")
+    sets = (args.plans or "auto,split1").split(",")
+    label = args.label or ("tree" if new_api else "parent")
     gen = torch.Generator().manual_seed(0)
-    cases = []
-    for shape in LSTM_CELLS:
-        inputs = chip_smoke.make_lstm_inputs(shape, dev, gen)
-        cases += [(kind, shape, inputs) for kind in ("k3_res", "k4_res")]
+    inputs_of, cases = {}, []
+    for kind in kinds:
+        for shape in LSTM_CELLS[kind]:
+            if shape not in inputs_of:
+                inputs_of[shape] = chip_smoke.make_lstm_inputs(shape, dev, gen)
+            cases.append((kind, shape, inputs_of[shape]))
+
+    def plan_of(plan_set, kind, shape):
+        phased, res = chip_smoke.lstm_kind(kind)
+        if new_api:
+            return lstm_plan_of(gru_hside, plan_set, kind, shape)
+        if not res or plan_set not in ("auto", "split1"):
+            return None
+        return gru_hside.plan_lstm(*shape, phased=phased,
+                                   max_split=1 if plan_set == "split1" else 2)
 
     def call(kind, plan, inputs):
-        kern = chip_smoke.lstm_res_calls(inputs, kind == "k4_res")[0]
+        kern = chip_smoke.lstm_calls(inputs, kind)[0]
         return (lambda: kern(_plan=plan)) if plan is not None else kern
 
+    # the plan sets each case runs: one, "default", where the tree's
+    # wrapper takes no plan
+    runs = [(plan_set if new_api or kind.endswith("_res") else "default", kind, shape,
+             inputs) for plan_set in sets for kind, shape, inputs in cases]
+    runs = list({(r[0], r[1], r[2]): r for r in runs}.values())
     times, wrapper = {}, {}
     with torch.no_grad():
-        for plan_set in sets + sets[::-1]:   # mirrored turns
-            for kind, shape, inputs in cases:
-                fn = call(kind, lstm_plan_of(gru_hside, plan_set, kind, shape), inputs)
-                key = (plan_set, kind, shape)
-                times.setdefault(key, []).append(
-                    chip_smoke.cuda_time_us(fn, ITERS, queued=True))
-                wrapper.setdefault(key, []).append(chip_smoke.cuda_time_us(fn, ITERS))
-    lines, sums, plain_us = [], {}, {}
-    for plan_set in sets:   # one line each, printed as it comes
-        for kind, shape, inputs in cases:
-            phased = kind == "k4_res"
-            plan = lstm_plan_of(gru_hside, plan_set, kind, shape)
+        for plan_set, kind, shape, inputs in runs + runs[::-1]:   # mirrored turns
+            fn = call(kind, plan_of(plan_set, kind, shape), inputs)
             key = (plan_set, kind, shape)
-            fn = call(kind, plan, inputs)
-            plain = chip_smoke.lstm_res_calls(inputs, phased)[1]
-            with torch.no_grad():
-                want, got = plain(), fn()
-                if (kind, shape) not in plain_us:
-                    plain_us[(kind, shape)] = min(
-                        chip_smoke.cuda_time_us(plain, ITERS, queued=True)
-                        for _ in range(2))
-                dev_us, records = chip_smoke.launch_device_us(fn, 10)
-            e = [chip_smoke.abs_errs(a, b) for a, b in zip(got, want)]
-            row = {"label": label, "plans": plan_set, "kernel": kind,
-                   "shape": list(shape), "plan": plan._asdict() if plan else None,
-                   "us": min(times[key]), "us_turns": times[key],
-                   "wrapper_us": min(wrapper[key]), "wrapper_us_turns": wrapper[key],
-                   "device_us": dev_us, "device_records": records,
-                   "plain_us": plain_us[(kind, shape)],
-                   "max_abs_err": max(v[0] for v in e),
-                   "mean_abs_err": max(v[1] for v in e)}
-            if plan is not None:
+            times.setdefault(key, []).append(
+                chip_smoke.cuda_time_us(fn, ITERS, queued=True))
+            wrapper.setdefault(key, []).append(chip_smoke.cuda_time_us(fn, ITERS))
+    lines, sums, plain_us = [], {}, {}
+    for plan_set, kind, shape, inputs in runs:   # one line each, printed as it comes
+        phased, res = chip_smoke.lstm_kind(kind)
+        plan = plan_of(plan_set, kind, shape)
+        key = (plan_set, kind, shape)
+        fn = call(kind, plan, inputs)
+        plain = chip_smoke.lstm_calls(inputs, kind)[1]
+        with torch.no_grad():
+            want, got = plain(), fn()
+            if (kind, shape) not in plain_us:
+                plain_us[(kind, shape)] = min(
+                    chip_smoke.cuda_time_us(plain, ITERS, queued=True)
+                    for _ in range(2))
+            dev_us, records = chip_smoke.launch_device_us(fn, 10)
+        e = [chip_smoke.abs_errs(a, b) for a, b in zip(got, want)]
+        row = {"label": label, "plans": plan_set, "kernel": kind,
+               "shape": list(shape), "plan": plan._asdict() if plan else None,
+               "us": min(times[key]), "us_turns": times[key],
+               "wrapper_us": min(wrapper[key]), "wrapper_us_turns": wrapper[key],
+               "device_us": dev_us, "device_records": records,
+               "plain_us": plain_us[(kind, shape)],
+               "max_abs_err": max(v[0] for v in e),
+               "mean_abs_err": max(v[1] for v in e)}
+        C = shape[-1]
+        if plan is None:
+            row["weight_mb"] = lstm_first_design_weight_bytes(gru_hside, *shape) / 1e6
+            row["ptxas"] = lstm_first_design_ptxas(ptxas, kind)
+        else:
+            row["weight_mb"] = gru_hside.lstm_weight_bytes(plan, *shape) / 1e6
+            mr = gru_hside.LSTM_COMBOS[plan.combo]
+            if new_api:
                 row.update({
-                    "weight_mb": gru_hside.lstm_weight_bytes(plan, *shape) / 1e6,
                     "smem_bytes": gru_hside.lstm_smem_bytes(
-                        plan.tile_h, plan.tile_w, shape[-1], plan.split, plan.ks, phased),
+                        plan.tile_h, plan.tile_w, C, plan.split, plan.ks, phased, res),
                     "blocks_per_sm": lib.ramnet_lstm_blocks_per_sm(
-                        int(phased), shape[-1], *plan)})
-            row["ptxas"] = chip_smoke.lstm_ptxas(
-                ptxas, phased, gru_hside.LSTM_COMBOS[plan.combo] if plan else None)
-            for name, v in (("us", row["us"]), ("wrapper_us", row["wrapper_us"])):
-                sums[f"{plan_set}_{kind}_{name}"] = sums.get(
-                    f"{plan_set}_{kind}_{name}", 0.0) + v
-            print(json.dumps(row), flush=True)
-    if args.sweep and planned:
+                        int(phased), int(res), C, *plan),
+                    "ptxas": chip_smoke.lstm_ptxas(ptxas, kind, mr)})
+            else:   # the older tree's -res kernels: lstm_kernel<kPhased, MR>
+                row.update({
+                    "smem_bytes": gru_hside.lstm_smem_bytes(
+                        plan.tile_h, plan.tile_w, C, plan.split, plan.ks, phased),
+                    "blocks_per_sm": lib.ramnet_lstm_blocks_per_sm(int(phased), C, *plan),
+                    "ptxas": next((info for name, info in ptxas.items() if
+                                   f"11lstm_kernelILb{int(phased)}ELi{mr}EE" in name),
+                                  None)})
+        for name, v in (("us", row["us"]), ("wrapper_us", row["wrapper_us"])):
+            sums[f"{plan_set}_{kind}_{name}"] = sums.get(
+                f"{plan_set}_{kind}_{name}", 0.0) + v
+        print(json.dumps(row), flush=True)
+    if args.sweep and new_api:
         with torch.no_grad():
             for kind, shape, inputs in cases:
-                phased = kind == "k4_res"
-                plans = gru_hside.lstm_plans(*shape, phased=phased)
-                best = min(gru_hside._lstm_cost(p, *shape, phased) for p in plans)
+                phased, res = chip_smoke.lstm_kind(kind)
+                plans = gru_hside.lstm_plans(*shape, phased=phased, residuals=res,
+                                             max_split=None if res else 4)
+                cost = {p: gru_hside._lstm_cost(p, *shape, phased, res) for p in plans}
+                best = min(cost.values())
                 for plan in plans:
-                    if gru_hside._lstm_cost(plan, *shape, phased) > 6 * best:
+                    if cost[plan] > 6 * best:
                         continue
                     lines.append({
                         "sweep": kind, "shape": list(shape), "plan": list(plan),
-                        "us": chip_smoke.cuda_time_us(call(kind, plan, inputs), 10,
-                                                      queued=True)})
-    if args.gates and planned:
+                        "us": min(chip_smoke.cuda_time_us(call(kind, plan, inputs), 10,
+                                                          queued=True)
+                                  for _ in range(2))})
+    if args.gates and new_api:
         lines += lstm_gate_errors(torch, gru_hside, phased_cell, cases, dev)
     if args.profile_train:
-        del cases
+        del cases, inputs_of
         torch.cuda.empty_cache()
         lines.append({"profile_train": profile_train(torch, dev)})
     lines.append({"label": label, "summary": sums, "nvidia_smi": smi,
@@ -870,6 +1000,8 @@ def main() -> int:
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--latency-pairs", type=int, default=0)
     ap.add_argument("--profile-train", action="store_true")
+    ap.add_argument("--kinds", default=None)   # --lstm: k3,k4,k3_res,k4_res
+    ap.add_argument("--e2e", action="store_true")   # --lstm: the paths
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))

@@ -1,26 +1,32 @@
-// The tile of kernels K3-res and K4-res (lstm_hside.cu): one block computes
-// the ConvLSTM h-side cell (K4-res: the phased cell) on a TH x TW output
-// tile, for all C channels or, with a split of 2, for its C/2 of them.
+// The tile of the ConvLSTM kernels (lstm_hside.cu): K3 and K4 for
+// inference, K3-res and K4-res for training.  One block computes the
+// ConvLSTM h-side cell (K4, K4-res: the phased cell) on a TH x TW output
+// tile, for all C channels or, with a split of 2 or 4, for its C/split of
+// them.
 //
 //     g = conv3x3(h, W4) + gx      i, f, o = sigmoid(g_i, g_f, g_o)   u = tanh(g_u)
 //     c' = f * c + i * u           h' = o * tanh(c')
 //
-// K4-res then blends (c', h') with the state by the time gate k(t), and both
-// also write the gate activations acts = (i, f, o, u) [B,H,W,4C] for the
-// backward.
+// K4 and K4-res then blend (c', h') with the state by the time gate k(t);
+// the training variants also write the gate activations acts = (i, f, o,
+// u) [B,H,W,4C] for the backward (the template flag kActs).
 //
-// What bounds it on this card.  Per pixel the cell does 36*C^2 multiply-adds
-// and must move 24*C bytes (K3-res; K4-res 26*C and 8*C of f32 tau and
-// phase): 3*C flop per byte, above the H100's bf16 ridge (~295 flop/B) at
-// C = 128 and 256 and below it at C = 64, so the conv belongs on the tensor
-// cores and its bound is theirs (C >= 128) or the bytes' (C = 64).  What
-// held the first design (lstm_hside.cu's lstm_hside_kernel, which K3 and K4
-// keep) at 3.6-10% of that bound was the weight feed: each warp item of 32
+// What bounds them on this card.  Per pixel the cell does 36*C^2
+// multiply-adds and must move 16*C bytes (K3; K4 20*C and 8*C of f32 tau
+// and phase; K3-res 24*C, K4-res 26*C): 4.5*C flop per byte for K3, 3*C for
+// K3-res, at or above the H100's bf16 ridge (~295 flop/B) at C = 128 and
+// 256, so the conv belongs on the tensor cores and its bound is theirs.
+// The inference kernels run at B = 1 (1408 to 32768 pixels), where a launch
+// of one block per SM fills one or two waves of 132 SMs at most and the
+// weights (4C x 9C bf16, 4.7 MB at C = 256) are read by every block: the
+// weight bytes through L2, not the maps, then set the time.  What held the
+// first design (a kernel of its own, which K3 and K4 ran until this tile
+// took them) at 1.7-6% of the bound was that weight feed: each warp item of 32
 // pixels x 16 channels x 4 gates read its B fragments with 4-byte loads
 // from L1/L2, 9*4*16*C bf16 per item, so a launch re-read 2.25*B*H*W*C^2
-// bytes of weights, 925 MB at each phased training shape against 38-154 MB
-// of maps; its epilogue loaded gx and c and stored the outputs 4 bytes a
-// lane at pitches C and 4C, and computed the gates in IEEE arithmetic.
+// bytes of weights; its epilogue loaded gx and c and stored the outputs 4
+// bytes a lane at pitches C and 4C, and computed the gates in IEEE
+// arithmetic.
 //
 // What the design does about it, after K1's tile (gru_hside_tile.cuh):
 //   * a block owns the (pixel, channel) pairs of its tile and its channel
@@ -28,7 +34,9 @@
 //     channel meet in one thread's registers, where the cell update and the
 //     time-gate blend run, so a split is by channel and never by gate.  The
 //     LSTM has one conv and no exchange between channel slices, so a split
-//     is a plain grid axis, no cluster;
+//     is a plain grid axis, no cluster: it costs only the h tile, which
+//     every block of a pixel tile stages whole, and lets a larger tile
+//     (fewer weight passes per launch) keep the blocks of a wave;
 //   * the weights stream once per block and pass through a ring of two
 //     slabs in shared memory by cp.async (the next slab loads while the
 //     warps consume this one), each slab one tap x KS input channels x the
@@ -42,26 +50,33 @@
 //     warps, the block makes further passes over the weights;
 //   * the h tile with its 1-pixel halo (zero outside the image: the conv's
 //     padding), gx and c of the block's channels arrive by cp.async with the
-//     first weight slab.  K4-res's tau and phase (f32, one [H,W,C] for the
-//     whole batch, so L2-resident) are read in the epilogue through L1:
-//     staged, they took 8*Cn bytes of shared memory per pixel, narrower
-//     slabs and smaller tiles;
+//     first weight slab, into the io tile's 5 input slots [gx_i | gx_f |
+//     gx_o | gx_u | c].  K4's tau and phase (f32, one [H,W,C] for the whole
+//     batch, so L2-resident) are read in the epilogue through L1: staged,
+//     they took 8*Cn bytes of shared memory per pixel, narrower slabs and
+//     smaller tiles;
 //   * the epilogue reads gx and c from shared memory, computes the gates on
 //     the special-function unit (ex2 and rcp, tanh as 1 - 2 sigmoid(-2x):
 //     gate_sigmoid, gate_tanh; -DRAMNET_LSTM_EXACT_GATES builds the IEEE
 //     forms, against which gru_hside_timing.py --lstm --gates measures
-//     these) and stages acts and the outputs over gx and c in place (a
-//     thread writes only the (pixel, channel) pairs it read), from where
-//     the block writes them 16 bytes a lane.  The time gate stays
-//     correctly rounded (time_gate: a contracted or approximate op there can
-//     move phi across a region boundary).
-// Measured (PERF.md §6), the weight bytes per launch fell from 925 MB to
-// 231-604 MB and the kernels to 12-22% of their bound.  What is left: one
-// block of 8 warps per SM (242-246 registers, 190-231 KB of shared
-// memory), so a block's loads, products, epilogue and stores follow each
-// other rather than overlap.
+//     these) and stages the outputs in the io tile in place (a thread
+//     writes only the (pixel, channel) pairs it read), from where the
+//     block writes them 16 bytes a lane.  K3 and K4 stage their 2 or 3
+//     outputs over the input slots (pixel pitch 5*Cn + kPad) and store no
+//     acts; K3-res and K4-res add the 4 acts slots ahead of the outputs
+//     (6*Cn or 7*Cn + kPad).  The time gate stays correctly rounded
+//     (time_gate: a contracted or approximate op there can move phi across
+//     a region boundary).
+// Measured (PERF.md §6), the training variants' weight bytes per launch
+// fell from 925 MB to 231-604 MB and the kernels to 12-22% of their bound;
+// K3's and K4's at B=1 from 208-604 MB to 38-151 MB (a split of 4 at C >=
+// 128) and the kernels to 9-20% of their bound, 1.7-5.6x the first design.
+// What is left: one block of 8 warps per SM (154-245 registers, up to 231
+// KB of shared memory), so a block's loads, products, epilogue and stores
+// follow each other rather than overlap, and at B=1 a launch is one wave
+// or two, so nothing hides the first slab's and the last store's latency.
 // The wrapper plans the tile, the split, the warp jobs and the slab width
-// per shape (ops/gru_hside.py::plan_lstm) and passes the plan.
+// per kernel and shape (ops/gru_hside.py::plan_lstm) and passes the plan.
 #pragma once
 
 #include "gru_hside_tile.cuh"
@@ -69,10 +84,11 @@
 namespace {
 
 // The launch's arguments.  h, c [B,H,W,C]: the conv operand and the cell
-// input (K4-res: c0 and h0); gx [H,W,4C] per batch item, items gx_bstride
-// elements apart; w4 [9,4C,C] ([tap][gate*C + out][in]); K4-res's tau,
-// phase [H,W,C] and times [B] (f32); outputs [B,H,W,C]: K3-res (h', c'),
-// K4-res (h_t, h_new, c_new); acts [B,H,W,4C].
+// input (K4, K4-res: c0 and h0); gx [H,W,4C] per batch item, items
+// gx_bstride elements apart; w4 [9,4C,C] ([tap][gate*C + out][in]); K4's
+// tau, phase [H,W,C] and times [B] (f32); outputs [B,H,W,C]: K3 (h', c'),
+// K4 (h_t, h_new, c_new); K3-res and K4-res also acts [B,H,W,4C] (null
+// for K3 and K4).
 struct LstmArgs {
   const bf16* h;
   const bf16* c;
@@ -86,7 +102,7 @@ struct LstmArgs {
   int H, W, C;
   long long gx_bstride;
   int TH, TW;   // output tile
-  int split;    // blocks per tile, each C / split channels
+  int split;    // blocks per tile, each C / split channels: 1, 2 or 4
   int ks;       // input channels per weight slab: 16, 32 or 64
   float leak, ratio_on;
 };
@@ -94,13 +110,15 @@ struct LstmArgs {
 // Shared memory of one block in bytes: the h tile with its 1-pixel halo at
 // pixel pitch C + kPad, the weight ring (kStages x 4*Cn rows at pitch
 // ks + kPad) and the io tile, per output pixel [gx_i | gx_f | gx_o | gx_u |
-// c] in, [i | f | o | u | out0 | out1 (| out2)] out, Cn each, at pitch
-// slots*Cn + kPad (6 slots, K4-res 7), bf16.  ops/gru_hside.py::
-// lstm_smem_bytes computes the same.
-inline size_t lstm_smem_bytes(int TH, int TW, int C, int split, int ks, bool phased) {
+// c] in, Cn each, and out [out0 | out1 (| out2)] over them (K3, K4: 5 slots)
+// or [i | f | o | u | out0 | out1 (| out2)] (acts: K3-res 6 slots, K4-res
+// 7), at pitch slots*Cn + kPad, bf16.  ops/gru_hside.py::lstm_smem_bytes
+// computes the same.
+inline size_t lstm_smem_bytes(int TH, int TW, int C, int split, int ks, bool phased,
+                              bool acts) {
   const size_t cn = C / split, px = (size_t)TH * TW;
   return ((size_t)(TH + 2) * (TW + 2) * (C + kPad) + (size_t)kStages * 4 * cn * (ks + kPad) +
-          px * ((phased ? 7 : 6) * cn + kPad)) * sizeof(bf16);
+          px * ((acts ? (phased ? 7 : 6) : 5) * cn + kPad)) * sizeof(bf16);
 }
 
 #ifdef RAMNET_LSTM_EXACT_GATES
@@ -180,12 +198,15 @@ __device__ __forceinline__ void load_lstm_slab(const LstmArgs& a, int s, int kc,
 }
 
 // One block of the cell.  Grid: x = tile column * split + rank, y = tile
-// row, z = batch item.  MR: a warp's job in m16 tiles (16*MR pixels); its
-// 16 channels are two n8 tiles of each gate.
-template <bool kPhased, int MR>
+// row, z = batch item.  kPhased: K4 (K4-res); kActs: the training variant,
+// which also writes acts.  MR: a warp's job in m16 tiles (16*MR pixels);
+// its 16 channels are two n8 tiles of each gate.
+template <bool kPhased, bool kActs, int MR>
 __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(const LstmArgs a) {
   constexpr int NR = 2;
-  constexpr int kSlots = kPhased ? 7 : 6;
+  constexpr int kOuts = kPhased ? 3 : 2;               // output maps
+  constexpr int kFirst = kActs ? 4 : 0;                // io slot of out0
+  constexpr int kSlots = kActs ? kFirst + kOuts : 5;   // io slots per pixel
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = a.C, H = a.H, W = a.W, TH = a.TH, TW = a.TW;
   const int split = a.split;
@@ -352,11 +373,16 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(const LstmArgs a) {
               cell[j] = act[1][j] * (j ? cv.y : cv.x) + act[0][j] * act[3][j];
               hid[j] = act[2][j] * lstm_tanh(cell[j]);
             }
+            // the outputs over this thread's own input slots (after the
+            // acts where they are kept)
+            if (kActs) {
 #pragma unroll
-            for (int k = 0; k < 4; ++k) st_u32(sp + k * Cn + o, pack_bf2(act[k][0], act[k][1]));
+              for (int k = 0; k < 4; ++k) st_u32(sp + k * Cn + o, pack_bf2(act[k][0], act[k][1]));
+            }
+            bf16* op = sp + kFirst * Cn + o;
             if (!kPhased) {
-              st_u32(sp + 4 * Cn + o, pack_bf2(hid[0], hid[1]));
-              st_u32(sp + 5 * Cn + o, pack_bf2(cell[0], cell[1]));
+              st_u32(op, pack_bf2(hid[0], hid[1]));
+              st_u32(op + Cn, pack_bf2(cell[0], cell[1]));
             } else {
               // h_t = cell', c_t = hidden'; h0 = c (the cell input), c0 = h
               // (the conv operand, at the tile's centre)
@@ -365,9 +391,9 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(const LstmArgs a) {
               const float2 ph = __ldg(reinterpret_cast<const float2*>(a.phase + tq + o));
               const float2 k = make_float2(time_gate(t_b, ta.x, ph.x, a.leak, a.ratio_on),
                                            time_gate(t_b, ta.y, ph.y, a.leak, a.ratio_on));
-              st_u32(sp + 4 * Cn + o, pack_bf2(cell[0], cell[1]));
-              st_u32(sp + 5 * Cn + o, pack_bf2(blend(k.x, cell[0], cv.x), blend(k.y, cell[1], cv.y)));
-              st_u32(sp + 6 * Cn + o, pack_bf2(blend(k.x, hid[0], cz.x), blend(k.y, hid[1], cz.y)));
+              st_u32(op, pack_bf2(cell[0], cell[1]));
+              st_u32(op + Cn, pack_bf2(blend(k.x, cell[0], cv.x), blend(k.y, cell[1], cv.y)));
+              st_u32(op + 2 * Cn, pack_bf2(blend(k.x, hid[0], cz.x), blend(k.y, hid[1], cz.y)));
             }
           }
         }
@@ -375,19 +401,19 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_kernel(const LstmArgs a) {
     }
   }
   __syncthreads();
-  // 3. acts and the outputs from the io tile, 16 bytes a lane
+  // 3. the outputs (and acts) from the io tile, 16 bytes a lane
   {
-    bf16* actb = a.acts + (size_t)b * H * W * C4;
-    const int dims[4] = {TH, TW, kSlots, vc};
+    const int dims[4] = {TH, TW, kFirst + kOuts, vc};
     for (Walk<4> w(dims); w.valid(); w.next()) {
       const int cy = w.i[0], cx = w.i[1], slot = w.i[2], v = w.i[3];
       const int pix = cy * TW + cx;
       const int gy = y0 + cy, gx_ = x0 + cx;
       if (gy >= H || gx_ >= W) continue;
       const size_t px = (size_t)gy * W + gx_;
-      bf16* out = slot == 4 ? a.out[0] : slot == 5 ? a.out[1] : a.out[2];
-      bf16* dst = slot < 4 ? actb + px * C4 + slot * C + c0 + v * 8
-                           : out + b * plane + px * C + c0 + v * 8;
+      const int k = slot - kFirst;
+      bf16* out = k == 0 ? a.out[0] : k == 1 ? a.out[1] : a.out[2];
+      bf16* dst = k < 0 ? a.acts + ((size_t)b * H * W + px) * C4 + slot * C + c0 + v * 8
+                        : out + b * plane + px * C + c0 + v * 8;
       *reinterpret_cast<uint4*>(dst) =
           *reinterpret_cast<const uint4*>(io + pix * iop + slot * Cn + v * 8);
     }

@@ -58,9 +58,9 @@ writes acts [B, H, W, 4C] = (i, f, o, u) in h's dtype, and its backward
 ``conv_lstm_hside_bwd`` (``_lstm_hside_bwd``: elementwise gate grads and
 two library convolutions, XLA in the JAX package too).  The phased cell K4
 and its residual variant K4-res are the same source with a template flag
-(``ops/phased_cell.py``).  K3-res and K4-res run on their own tile
-(``csrc/lstm_hside_tile.cuh``) under a plan per shape (``plan_lstm``); K3
-and K4 keep the first design's tile (``pick_tile``).
+(``ops/phased_cell.py``).  All four run on one tile
+(``csrc/lstm_hside_tile.cuh``; K3 and K4 without the acts) under a plan per
+kernel and shape (``plan_lstm``).
 """
 from __future__ import annotations
 
@@ -74,13 +74,13 @@ import torch.nn.functional as F
 
 from ..utils.layout import to_nchw, to_nhwc
 
-# H x W output tiles pick_tile chooses from, largest first, for K3, K4
-# and the launch variants K9, K10a, K10b and K11 (gru_cell.cuh).  A block
-# of those holds the h tile with a 2-pixel halo and a = r*h with a 1-pixel
-# ring in shared memory (K9-K11); smaller tiles recompute more of the ring
-# but give more blocks.  K1 and K1-res have their own planner (plan_k1,
-# below), K2 its own (plan_k2), K3-res and K4-res theirs (plan_lstm), K5
-# its own (plan_k5).
+# H x W output tiles pick_tile chooses from, largest first, for the launch
+# variants K9, K10a, K10b and K11 (gru_cell.cuh).  A block of those holds
+# the h tile with a 2-pixel halo and a = r*h with a 1-pixel ring in shared
+# memory; smaller tiles recompute more of the ring but give more blocks.
+# K1 and K1-res have their own planner (plan_k1, below), K2 its own
+# (plan_k2), K3, K4, K3-res and K4-res theirs (plan_lstm), K5 its own
+# (plan_k5).
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
 _SMEM_MAX = 232448           # bytes a block may use on Hopper
 _SMEM_TWO_BLOCKS = 110 * 1024
@@ -104,12 +104,6 @@ def smem_bytes_bwd(tile_h: int, tile_w: int, C: int) -> int:
     return ((tile_h + 4) * (tile_w + 4) * (C + 8) * 2
             + (tile_h + 2) * (tile_w + 2) * (2 * C + 8) * 2
             + tile_h * tile_w * C * 4)
-
-
-def smem_bytes_lstm(tile_h: int, tile_w: int, C: int) -> int:
-    """K3 and K4: the conv operand's tile with a 1-pixel halo, bf16, at
-    pitch C + 8.  (K3-res and K4-res: ``lstm_smem_bytes``.)"""
-    return (tile_h + 2) * (tile_w + 2) * (C + 8) * 2
 
 
 def pick_tile(B: int, H: int, W: int, C: int, smem=smem_bytes
@@ -275,18 +269,18 @@ def _k1_cost(plan: K1Plan, B: int, H: int, W: int, C: int,
 
 
 def _plans(make, H: int, W: int, C: int, max_split: int, combos: int,
-           smem) -> list:
+           smem, splits=_SPLITS) -> list:
     """Every plan make(tile_h, tile_w, split, combo, ks) of tiles clipped
-    to the image, splits (1 below C = _MIN_SPLIT_C, else those dividing
-    C/16 up to max_split) and combos, each with the widest slab dividing C
-    whose footprint smem(tile_h, tile_w, split, ks) fits in shared
-    memory."""
+    to the image, splits (1 below C = _MIN_SPLIT_C, else those of
+    ``splits`` dividing C/16 up to max_split) and combos, each with the
+    widest slab dividing C whose footprint smem(tile_h, tile_w, split, ks)
+    fits in shared memory."""
     if C % 16:
         return []
     plans = []
     tiles = sorted({(min(th, H), min(tw, W)) for th in _TILE_SIDES
                     for tw in _TILE_SIDES})
-    for split in _SPLITS:
+    for split in splits:
         if split > max_split or (C // 16) % split or (
                 split > 1 and C < _MIN_SPLIT_C):
             continue
@@ -338,32 +332,41 @@ def k1_plan_kinds(B: int, H: int, W: int, C: int, residuals: bool = False
                        plan_k1(B, H, W, C, residuals=residuals))
 
 
-# -- K3-res's and K4-res's plan ----------------------------------------------
-# A K3-res (K4-res) block (csrc/lstm_hside_tile.cuh) holds the conv
+# -- K3's, K4's, K3-res's and K4-res's plan -----------------------------------
+# A block of the ConvLSTM tile (csrc/lstm_hside_tile.cuh) holds the conv
 # operand's tile with its 1-pixel halo at pitch C + 8, a ring of two weight
 # slabs (one tap x ks inputs x the block's 4*cn gate rows) and the io tile,
-# where gx and c arrive and acts and the outputs are staged (K4-res also
-# tau and phase in float32); `split` blocks share a pixel tile and take
-# C/split channels each.  Each of its 8 warps owns one job per pass over
-# the weights: 16*MR pixels x 16 channels x the 4 gates.  K3 and K4 keep
-# pick_tile's tile (smem_bytes_lstm).
+# where gx and c arrive and the outputs (K3-res, K4-res: and acts) are
+# staged; `split` blocks share a pixel tile and take C/split channels each.
+# Each of its 8 warps owns one job per pass over the weights: 16*MR pixels
+# x 16 channels x the 4 gates.  K3 and K4 (residuals False) keep no acts,
+# so their io tile is narrower and their plans may differ from the
+# training variants'.
 
 LSTM_COMBOS = (4, 3, 2)   # MR: m16 tiles of a warp job
-# The planner's cost model, in the terms of lstm_cost_terms: a launch takes
-# waves of blocks (_WAVE_BLOCKS at once: one block fits per SM), a block's
-# microseconds are linear in what it does.  The weights are the
-# non-negative least-squares fit of `gru_hside_timing.py --lstm --fit
-# lstm_hside_sweep.jsonl` to the plans its --sweep timed on an H100 80GB
-# HBM3 at 700 W (1099 plans, median error 2.9%, within 5% of the swept best
-# at the six timed shapes; PERF.md §6).
-_LSTM_MODEL = {"mma": 0.00209, "mma_lone": 0.00303, "weight_bytes": 1.76e-05,
-               "io_bytes": 8.01e-05, "slabs": 0.673, "time_gate": 0.000618,
-               "a_conflicts": 0.000348, "block": 1.53}
+# Blocks per pixel tile the kernel takes (a plain grid axis, no cluster)
+# and the most each kernel's planner weighs: K3 and K4 (residuals False)
+# up to 4, which their B=1 sweep picks at every shape with C >= 128 (its
+# weight bytes halve again against 2, PERF.md §6), K3-res and K4-res (True)
+# up to 2, as their B=8 sweep was timed
+_LSTM_SPLITS = (1, 2, 4)
+_LSTM_MAX_SPLIT = {False: 4, True: 2}
+# The planner's cost model, in the terms of lstm_cost_terms, for the four
+# kernels: a launch takes waves of blocks (_WAVE_BLOCKS at once: one block
+# fits per SM), a block's microseconds are linear in what it does.  The
+# weights are the non-negative least-squares fit of `gru_hside_timing.py
+# --lstm --fit lstm_hside_sweep.jsonl` to the plans its --sweep timed on an
+# H100 80GB HBM3 at 700 W (3500 plans: K3-res and K4-res at B=8, K3 and K4
+# at B=1; median error 2.9%; within 5% of the swept best at every timed
+# shape but 32x44x256, where it is within 6%: PERF.md §6).
+_LSTM_MODEL = {"mma": 0.00309, "mma_lone": 0.0044, "weight_bytes": 1.63e-05,
+               "io_bytes": 7.38e-05, "slabs": 0.626, "time_gate": 0.000855,
+               "a_conflicts": 0.000353, "block": 1.5}
 
 
 class LstmPlan(NamedTuple):
-    """How K3-res and K4-res run one shape: the output tile, the blocks
-    per tile (each C/split channels), the warp jobs (an index of
+    """How K3, K4, K3-res or K4-res runs one shape: the output tile, the
+    blocks per tile (each C/split channels), the warp jobs (an index of
     LSTM_COMBOS) and the input channels per weight slab."""
     tile_h: int
     tile_w: int
@@ -373,15 +376,16 @@ class LstmPlan(NamedTuple):
 
 
 def lstm_smem_bytes(tile_h: int, tile_w: int, C: int, split: int, ks: int,
-                    phased: bool = False) -> int:
-    """Shared memory of one K3-res (phased: K4-res) block in bytes
-    (csrc/lstm_hside_tile.cuh's lstm_smem_bytes): the h tile with its
-    1-pixel halo at pitch C + 8, the weight ring, 2 slabs x 4*cn rows at
-    pitch ks + 8, and the io tile, 6*cn + 8 per output pixel (K4-res 7*cn +
-    8), bf16; cn = C/split."""
+                    phased: bool = False, residuals: bool = False) -> int:
+    """Shared memory of one K3 (phased: K4; residuals: K3-res, K4-res)
+    block in bytes (csrc/lstm_hside_tile.cuh's lstm_smem_bytes): the h tile
+    with its 1-pixel halo at pitch C + 8, the weight ring, 2 slabs x 4*cn
+    rows at pitch ks + 8, and the io tile, 5*cn + 8 per output pixel (K3-res
+    6*cn + 8, K4-res 7*cn + 8), bf16; cn = C/split."""
     cn, px = C // split, tile_h * tile_w
+    slots = (7 if phased else 6) if residuals else 5
     return ((tile_h + 2) * (tile_w + 2) * (C + 8) + 2 * 4 * cn * (ks + 8)
-            + px * ((7 if phased else 6) * cn + 8)) * 2
+            + px * (slots * cn + 8)) * 2
 
 
 def lstm_jobs(plan: LstmPlan, C: int) -> int:
@@ -399,23 +403,29 @@ def lstm_weight_bytes(plan: LstmPlan, B: int, H: int, W: int, C: int) -> int:
             * 9 * C * 2)
 
 
-def check_lstm_plan(plan: LstmPlan, C: int, phased: bool = False) -> None:
-    """Raise ValueError unless K3-res (phased: K4-res) can run this plan at
-    width C."""
+def _lstm_name(phased: bool, residuals: bool) -> str:
+    return f"K{4 if phased else 3}{'-res' if residuals else ''}"
+
+
+def check_lstm_plan(plan: LstmPlan, C: int, phased: bool = False,
+                    residuals: bool = False) -> None:
+    """Raise ValueError unless K3 (phased: K4; residuals: K3-res, K4-res)
+    can run this plan at width C."""
+    name = _lstm_name(phased, residuals)
     ok = (plan.tile_h >= 1 and plan.tile_w >= 1 and C % 16 == 0
-          and plan.split in _SPLITS and (C // 16) % plan.split == 0
+          and plan.split in _LSTM_SPLITS and (C // 16) % plan.split == 0
           and 0 <= plan.combo < len(LSTM_COMBOS) and plan.ks in _SLABS
           and C % plan.ks == 0)
     if not ok:
-        raise ValueError(f"K3-res/K4-res cannot run plan {plan} at C={C}: "
-                         f"C % 16 == 0, split in {_SPLITS} dividing "
+        raise ValueError(f"{name} cannot run plan {plan} at C={C}: "
+                         f"C % 16 == 0, split in {_LSTM_SPLITS} dividing "
                          f"C/16, combo < {len(LSTM_COMBOS)}, ks in "
                          f"{_SLABS} dividing C")
     smem = lstm_smem_bytes(plan.tile_h, plan.tile_w, C, plan.split, plan.ks,
-                           phased)
+                           phased, residuals)
     if smem > _SMEM_MAX:
-        raise ValueError(f"K3-res/K4-res plan {plan} needs {smem} bytes of "
-                         f"shared memory at C={C}, over {_SMEM_MAX}")
+        raise ValueError(f"{name} plan {plan} needs {smem} bytes of shared "
+                         f"memory at C={C}, over {_SMEM_MAX}")
 
 
 def _ldmatrix_conflicts(n_px: int, width: int, pitch: int, mt: int) -> int:
@@ -443,25 +453,26 @@ def _lstm_a_conflicts(plan: LstmPlan, C: int) -> int:
                                    LSTM_COMBOS[plan.combo]) * (C // plan.split // 16)
 
 
-def lstm_cost_terms(plan: LstmPlan, C: int, phased: bool = False) -> dict:
+def lstm_cost_terms(plan: LstmPlan, C: int, phased: bool = False,
+                    residuals: bool = False) -> dict:
     """What one block of a plan does, in the units of ``_LSTM_MODEL``:
     mma.sync per k16 step on its busiest sub-partition, over the passes
     with two warps on it and with one (latency unhidden); the weight bytes
-    it streams; the h, c, gx, outputs and acts (and tau, phase) bytes it
-    moves; its weight slabs (each a cp.async group and a barrier); K4-res's
-    time gates (one per pixel and channel); its A-fragment bank conflicts
-    over the K walk; a constant."""
+    it streams; the h, c, gx and outputs (residuals: and acts; phased: and
+    tau, phase) bytes it moves; its weight slabs (each a cp.async group and
+    a barrier); K4's time gates (one per pixel and channel); its A-fragment
+    bank conflicts over the K walk; a constant."""
     jobs = lstm_jobs(plan, C)
     per_job = 8 * LSTM_COMBOS[plan.combo]   # 4 gates x MR x 2 n8 tiles
     warps = [min(_WARPS, jobs - _WARPS * p)
              for p in range(math.ceil(jobs / _WARPS))]
     cn, th, tw = C // plan.split, plan.tile_h, plan.tile_w
+    maps = ((13 if phased else 11) if residuals else (8 if phased else 7))
     return {
         "mma": sum(2 * per_job for a in warps if a > 4) * 9 * C / 16,
         "mma_lone": sum(per_job for a in warps if a <= 4) * 9 * C / 16,
         "weight_bytes": len(warps) * 9 * 4 * cn * C * 2,
-        "io_bytes": ((th + 2) * (tw + 2) * C
-                     + th * tw * ((13 if phased else 11) * cn)) * 2
+        "io_bytes": ((th + 2) * (tw + 2) * C + th * tw * maps * cn) * 2
         + (th * tw * 2 * cn * 4 if phased else 0),
         "slabs": len(warps) * 9 * (C // plan.ks),
         "time_gate": th * tw * cn if phased else 0,
@@ -470,41 +481,48 @@ def lstm_cost_terms(plan: LstmPlan, C: int, phased: bool = False) -> dict:
 
 
 def _lstm_cost(plan: LstmPlan, B: int, H: int, W: int, C: int,
-               phased: bool = False) -> float:
+               phased: bool = False, residuals: bool = False) -> float:
     """The planner's estimate of a launch's microseconds (``_LSTM_MODEL``)."""
-    terms = lstm_cost_terms(plan, C, phased)
+    terms = lstm_cost_terms(plan, C, phased, residuals)
     return plan_waves(plan, B, H, W) * sum(_LSTM_MODEL[k] * v
                                            for k, v in terms.items())
 
 
 def lstm_plans(B: int, H: int, W: int, C: int, phased: bool = False,
-               max_split: int = 2) -> List[LstmPlan]:
-    """Every plan the planner weighs for this shape of K3-res (phased:
-    K4-res) (``_plans``)."""
+               max_split: Optional[int] = None, residuals: bool = False
+               ) -> List[LstmPlan]:
+    """Every plan the planner weighs for this shape of K3 (phased: K4;
+    residuals: K3-res, K4-res) (``_plans``; max_split None: the kernel's
+    own, ``_LSTM_MAX_SPLIT``)."""
+    if max_split is None:
+        max_split = _LSTM_MAX_SPLIT[residuals]
     return _plans(LstmPlan, H, W, C, max_split, len(LSTM_COMBOS),
-                  lambda th, tw, split, ks: lstm_smem_bytes(th, tw, C, split, ks,
-                                                            phased))
+                  lambda th, tw, split, ks: lstm_smem_bytes(
+                      th, tw, C, split, ks, phased, residuals), _LSTM_SPLITS)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_lstm(B: int, H: int, W: int, C: int, phased: bool = False,
-              max_split: int = 2) -> Optional[LstmPlan]:
-    """K3-res's (phased: K4-res's) plan: the least estimated cost
-    (``_lstm_cost``) among ``lstm_plans``, the first of equals; None when
-    none fits in shared memory.  K3 and K4 keep pick_tile's tile."""
-    plans = lstm_plans(B, H, W, C, phased, max_split)
+              max_split: Optional[int] = None, residuals: bool = False
+              ) -> Optional[LstmPlan]:
+    """K3's (phased: K4's; residuals: K3-res's, K4-res's) plan: the least
+    estimated cost (``_lstm_cost``) among ``lstm_plans``, the first of
+    equals; None when none fits in shared memory."""
+    plans = lstm_plans(B, H, W, C, phased, max_split, residuals)
     if not plans:
         return None
-    return min(plans, key=lambda p: _lstm_cost(p, B, H, W, C, phased))
+    return min(plans, key=lambda p: _lstm_cost(p, B, H, W, C, phased,
+                                               residuals))
 
 
-def lstm_plan_kinds(B: int, H: int, W: int, C: int, phased: bool = False
-                    ) -> List[LstmPlan]:
+def lstm_plan_kinds(B: int, H: int, W: int, C: int, phased: bool = False,
+                    residuals: bool = False) -> List[LstmPlan]:
     """One plan per (split, combo) the planner can pick at this shape, the
     planner's own first (``_plan_kinds``)."""
-    return _plan_kinds(lstm_plans(B, H, W, C, phased),
-                       lambda p: _lstm_cost(p, B, H, W, C, phased),
-                       plan_lstm(B, H, W, C, phased))
+    return _plan_kinds(
+        lstm_plans(B, H, W, C, phased, residuals=residuals),
+        lambda p: _lstm_cost(p, B, H, W, C, phased, residuals),
+        plan_lstm(B, H, W, C, phased, residuals=residuals))
 
 
 # -- K2's plan ---------------------------------------------------------------
@@ -812,13 +830,12 @@ def supports_full(h: torch.Tensor) -> bool:
 
 def supports_lstm(h: torch.Tensor) -> bool:
     """Whether K3 and K4 (and under autograd K3-res and K4-res) take this
-    NHWC state: bf16, 4-D, C a multiple of 16, a tile that fits K3's and
-    K4's shared memory and a plan of K4-res (whose footprint is K3-res's
-    or more)."""
+    NHWC state: bf16, 4-D, C a multiple of 16 and a plan of K4-res, whose
+    footprint is the largest of the four at every plan, so each of them
+    has a plan wherever it has one."""
     return (h.dtype == torch.bfloat16 and h.dim() == 4
             and h.shape[-1] % 16 == 0
-            and pick_tile(*h.shape, smem=smem_bytes_lstm) is not None
-            and plan_lstm(*h.shape, phased=True) is not None)
+            and plan_lstm(*h.shape, phased=True, residuals=True) is not None)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -1056,17 +1073,17 @@ _FULL_SIGNATURES = {
 _F = ctypes.c_float
 _LSTM_SIGNATURES = {
     "ramnet_lstm_hside_forward": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                       _I, _L, _I, _I, _P)),
+                                       _I, _L, _I, _I, _I, _I, _I, _P)),
     "ramnet_lstm_hside_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _P, _I, _I,
                                            _I, _I, _L, _I, _I, _I, _I, _I,
                                            _P)),
     "ramnet_lstm_phased_forward": (_I, (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _I, _I, _I, _I, _L, _I, _I,
-                                        _F, _F, _P)),
+                                        _I, _I, _I, _F, _F, _P)),
     "ramnet_lstm_phased_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _P, _P,
                                             _P, _P, _P, _I, _I, _I, _I, _L,
                                             _I, _I, _I, _I, _I, _F, _F, _P)),
-    "ramnet_lstm_blocks_per_sm": (_I, (_I,) * 7),
+    "ramnet_lstm_blocks_per_sm": (_I, (_I,) * 8),
     **_ERR,
 }
 # csrc/<name>.cu; lstm_hside holds K3, the phased cell K4 and their residual
@@ -1102,9 +1119,9 @@ def library_full(defines=()):
     return kernels.library("gru_full", _FULL_SIGNATURES, defines)
 
 
-# K3-res and K4-res with the IEEE gates (expf, a correctly rounded division,
-# tanhf) in place of ex2/rcp: the build their errors and times are measured
-# against (csrc/lstm_hside_tile.cuh)
+# K3, K4, K3-res and K4-res with the IEEE gates (expf, a correctly rounded
+# division, tanhf) in place of ex2/rcp: the build their errors and times
+# are measured against (csrc/lstm_hside_tile.cuh)
 LSTM_EXACT_GATES = ("RAMNET_LSTM_EXACT_GATES",)
 
 
@@ -1290,21 +1307,17 @@ def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False,
                 plan: Optional[LstmPlan] = None):
     """K3 (phased None: returns (h', c')) or K4 (phased = (tau, phase, t,
     leak, ratio_on): returns (h_t, h_new, c_new)) on h's stream; with
-    residuals K3-res or K4-res, which also return acts [B, H, W, 4C], on
-    their tile under ``plan`` (``plan_lstm``'s when None)."""
+    residuals K3-res or K4-res, which also return acts [B, H, W, 4C]; all
+    on the tile under ``plan`` (``plan_lstm``'s for the kernel when
+    None)."""
     h, c, w4 = h.contiguous(), c.contiguous(), w4.to(h.dtype).contiguous()
     _check_launch(h, c, gx, w4)
     B, H, W, C = h.shape
     gx_bstride = _gx_bstride(h, gx, gates=4)
-    if residuals:
-        kw = {"phased": phased is not None}
-        plan = _resolve_plan(h, plan, LstmPlan,
-                             functools.partial(plan_lstm, **kw),
-                             functools.partial(check_lstm_plan, **kw),
-                             "K3-res/K4-res")
-        tiling = tuple(plan)
-    else:
-        tiling = _tile(h, smem_bytes_lstm)
+    kw = {"phased": phased is not None, "residuals": residuals}
+    name = _lstm_name(**kw)
+    plan = _resolve_plan(h, plan, LstmPlan, functools.partial(plan_lstm, **kw),
+                         functools.partial(check_lstm_plan, **kw), name)
     lib = library_lstm()
     stream = torch.cuda.current_stream(h.device).cuda_stream
     n_out = 2 if phased is None else 3
@@ -1317,9 +1330,8 @@ def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False,
         fn = (lib.ramnet_lstm_hside_forward_res if residuals
               else lib.ramnet_lstm_hside_forward)
         err = fn(h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
-                 *ptrs, B, H, W, C, gx_bstride, *tiling, stream)
-        _raise_on(err, lib, f"lstm_hside (plan {plan})" if residuals
-                  else "lstm_hside")
+                 *ptrs, B, H, W, C, gx_bstride, *plan, stream)
+        _raise_on(err, lib, f"{name} (plan {plan})")
         return outs
     tau, phase, t, leak, ratio_on = phased
     t = t.contiguous()
@@ -1331,9 +1343,8 @@ def launch_lstm(h, c, gx, w4, phased=None, residuals: bool = False,
           else lib.ramnet_lstm_phased_forward)
     err = fn(h.data_ptr(), c.data_ptr(), gx.data_ptr(), w4.data_ptr(),
              tau.data_ptr(), phase.data_ptr(), t.data_ptr(), *ptrs, B, H, W, C,
-             gx_bstride, *tiling, float(leak), float(ratio_on), stream)
-    _raise_on(err, lib, f"lstm_phased (plan {plan})" if residuals
-              else "lstm_phased")
+             gx_bstride, *plan, float(leak), float(ratio_on), stream)
+    _raise_on(err, lib, f"{name} (plan {plan})")
     return outs
 
 
@@ -1465,7 +1476,7 @@ def conv_lstm_hside_res(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
     check_lstm(h, c, gx, w4)
     if _device_of(h) == "cpu":
         if _plan is not None:
-            check_lstm_plan(LstmPlan(*_plan), h.shape[-1])
+            check_lstm_plan(LstmPlan(*_plan), h.shape[-1], residuals=True)
         return conv_lstm_hside_res_plain(h, c, gx, w4)
     with torch.cuda.device(h.device):
         out = launch_lstm(h, c, gx, w4, residuals=True, plan=_plan)
@@ -1502,21 +1513,26 @@ class ConvLSTMHside(torch.autograd.Function):
 
 
 def conv_lstm_hside(h: torch.Tensor, c: torch.Tensor, gx: torch.Tensor,
-                    w4: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                    w4: torch.Tensor, _plan: Optional[LstmPlan] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h', c') [B, H, W, C] of the ConvLSTM h-side cell from NHWC h
     (the conv operand), c (the cell input), gx [B, H, W, 4C] and
     ``ConvLSTM.hside_weights`` (rounded to h's dtype).  When autograd needs
     a gradient of any input this is ``ConvLSTMHside``; otherwise K3 for
     CUDA tensors and ``conv_lstm_hside_plain`` for CPU tensors.
-    ``conv_lstm_hside.launches`` counts K3's launches."""
+    ``conv_lstm_hside.launches`` counts K3's launches.  _plan: an
+    ``LstmPlan`` that replaces ``plan_lstm``'s for K3 (tests and timing;
+    checked on either device)."""
     check_lstm(h, c, gx, w4)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (h, c, gx, w4)):
         return ConvLSTMHside.apply(h, c, gx, w4)
     if _device_of(h) == "cpu":
+        if _plan is not None:
+            check_lstm_plan(LstmPlan(*_plan), h.shape[-1])
         return conv_lstm_hside_plain(h, c, gx, w4)
     with torch.cuda.device(h.device):
-        out = launch_lstm(h, c, gx, w4)
+        out = launch_lstm(h, c, gx, w4, plan=_plan)
     conv_lstm_hside.launches += 1
     return out
 

@@ -5,7 +5,7 @@ gate's blend in one launch (kernel K4), its residual variant for training
 Counterpart of ``rpg_ramnet_tpu/ops/phased_cell.py``
 (``conv_lstm_phased_fused``: Pallas ``_run_phased``/``_phased_kernel``,
 ``_phased_kernel_res``, and the custom VJP ``_phased_cell``).  The kernel
-is ``csrc/lstm_hside.cu`` with its phased flag (and its residual flag);
+is ``csrc/lstm_hside.cu`` with its phased flag (and its acts flag);
 its header says what bounds it on an H100 and what the design does about
 it.
 
@@ -131,7 +131,7 @@ def conv_lstm_phased_res(c0: torch.Tensor, h0: torch.Tensor, gx: torch.Tensor,
     if gru_hside._device_of(c0) == "cpu":
         if _plan is not None:
             gru_hside.check_lstm_plan(gru_hside.LstmPlan(*_plan),
-                                      c0.shape[-1], phased=True)
+                                      c0.shape[-1], phased=True, residuals=True)
         return conv_lstm_phased_res_plain(c0, h0, gx, w4, tau, phase, t, leak,
                                           ratio_on)
     with torch.cuda.device(c0.device):
@@ -200,23 +200,28 @@ class PhasedCell(torch.autograd.Function):
 def conv_lstm_phased(c0: torch.Tensor, h0: torch.Tensor, gx: torch.Tensor,
                      w4: torch.Tensor, tau: torch.Tensor, phase: torch.Tensor,
                      t: torch.Tensor, leak: float = LEAK,
-                     ratio_on: float = RATIO_ON
+                     ratio_on: float = RATIO_ON,
+                     _plan: Optional[gru_hside.LstmPlan] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(h_t, h_new, c_new) [B, H, W, C] of the phased ConvLSTM cell.  When
     autograd needs a gradient of any input this is ``PhasedCell``;
     otherwise K4 for CUDA tensors and ``conv_lstm_phased_plain`` for CPU
-    tensors."""
+    tensors.  _plan: a ``gru_hside.LstmPlan`` that replaces
+    ``plan_lstm``'s for K4 (tests and timing; checked on either device)."""
     _check(c0, h0, gx, w4, tau, phase, t)
     if torch.is_grad_enabled() and any(
             v.requires_grad for v in (c0, h0, gx, w4, tau, phase, t)):
         return PhasedCell.apply(c0, h0, gx, w4, tau, phase, t, leak, ratio_on)
     if gru_hside._device_of(c0) == "cpu":
+        if _plan is not None:
+            gru_hside.check_lstm_plan(gru_hside.LstmPlan(*_plan),
+                                      c0.shape[-1], phased=True)
         return conv_lstm_phased_plain(c0, h0, gx, w4, tau, phase, t, leak,
                                       ratio_on)
     with torch.cuda.device(c0.device):
         out = gru_hside.launch_lstm(
             c0, h0, gx, w4,
-            (tau, phase, t.reshape(-1).float(), leak, ratio_on))
+            (tau, phase, t.reshape(-1).float(), leak, ratio_on), plan=_plan)
     conv_lstm_phased.launches += 1
     return out
 

@@ -603,28 +603,61 @@ def _lstm_inputs(shape, device, seed):
     return h, c, gx, w4, tau, phase, t
 
 
+# forced K3/K4 plans beyond the planner's kinds: splits of 4, a split of
+# 2 at C = 96, a tile larger than the image, 1x1 tiles, 16-channel slabs
+K3_K4_EXTRA_PLANS = {(1, 64, 88, 128): (gru_hside.LstmPlan(16, 12, 4, 1, 64),),
+                     (1, 32, 44, 256): (gru_hside.LstmPlan(4, 12, 4, 2, 64),
+                                        gru_hside.LstmPlan(8, 8, 4, 0, 16)),
+                     (3, 30, 45, 96): (gru_hside.LstmPlan(7, 12, 2, 0, 32),),
+                     (2, 5, 3, 48): (gru_hside.LstmPlan(1, 1, 1, 2, 16),
+                                     gru_hside.LstmPlan(8, 8, 1, 1, 16))}
+
+
 @pytest.mark.parametrize("shape", [(1, 128, 176, 64), (1, 64, 88, 128),
                                    (1, 32, 44, 256), (3, 30, 45, 96),
-                                   (1, 32, 64, 256)],
+                                   (1, 128, 256, 64), (1, 64, 128, 128),
+                                   (1, 32, 64, 256), (2, 5, 3, 48)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_lstm_kernels_match_plain(device, shape):
-    """K3 (h', c') and K4 (h_t, h_new, c_new), bf16, one cell: within 2e-2
-    of their plain versions; the phased shapes (W=44 included), a ragged
-    one with B > 1 and a flagship one; gx a strided view."""
+    """K3 (h', c') and K4 (h_t, h_new, c_new), bf16, one cell, gx a strided
+    view: within 2e-2 of their plain versions under every plan kind the
+    planner can pick at the shape (its own through the default path) and
+    the forced plans of K3_K4_EXTRA_PLANS, one launch each; the phased
+    shapes (W=44 included), the flagship ones, a ragged one with B > 1 and
+    an edge one.  The IEEE-gate build (LSTM_EXACT_GATES) under the
+    planner's plan too."""
     from rpg_ramnet_tpu_torch.ops import phased_cell
     h, c, gx, w4, tau, phase, t = _lstm_inputs(shape, device, seed=shape[2])
-    n3, n4 = gru_hside.conv_lstm_hside.launches, phased_cell.conv_lstm_phased.launches
     with torch.no_grad():
-        got3 = gru_hside.conv_lstm_hside(h, c, gx, w4)
         want3 = gru_hside.conv_lstm_hside_plain(h, c, gx, w4)
-        got4 = phased_cell.conv_lstm_phased(h, c, gx, w4, tau, phase, t)
         want4 = phased_cell.conv_lstm_phased_plain(h, c, gx, w4, tau, phase, t)
-    torch.cuda.synchronize()
-    assert (gru_hside.conv_lstm_hside.launches - n3,
-            phased_cell.conv_lstm_phased.launches - n4) == (1, 1)
-    for a, b in zip(got3 + got4, want3 + want4):
-        assert a.shape == shape
-        assert (a.float() - b.float()).abs().max().item() <= 2e-2
+    built = gru_hside.library_lstm
+    exact = built(gru_hside.LSTM_EXACT_GATES)
+    for phased, fn, want, counter in (
+            (False, lambda **kw: gru_hside.conv_lstm_hside(h, c, gx, w4, **kw),
+             want3, gru_hside.conv_lstm_hside),
+            (True, lambda **kw: phased_cell.conv_lstm_phased(
+                h, c, gx, w4, tau, phase, t, **kw), want4,
+             phased_cell.conv_lstm_phased)):
+        kinds = gru_hside.lstm_plan_kinds(*shape, phased=phased)
+        runs = ([(p, False) for p in kinds + list(K3_K4_EXTRA_PLANS.get(shape, ()))]
+                + [(kinds[0], True)])
+        for i, (plan, ieee) in enumerate(runs):
+            n = counter.launches
+            try:
+                if ieee:
+                    gru_hside.library_lstm = lambda defines=(): exact
+                with torch.no_grad():
+                    got = fn(**({"_plan": plan} if i else {}))
+                torch.cuda.synchronize()
+            finally:
+                gru_hside.library_lstm = built
+            assert counter.launches - n == 1
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert a.shape == shape
+                err = (a.float() - b.float()).abs().max().item()
+                assert err <= 2e-2, (plan, ieee, err)
 
 
 def test_phased_engine_kernels_vs_off(device):
@@ -696,7 +729,7 @@ def test_lstm_res_kernels_match_plain(device, shape):
                 h, c, gx, w4, tau, phase, t, **kw), want4, fwd4)):
         counter = (phased_cell.conv_lstm_phased_res if phased
                    else gru_hside.conv_lstm_hside_res)
-        kinds = gru_hside.lstm_plan_kinds(*shape, phased=phased)
+        kinds = gru_hside.lstm_plan_kinds(*shape, phased=phased, residuals=True)
         if shape[-1] >= 128:
             assert {p.split for p in kinds} == {1, 2}
         for i, plan in enumerate(kinds + list(extra)):

@@ -235,12 +235,9 @@ def test_k2_plan_wherever_supports(cell):
     assert held >= 40
 
 
-# the first design's tiles that the other kernels keep (pick_tile): K3 and
-# K4 (smem_bytes_lstm) and the launch variants K9-K11 (smem_bytes), at
-# their shapes
+# the first design's tiles that the other kernels keep (pick_tile): the
+# launch variants K9-K11 (smem_bytes), at their shapes
 OTHER_TILES = {
-    ("k3_k4", (1, 128, 176, 64)): (8, 16), ("k3_k4", (1, 64, 88, 128)): (4, 8),
-    ("k3_k4", (1, 32, 44, 256)): (4, 4), ("k3_k4", (3, 30, 45, 96)): (4, 8),
     ("variants", (1, 128, 256, 64)): (16, 16), ("variants", (1, 64, 128, 128)): (8, 8),
     ("variants", (1, 32, 64, 256)): (4, 4), ("variants", (2, 15, 23, 32)): (4, 4),
 }
@@ -249,7 +246,7 @@ OTHER_TILES = {
 @pytest.mark.parametrize("key", sorted(OTHER_TILES), ids=lambda k: f"{k[0]}-" + "x".join(map(str, k[1])))
 def test_other_kernels_keep_their_tile(key):
     kind, shape = key
-    smem = {"k3_k4": gru_hside.smem_bytes_lstm, "variants": gru_hside.smem_bytes}[kind]
+    smem = {"variants": gru_hside.smem_bytes}[kind]
     h = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     assert gru_hside.pick_tile(*shape, smem=smem) == OTHER_TILES[key]
     assert gru_hside._tile(h, smem) == OTHER_TILES[key]
