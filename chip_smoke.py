@@ -118,7 +118,11 @@ Phases, each printed as one JSON line:
                    pair, K10a and K10b at the flagship shapes at a step of
                    a 96-step buffer, K11 over S = 96 steps (K=5) at each
                    flagship scale, every step against one plain cell on
-                   the kernel's previous step;
+                   the kernel's previous step; K10a and K11 under every
+                   plan kind their planners can pick there, at a ragged
+                   shape and at K1's edge shapes (H or W below the tile,
+                   C = 16, 48; K11 over two packages), and K11 on a
+                   looping grid of 5 blocks at each flagship scale;
  15. chunked_variants the slice's two sequences through run_chunked_streaming
                    with fused_pair='on', fused_stream='on' and both, then
                    forward_sequence_precomputed(chunk_cells=True) over the
@@ -126,7 +130,10 @@ Phases, each printed as one JSON line:
                    predictions in [0, 1], the first chunk against
                    fused_gru='off'; maps/s of every variant beside the
                    default path (K1) and 'off' in mirrored turns; K9, K10a,
-                   K10b and K11 per launch against their plain versions;
+                   K10b and K11 per launch against their plain versions
+                   (queued), K10a's and K11's also unqueued (wrapper
+                   time), with their plan, weight MB per launch,
+                   registers and spills;
  16. kernel_decoder, decoder  K8 and the composed layers against the
                    two-stage layers at the three flagship decoder layers
                    (decode batches 96 and 6, with and without the skip)
@@ -240,6 +247,15 @@ RAGGED_LSTM_CELL = (3, 30, 45, 96)
 # gx buffers that K10a and K10b read
 RAGGED_PAIR = ((2, 30, 45, 96), (2, 15, 23, 32))
 STREAM_STEP = 37
+# K10a's and K11's shapes beside the flagship ones (batch 1): a ragged one
+# and K1's edge shapes (H or W below the tile, H = W = 1, C = 16, 48); K11
+# runs two packages there (EDGE_STEPS), and a looping grid of LOOP_BLOCKS
+# blocks at each flagship scale
+VARIANT_EDGE_CELLS = ((1, 30, 45, 96), (1, 5, 40, 64), (1, 9, 3, 128),
+                      (1, 3, 37, 256), (1, 1, 1, 64), (1, 20, 24, 16),
+                      (1, 17, 19, 48))
+EDGE_STEPS = 12
+LOOP_BLOCKS = 5
 VARIANTS = (("pair", {"fused_pair": "on"}), ("stream", {"fused_stream": "on"}),
             ("stream_pair", {"fused_pair": "on", "fused_stream": "on"}))
 # the decoder (phase 16): the flagship decoder layers at 256x512 as (C,
@@ -2041,13 +2057,88 @@ def chunk_teacher_forced(snaps, h0, gseq, w_ev, w_im, K):
     return (snaps.float() - want.float()).abs().max().item()
 
 
+def variant_ptxas(ptxas, kind, combo):
+    """The ptxas entry of K10a's (kind 'k10a') or K11's ('k11') kernel
+    instance for a warp-job combo, or with combo None of the first
+    design's kernel (gru_cells_kernel<true>, gru_chunk_kernel) when
+    gru_hside_timing.py --root times an older tree."""
+    for name, info in ptxas.items():
+        if combo is not None and f"{kind}_kernel" in name and \
+                "I" + "".join(f"Li{v}E" for v in combo) + "E" in name:
+            return info
+        if combo is None and (("gru_cells_kernelILb1E" in name) if kind == "k10a"
+                              else "gru_chunk_kernel" in name):
+            return info
+    return None
+
+
+def variant_report(kind, shape, plan, steps=1):
+    """K10a's or K11's plan at shape, the weight MB one launch streams into
+    shared memory (``k1_weight_bytes`` per cell, times the steps), and the
+    kernel instance's registers and spills (ptxas)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    lib = "gru_hside" if kind == "k10a" else "gru_chunk"
+    return {"plan": plan_name(plan),
+            "weight_mb": steps * gru_hside.k1_weight_bytes(plan, *shape) / 1e6,
+            "ptxas": variant_ptxas(ptxas_by_kernel(kernels.build_log.get(lib, "")),
+                                   kind, gru_hside.K1_COMBOS[plan.combo])}
+
+
+def k10a_plan_errors(h, gseq, w, sel, shape):
+    """{plan: max abs error} of K10a against its plain version under every
+    plan kind K1's planner can pick at the shape (its own pick through the
+    wrapper's default path); raises beyond K1_TOL."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside, gru_stream
+    want = gru_stream.conv_gru_hside_stream_plain(h, gseq, sel, *w)
+    errs = {}
+    for i, plan in enumerate(gru_hside.k1_plan_kinds(*shape)):
+        got = gru_stream.conv_gru_hside_stream(h, gseq, sel, *w,
+                                               **({"_plan": plan} if i else {}))
+        torch.cuda.synchronize()
+        errs[plan_name(plan)] = (got.float() - want.float()).abs().max().item()
+        if not (errs[plan_name(plan)] <= K1_TOL):
+            raise AssertionError(f"K10a vs plain at {shape}, plan {plan}: {errs}")
+    return errs
+
+
+def k11_plan_errors(h0, gseq, w_ev, w_im, K, shape):
+    """{plan: {per-step error, grid}} of K11 under every plan kind its
+    planner can pick at the shape (its own pick through the wrapper's
+    default path), each snapshot against one plain cell on the kernel's
+    previous one; raises beyond CELL_TOL."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_chunk
+    C = shape[-1]
+
+    def resident(p):
+        return gru_chunk.resident_clusters(h0.device.index, C, p)
+
+    out = {}
+    for i, plan in enumerate(gru_chunk.k11_plan_kinds(*shape[1:], resident)):
+        snaps = gru_chunk.conv_gru_hside_chunk(w_ev, w_im, gseq, h0, K,
+                                               **({"_plan": plan} if i else {}))
+        torch.cuda.synchronize()
+        err = chunk_teacher_forced(snaps, h0, gseq, w_ev, w_im, K)
+        out[plan_name(plan)] = {"per_step_err": err, "resident": resident(plan),
+                                "grid": gru_chunk.conv_gru_hside_chunk.last_grid}
+        if not (err <= CELL_TOL):
+            raise AssertionError(f"K11 vs plain at {shape}, plan {plan}: {out}")
+    return out
+
+
 def chunked_kernel_check(dev, seed, K):
-    """K9 (flagship scales 0+1 and the ragged pair), K10a and K10b (the
-    flagship shapes, step STREAM_STEP of CHUNK*(K+1)-step buffers) and K11
-    (S = CHUNK*(K+1) steps per flagship scale) against their plain
-    versions: max abs errors; K11 per step on its own previous snapshot
-    (gated) and free-running against the plain loop (reported).  Returns
-    the errors and the flagship inputs for the timing."""
+    """K9 (flagship scales 0+1 and the ragged pair), K10a (step STREAM_STEP
+    of CHUNK*(K+1)-step buffers at the flagship shapes; step 7 of 12-step
+    ones at VARIANT_EDGE_CELLS), K10b (the flagship shapes), and K11 (S =
+    CHUNK*(K+1) steps per flagship scale, EDGE_STEPS at the other shapes)
+    against their plain versions: max abs errors; K10a and K11 under every
+    plan kind their planners can pick (gated at K1_TOL and CELL_TOL), K11
+    per step on its own previous snapshot, also on a looping grid of
+    LOOP_BLOCKS blocks at the flagship scales, and free-running against
+    the plain loop under its own plan (reported).  Returns the errors and
+    the flagship inputs for the timing."""
     import torch
     from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_pair, gru_stream
 
@@ -2072,25 +2163,38 @@ def chunked_kernel_check(dev, seed, K):
     sel = torch.tensor([STREAM_STEP], dtype=torch.int32, device=dev)
     with torch.no_grad():
         for shape, (h, gseq, w, _) in inputs.items():
-            out["k10a"]["x".join(map(str, shape))] = err(
-                gru_stream.conv_gru_hside_stream(h, gseq, sel, *w),
-                gru_stream.conv_gru_hside_stream_plain(h, gseq, sel, *w))
+            out["k10a"]["x".join(map(str, shape))] = k10a_plan_errors(
+                h, gseq, w, sel, shape)
         (h0, g0, w0, _), (h1, g1, w1, _) = (inputs[c] for c in FLAGSHIP_CELLS[:2])
         out["k10b"] = max(err(a, b) for a, b in zip(
             gru_stream.conv_gru_hside_stream_pair(h0, g0, *w0, h1, g1, *w1, sel),
             gru_stream.conv_gru_hside_stream_pair_plain(h0, g0, *w0, h1, g1, *w1,
                                                         sel)))
         for shape, (h, gseq, w_ev, w_im) in inputs.items():
+            key = "x".join(map(str, shape))
+            row = {"steps": S, "plans": k11_plan_errors(h, gseq, w_ev, w_im, K, shape)}
             snaps = gru_chunk.conv_gru_hside_chunk(w_ev, w_im, gseq, h, K)
-            grid = gru_chunk.conv_gru_hside_chunk.last_grid
-            out["k11"]["x".join(map(str, shape))] = {
-                "steps": S, "grid": grid,
-                "per_step_err": chunk_teacher_forced(snaps, h, gseq, w_ev, w_im, K),
-                "free_running_err": err(snaps, gru_chunk.conv_gru_hside_chunk_plain(
-                    w_ev, w_im, gseq, h, K))}
+            row["free_running_err"] = err(snaps, gru_chunk.conv_gru_hside_chunk_plain(
+                w_ev, w_im, gseq, h, K))
+            snaps = gru_chunk.conv_gru_hside_chunk(w_ev, w_im, gseq, h, K,
+                                                   blocks=LOOP_BLOCKS)
+            row["looping_grid"] = {
+                "grid": gru_chunk.conv_gru_hside_chunk.last_grid,
+                "per_step_err": chunk_teacher_forced(snaps, h, gseq, w_ev, w_im, K)}
+            out["k11"][key] = row
+        edge_sel = torch.tensor([7], dtype=torch.int32, device=dev)
+        for shape in VARIANT_EDGE_CELLS:
+            key = "x".join(map(str, shape))
+            h, gseq, w_ev, w_im = chunk_cell_inputs(shape, dev, gen, seed + 7,
+                                                    EDGE_STEPS)
+            out["k10a"][key] = k10a_plan_errors(h, gseq, w_ev, edge_sel, shape)
+            out["k11"][key] = {"steps": EDGE_STEPS, "plans": k11_plan_errors(
+                h, gseq, w_ev, w_im, K, shape)}
     torch.cuda.synchronize()
-    worst = max(list(out["k9"].values()) + list(out["k10a"].values())
-                + [out["k10b"]] + [r["per_step_err"] for r in out["k11"].values()])
+    k11_errs = [r["per_step_err"] for row in out["k11"].values()
+                for r in list(row["plans"].values()) + [row.get("looping_grid",
+                                                                 {"per_step_err": 0.0})]]
+    worst = max(list(out["k9"].values()) + [out["k10b"]] + k11_errs)
     if not (worst <= CELL_TOL):
         raise AssertionError(f"chunked-path kernels vs plain: {out}")
     return out, inputs
@@ -2099,9 +2203,13 @@ def chunked_kernel_check(dev, seed, K):
 def time_chunked_kernels(dev, inputs, K, iters=50):
     """Microseconds per launch of K9 and K10b (flagship scales 0+1), K10a
     (each flagship shape) and K11 (each flagship scale, S steps) and of
-    their plain versions, in turns plain, kernel, kernel, plain."""
+    their plain versions, in turns plain, kernel, kernel, plain, queued
+    (device time, as phase 4); K10a's and K11's also unqueued (the
+    wrapper's time), with their plan, weight MB per launch, registers and
+    spills (``variant_report``) and K11's grid and clusters that fit at
+    once."""
     import torch
-    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_pair, gru_stream
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_hside, gru_pair, gru_stream
     sel = torch.tensor([STREAM_STEP], dtype=torch.int32, device=dev)
     (h0, g0, w0, _), (h1, g1, w1, _) = (inputs[c] for c in FLAGSHIP_CELLS[:2])
     # K9 reads step STREAM_STEP of the buffers as a [1, H, W, 3C] view
@@ -2114,6 +2222,7 @@ def time_chunked_kernels(dev, inputs, K, iters=50):
                      h0, g0, *w0, h1, g1, *w1, sel),
                  lambda: gru_stream.conv_gru_hside_stream_pair_plain(
                      h0, g0, *w0, h1, g1, *w1, sel), iters)}
+    reports = {}
     for shape, (h, gseq, w, w_im) in inputs.items():
         key = "x".join(map(str, shape))
         calls[f"k10a_{key}"] = (
@@ -2126,12 +2235,23 @@ def time_chunked_kernels(dev, inputs, K, iters=50):
                 w, w_im, gseq, h, K),
             lambda h=h, gseq=gseq, w=w, w_im=w_im: gru_chunk.conv_gru_hside_chunk_plain(
                 w, w_im, gseq, h, K), 3)
+        plan = gru_chunk.device_plan(dev.index or 0, *shape[1:])
+        reports[f"k10a_{key}"] = variant_report("k10a", shape,
+                                                gru_hside.plan_k1(*shape))
+        reports[f"k11_{key}"] = dict(
+            variant_report("k11", shape, plan, len(gseq)),
+            resident=gru_chunk.resident_clusters(dev.index or 0, shape[-1], plan),
+            grid=gru_chunk.k11_grid(plan, *shape[1:3], 0, gru_chunk.resident_clusters(
+                dev.index or 0, shape[-1], plan)))
     rows = {}
     with torch.no_grad():
         for name, (kern, plain, n) in calls.items():
-            p1, k1, k2, p2 = (cuda_time_us(f, n) for f in (plain, kern, kern, plain))
+            p1, k1, k2, p2 = (cuda_time_us(f, n, queued=True)
+                              for f in (plain, kern, kern, plain))
             rows[name] = {"kernel_us": min(k1, k2), "plain_us": min(p1, p2),
-                          "us_runs_p_k_k_p": [p1, k1, k2, p2]}
+                          "us_runs_p_k_k_p": [p1, k1, k2, p2], **reports.get(name, {})}
+            if name in reports:   # K10a, K11: also unqueued, the wrapper's time
+                rows[name]["wrapper_us"] = min(cuda_time_us(kern, n) for _ in range(2))
     return rows
 
 
@@ -2698,9 +2818,10 @@ def main() -> int:
 
     # 14. the chunked path's launch variants against their plain versions
     chunk_errs, chunk_inputs = chunked_kernel_check(dev, args.seed, K)
-    emit({"phase": "kernel_chunked", "cell_tol": CELL_TOL, "K": K,
+    emit({"phase": "kernel_chunked", "cell_tol": CELL_TOL, "k1_tol": K1_TOL, "K": K,
           "stream_step": STREAM_STEP, "ragged_pair": RAGGED_PAIR,
-          "max_abs_err": chunk_errs})
+          "edge_cells": VARIANT_EDGE_CELLS, "edge_steps": EDGE_STEPS,
+          "loop_blocks": LOOP_BLOCKS, "max_abs_err": chunk_errs})
 
     # 15. the variants through the chunked engine and chunk_cells
     variants, variant_timing = chunked_variants(
@@ -2832,24 +2953,30 @@ def main() -> int:
               chunk_cells["k9"]["kernel_us"] / 1e3,
               chunk_cells["k9"]["plain_us"] / 1e3,
               cell_bound("k1", FLAGSHIP_CELLS[:2])),
-        entry("gru_stream", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_stream.py:102",
-              variants["stream"]["launches"]["k10a"],
-              max(chunk_errs["k10a"].values()),
-              sum(chunk_cells[f"k10a_{k}"]["kernel_us"] for k in flagship_keys) / 1e3,
-              sum(chunk_cells[f"k10a_{k}"]["plain_us"] for k in flagship_keys) / 1e3,
-              cell_bound("k1", FLAGSHIP_CELLS)),
+        dict(entry("gru_stream", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_stream.py:102",
+                   variants["stream"]["launches"]["k10a"],
+                   max(e for row in chunk_errs["k10a"].values() for e in row.values()),
+                   sum(chunk_cells[f"k10a_{k}"]["kernel_us"] for k in flagship_keys) / 1e3,
+                   sum(chunk_cells[f"k10a_{k}"]["plain_us"] for k in flagship_keys) / 1e3,
+                   cell_bound("k1", FLAGSHIP_CELLS)),
+             wrapper_ms=sum(chunk_cells[f"k10a_{k}"]["wrapper_us"] for k in flagship_keys) / 1e3,
+             plan={k: chunk_cells[f"k10a_{k}"]["plan"] for k in flagship_keys}),
         entry("gru_stream_pair", "gru_cells.cu",
               "rpg_ramnet_tpu/ops/gru_stream.py:138",
               variants["stream_pair"]["launches"]["k10b"], chunk_errs["k10b"],
               chunk_cells["k10b"]["kernel_us"] / 1e3,
               chunk_cells["k10b"]["plain_us"] / 1e3,
               cell_bound("k1", FLAGSHIP_CELLS[:2])),
-        entry("gru_chunk", "gru_chunk.cu", "rpg_ramnet_tpu/ops/gru_chunk.py:155",
-              variants["chunk_cells"]["launches"]["k11"],
-              max(r["per_step_err"] for r in chunk_errs["k11"].values()),
-              sum(chunk_cells[f"k11_{k}"]["kernel_us"] for k in flagship_keys) / 1e3,
-              sum(chunk_cells[f"k11_{k}"]["plain_us"] for k in flagship_keys) / 1e3,
-              (S * k11_bound[0], k11_bound[1])),
+        dict(entry("gru_chunk", "gru_chunk.cu", "rpg_ramnet_tpu/ops/gru_chunk.py:155",
+                   variants["chunk_cells"]["launches"]["k11"],
+                   max(r["per_step_err"] for row in chunk_errs["k11"].values()
+                       for r in list(row["plans"].values())
+                       + ([row["looping_grid"]] if "looping_grid" in row else [])),
+                   sum(chunk_cells[f"k11_{k}"]["kernel_us"] for k in flagship_keys) / 1e3,
+                   sum(chunk_cells[f"k11_{k}"]["plain_us"] for k in flagship_keys) / 1e3,
+                   (S * k11_bound[0], k11_bound[1])),
+             wrapper_ms=sum(chunk_cells[f"k11_{k}"]["wrapper_us"] for k in flagship_keys) / 1e3,
+             plan={k: chunk_cells[f"k11_{k}"]["plan"] for k in flagship_keys}),
         entry("upsample_conv", "upsample_conv.cu",
               "rpg_ramnet_tpu/ops/upsample_conv.py:203",
               dec_variants["k8"]["launches"]["k8"],

@@ -20,6 +20,8 @@ training variants), on one GPU.
                                 [--profile-train]
     python3 gru_hside_timing.py --lstm --e2e [--root DIR] [--label NAME]
     python3 gru_hside_timing.py --lstm --fit SWEEP.jsonl
+    python3 gru_hside_timing.py --variants [--root DIR] [--plans auto,...]
+                                [--label NAME]
 
 At the flagship chunked-inference shapes (K1: 1x128x256x64, 1x64x128x128,
 1x32x64x256) and the flagship training shapes (K1-res: B=16 at 112x112x64,
@@ -125,6 +127,28 @@ latency and maps/s and the phased chunked maps/s at 256x352
 combination's chunked maps/s at 256x512 (the flagship with
 state_combination 'convlstm', chip_smoke's two sequences); run it once per
 tree (--root) in turns parent, tree, tree, parent to compare two trees.
+
+--variants times the gx-streaming cell K10a and the whole-chunk cell K11
+at the flagship shapes, K11 over one chunk's S = 96 steps (K=5), beside
+K1 under its own plan and under K11's, and K1 and K1-res under their own
+(K1-res at the training shapes), one line per plan set, kernel and shape:
+queued us (least of mirrored turns over the plan sets; K10a and K11 also
+unqueued, the wrapper's time, least of two), the plan, the
+weight MB per launch (K11: times S), the registers and spills, K11's grid
+and the clusters of its plan that fit at once, and the max abs error
+against the plain version (K11: every step against one plain cell on its
+previous snapshot).  Its plan sets for K11: ``auto`` (``plan_k11``: one
+wave of clusters, K10a and the K1 rows run here), ``split1`` (``plan_k11``
+without the cluster split) and ``loop`` (``auto``'s plan on half its
+clusters, each looping over two tiles); a tree whose K10a and K11 take no
+plan (the first design) runs plan set ``default``.  Its summary line sums
+each kernel over the shapes and gives K11's barrier cost per step, (K11 -
+S x K1 at K11's plan) / (S - 1), per shape; a last line times the chunk's
+forward (ms per 16-package chunk, inputs on the card) and the chunked
+path's maps/s (chip_smoke's two sequences) with the default path (K1),
+fused_stream='on' (K10a) and chunk_cells (K11) in mirrored turns.  Run it
+once per tree (--root) in turns parent, tree, tree, parent: the least of
+the two processes of each tree is its reading.
 """
 from __future__ import annotations
 
@@ -987,6 +1011,178 @@ def lstm_main(args, torch) -> int:
     return 0
 
 
+VARIANT_STEPS = 96   # K11's steps: one 16-package chunk at K = 5
+
+
+def variants_main(args, torch) -> int:
+    """--variants: K10a and K11 (see the module's docstring)."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_hside, gru_pair, gru_stream
+    dev = torch.device("cuda")
+    smi = chip_smoke.nvidia_smi_line()
+    planned = hasattr(gru_chunk, "plan_k11")
+    gru_hside.library()
+    gru_chunk.library()
+    if not planned:
+        gru_pair.library()   # the first design's K10a
+    sets = (args.plans or "auto,split1,loop").split(",") if planned else ["default"]
+    label = args.label or ("tree" if planned else "parent")
+    K, S = 5, VARIANT_STEPS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {shape: chip_smoke.chunk_cell_inputs(shape, dev, gen, shape[-1], S)
+             for shape in FLAGSHIP_CELLS}
+    train = {shape: chip_smoke.make_cell_inputs(shape, dev, torch.Generator().manual_seed(1))[1:]
+             for shape in TRAIN_CELLS}
+    sel = torch.tensor([37], dtype=torch.int32, device=dev)
+
+    def resident(C, plan):
+        return gru_chunk.resident_clusters(0, C, plan)
+
+    def k11_plan(plan_set, shape):
+        C = shape[-1]
+        if plan_set in ("auto", "loop"):
+            return gru_chunk.device_plan(0, *shape[1:])
+        if plan_set == "split1":
+            return gru_chunk.plan_k11(*shape[1:], lambda p: resident(C, p), max_split=1)
+        if plan_set == "default":
+            return None
+        raise ValueError(f"--variants has no plan set {plan_set!r}")
+
+    def calls(plan_set, shape):
+        """(K11's plan, its blocks, {kernel: call})."""
+        plan = k11_plan(plan_set, shape)
+        blocks = 0
+        if plan_set == "loop":   # half the clusters, each looping over two tiles
+            blocks = plan.split * -(-gru_chunk.tiles(plan, *shape[1:3]) // 2)
+        kw = {"_plan": plan} if plan is not None else {}
+        out = {}
+        if shape in cases:
+            h, gseq, w_ev, w_im = cases[shape]
+            g1 = gseq[37:38]
+            out["k11"] = lambda: gru_chunk.conv_gru_hside_chunk(
+                w_ev, w_im, gseq, h, K, blocks=blocks, **kw)
+            if plan is not None:
+                out["k1_at_k11_plan"] = lambda: gru_hside.conv_gru_hside(
+                    h, g1, *w_ev, _plan=plan)
+            if plan_set in ("auto", "default"):
+                out["k10a"] = lambda: gru_stream.conv_gru_hside_stream(h, gseq, sel, *w_ev)
+                out["k1"] = lambda: gru_hside.conv_gru_hside(h, g1, *w_ev)
+        elif plan_set in ("auto", "default"):
+            out["k1_res"] = lambda: gru_hside.conv_gru_hside_res(*train[shape])
+        return plan, blocks, out
+
+    shapes = list(cases) + list(train)
+    times = {}
+    with torch.no_grad():
+        for plan_set in sets + sets[::-1]:   # mirrored turns
+            for shape in shapes:
+                for name, fn in calls(plan_set, shape)[2].items():
+                    times.setdefault((plan_set, name, shape), []).append(
+                        chip_smoke.cuda_time_us(fn, 3 if name == "k11" else ITERS,
+                                                queued=True))
+    hside_log = chip_smoke.ptxas_by_kernel(kernels.build_log.get("gru_hside", ""))
+    variant_logs = {"k10a": chip_smoke.ptxas_by_kernel(kernels.build_log.get(
+                        "gru_hside" if planned else "gru_cells", "")),
+                    "k11": chip_smoke.ptxas_by_kernel(kernels.build_log.get("gru_chunk", ""))}
+    lines, sums, barrier = [], {}, {}
+    for plan_set in sets:
+        for shape in shapes:
+            plan, blocks, fns = calls(plan_set, shape)
+            for name, fn in fns.items():
+                key = (plan_set, name, shape)
+                row = {"label": label, "plans": plan_set, "kernel": name,
+                       "shape": list(shape), "us": min(times[key]), "us_turns": times[key]}
+                if name in ("k10a", "k11"):
+                    with torch.no_grad():
+                        row["wrapper_us"] = min(chip_smoke.cuda_time_us(
+                            fn, 3 if name == "k11" else ITERS) for _ in range(2))
+                with torch.no_grad():
+                    got = fn()
+                    if name == "k11":
+                        h, gseq, w_ev, w_im = cases[shape]
+                        row["max_abs_err_per_step"] = chip_smoke.chunk_teacher_forced(
+                            got, h, gseq, w_ev, w_im, K)
+                        row["grid"] = gru_chunk.conv_gru_hside_chunk.last_grid
+                        if plan is not None:
+                            row.update(resident=resident(shape[-1], plan),
+                                       **chip_smoke.variant_report("k11", shape, plan, S))
+                        else:
+                            row["ptxas"] = chip_smoke.variant_ptxas(variant_logs["k11"],
+                                                                    "k11", None)
+                    elif name == "k10a":
+                        h, gseq, w_ev, _ = cases[shape]
+                        want = gru_stream.conv_gru_hside_stream_plain(h, gseq, sel, *w_ev)
+                        row["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+                        p1 = gru_hside.plan_k1(*shape) if planned else None
+                        row.update(plan=chip_smoke.plan_name(p1) if p1 else None,
+                                   ptxas=chip_smoke.variant_ptxas(
+                                       variant_logs["k10a"], "k10a",
+                                       gru_hside.K1_COMBOS[p1.combo] if p1 else None))
+                    else:
+                        p1 = plan if name == "k1_at_k11_plan" else gru_hside.plan_k1(
+                            *shape, residuals=name == "k1_res")
+                        row.update(plan=chip_smoke.plan_name(p1),
+                                   weight_mb=gru_hside.k1_weight_bytes(p1, *shape) / 1e6,
+                                   ptxas=chip_smoke.kernel_ptxas(
+                                       hside_log, name == "k1_res",
+                                       gru_hside.K1_COMBOS[p1.combo]))
+                sums[f"{plan_set}_{name}_us"] = sums.get(f"{plan_set}_{name}_us", 0.0) \
+                    + row["us"]
+                lines.append(row)
+            if ("k11" in fns and "k1_at_k11_plan" in fns):
+                k11 = min(times[(plan_set, "k11", shape)])
+                k1 = min(times[(plan_set, "k1_at_k11_plan", shape)])
+                barrier[f"{plan_set}_{'x'.join(map(str, shape))}"] = (k11 - S * k1) / (S - 1)
+    for row in lines:
+        print(json.dumps(row), flush=True)
+    print(json.dumps({"label": label, "summary": sums, "k11_barrier_us_per_step": barrier,
+                      "steps": S, "nvidia_smi": smi, "torch": torch.__version__,
+                      "cuda": torch.version.cuda}), flush=True)
+    del cases, train
+    torch.cuda.empty_cache()
+    print(json.dumps({"label": label, "e2e": variants_e2e(torch, dev), "nvidia_smi": smi}),
+          flush=True)
+    return 0
+
+
+def variants_e2e(torch, dev, seed=0):
+    """The chunk's forward ms (chip_smoke.time_chunk_forward) and the
+    chunked path's maps/s (chip_smoke.run_slice over its two sequences),
+    with the default path, fused_stream='on' and chunk_cells, in mirrored
+    turns after a warm-up run each."""
+    import dataclasses
+    from rpg_ramnet_tpu_torch.core.config import ModelConfig
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
+    cs = chip_smoke
+    cfg = ModelConfig.load(os.path.join(cs.ROOT, cs.CONFIG))
+    K = event_loop_range(cfg)
+    model = ERGB2DepthRecurrent(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(seed))
+    stream = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_stream="on"), device=dev)
+    stream.load_state_dict(model.state_dict())
+    models = {"default": model, "fused_stream": stream,
+              "chunk_cells": cs.chunk_cells_model(model)}
+    order = list(models)
+    with torch.no_grad():
+        forward_ms = cs.time_chunk_forward(models, order, K, seed)
+    data = cs.SyntheticDataset(cs.SEQ_LENGTHS, K, seed)
+    packages = sum(-(-n // cs.CHUNK) * cs.CHUNK for n in cs.SEQ_LENGTHS)
+    for name in order:
+        cs.run_slice(models[name], data, keep=set())
+    walls = {k: [] for k in order}
+    for name in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs.run_slice(models[name], data, keep=set())
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    maps = packages * (K + 1)
+    return {"chunk_forward_ms": forward_ms,
+            "chunk_forward_ms_min": {k: min(v) for k, v in forward_ms.items()},
+            "maps": maps, "maps_per_s": {k: maps / min(v) for k, v in walls.items()},
+            "wall_s": walls}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None)
@@ -1002,6 +1198,7 @@ def main() -> int:
     ap.add_argument("--profile-train", action="store_true")
     ap.add_argument("--kinds", default=None)   # --lstm: k3,k4,k3_res,k4_res
     ap.add_argument("--e2e", action="store_true")   # --lstm: the paths
+    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -1017,6 +1214,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("gru_hside_timing: needs a CUDA device", file=sys.stderr)
         return 2
+    if args.variants:
+        return variants_main(args, torch)
     if args.lstm:
         return lstm_main(args, torch)
     if args.bwd:

@@ -1,10 +1,9 @@
-// One tile of the fused ConvGRU h-side cell as the launch variants of
-// kernel K1 run it: the pair cell K9 and the gx-streaming cells K10a/K10b
-// (gru_cells.cu), and the whole-chunk resident-state cell K11
-// (gru_chunk.cu).  K1 and K1-res themselves run the staged-weight tile of
-// gru_hside_tile.cuh; this first design reads its weights from L1/L2 per
-// warp item (mma_conv.cuh), and its footprint is the one K11's
-// co-residency is planned on (ops/gru_hside.py::smem_bytes, pick_tile).
+// One tile of the fused ConvGRU h-side cell as the pair cell K9 and the
+// two-scale gx-streaming cell K10b (gru_cells.cu) run it: the first
+// design, which reads its weights from L1/L2 per warp item (mma_conv.cuh).
+// K1, K1-res, K10a and K11 run the staged-weight tile of
+// gru_hside_tile.cuh.  Its footprint (ops/gru_hside.py::smem_bytes) and
+// tile choice (pick_tile) serve K9, K10b and the gate gru_hside.supports.
 //
 //     z = sigmoid(conv3x3(h, Wz) + gx_z)      r = sigmoid(conv3x3(h, Wr) + gx_r)
 //     a = bf16(r * h)                          o = tanh(conv3x3(a, Wo) + gx_o)
@@ -29,32 +28,15 @@ inline size_t gru_cell_smem(int tile_h, int tile_w, int C) {
          (size_t)(C + kPad) * sizeof(bf16);
 }
 
-// 16 bytes from global memory through L2 only (ld.global.cg): for data
-// that another block wrote earlier in the same launch (K11's snapshots);
-// L1 is not coherent across SMs.
-__device__ __forceinline__ uint4 ld_cg_u4(const void* p) {
-  uint4 v;
-  asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
 // The cell on the TH x TW output tile at image (y0, x0) of one [H,W,C]
 // plane.  hb, ob: the plane's h and h' (contiguous); gb: its gx [H,W,3C]
-// (contiguous, update | reset | out); w_ur [9,2C,C], w_o [9,C,C]; actb
-// (kRes only): acts [H,W,3C] = bf16(concat(z, r, o)) at the tile's pixels.
-// kCoherent: read h with ld.global.cg (h written earlier in the launch),
-// else through the read-only path.  smem: gru_cell_smem(TH, TW, C) bytes,
-// 16-byte aligned.  Ends without a barrier: a block that runs another tile
-// into the same shared memory calls __syncthreads() first.
-template <bool kRes, bool kCoherent>
+// (contiguous, update | reset | out); w_ur [9,2C,C], w_o [9,C,C].  smem:
+// gru_cell_smem(TH, TW, C) bytes, 16-byte aligned.
 __device__ __forceinline__ void gru_cell_tile(
     const bf16* __restrict__ hb, const bf16* __restrict__ gb,
     const bf16* __restrict__ w_ur, const bf16* __restrict__ w_o,
-    bf16* __restrict__ ob, bf16* __restrict__ actb, int H, int W, int C,
-    int y0, int x0, int TH, int TW, unsigned char* smem_raw) {
+    bf16* __restrict__ ob, int H, int W, int C, int y0, int x0, int TH, int TW,
+    unsigned char* smem_raw) {
   const int ps = C + kPad;              // pixel pitch in shared memory
   const int hw = TW + 4, hh = TH + 4;   // h tile with a 2-pixel halo
   const int aw = TW + 2, ah = TH + 2;   // a tile with a 1-pixel ring
@@ -75,17 +57,15 @@ __device__ __forceinline__ void gru_cell_tile(
     const int py = pix / hw, px = pix - py * hw;
     const int gy = y0 - 2 + py, gx_ = x0 - 2 + px;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gy >= 0 && gy < H && gx_ >= 0 && gx_ < W) {
-      const bf16* src = hb + ((size_t)gy * W + gx_) * C + v * 8;
-      val = kCoherent ? ld_cg_u4(src) : __ldg(reinterpret_cast<const uint4*>(src));
-    }
+    if (gy >= 0 && gy < H && gx_ >= 0 && gx_ < W)
+      val = __ldg(reinterpret_cast<const uint4*>(hb + ((size_t)gy * W + gx_) * C + v * 8));
     *reinterpret_cast<uint4*>(hs + pix * ps + v * 8) = val;
   }
   __syncthreads();
 
   // 2. Reset gate and a = bf16(r * h) on the tile plus its 1-pixel ring:
   //    a-tile pixel (ry, rx) is image (y0-1+ry, x0-1+rx); its conv taps
-  //    start at h-tile pixel (ry, rx).  K1-res stores r at the tile.
+  //    start at h-tile pixel (ry, rx).
   const int n_a = ah * aw;
   const int items_a = ((n_a + 16 * kMI - 1) / (16 * kMI)) * n_groups;
   for (int item = warp; item < items_a; item += kWarps) {
@@ -110,7 +90,6 @@ __device__ __forceinline__ void gru_cell_tile(
         const int ry = q / aw, rx = q - ry * aw;
         const int gy = y0 - 1 + ry, gx_ = x0 - 1 + rx;
         const bool inside = gy >= 0 && gy < H && gx_ >= 0 && gx_ < W;
-        const bool center = ry >= 1 && ry <= TH && rx >= 1 && rx <= TW;
 #pragma unroll
         for (int ni = 0; ni < kNI; ++ni) {
           const int ch = co0 + ni * 8 + 2 * t;
@@ -122,7 +101,6 @@ __device__ __forceinline__ void gru_cell_tile(
             const float r1 = sigmoid_f(acc[mi][ni][2 * half + 1] + gr.y);
             a0 = r0 * hv.x;
             a1 = r1 * hv.y;
-            if (kRes && center) st_bf2(actb + ((size_t)gy * W + gx_) * C3 + C + ch, r0, r1);
           }
           st_bf2(as + q * ps + ch, a0, a1);
         }
@@ -133,7 +111,7 @@ __device__ __forceinline__ void gru_cell_tile(
 
   // 3. Update gate, out gate on a, and h' for the TH x TW tile: output
   //    pixel (cy, cx) is image (y0+cy, x0+cx); its taps start at h-tile
-  //    pixel (cy+1, cx+1) and a-tile pixel (cy, cx).  K1-res stores z, o.
+  //    pixel (cy+1, cx+1) and a-tile pixel (cy, cx).
   const int n_c = TH * TW;
   const int items_c = ((n_c + 16 * kMI - 1) / (16 * kMI)) * n_groups;
   for (int item = warp; item < items_c; item += kWarps) {
@@ -174,11 +152,6 @@ __device__ __forceinline__ void gru_cell_tile(
           const float o0 = tanhf(acco[mi][ni][2 * half] + go.x);
           const float o1 = tanhf(acco[mi][ni][2 * half + 1] + go.y);
           st_bf2(op + ch, hv.x * (1.0f - z0) + o0 * z0, hv.y * (1.0f - z1) + o1 * z1);
-          if (kRes) {
-            bf16* ap = actb + ((size_t)gy * W + gx_) * C3;
-            st_bf2(ap + ch, z0, z1);
-            st_bf2(ap + 2 * C + ch, o0, o1);
-          }
         }
       }
     }

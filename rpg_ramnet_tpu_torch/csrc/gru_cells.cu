@@ -1,20 +1,22 @@
-// The ConvGRU h-side cell over one or two scales per launch, for NVIDIA
-// Hopper, sm_90a: the cross-scale pair cell (kernel K9) and the
-// gx-streaming cells (kernels K10a and K10b).
+// The ConvGRU h-side cell over two scales per launch, for NVIDIA Hopper,
+// sm_90a: the cross-scale pair cell (kernel K9) and the two-scale
+// gx-streaming cell (kernel K10b).
 //
 // Replaces the Pallas TPU kernels rpg_ramnet_tpu/ops/gru_pair.py::_run_pair
-// (_pair_kernel, K9), rpg_ramnet_tpu/ops/gru_stream.py::_run_stream
-// (_stream_kernel, K10a) and ::_run_stream_pair (_stream_pair_kernel, K10b).
-// Each computes K1's cell (gru_cell.cuh) on one or two scales' (h, gx):
+// (_pair_kernel, K9) and rpg_ramnet_tpu/ops/gru_stream.py::_run_stream_pair
+// (_stream_pair_kernel, K10b).  Each computes K1's cell on the first
+// design's tile (gru_cell.cuh) on two scales' (h, gx):
 //
 //   K9    scales 0 and 1 in one launch, any batch; gx [B,H,W,3C] with
 //         batch items gx_bstride elements apart (the per-step views of the
 //         chunk's gx buffers need no copy);
-//   K10a  one scale, batch 1; its gx block read from the whole-chunk buffer
-//         gx_seq [S,H,W,3C] at the step that the device int32 *sel holds,
-//         so no per-step slice of gx_seq is made and the launch arguments
-//         stay the same from step to step but for h and h';
-//   K10b  K9 with K10a's indexing: one sel for both scales.
+//   K10b  batch 1; each scale's gx block read from its whole-chunk buffer
+//         gx_seq [S,H,W,3C] at the step that the device int32 *sel holds
+//         (K10a's indexing: one sel for both scales), so no per-step slice
+//         is made and the launch arguments stay the same from step to step
+//         but for h and h'.
+//
+// The one-scale streaming cell K10a runs K1's tile (gru_hside.cu).
 //
 // The TPU kernels feed the reset gate's one-row halo from side arrays,
 // because a BlockSpec cannot fetch it; here the block reads those rows
@@ -34,7 +36,7 @@
 namespace {
 
 // One scale of a launch: its planes, widths, tile and gx stride (between
-// batch items for K9, between steps for K10).
+// batch items for K9, between steps for K10b).
 struct CellArgs {
   const bf16* h;
   const bf16* gx;
@@ -48,7 +50,7 @@ struct CellArgs {
 };
 
 // Block j of one scale: batch item j / tiles (K9) or the step *sel
-// (K10), tile j % tiles.
+// (K10b), tile j % tiles.
 template <bool kSel>
 __device__ __forceinline__ void cell_block(const CellArgs& a, int j, const int* sel,
                                            int n_steps, unsigned char* smem) {
@@ -56,10 +58,9 @@ __device__ __forceinline__ void cell_block(const CellArgs& a, int j, const int* 
   const int tile = j - b * a.tiles;
   const long long gx_at = kSel ? (long long)min(max(__ldg(sel), 0), n_steps - 1) : b;
   const size_t plane = (size_t)a.H * a.W * a.C;
-  gru_cell_tile<false, false>(a.h + b * plane, a.gx + gx_at * a.gx_stride, a.w_ur, a.w_o,
-                              a.out + b * plane, nullptr, a.H, a.W, a.C,
-                              (tile / a.tiles_x) * a.TH, (tile % a.tiles_x) * a.TW,
-                              a.TH, a.TW, smem);
+  gru_cell_tile(a.h + b * plane, a.gx + gx_at * a.gx_stride, a.w_ur, a.w_o,
+                a.out + b * plane, a.H, a.W, a.C, (tile / a.tiles_x) * a.TH,
+                (tile % a.tiles_x) * a.TW, a.TH, a.TW, smem);
 }
 
 template <bool kSel>
@@ -94,16 +95,16 @@ CellArgs make_args(const void* h, const void* gx, const void* w_ur, const void* 
   return a;
 }
 
-// n_scales (1 or 2) scales of B batch items: one block per tile per item.
+// Two scales of B batch items: one block per tile per item.
 template <bool kSel>
-int launch(const CellArgs& a0, const CellArgs& a1, int n_scales, int B, const int* sel,
-           int n_steps, void* stream) {
-  size_t smem = gru_cell_smem(a0.TH, a0.TW, a0.C);
-  if (n_scales == 2) smem = std::max(smem, gru_cell_smem(a1.TH, a1.TW, a1.C));
+int launch(const CellArgs& a0, const CellArgs& a1, int B, const int* sel, int n_steps,
+           void* stream) {
+  const size_t smem =
+      std::max(gru_cell_smem(a0.TH, a0.TW, a0.C), gru_cell_smem(a1.TH, a1.TW, a1.C));
   cudaError_t err = cudaFuncSetAttribute(
       gru_cells_kernel<kSel>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = B * a0.tiles + (n_scales == 2 ? B * a1.tiles : 0);
+  const int blocks = B * (a0.tiles + a1.tiles);
   gru_cells_kernel<kSel><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       a0, a1, B, sel, n_steps);
   return (int)cudaGetLastError();
@@ -127,22 +128,13 @@ int ramnet_gru_pair_forward(const void* h0, const void* gx0, const void* w0_ur,
                             void* stream) {
   return launch<false>(
       make_args(h0, gx0, w0_ur, w0_o, out0, H0, W0, C0, gx0_bstride, tile_h0, tile_w0),
-      make_args(h1, gx1, w1_ur, w1_o, out1, H1, W1, C1, gx1_bstride, tile_h1, tile_w1), 2,
-      B, nullptr, 0, stream);
+      make_args(h1, gx1, w1_ur, w1_o, out1, H1, W1, C1, gx1_bstride, tile_h1, tile_w1), B,
+      nullptr, 0, stream);
 }
 
-// K10a on `stream`: h and out [1,H,W,C] contiguous, gx_seq [S,H,W,3C]
-// contiguous, sel a device int32 (the step, clamped to [0, S)), weights as
-// K9's.
-int ramnet_gru_stream_forward(const void* h, const void* gx_seq, const void* sel,
-                              const void* w_ur, const void* w_o, void* out, int H,
-                              int W, int C, int S, int tile_h, int tile_w, void* stream) {
-  const CellArgs a = make_args(h, gx_seq, w_ur, w_o, out, H, W, C,
-                               (long long)H * W * 3 * C, tile_h, tile_w);
-  return launch<true>(a, a, 1, 1, static_cast<const int*>(sel), S, stream);
-}
-
-// K10b on `stream`: K10a's operands for scales 0 and 1, one sel for both.
+// K10b on `stream`: per scale i, h_i and out_i [1,H_i,W_i,C_i] contiguous,
+// gx_i_seq [S,H_i,W_i,3C_i] contiguous, weights as K9's; sel a device int32
+// (the step, clamped to [0, S)), one for both scales.
 int ramnet_gru_stream_pair_forward(const void* h0, const void* gx0_seq, const void* w0_ur,
                                    const void* w0_o, void* out0, int H0, int W0, int C0,
                                    int tile_h0, int tile_w0, const void* h1,
@@ -155,7 +147,7 @@ int ramnet_gru_stream_pair_forward(const void* h0, const void* gx0_seq, const vo
                 tile_h0, tile_w0),
       make_args(h1, gx1_seq, w1_ur, w1_o, out1, H1, W1, C1, (long long)H1 * W1 * 3 * C1,
                 tile_h1, tile_w1),
-      2, 1, static_cast<const int*>(sel), S, stream);
+      1, static_cast<const int*>(sel), S, stream);
 }
 
 const char* ramnet_cuda_error_string(int err) {

@@ -1,8 +1,12 @@
-// Fused ConvGRU h-side cell (kernel K1) for NVIDIA Hopper, sm_90a, and its
-// residual variant for training (K1-res).
+// Fused ConvGRU h-side cell (kernel K1) for NVIDIA Hopper, sm_90a, its
+// residual variant for training (K1-res) and its gx-streaming variant
+// (K10a).
 //
 // Replaces the Pallas TPU kernel rpg_ramnet_tpu/ops/gru_hside.py::_run with
-// _kernel (K1) and _kernel_res (K1-res).  From the state h [B,H,W,C] and the
+// _kernel (K1) and _kernel_res (K1-res), and
+// rpg_ramnet_tpu/ops/gru_stream.py::_run_stream (_stream_kernel, K10a):
+// K1 at batch 1 reading its gx block from the whole chunk's buffer gx_seq
+// [S,H,W,3C] at the step a device int32 holds.  From the state h [B,H,W,C] and the
 // precomputed x-side gate pre-activations gx [B,H,W,3C] (update | reset |
 // out, biases folded in):
 //
@@ -48,8 +52,9 @@
 // slab.  The wrapper plans the tile, the split, the warp jobs and the slab
 // width per shape (ops/gru_hside.py::plan_k1, a cost
 // model fitted to timed plans) and passes the plan.  TMA multicast of the
-// slabs and wgmma are the next steps.  The launch variants K9, K10a, K10b
-// and K11 keep the first design's tile (gru_cell.cuh).
+// slabs and wgmma are the next steps.  K10a (here) and the whole-chunk
+// cell K11 (gru_chunk.cu) run the same tile under K1's plans; the pair
+// variants K9 and K10b keep the first design's tile (gru_cell.cuh).
 
 #include "gru_hside_tile.cuh"
 
@@ -67,28 +72,51 @@ void (*kernel_of(int combo))(const K1Args) {
   }
 }
 
-template <bool kRes>
-cudaError_t launch_combo(int combo, const K1Args& a, dim3 grid, size_t smem,
-                         cudaStream_t stream) {
-  void (*kern)(const K1Args) = kernel_of<kRes>(combo);
+// K10a: K1 at batch 1 on the gx block of step *sel of gx_seq, clamped to
+// [0, n_steps) on the device, so the launch's arguments do not change with
+// the step.  Grid as K1's.
+struct K10aTile : GridTile {
+  long long step;
+  __device__ const bf16* gx(const K1Args& a) const { return a.gx + step * a.gx_bstride; }
+};
+
+template <int MR, int NR, int MC, int NC>
+__global__ void __launch_bounds__(kThreads, 1)
+k10a_kernel(const K1Args a, const int* sel, int n_steps) {
+  K10aTile at;
+  at.step = min(max(__ldg(sel), 0), n_steps - 1);
+  k1_tile<false, MR, NR, MC, NC>(a, at);
+}
+
+void (*k10a_kernel_of(int combo))(const K1Args, const int*, int) {
+  switch (combo) {
+    case 0: return k10a_kernel<6, 4, 4, 4>;
+    case 1: return k10a_kernel<3, 4, 2, 4>;
+    case 2: return k10a_kernel<2, 4, 2, 2>;
+    default: return nullptr;
+  }
+}
+
+template <typename... Extra>
+cudaError_t launch_kernel(void (*kern)(const K1Args, Extra...), const K1Args& a, dim3 grid,
+                          size_t smem, cudaStream_t stream, Extra... extra) {
   if (!kern) return cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   ClusterLaunch c(grid, smem, a.split, stream);
-  err = cudaLaunchKernelEx(&c.cfg, kern, a);
+  err = cudaLaunchKernelEx(&c.cfg, kern, a, extra...);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-template <bool kRes>
-int launch(const void* h, const void* gx, const void* w_ur, const void* w_o, void* out,
-           void* acts, int B, int H, int W, int C, long long gx_bstride, int tile_h,
-           int tile_w, int split, int combo, int ks, void* stream) {
+// The arguments of a plan, or false where the tile cannot run it.
+bool make_args(K1Args& a, const void* h, const void* gx, const void* w_ur, const void* w_o,
+               void* out, void* acts, int H, int W, int C, long long gx_bstride,
+               int tile_h, int tile_w, int split, int ks) {
   if (C % 16 || (split != 1 && split != 2) || (C / 16) % split ||
       (ks != 16 && ks != 32 && ks != 64) || C % ks || tile_h < 1 || tile_w < 1)
-    return (int)cudaErrorInvalidValue;
-  K1Args a;
+    return false;
   a.h = static_cast<const bf16*>(h);
   a.gx = static_cast<const bf16*>(gx);
   a.w_ur = static_cast<const bf16*>(w_ur);
@@ -103,9 +131,24 @@ int launch(const void* h, const void* gx, const void* w_ur, const void* w_o, voi
   a.TW = tile_w;
   a.split = split;
   a.ks = ks;
-  const dim3 grid(((W + tile_w - 1) / tile_w) * split, (H + tile_h - 1) / tile_h, B);
-  const size_t smem = k1_smem_bytes(tile_h, tile_w, C, split, ks, kRes);
-  return (int)launch_combo<kRes>(combo, a, grid, smem, (cudaStream_t)stream);
+  return true;
+}
+
+dim3 k1_grid(const K1Args& a, int B) {
+  return dim3(((a.W + a.TW - 1) / a.TW) * a.split, (a.H + a.TH - 1) / a.TH, B);
+}
+
+template <bool kRes>
+int launch(const void* h, const void* gx, const void* w_ur, const void* w_o, void* out,
+           void* acts, int B, int H, int W, int C, long long gx_bstride, int tile_h,
+           int tile_w, int split, int combo, int ks, void* stream) {
+  K1Args a;
+  if (!make_args(a, h, gx, w_ur, w_o, out, acts, H, W, C, gx_bstride, tile_h, tile_w, split,
+                 ks))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_kernel(kernel_of<kRes>(combo), a, k1_grid(a, B),
+                            k1_smem_bytes(tile_h, tile_w, C, split, ks, kRes),
+                            (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -140,6 +183,23 @@ int ramnet_gru_hside_forward_res(const void* h, const void* gx, const void* w_ur
                       tile_h, tile_w, split, combo, ks, stream);
 }
 
+// K10a on `stream`: the cell of h, out [1,H,W,C] on step *sel of gx_seq
+// [S,H,W,3C] (contiguous; sel a device int32, clamped to [0, S)), weights
+// and plan as ramnet_gru_hside_forward's.  Returns the cudaError_t of the
+// launch; cudaErrorInvalidValue for a plan the tile cannot run.
+int ramnet_gru_hside_forward_sel(const void* h, const void* gx_seq, const void* sel,
+                                 const void* w_ur, const void* w_o, void* out, int H,
+                                 int W, int C, int S, int tile_h, int tile_w, int split,
+                                 int combo, int ks, void* stream) {
+  K1Args a;
+  if (S < 1 || !make_args(a, h, gx_seq, w_ur, w_o, out, nullptr, H, W, C,
+                          (long long)H * W * 3 * C, tile_h, tile_w, split, ks))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_kernel(k10a_kernel_of(combo), a, k1_grid(a, 1),
+                            k1_smem_bytes(tile_h, tile_w, C, split, ks, false),
+                            (cudaStream_t)stream, static_cast<const int*>(sel), S);
+}
+
 // Whether `device` can launch thread-block clusters (cudaDevAttrClusterLaunch).
 int ramnet_cluster_launch_supported(int device) {
   int v = 0;
@@ -158,20 +218,8 @@ int ramnet_gru_hside_max_active_clusters(int res, int C, int tile_h, int tile_w,
                                          int combo, int ks) {
   void (*kern)(const K1Args) = res ? kernel_of<true>(combo) : kernel_of<false>(combo);
   if (!kern || split < 1) return -1;
-  const size_t smem = k1_smem_bytes(tile_h, tile_w, C, split, ks, res != 0);
-  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-      cudaSuccess) {
-    cudaGetLastError();
-    return -1;
-  }
-  ClusterLaunch c(dim3(split * 1024), smem, split, nullptr);
-  c.cfg.numAttrs = 1;   // the query takes the cluster's size from the attribute
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, kern, &c.cfg) != cudaSuccess) {
-    cudaGetLastError();
-    return -1;
-  }
-  return n;
+  return max_active_clusters(kern, k1_smem_bytes(tile_h, tile_w, C, split, ks, res != 0),
+                             split);
 }
 
 const char* ramnet_cuda_error_string(int err) {

@@ -1,6 +1,10 @@
-// The tile of kernels K1 and K1-res (gru_hside.cu): one block computes the
-// ConvGRU h-side cell on a TH x TW output tile, for all output channels or,
-// in a thread-block cluster of N blocks, for its C/N of them.
+// The tile of kernels K1, K1-res and K10a (gru_hside.cu) and K11
+// (gru_chunk.cu): one block computes the ConvGRU h-side cell on a TH x TW
+// output tile, for all output channels or, in a thread-block cluster of N
+// blocks, for its C/N of them.  k1_tile is that block's body, given its
+// tile's origin, its cluster rank and the h, gx, output and weight
+// pointers; K1, K1-res and K10a run it once per block (k1_kernel,
+// k10a_kernel), K11 once per tile and step of a persistent grid.
 //
 //     z = sigmoid(conv3x3(h, Wz) + gx_z)      r = sigmoid(conv3x3(h, Wr) + gx_r)
 //     a = bf16(r * h)                          o = tanh(conv3x3(a, Wo) + gx_o)
@@ -37,9 +41,17 @@
 // cluster then exchange their a slices through distributed shared memory:
 // after a cluster barrier each block copies its peers' channels into its
 // own a tile (ldmatrix reads only the block's own shared memory), arrives
-// at a second barrier and waits on it before it exits, so no peer reads
-// an a tile whose block is gone.  Phase z/o then computes z, o and h'
-// (K1-res also z and o) for the block's channels.
+// at a second barrier and waits on it at the body's end, so no peer reads
+// an a tile whose block is gone or has moved on to its next tile.  Phase
+// z/o then computes z, o and h' (K1-res also z and o) for the block's
+// channels.
+//
+// The body reads h, gx and the weights only by cp.async.cg, which caches
+// in L2 and not in L1: K11 reads h that other SMs wrote in the previous
+// step of the same launch, ordered by its grid barrier.  The body ends
+// without a block barrier: a block that runs it again calls
+// __syncthreads() first, since its last stores read the gx tile that the
+// next body's cp.async overwrites.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -49,8 +61,9 @@
 namespace {
 
 // The launch's arguments.  h, out [B,H,W,C]; gx [H,W,3C] per batch item,
-// items gx_bstride elements apart; w_ur [9,2C,C] (update rows, then
-// reset rows), w_o [9,C,C], [tap][out][in]; acts [B,H,W,3C] (K1-res).
+// items gx_bstride elements apart (K10a: steps); w_ur [9,2C,C] (update
+// rows, then reset rows), w_o [9,C,C], [tap][out][in]; acts [B,H,W,3C]
+// (K1-res).  K11 passes h0, its snapshots as out and the events weights.
 struct K1Args {
   const bf16* h;
   const bf16* gx;
@@ -69,11 +82,12 @@ constexpr int kStages = 2;   // weight slabs in the ring
 constexpr size_t kSmemMax = 232448;   // bytes a block may use on Hopper
 
 // The launch configuration of a grid of blocks in clusters of `split`
-// (K1, K1-res and K5).
+// (K1, K1-res, K10a and K5), and cooperative (K11).
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  ClusterLaunch(dim3 grid, size_t smem, int split, cudaStream_t stream) {
+  cudaLaunchAttribute attr[2];
+  ClusterLaunch(dim3 grid, size_t smem, int split, cudaStream_t stream,
+                bool cooperative = false) {
     cfg.gridDim = grid;
     cfg.blockDim = dim3(kThreads);
     cfg.dynamicSmemBytes = smem;
@@ -82,10 +96,34 @@ struct ClusterLaunch {
     attr[0].val.clusterDim.x = split;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = split > 1 ? 1 : 0;
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    cfg.attrs = split > 1 ? attr : attr + 1;
+    cfg.numAttrs = (split > 1 ? 1 : 0) + (cooperative ? 1 : 0);
   }
 };
+
+// How many clusters of `split` blocks of `kern` with `smem` bytes of
+// dynamic shared memory fit on the device at once
+// (cudaOccupancyMaxActiveClusters; a cluster of 1 is one block), or -1
+// where the query fails.
+template <typename Kernel>
+int max_active_clusters(Kernel kern, size_t smem, int split) {
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  ClusterLaunch c(dim3(split * 1024), smem, split, nullptr);
+  c.cfg.attrs = c.attr;   // the query takes the cluster's size from the attribute
+  c.cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kern, &c.cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return n;
+}
 
 // Shared memory of one block in bytes, bf16: the h tile with its 2-pixel
 // halo and the a tile with its 1-pixel ring (both at pixel pitch C + kPad),
@@ -224,25 +262,28 @@ __device__ __forceinline__ void load_slab(const K1Args& a, bool zo, int s, int k
                      true);
 }
 
-// One block of the cell.  Grid: x = tile column * split + cluster rank, y =
-// tile row, z = batch item.  MR x NR: a warp's r job in m16 x n8 tiles;
-// MC x NC its z/o job (z and o each).  NR and NC even (ldmatrix.x4 loads
-// two n8 tiles of B).
-template <bool kRes, int MR, int NR, int MC, int NC>
-__global__ void __launch_bounds__(kThreads, 1) k1_kernel(const K1Args a) {
+// The block's body: the cell on one output tile of one [H,W,C] plane, for
+// the C/split output channels of the block's cluster rank.  a: the
+// widths, the plan and the weights; `at` (GridTile, K10aTile, or K11's
+// ChunkTile) says where: the block's rank, the tile's origin (y0, x0) in
+// the image, and the plane's h, gx [H,W,3C], h' and (kRes) acts [H,W,3C],
+// each in the order below, as K1 computed them before it had a body of its
+// own.
+// MR x NR: a warp's r job in m16 x n8 tiles; MC x NC its z/o job (z and o
+// each).  NR and NC even (ldmatrix.x4 loads two n8 tiles of B).
+template <bool kRes, int MR, int NR, int MC, int NC, typename At>
+__device__ __forceinline__ void k1_tile(const K1Args& a, const At& at) {
   static_assert(NR % 2 == 0 && NC % 2 == 0, "B fragments come in n8 pairs");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = a.C, H = a.H, W = a.W, TH = a.TH, TW = a.TW;
   const int split = a.split;
-  const int rank = blockIdx.x % split;   // the block's rank in its cluster
+  const int rank = at.rank(a);   // the block's rank in its cluster
   const int Cn = C / split, c0 = rank * Cn;
-  const int y0 = blockIdx.y * TH, x0 = (blockIdx.x / split) * TW;
-  const int b = blockIdx.z;
-  const size_t plane = (size_t)H * W * C;
-  const bf16* hb = a.h + b * plane;
-  const bf16* gb = a.gx + (size_t)b * a.gx_bstride;
-  bf16* ob = a.out + b * plane;
-  bf16* actb = kRes ? a.acts + 3 * b * plane : nullptr;
+  const int y0 = at.y0(a), x0 = at.x0(a);
+  const bf16* hb = at.h(a);
+  const bf16* gb = at.gx(a);
+  bf16* ob = at.out(a);
+  bf16* actb = kRes ? at.acts(a) : nullptr;
   const int C3 = 3 * C;
 
   const int ps = C + kPad;              // pixel pitch of the h and a tiles
@@ -587,6 +628,38 @@ __global__ void __launch_bounds__(kThreads, 1) k1_kernel(const K1Args a) {
     }
   }
   if (split > 1) cluster_wait();   // no peer reads this block's a tile now
+}
+
+// K1 and K1-res: one block per tile and cluster rank.  Grid: x = tile
+// column * split + cluster rank, y = tile row, z = batch item.
+struct GridTile {
+  __device__ int rank(const K1Args& a) const { return blockIdx.x % a.split; }
+  __device__ int y0(const K1Args& a) const { return blockIdx.y * a.TH; }
+  __device__ int x0(const K1Args& a) const { return (blockIdx.x / a.split) * a.TW; }
+  __device__ const bf16* h(const K1Args& a) const {
+    const int b = blockIdx.z;
+    const size_t plane = (size_t)a.H * a.W * a.C;
+    return a.h + b * plane;
+  }
+  __device__ const bf16* gx(const K1Args& a) const {
+    const int b = blockIdx.z;
+    return a.gx + (size_t)b * a.gx_bstride;
+  }
+  __device__ bf16* out(const K1Args& a) const {
+    const int b = blockIdx.z;
+    const size_t plane = (size_t)a.H * a.W * a.C;
+    return a.out + b * plane;
+  }
+  __device__ bf16* acts(const K1Args& a) const {
+    const int b = blockIdx.z;
+    const size_t plane = (size_t)a.H * a.W * a.C;
+    return a.acts + 3 * b * plane;
+  }
+};
+
+template <bool kRes, int MR, int NR, int MC, int NC>
+__global__ void __launch_bounds__(kThreads, 1) k1_kernel(const K1Args a) {
+  k1_tile<kRes, MR, NR, MC, NC>(a, GridTile());
 }
 
 }  // namespace

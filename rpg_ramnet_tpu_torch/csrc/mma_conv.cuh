@@ -1,7 +1,7 @@
 // The implicit-GEMM 3x3 convolution on the tensor cores of the first
-// kernel designs (gru_cell.cuh: K9, K10a, K10b, K11; lstm_hside.cu: K3,
-// K4), and the mma.sync and ldmatrix primitives every ConvGRU and ConvLSTM
-// tile shares (gru_hside_tile.cuh and the tiles that include it).
+// kernel design that K9 and K10b still run (gru_cell.cuh), and the
+// mma.sync and ldmatrix primitives every ConvGRU and ConvLSTM tile shares
+// (gru_hside_tile.cuh and the tiles that include it).
 //
 // A block stages its source pixels in shared memory at a pixel pitch of
 // K + kPad bf16 elements; a warp owns one item of 32 pixels x 16 output

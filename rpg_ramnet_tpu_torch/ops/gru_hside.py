@@ -74,13 +74,13 @@ import torch.nn.functional as F
 
 from ..utils.layout import to_nchw, to_nhwc
 
-# H x W output tiles pick_tile chooses from, largest first, for the launch
-# variants K9, K10a, K10b and K11 (gru_cell.cuh).  A block of those holds
-# the h tile with a 2-pixel halo and a = r*h with a 1-pixel ring in shared
-# memory; smaller tiles recompute more of the ring but give more blocks.
-# K1 and K1-res have their own planner (plan_k1, below), K2 its own
-# (plan_k2), K3, K4, K3-res and K4-res theirs (plan_lstm), K5 its own
-# (plan_k5).
+# H x W output tiles pick_tile chooses from, largest first, for the pair
+# variants K9 and K10b (gru_cell.cuh).  A block of those holds the h tile
+# with a 2-pixel halo and a = r*h with a 1-pixel ring in shared memory;
+# smaller tiles recompute more of the ring but give more blocks.  K1,
+# K1-res, K10a and K11 run plan_k1's plans (below; K11 through
+# ops/gru_chunk.py::plan_k11), K2 its own (plan_k2), K3, K4, K3-res and
+# K4-res theirs (plan_lstm), K5 its own (plan_k5).
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
 _SMEM_MAX = 232448           # bytes a block may use on Hopper
 _SMEM_TWO_BLOCKS = 110 * 1024
@@ -88,9 +88,9 @@ _MIN_BLOCKS = 128            # about one block per SM of the 132
 
 
 def smem_bytes(tile_h: int, tile_w: int, C: int) -> int:
-    """The launch variants K9, K10a, K10b, K11 (gru_cell.cuh): the h tile
-    with its 2-pixel halo and the a tile with its 1-pixel ring, bf16, at
-    the kernels' pixel pitch of C + 8."""
+    """The pair variants K9 and K10b (gru_cell.cuh): the h tile with its
+    2-pixel halo and the a tile with its 1-pixel ring, bf16, at the
+    kernels' pixel pitch of C + 8."""
     return ((tile_h + 4) * (tile_w + 4) + (tile_h + 2) * (tile_w + 2)) \
         * (C + 8) * 2
 
@@ -811,8 +811,8 @@ def k5_plan_kinds(B: int, H: int, W: int, C: int) -> List[K5Plan]:
 
 def supports(h: torch.Tensor) -> bool:
     """Whether the kernels take this NHWC state's dtype and shape: bf16,
-    4-D, C a multiple of 16, a K1 plan and a tile of the launch variants
-    and of the first backward design that fit in shared memory (a K2 plan
+    4-D, C a multiple of 16, a K1 plan and a tile of the pair variants and
+    of the first backward design that fit in shared memory (a K2 plan
     exists wherever they do)."""
     return (h.dtype == torch.bfloat16 and h.dim() == 4
             and h.shape[-1] % 16 == 0 and pick_tile(*h.shape) is not None
@@ -1056,6 +1056,8 @@ _FWD_SIGNATURES = {
     "ramnet_gru_hside_forward_res": (_I, (_P, _P, _P, _P, _P, _P, _I, _I,
                                           _I, _I, _L, _I, _I, _I, _I, _I,
                                           _P)),
+    "ramnet_gru_hside_forward_sel": (_I, (_P, _P, _P, _P, _P, _P, _I, _I,
+                                          _I, _I, _I, _I, _I, _I, _I, _P)),
     "ramnet_cluster_launch_supported": (_I, (_I,)),
     "ramnet_gru_hside_max_active_clusters": (_I, (_I,) * 7),
     **_ERR,
@@ -1086,16 +1088,17 @@ _LSTM_SIGNATURES = {
     "ramnet_lstm_blocks_per_sm": (_I, (_I,) * 8),
     **_ERR,
 }
-# csrc/<name>.cu; lstm_hside holds K3, the phased cell K4 and their residual
-# variants K3-res and K4-res, gru_cells the
-# pair and gx-streaming cells K9, K10a, K10b (ops/gru_pair.py,
-# ops/gru_stream.py), gru_chunk the whole-chunk cell K11 (ops/gru_chunk.py)
+# csrc/<name>.cu; gru_hside holds K1, K1-res and the gx-streaming cell K10a
+# (ops/gru_stream.py), lstm_hside K3, the phased cell K4 and their residual
+# variants K3-res and K4-res, gru_cells the pair cells K9 and K10b
+# (ops/gru_pair.py, ops/gru_stream.py), gru_chunk the whole-chunk cell K11
+# (ops/gru_chunk.py)
 SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full", "lstm_hside",
            "gru_cells", "gru_chunk")
 
 
 def library():
-    """The built and loaded K1/K1-res library (nvcc on first use)."""
+    """The built and loaded K1/K1-res/K10a library (nvcc on first use)."""
     from .. import kernels
     return kernels.library("gru_hside", _FWD_SIGNATURES)
 
@@ -1189,6 +1192,14 @@ def _cluster_launch_supported(device: int) -> bool:
     return bool(library().ramnet_cluster_launch_supported(device))
 
 
+def check_cluster_launch(h, plan, what: str) -> None:
+    """Raise unless h's device can launch the plan's clusters (a plan with
+    split > 1 needs thread-block cluster launch)."""
+    if plan.split > 1 and not _cluster_launch_supported(h.device.index):
+        raise RuntimeError(f"{what} plan {plan} needs a thread-block cluster "
+                           f"launch, which {h.device} does not support")
+
+
 def _launch(h, gx, w_ur, w_o, residuals: bool, plan=None):
     _check_launch(h, gx, w_ur, w_o)
     if not (h.is_contiguous() and w_ur.is_contiguous()
@@ -1201,9 +1212,7 @@ def _launch(h, gx, w_ur, w_o, residuals: bool, plan=None):
                          functools.partial(check_k1_plan, residuals=residuals),
                          "K1")
     lib = library()
-    if plan.split > 1 and not _cluster_launch_supported(h.device.index):
-        raise RuntimeError(f"K1 plan {plan} needs a thread-block cluster "
-                           f"launch, which {h.device} does not support")
+    check_cluster_launch(h, plan, "K1")
     out = torch.empty_like(h)
     stream = torch.cuda.current_stream(h.device).cuda_stream
     if residuals:

@@ -24,13 +24,11 @@ import torch
 from . import gru_hside
 
 _P, _I, _L = gru_hside._P, gru_hside._I, gru_hside._L
-# csrc/gru_cells.cu: K9 here, K10a and K10b for ops/gru_stream.py
+# csrc/gru_cells.cu: K9 here, K10b for ops/gru_stream.py
 _SIGNATURES = {
     "ramnet_gru_pair_forward": (_I, (_P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                                      _I, _P, _P, _P, _P, _P, _I, _I, _I, _L,
                                      _I, _I, _I, _P)),
-    "ramnet_gru_stream_forward": (_I, (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                       _I, _I, _P)),
     "ramnet_gru_stream_pair_forward": (_I, (_P, _P, _P, _P, _P, _I, _I, _I,
                                             _I, _I, _P, _P, _P, _P, _P, _I,
                                             _I, _I, _I, _I, _P, _I, _P)),
@@ -39,7 +37,7 @@ _SIGNATURES = {
 
 
 def library():
-    """The built and loaded K9/K10a/K10b library (nvcc on first use)."""
+    """The built and loaded K9/K10b library (nvcc on first use)."""
     from .. import kernels
     return kernels.library("gru_cells", _SIGNATURES)
 

@@ -5,9 +5,11 @@ its ``step`` (Pallas ``_run_stream``/``_stream_kernel``, K10a), and
 ``stream_pair_step`` (``_run_stream_pair``/``_stream_pair_kernel``, K10b).
 K10a is K1's cell (``ops/gru_hside.py``) reading its gx block from the
 whole chunk's per-scale buffer gx_seq [S, H, W, 3C] at the step held by a
-device int32 ``sel``, so no per-step slice of the buffer is made; K10b is
-the pair cell K9 (``ops/gru_pair.py``) with the same indexing, one ``sel``
-for scales 0 and 1.  Both are in ``csrc/gru_cells.cu``.  They run in
+device int32 ``sel``, so no per-step slice of the buffer is made: K1's
+tile under K1's plan (``plan_k1``) in ``csrc/gru_hside.cu``.  K10b is the
+pair cell K9 (``ops/gru_pair.py``) with the same indexing, one ``sel`` for
+scales 0 and 1, on the first design's tile in ``csrc/gru_cells.cu``.
+They run in
 ``ERGB2DepthRecurrent.forward_sequence_precomputed``'s stream branch
 (``fused_stream='on'``): batch 1, ConvGRU, the states K1 takes
 (``gru_hside.supports``).
@@ -28,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import gru_hside, gru_pair
+from .gru_hside import K1Plan
 
 
 def _check(h, gx_seq, sel, w_ur, w_o) -> None:
@@ -52,8 +55,27 @@ def conv_gru_hside_stream_plain(h, gx_seq, sel, w_ur, w_o) -> torch.Tensor:
     return gru_hside.conv_gru_hside_plain(h, gx, w_ur, w_o)
 
 
+def _launch(h, gx_seq, sel, w_ur, w_o, plan=None):
+    gru_hside._check_launch(h, gx_seq, w_ur, w_o)
+    if not all(t.is_contiguous() for t in (h, gx_seq, w_ur, w_o)):
+        raise ValueError("h, gx_seq, w_ur and w_o must be contiguous")
+    _, H, W, C = h.shape
+    plan = gru_hside._resolve_plan(h, plan, K1Plan, gru_hside.plan_k1,
+                                   gru_hside.check_k1_plan, "K10a")
+    lib = gru_hside.library()
+    gru_hside.check_cluster_launch(h, plan, "K10a")
+    out = torch.empty_like(h)
+    err = lib.ramnet_gru_hside_forward_sel(
+        h.data_ptr(), gx_seq.data_ptr(), sel.data_ptr(), w_ur.data_ptr(),
+        w_o.data_ptr(), out.data_ptr(), H, W, C, gx_seq.shape[0], *plan,
+        torch.cuda.current_stream(h.device).cuda_stream)
+    gru_hside._raise_on(err, lib, f"gru_stream (plan {plan})")
+    conv_gru_hside_stream.launches += 1
+    return out
+
+
 def _cell_args(h, gx_seq, w_ur, w_o):
-    """(out, the scale's launch arguments) of one stream cell."""
+    """(out, the scale's launch arguments) of one K10b scale."""
     gru_hside._check_launch(h, gx_seq, w_ur, w_o)
     if not all(t.is_contiguous() for t in (h, gx_seq, w_ur, w_o)):
         raise ValueError("h, gx_seq, w_ur and w_o must be contiguous")
@@ -66,28 +88,25 @@ def _cell_args(h, gx_seq, w_ur, w_o):
 
 def conv_gru_hside_stream(h: torch.Tensor, gx_seq: torch.Tensor,
                           sel: torch.Tensor, w_ur: torch.Tensor,
-                          w_o: torch.Tensor) -> torch.Tensor:
+                          w_o: torch.Tensor, _plan: Optional[K1Plan] = None
+                          ) -> torch.Tensor:
     """h' [1, H, W, C] of K1's cell from NHWC h [1, H, W, C], step sel of
     gx_seq [S, H, W, 3C] and the folded weights (rounded to h's dtype):
     K10a for CUDA tensors, ``conv_gru_hside_stream_plain`` for CPU tensors.
     sel: int32 [1] on h's device, in [0, S) (the kernel clamps it there).
-    Inference only: raises when autograd would need a gradient."""
+    Inference only: raises when autograd would need a gradient.  _plan: a
+    ``K1Plan`` that replaces ``plan_k1``'s (tests and timing; checked on
+    either device)."""
     _check(h, gx_seq, sel, w_ur, w_o)
     gru_hside.raise_under_autograd("conv_gru_hside_stream", h, gx_seq, w_ur,
                                    w_o, why="as the JAX kernel, it has no VJP")
     w_ur, w_o = w_ur.to(h.dtype), w_o.to(h.dtype)
     if gru_hside._device_of(h) == "cpu":
+        if _plan is not None:
+            gru_hside.check_k1_plan(K1Plan(*_plan), h.shape[-1])
         return conv_gru_hside_stream_plain(h, gx_seq, sel, w_ur, w_o)
     with torch.cuda.device(h.device):
-        out, (hp, gp, wu, wo, op, H, W, C, th, tw) = _cell_args(
-            h, gx_seq, w_ur, w_o)
-        lib = gru_pair.library()
-        err = lib.ramnet_gru_stream_forward(
-            hp, gp, sel.data_ptr(), wu, wo, op, H, W, C, gx_seq.shape[0], th,
-            tw, torch.cuda.current_stream(h.device).cuda_stream)
-        gru_hside._raise_on(err, lib, "gru_stream")
-    conv_gru_hside_stream.launches += 1
-    return out
+        return _launch(h, gx_seq, sel, w_ur, w_o, _plan)
 
 
 def conv_gru_hside_stream_pair_plain(h0, gx0_seq, w0_ur, w0_o, h1, gx1_seq,

@@ -12,8 +12,10 @@ layers' autograd, one training step of the phased recipe and of the
 ConvLSTM state combination with the kernels against fused_gru='off', the
 phased per-package engine with the kernels against fused_gru='off', the chunked path's launch variants (the
 pair cell K9, the gx-streaming cells K10a and K10b, the resident-state
-cell K11) against their plain versions, K11 on many steps and tiles with a
-grid smaller than the tiles (a stale or raced read of h shows at its
+cell K11) against their plain versions, K10a and K11 under every plan kind
+their planners can pick at the flagship, ragged and edge shapes and K10a's
+refusals, K11 on many steps and tiles with a grid smaller than the tiles
+and with cluster-split plans (a stale or raced read of h shows at its
 step), an oversized cooperative grid raising, and the precomputed path
 under each variant against fused_gru='off', the fused decoder kernel K8
 against its plain version at the flagship layers and ragged shapes, its
@@ -979,6 +981,130 @@ def test_chunk_kernel_oversized_grid_raises(device):
         want = gru_chunk.conv_gru_hside_chunk_plain(w, w, gseq, h0, 5)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+# K10a's and K11's shapes (batch 1): the flagship scales, a ragged one,
+# and K1's edge shapes (H or W below the tile, H = W = 1, C = 16, 48)
+VARIANT_CELLS = [(1, 128, 256, 64), (1, 64, 128, 128), (1, 32, 64, 256),
+                 (1, 30, 45, 96), (1, 5, 40, 64), (1, 9, 3, 128),
+                 (1, 3, 37, 256), (1, 1, 1, 64), (1, 20, 24, 16),
+                 (1, 17, 19, 48)]
+
+
+@pytest.mark.parametrize("shape", VARIANT_CELLS, ids=lambda s: "x".join(map(str, s)))
+def test_k10a_plans_match_plain(device, shape):
+    """K10a at step 7 of a 12-step buffer within K1's 8e-3 of its plain
+    version under every plan kind K1's planner can pick at the shape (its
+    own pick through the wrapper's default path), one launch each."""
+    from rpg_ramnet_tpu_torch.ops import gru_stream
+    gen = torch.Generator(device=device).manual_seed(shape[-1])
+    h, gseq = _h_gx(shape, device, gen, steps=12)
+    w = _gru_weights(shape[-1], 8, device)
+    sel = torch.tensor([7], dtype=torch.int32, device=device)
+    with torch.no_grad():
+        want = gru_stream.conv_gru_hside_stream_plain(h, gseq, sel, *w)
+        for i, plan in enumerate(gru_hside.k1_plan_kinds(*shape)):
+            n0 = gru_stream.conv_gru_hside_stream.launches
+            got = gru_stream.conv_gru_hside_stream(h, gseq, sel, *w,
+                                                   **({"_plan": plan} if i else {}))
+            torch.cuda.synchronize()
+            assert gru_stream.conv_gru_hside_stream.launches == n0 + 1
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 8e-3, (plan, err)
+
+
+def test_k10a_refuses_bad_plans(device):
+    """A plan K1's tile cannot run raises before the launch; an argument
+    K10a's C entry refuses comes back as the launch's CUDA error text."""
+    from rpg_ramnet_tpu_torch.ops import gru_stream
+    gen = torch.Generator(device=device).manual_seed(9)
+    h, gseq = _h_gx((1, 16, 16, 96), device, gen, steps=4)
+    w_ur, w_o = _gru_weights(96, 9, device)
+    sel = torch.tensor([1], dtype=torch.int32, device=device)
+    for bad in (gru_hside.K1Plan(8, 8, 4, 0, 32), gru_hside.K1Plan(8, 8, 1, 3, 32),
+                gru_hside.K1Plan(8, 8, 1, 0, 64), gru_hside.K1Plan(64, 64, 1, 0, 32)):
+        with pytest.raises(ValueError):
+            gru_stream.conv_gru_hside_stream(h, gseq, sel, w_ur, w_o, _plan=bad)
+    lib = gru_hside.library()
+    out = torch.empty_like(h)
+    for split, combo, ks, steps in ((4, 0, 32, 4), (1, 0, 48, 4), (1, 3, 32, 4),
+                                    (1, 0, 32, 0)):   # the C entry's own check
+        err = lib.ramnet_gru_hside_forward_sel(
+            h.data_ptr(), gseq.data_ptr(), sel.data_ptr(), w_ur.data_ptr(),
+            w_o.data_ptr(), out.data_ptr(), 16, 16, 96, steps, 8, 8, split, combo,
+            ks, torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            gru_hside._raise_on(err, lib, "gru_stream")
+
+
+def _teacher_forced_err(snaps, h0, gseq, w_ev, w_im, K):
+    """Every snapshot against one plain cell on the kernel's previous one."""
+    prev = torch.cat([h0, snaps[:-1]])
+    image = torch.arange(len(snaps), device=snaps.device) % (K + 1) == K
+    want = torch.empty_like(snaps)
+    want[~image] = gru_hside.conv_gru_hside_plain(prev[~image], gseq[~image], *w_ev)
+    want[image] = gru_hside.conv_gru_hside_plain(prev[image], gseq[image], *w_im)
+    return (snaps.float() - want.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("blocks", [0, 5], ids=["co_resident", "5_blocks"])
+@pytest.mark.parametrize("shape", [(1, 64, 128, 128), (1, 32, 64, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_chunk_kernel_split_plans_match_plain(device, shape, blocks):
+    """K11 over 48 steps (K=5) with cluster-split plans (the planner's, in
+    clusters of 2) under the planner's grid (one cluster per tile, all
+    resident) and under 5 blocks, rounded up to 3 clusters that loop over
+    the tiles: every snapshot within 2e-2 of one plain cell on the
+    kernel's previous snapshot, so a read of h across clusters that the
+    grid barrier did not order shows at its step."""
+    from rpg_ramnet_tpu_torch.ops import gru_chunk
+    K, S = 5, 48
+    gen = torch.Generator(device=device).manual_seed(shape[-1])
+    h0, gseq = _h_gx(shape, device, gen, steps=S)
+    C = shape[-1]
+    w_ev, w_im = _gru_weights(C, 10, device), _gru_weights(C, 11, device)
+    n0 = gru_chunk.conv_gru_hside_chunk.launches
+    with torch.no_grad():
+        snaps = gru_chunk.conv_gru_hside_chunk(w_ev, w_im, gseq, h0, K, blocks=blocks)
+        plan = gru_chunk.conv_gru_hside_chunk.last_plan
+        grid = gru_chunk.conv_gru_hside_chunk.last_grid
+        err = _teacher_forced_err(snaps, h0, gseq, w_ev, w_im, K)
+    torch.cuda.synchronize()
+    assert gru_chunk.conv_gru_hside_chunk.launches == n0 + 1
+    assert plan.split == 2
+    assert grid == (6 if blocks else gru_chunk.tiles(plan, *shape[1:3]) * 2)
+    assert err <= 2e-2, err
+
+
+@pytest.mark.parametrize("shape", VARIANT_CELLS, ids=lambda s: "x".join(map(str, s)))
+def test_k11_plans_match_plain(device, shape):
+    """K11 over 12 steps (K=5: two packages) under every plan kind its
+    planner can pick at the shape (its own pick through the wrapper's
+    default path): every snapshot within 2e-2 of one plain cell on the
+    kernel's previous snapshot, one launch each, the grid one cluster per
+    tile up to the clusters that fit at once."""
+    from rpg_ramnet_tpu_torch.ops import gru_chunk
+    K, S = 5, 12
+    C = shape[-1]
+    gen = torch.Generator(device=device).manual_seed(C + 1)
+    h0, gseq = _h_gx(shape, device, gen, steps=S)
+    w_ev, w_im = _gru_weights(C, 12, device), _gru_weights(C, 13, device)
+
+    def resident(p):
+        return gru_chunk.resident_clusters(device.index or 0, C, p)
+
+    with torch.no_grad():
+        for i, plan in enumerate(gru_chunk.k11_plan_kinds(*shape[1:], resident)):
+            n0 = gru_chunk.conv_gru_hside_chunk.launches
+            snaps = gru_chunk.conv_gru_hside_chunk(w_ev, w_im, gseq, h0, K,
+                                                   **({"_plan": plan} if i else {}))
+            torch.cuda.synchronize()
+            assert gru_chunk.conv_gru_hside_chunk.launches == n0 + 1
+            assert gru_chunk.conv_gru_hside_chunk.last_plan == plan
+            assert gru_chunk.conv_gru_hside_chunk.last_grid == plan.split * min(
+                gru_chunk.tiles(plan, *shape[1:3]), resident(plan))
+            err = _teacher_forced_err(snaps, h0, gseq, w_ev, w_im, K)
+            assert err <= 2e-2, (plan, err)
 
 
 def test_chunked_variants_kernels_vs_off(device):

@@ -1,12 +1,13 @@
 """The plan of the port's ConvGRU h-side kernels K1 and K1-res
 (ops/gru_hside.py::plan_k1): shared memory, cluster split and tiles at
 every width and cell the port runs, the gate ``supports`` unchanged, the
-launch variants K9, K10a, K10b and K11 keeping their own tile, the weight
+pair variants K9 and K10b keeping the first design's tile, the weight
 bytes the split saves, the private plan argument, and a plain-torch
 emulation of the kernel's decomposition (output tiles, the a tile with its
-ring, each cluster rank's channel slice) against the JAX Pallas kernel in
-interpret mode.  The kernel itself is tested on a card in
-tests/test_torch_cuda.py.
+ring, each cluster rank's channel slice; tests/k1_emulation.py) against
+the JAX Pallas kernel in interpret mode.  The kernel itself is tested on a
+card in tests/test_torch_cuda.py; K10a and K11, which run K1's tile, in
+tests/test_torch_gru_variants_plan.py.
 """
 import json
 import math
@@ -16,7 +17,6 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +28,8 @@ from rpg_ramnet_tpu.ops.gru_hside import conv_gru_hside_fused
 from rpg_ramnet_tpu_torch.models.layers import ConvGRU
 from rpg_ramnet_tpu_torch.ops import gru_hside
 from rpg_ramnet_tpu_torch.ops.gru_hside import K1Plan
+
+from k1_emulation import EMULATED, k1_emulated
 
 ROOT = Path(__file__).resolve().parent.parent
 WIDTHS = (16, 32, 48, 64, 96, 128, 256)
@@ -89,8 +91,8 @@ def test_supports_unchanged(cell):
     assert not gru_hside.supports(torch.empty(1, 8, 8, 64, device="meta"))
 
 
-# the launch variants' tiles (K9, K10a, K10b, K11: pick_tile with
-# smem_bytes, csrc/gru_cell.cuh), as before K1's planner
+# the pair variants' tiles (K9, K10b: pick_tile with smem_bytes,
+# csrc/gru_cell.cuh), as before K1's planner
 VARIANT_TILES = {(1, 128, 256, 64): ((16, 16), 104256),
                  (1, 64, 128, 128): ((8, 8), 66368),
                  (1, 32, 64, 256): ((4, 4), 52800),
@@ -141,59 +143,6 @@ def _cell(C, seed=0):
                           for k, v in params_to_state_dict(p).items()},
                          strict=True)
     return p, cell
-
-
-def _oihw(w):
-    return w.reshape(3, 3, w.shape[1], w.shape[2]).permute(2, 3, 0, 1)
-
-
-def k1_emulated(h, gx, w_ur, w_o, plan):
-    """The kernel's decomposition in plain torch (NHWC, the inputs' dtype):
-    per output tile, the h tile with its 2-pixel halo (zeros outside); per
-    rank of the tile's cluster, r on the tile plus its 1-pixel ring and
-    its slice of a = r*h (0 outside the image); the a tile from every
-    rank's slice; then each rank's z, o and h' channels."""
-    B, H, W, C = h.shape
-    th, tw, split = plan.tile_h, plan.tile_w, plan.split
-    cn = C // split
-    nchw = lambda t: t.permute(0, 3, 1, 2)   # noqa: E731
-    hp = F.pad(nchw(h), (2, 2 + tw, 2, 2 + th))
-    gp = F.pad(nchw(gx), (1, 1 + tw, 1, 1 + th))
-    inside = F.pad(torch.ones(1, 1, H, W, dtype=h.dtype), (1, 1 + tw, 1, 1 + th))
-    out = torch.zeros(B, C, H + th, W + tw, dtype=h.dtype)
-    for y0 in range(0, H, th):
-        for x0 in range(0, W, tw):
-            ht = hp[:, :, y0:y0 + th + 4, x0:x0 + tw + 4]
-            ring = (slice(None), slice(None), slice(y0, y0 + th + 2),
-                    slice(x0, x0 + tw + 2))
-            a_tile = []
-            for rank in range(split):
-                rows = slice(C + rank * cn, C + (rank + 1) * cn)
-                r = torch.sigmoid(F.conv2d(ht, _oihw(w_ur[:, rows]))
-                                  + gp[ring][:, rows])
-                a_tile.append(r * ht[:, rank * cn:(rank + 1) * cn, 1:-1, 1:-1]
-                              * inside[ring])
-            a_tile = torch.cat(a_tile, 1)
-            for rank in range(split):
-                ch = slice(rank * cn, (rank + 1) * cn)
-                g = gp[:, :, y0 + 1:y0 + th + 1, x0 + 1:x0 + tw + 1]
-                z = torch.sigmoid(F.conv2d(ht[:, :, 1:-1, 1:-1], _oihw(w_ur[:, ch]))
-                                  + g[:, ch])
-                o = torch.tanh(F.conv2d(a_tile, _oihw(w_o[:, ch]))
-                               + g[:, 2 * C + rank * cn:2 * C + (rank + 1) * cn])
-                hv = ht[:, ch, 2:-2, 2:-2]
-                out[:, ch, y0:y0 + th, x0:x0 + tw] = hv * (1 - z) + o * z
-    return out[:, :, :H, :W].permute(0, 2, 3, 1)
-
-
-# images the JAX kernel takes (H % 4 == 0, W % 8 == 0) under tiles that
-# leave ragged edges, a tile beyond the image, 1x1 tiles, splits of 2
-EMULATED = ((1, 12, 16, 16, K1Plan(5, 7, 1, 0, 16)),
-            (2, 8, 24, 32, K1Plan(2, 8, 2, 1, 16)),
-            (1, 12, 16, 64, K1Plan(7, 8, 2, 2, 16)),
-            (1, 4, 8, 48, K1Plan(16, 16, 1, 2, 16)),
-            (1, 4, 8, 32, K1Plan(1, 1, 2, 0, 32)),
-            (2, 8, 16, 64, K1Plan(3, 4, 2, 1, 32)))
 
 
 @pytest.mark.parametrize("B,H,W,C,plan", EMULATED,
