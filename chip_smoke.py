@@ -115,10 +115,15 @@ Phases, each printed as one JSON line:
                    fused_gru='off' runs there;
  14. kernel_chunked the chunked path's launch variants against their plain
                    versions: K9 at the flagship scales 0+1 and a ragged B=2
-                   pair, K10a and K10b at the flagship shapes at a step of
-                   a 96-step buffer, K11 over S = 96 steps (K=5) at each
-                   flagship scale, every step against one plain cell on
-                   the kernel's previous step; K10a and K11 under every
+                   pair and K10b at the flagship pair, each under every
+                   kind of pair launch (gru_pair.k9_plan_kinds: splits
+                   1 + 2, 1 + 1 and 2 + 2, every combo, padding blocks,
+                   both block orders), K10b also at steps past
+                   either end of its buffer; the registers and spills of
+                   every K9/K10b instance; K10a and K10b at the flagship
+                   shapes at a step of a 96-step buffer, K11 over S = 96
+                   steps (K=5) at each flagship scale, every step against
+                   one plain cell on the kernel's previous step; K10a and K11 under every
                    plan kind their planners can pick there, at a ragged
                    shape and at K1's edge shapes (H or W below the tile,
                    C = 16, 48; K11 over two packages), and K11 on a
@@ -131,9 +136,10 @@ Phases, each printed as one JSON line:
                    fused_gru='off'; maps/s of every variant beside the
                    default path (K1) and 'off' in mirrored turns; K9, K10a,
                    K10b and K11 per launch against their plain versions
-                   (queued), K10a's and K11's also unqueued (wrapper
-                   time), with their plan, weight MB per launch,
-                   registers and spills;
+                   (queued), K9 and K10b also beside the two K1 launches
+                   they replace, all four also unqueued (wrapper time),
+                   with their plans, weight MB per launch, registers and
+                   spills;
  16. kernel_decoder, decoder  K8 and the composed layers against the
                    two-stage layers at the three flagship decoder layers
                    (decode batches 96 and 6, with and without the skip)
@@ -2103,6 +2109,55 @@ def k10a_plan_errors(h, gseq, w, sel, shape):
     return errs
 
 
+def pair_plan_errors(call, plain, shapes, what):
+    """{plans/order: max abs error} of K9 or K10b (call(_plan=, _first=))
+    against its plain version under every kind of ``gru_pair.k9_plan_kinds``
+    (the planner's pair through the wrapper's default path); raises beyond
+    K1_TOL, as K1's: the pair runs K1's tile under K1 plans."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_pair
+    want = plain()
+    errs = {}
+    for i, (plans, first) in enumerate(gru_pair.k9_plan_kinds(*shapes)):
+        got = call(**({"_plan": plans, "_first": first} if i else {}))
+        torch.cuda.synchronize()
+        key = "+".join(plan_name(p) for p in plans) + f"/first{first}"
+        errs[key] = max((a.float() - b.float()).abs().max().item()
+                        for a, b in zip(got, want))
+        if not (errs[key] <= K1_TOL):
+            raise AssertionError(f"{what} vs plain at {shapes}, {key}: {errs}")
+    return errs
+
+
+def pair_ptxas(ptxas):
+    """{"k9|k10b c<combo>": registers and spills} of every k9_kernel
+    instance (ptxas; K10b is the kSel instance), the combo by K1_COMBOS."""
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    out = {}
+    for name, info in ptxas.items():
+        m = re.search(r"k9_kernelILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EE", name)
+        if m:
+            combo = gru_hside.K1_COMBOS.index(tuple(int(v) for v in m.groups()[1:]))
+            out[f"{'k10b' if m.group(1) == '1' else 'k9'} c{combo}"] = info
+    return out
+
+
+def pair_report(shapes):
+    """K9's/K10b's plans at a pair of shapes (the planner's), the block
+    order and grid, the weight MB one launch streams into shared memory
+    (``k1_weight_bytes`` of both scales) and the instances' registers and
+    spills."""
+    from rpg_ramnet_tpu_torch import kernels
+    from rpg_ramnet_tpu_torch.ops import gru_pair
+    plans = gru_pair.plan_k9(*shapes)
+    grid = gru_pair.pair_grid(plans, shapes[0][0], shapes[0][1:3], shapes[1][1:3])
+    ptx = pair_ptxas(ptxas_by_kernel(kernels.build_log.get("gru_cells", "")))
+    return {"plans": [plan_name(p) for p in plans], "first": gru_pair.PAIR_FIRST,
+            "grid": grid._asdict(),
+            "weight_mb": gru_pair.pair_weight_bytes(plans, *shapes) / 1e6,
+            "ptxas": {k: ptx.get(f"{k} c{plans[0].combo}") for k in ("k9", "k10b")}}
+
+
 def k11_plan_errors(h0, gseq, w_ev, w_im, K, shape):
     """{plan: {per-step error, grid}} of K11 under every plan kind its
     planner can pick at the shape (its own pick through the wrapper's
@@ -2131,10 +2186,14 @@ def k11_plan_errors(h0, gseq, w_ev, w_im, K, shape):
 def chunked_kernel_check(dev, seed, K):
     """K9 (flagship scales 0+1 and the ragged pair), K10a (step STREAM_STEP
     of CHUNK*(K+1)-step buffers at the flagship shapes; step 7 of 12-step
-    ones at VARIANT_EDGE_CELLS), K10b (the flagship shapes), and K11 (S =
-    CHUNK*(K+1) steps per flagship scale, EDGE_STEPS at the other shapes)
-    against their plain versions: max abs errors; K10a and K11 under every
-    plan kind their planners can pick (gated at K1_TOL and CELL_TOL), K11
+    ones at VARIANT_EDGE_CELLS), K10b (the flagship shapes, also at steps
+    past either end of the buffer against the plain version at the step
+    the kernel clamps to), and K11 (S = CHUNK*(K+1) steps per flagship
+    scale, EDGE_STEPS at the other shapes) against their plain versions:
+    max abs errors; K9 and K10b under every kind of pair launch
+    (``gru_pair.k9_plan_kinds``) and K10a under every plan kind K1's
+    planner can pick (gated at K1_TOL), K11 under every plan kind its
+    planner can pick (gated at CELL_TOL), K11
     per step on its own previous snapshot, also on a looping grid of
     LOOP_BLOCKS blocks at the flagship scales, and free-running against
     the plain loop under its own plan (reported).  Returns the errors and
@@ -2147,17 +2206,16 @@ def chunked_kernel_check(dev, seed, K):
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     S = CHUNK * (K + 1)
-    out = {"k9": {}, "k10a": {}, "k11": {}}
+    out = {"k9": {}, "k10a": {}, "k10b": {}, "k11": {}}
     for pair in (FLAGSHIP_CELLS[:2], RAGGED_PAIR):
         args = []
         for shape in pair:
             h, gx, w, _ = chunk_cell_inputs(shape, dev, gen, seed + shape[-1])
             args += [h, gx, *w]
         with torch.no_grad():
-            got = gru_pair.conv_gru_hside_pair(*args)
-            want = gru_pair.conv_gru_hside_pair_plain(*args)
-        out["k9"]["+".join("x".join(map(str, sh)) for sh in pair)] = max(
-            err(a, b) for a, b in zip(got, want))
+            out["k9"]["+".join("x".join(map(str, sh)) for sh in pair)] = pair_plan_errors(
+                lambda **kw: gru_pair.conv_gru_hside_pair(*args, **kw),
+                lambda: gru_pair.conv_gru_hside_pair_plain(*args), pair, "K9")
     inputs = {shape: chunk_cell_inputs(shape, dev, gen, seed + shape[-1], S)
               for shape in FLAGSHIP_CELLS}
     sel = torch.tensor([STREAM_STEP], dtype=torch.int32, device=dev)
@@ -2166,10 +2224,19 @@ def chunked_kernel_check(dev, seed, K):
             out["k10a"]["x".join(map(str, shape))] = k10a_plan_errors(
                 h, gseq, w, sel, shape)
         (h0, g0, w0, _), (h1, g1, w1, _) = (inputs[c] for c in FLAGSHIP_CELLS[:2])
-        out["k10b"] = max(err(a, b) for a, b in zip(
-            gru_stream.conv_gru_hside_stream_pair(h0, g0, *w0, h1, g1, *w1, sel),
-            gru_stream.conv_gru_hside_stream_pair_plain(h0, g0, *w0, h1, g1, *w1,
-                                                        sel)))
+        out["k10b"]["plans"] = pair_plan_errors(
+            lambda **kw: gru_stream.conv_gru_hside_stream_pair(h0, g0, *w0, h1, g1, *w1,
+                                                               sel, **kw),
+            lambda: gru_stream.conv_gru_hside_stream_pair_plain(h0, g0, *w0, h1, g1, *w1,
+                                                                sel),
+            FLAGSHIP_CELLS[:2], "K10b")
+        for step in (S + 5, -1):   # the kernel clamps sel to the buffer
+            at = torch.tensor([min(max(step, 0), S - 1)], dtype=torch.int32, device=dev)
+            out["k10b"][f"sel_{step}"] = max(err(a, b) for a, b in zip(
+                gru_stream.conv_gru_hside_stream_pair(
+                    h0, g0, *w0, h1, g1, *w1, torch.full_like(sel, step)),
+                gru_stream.conv_gru_hside_stream_pair_plain(h0, g0, *w0, h1, g1, *w1,
+                                                            at)))
         for shape, (h, gseq, w_ev, w_im) in inputs.items():
             key = "x".join(map(str, shape))
             row = {"steps": S, "plans": k11_plan_errors(h, gseq, w_ev, w_im, K, shape)}
@@ -2194,8 +2261,11 @@ def chunked_kernel_check(dev, seed, K):
     k11_errs = [r["per_step_err"] for row in out["k11"].values()
                 for r in list(row["plans"].values()) + [row.get("looping_grid",
                                                                  {"per_step_err": 0.0})]]
-    worst = max(list(out["k9"].values()) + [out["k10b"]] + k11_errs)
-    if not (worst <= CELL_TOL):
+    worst = max(k11_errs)
+    pair_worst = max([e for row in out["k9"].values() for e in row.values()]
+                     + list(out["k10b"]["plans"].values())
+                     + [v for k, v in out["k10b"].items() if k != "plans"])
+    if not (worst <= CELL_TOL and pair_worst <= K1_TOL):
         raise AssertionError(f"chunked-path kernels vs plain: {out}")
     return out, inputs
 
@@ -2204,10 +2274,11 @@ def time_chunked_kernels(dev, inputs, K, iters=50):
     """Microseconds per launch of K9 and K10b (flagship scales 0+1), K10a
     (each flagship shape) and K11 (each flagship scale, S steps) and of
     their plain versions, in turns plain, kernel, kernel, plain, queued
-    (device time, as phase 4); K10a's and K11's also unqueued (the
-    wrapper's time), with their plan, weight MB per launch, registers and
-    spills (``variant_report``) and K11's grid and clusters that fit at
-    once."""
+    (device time, as phase 4), and of the two K1 launches K9 replaces
+    (``k1_pair``); K9's, K10b's, K10a's and K11's also unqueued (the
+    wrapper's time), with their plans, weight MB per launch, registers and
+    spills (``pair_report``, ``variant_report``), K9's grid and K11's grid
+    and clusters that fit at once."""
     import torch
     from rpg_ramnet_tpu_torch.ops import gru_chunk, gru_hside, gru_pair, gru_stream
     sel = torch.tensor([STREAM_STEP], dtype=torch.int32, device=dev)
@@ -2221,8 +2292,14 @@ def time_chunked_kernels(dev, inputs, K, iters=50):
         "k10b": (lambda: gru_stream.conv_gru_hside_stream_pair(
                      h0, g0, *w0, h1, g1, *w1, sel),
                  lambda: gru_stream.conv_gru_hside_stream_pair_plain(
-                     h0, g0, *w0, h1, g1, *w1, sel), iters)}
-    reports = {}
+                     h0, g0, *w0, h1, g1, *w1, sel), iters),
+        # the two K1 launches the pair replaces, at the same inputs
+        "k1_pair": (lambda: (gru_hside.conv_gru_hside(h0, v0, *w0),
+                             gru_hside.conv_gru_hside(h1, v1, *w1)),
+                    lambda: gru_pair.conv_gru_hside_pair_plain(h0, v0, *w0, h1, v1, *w1),
+                    iters)}
+    report = pair_report(FLAGSHIP_CELLS[:2])
+    reports = {"k9": report, "k10b": report}
     for shape, (h, gseq, w, w_im) in inputs.items():
         key = "x".join(map(str, shape))
         calls[f"k10a_{key}"] = (
@@ -2250,7 +2327,7 @@ def time_chunked_kernels(dev, inputs, K, iters=50):
                               for f in (plain, kern, kern, plain))
             rows[name] = {"kernel_us": min(k1, k2), "plain_us": min(p1, p2),
                           "us_runs_p_k_k_p": [p1, k1, k2, p2], **reports.get(name, {})}
-            if name in reports:   # K10a, K11: also unqueued, the wrapper's time
+            if name in reports:   # also unqueued, the wrapper's time
                 rows[name]["wrapper_us"] = min(cuda_time_us(kern, n) for _ in range(2))
     return rows
 
@@ -2821,7 +2898,8 @@ def main() -> int:
     emit({"phase": "kernel_chunked", "cell_tol": CELL_TOL, "k1_tol": K1_TOL, "K": K,
           "stream_step": STREAM_STEP, "ragged_pair": RAGGED_PAIR,
           "edge_cells": VARIANT_EDGE_CELLS, "edge_steps": EDGE_STEPS,
-          "loop_blocks": LOOP_BLOCKS, "max_abs_err": chunk_errs})
+          "loop_blocks": LOOP_BLOCKS, "max_abs_err": chunk_errs,
+          "pair_ptxas": pair_ptxas(ptxas_by_kernel(kernels.build_log.get("gru_cells", "")))})
 
     # 15. the variants through the chunked engine and chunk_cells
     variants, variant_timing = chunked_variants(
@@ -2948,11 +3026,15 @@ def main() -> int:
              wrapper_ms=sum(r["k4_wrapper_us"] for r in ph["cells"]) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["k4"]["plan"]
                    for r in ph["cells"]}),
-        entry("gru_pair", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_pair.py:69",
-              variants["pair"]["launches"]["k9"], max(chunk_errs["k9"].values()),
-              chunk_cells["k9"]["kernel_us"] / 1e3,
-              chunk_cells["k9"]["plain_us"] / 1e3,
-              cell_bound("k1", FLAGSHIP_CELLS[:2])),
+        dict(entry("gru_pair", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_pair.py:69",
+                   variants["pair"]["launches"]["k9"],
+                   max(e for row in chunk_errs["k9"].values() for e in row.values()),
+                   chunk_cells["k9"]["kernel_us"] / 1e3,
+                   chunk_cells["k9"]["plain_us"] / 1e3,
+                   cell_bound("k1", FLAGSHIP_CELLS[:2])),
+             wrapper_ms=chunk_cells["k9"]["wrapper_us"] / 1e3,
+             plan=chunk_cells["k9"]["plans"],
+             k1_pair_ms=chunk_cells["k1_pair"]["kernel_us"] / 1e3),
         dict(entry("gru_stream", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_stream.py:102",
                    variants["stream"]["launches"]["k10a"],
                    max(e for row in chunk_errs["k10a"].values() for e in row.values()),
@@ -2961,12 +3043,17 @@ def main() -> int:
                    cell_bound("k1", FLAGSHIP_CELLS)),
              wrapper_ms=sum(chunk_cells[f"k10a_{k}"]["wrapper_us"] for k in flagship_keys) / 1e3,
              plan={k: chunk_cells[f"k10a_{k}"]["plan"] for k in flagship_keys}),
-        entry("gru_stream_pair", "gru_cells.cu",
-              "rpg_ramnet_tpu/ops/gru_stream.py:138",
-              variants["stream_pair"]["launches"]["k10b"], chunk_errs["k10b"],
-              chunk_cells["k10b"]["kernel_us"] / 1e3,
-              chunk_cells["k10b"]["plain_us"] / 1e3,
-              cell_bound("k1", FLAGSHIP_CELLS[:2])),
+        dict(entry("gru_stream_pair", "gru_cells.cu",
+                   "rpg_ramnet_tpu/ops/gru_stream.py:138",
+                   variants["stream_pair"]["launches"]["k10b"],
+                   max(max(chunk_errs["k10b"]["plans"].values()),
+                       *(v for k, v in chunk_errs["k10b"].items() if k != "plans")),
+                   chunk_cells["k10b"]["kernel_us"] / 1e3,
+                   chunk_cells["k10b"]["plain_us"] / 1e3,
+                   cell_bound("k1", FLAGSHIP_CELLS[:2])),
+             wrapper_ms=chunk_cells["k10b"]["wrapper_us"] / 1e3,
+             plan=chunk_cells["k10b"]["plans"],
+             k1_pair_ms=chunk_cells["k1_pair"]["kernel_us"] / 1e3),
         dict(entry("gru_chunk", "gru_chunk.cu", "rpg_ramnet_tpu/ops/gru_chunk.py:155",
                    variants["chunk_cells"]["launches"]["k11"],
                    max(r["per_step_err"] for row in chunk_errs["k11"].values()

@@ -131,22 +131,28 @@ tree (--root) in turns parent, tree, tree, parent to compare two trees.
 --variants times the gx-streaming cell K10a and the whole-chunk cell K11
 at the flagship shapes, K11 over one chunk's S = 96 steps (K=5), beside
 K1 under its own plan and under K11's, and K1 and K1-res under their own
-(K1-res at the training shapes), one line per plan set, kernel and shape:
-queued us (least of mirrored turns over the plan sets; K10a and K11 also
-unqueued, the wrapper's time, least of two), the plan, the
-weight MB per launch (K11: times S), the registers and spills, K11's grid
-and the clusters of its plan that fit at once, and the max abs error
-against the plain version (K11: every step against one plain cell on its
-previous snapshot).  Its plan sets for K11: ``auto`` (``plan_k11``: one
-wave of clusters, K10a and the K1 rows run here), ``split1`` (``plan_k11``
-without the cluster split) and ``loop`` (``auto``'s plan on half its
+(K1-res at the training shapes), and the pair cells K9 and K10b at the
+flagship pair (scales 0 and 1, in the row of scale 0's shape) in the kept
+block order and the other, beside the two K1 launches they replace
+(``k1_pair``; this tree also under the pair's plans,
+``k1_pair_at_k9_plans``), one line per plan set, kernel and shape: queued
+us (least of mirrored turns over the plan sets; K10a, K11, K9 and K10b
+also unqueued, the wrapper's time, least of two), the plan (K9, K10b: the
+plans, the grid and the order), the weight MB per launch (K11: times S),
+the registers and spills, K11's grid and the clusters of its plan that
+fit at once, and the max abs error against the plain version (K11: every
+step against one plain cell on its previous snapshot).  Its plan sets for
+K11: ``auto`` (``plan_k11``: one wave of clusters, K10a and the K1 rows
+run here), ``split1`` (``plan_k11`` without the cluster split) and
+``loop`` (``auto``'s plan on half its
 clusters, each looping over two tiles); a tree whose K10a and K11 take no
 plan (the first design) runs plan set ``default``.  Its summary line sums
 each kernel over the shapes and gives K11's barrier cost per step, (K11 -
 S x K1 at K11's plan) / (S - 1), per shape; a last line times the chunk's
 forward (ms per 16-package chunk, inputs on the card) and the chunked
 path's maps/s (chip_smoke's two sequences) with the default path (K1),
-fused_stream='on' (K10a) and chunk_cells (K11) in mirrored turns.  Run it
+fused_stream='on' (K10a), fused_pair='on' (K9), both (K10b) and
+chunk_cells (K11) in mirrored turns.  Run it
 once per tree (--root) in turns parent, tree, tree, parent: the least of
 the two processes of each tree is its reading.
 """
@@ -1021,12 +1027,12 @@ def variants_main(args, torch) -> int:
     dev = torch.device("cuda")
     smi = chip_smoke.nvidia_smi_line()
     planned = hasattr(gru_chunk, "plan_k11")
+    pair_planned = hasattr(gru_pair, "plan_k9")
     gru_hside.library()
     gru_chunk.library()
-    if not planned:
-        gru_pair.library()   # the first design's K10a
+    gru_pair.library()   # K9, K10b (and a first-design tree's K10a)
     sets = (args.plans or "auto,split1,loop").split(",") if planned else ["default"]
-    label = args.label or ("tree" if planned else "parent")
+    label = args.label or ("tree" if pair_planned else "parent")
     K, S = 5, VARIANT_STEPS
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = {shape: chip_smoke.chunk_cell_inputs(shape, dev, gen, shape[-1], S)
@@ -1048,6 +1054,56 @@ def variants_main(args, torch) -> int:
             return None
         raise ValueError(f"--variants has no plan set {plan_set!r}")
 
+    def pair_calls():
+        """{kernel: call} of K9 and K10b at the flagship pair (scales 0 and
+        1, gx step 37), each also with the other block order where the
+        tree's pair takes one, and the two K1 launches they replace."""
+        (h0, gs0, w0, _), (h1, gs1, w1, _) = (cases[s] for s in FLAGSHIP_CELLS[:2])
+        v0, v1 = gs0[37:38], gs1[37:38]
+        out = {"k9": lambda **kw: gru_pair.conv_gru_hside_pair(h0, v0, *w0, h1, v1, *w1, **kw),
+               "k10b": lambda **kw: gru_stream.conv_gru_hside_stream_pair(
+                   h0, gs0, *w0, h1, gs1, *w1, sel, **kw)}
+        if pair_planned:
+            other = {"_first": 1 - gru_pair.PAIR_FIRST}
+            out.update({f"{k}_other_order": (lambda f=f: f(**other)) for k, f in out.items()})
+        out["k1_pair"] = lambda: (gru_hside.conv_gru_hside(h0, v0, *w0),
+                                  gru_hside.conv_gru_hside(h1, v1, *w1))
+        if pair_planned:   # K1 under the pair's plans (one combo)
+            p0, p1 = gru_pair.plan_k9(*FLAGSHIP_CELLS[:2])
+            out["k1_pair_at_k9_plans"] = lambda: (
+                gru_hside.conv_gru_hside(h0, v0, *w0, _plan=p0),
+                gru_hside.conv_gru_hside(h1, v1, *w1, _plan=p1))
+        return out
+
+    def pair_row(name, fn):
+        """Wrapper us, max abs error against the plain version, and (this
+        tree) the plans, grid, weight MB and registers of a pair row."""
+        (h0, gs0, w0, _), (h1, gs1, w1, _) = (cases[s] for s in FLAGSHIP_CELLS[:2])
+        v0, v1 = gs0[37:38], gs1[37:38]
+        if name.startswith("k1_pair"):
+            want = gru_pair.conv_gru_hside_pair_plain(h0, v0, *w0, h1, v1, *w1)
+            plans = (gru_pair.plan_k9(*FLAGSHIP_CELLS[:2]) if name.endswith("k9_plans")
+                     else [gru_hside.plan_k1(*s) for s in FLAGSHIP_CELLS[:2]])
+            return {"plans": [chip_smoke.plan_name(p) for p in plans],
+                    "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                       for a, b in zip(fn(), want))}
+        want = (gru_pair.conv_gru_hside_pair_plain(h0, v0, *w0, h1, v1, *w1)
+                if name.startswith("k9") else
+                gru_stream.conv_gru_hside_stream_pair_plain(h0, gs0, *w0, h1, gs1, *w1, sel))
+        row = {"wrapper_us": min(chip_smoke.cuda_time_us(fn, ITERS) for _ in range(2)),
+               "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(fn(), want))}
+        if pair_planned:
+            row.update(chip_smoke.pair_report(FLAGSHIP_CELLS[:2]))
+            row["first"] = (1 - gru_pair.PAIR_FIRST if name.endswith("other_order")
+                            else gru_pair.PAIR_FIRST)
+        else:   # the first design's instance
+            log = chip_smoke.ptxas_by_kernel(kernels.build_log.get("gru_cells", ""))
+            flag = "ILb1E" if name.startswith("k10b") else "ILb0E"
+            row["ptxas"] = next((v for k, v in log.items()
+                                 if "gru_cells_kernel" + flag in k), None)
+        return row
+
     def calls(plan_set, shape):
         """(K11's plan, its blocks, {kernel: call})."""
         plan = k11_plan(plan_set, shape)
@@ -1067,6 +1123,8 @@ def variants_main(args, torch) -> int:
             if plan_set in ("auto", "default"):
                 out["k10a"] = lambda: gru_stream.conv_gru_hside_stream(h, gseq, sel, *w_ev)
                 out["k1"] = lambda: gru_hside.conv_gru_hside(h, g1, *w_ev)
+            if plan_set in ("auto", "default") and shape == FLAGSHIP_CELLS[0]:
+                out.update(pair_calls())
         elif plan_set in ("auto", "default"):
             out["k1_res"] = lambda: gru_hside.conv_gru_hside_res(*train[shape])
         return plan, blocks, out
@@ -1097,8 +1155,10 @@ def variants_main(args, torch) -> int:
                         row["wrapper_us"] = min(chip_smoke.cuda_time_us(
                             fn, 3 if name == "k11" else ITERS) for _ in range(2))
                 with torch.no_grad():
-                    got = fn()
-                    if name == "k11":
+                    got = None if name.startswith(("k9", "k10b", "k1_pair")) else fn()
+                    if got is None:
+                        row.update(pair_row(name, fn))
+                    elif name == "k11":
                         h, gseq, w_ev, w_im = cases[shape]
                         row["max_abs_err_per_step"] = chip_smoke.chunk_teacher_forced(
                             got, h, gseq, w_ev, w_im, K)
@@ -1148,8 +1208,8 @@ def variants_main(args, torch) -> int:
 def variants_e2e(torch, dev, seed=0):
     """The chunk's forward ms (chip_smoke.time_chunk_forward) and the
     chunked path's maps/s (chip_smoke.run_slice over its two sequences),
-    with the default path, fused_stream='on' and chunk_cells, in mirrored
-    turns after a warm-up run each."""
+    with the default path, fused_stream='on', fused_pair='on', both and
+    chunk_cells, in mirrored turns after a warm-up run each."""
     import dataclasses
     from rpg_ramnet_tpu_torch.core.config import ModelConfig
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
@@ -1158,10 +1218,13 @@ def variants_e2e(torch, dev, seed=0):
     K = event_loop_range(cfg)
     model = ERGB2DepthRecurrent(cfg, device=dev,
                                 generator=torch.Generator().manual_seed(seed))
-    stream = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_stream="on"), device=dev)
-    stream.load_state_dict(model.state_dict())
-    models = {"default": model, "fused_stream": stream,
-              "chunk_cells": cs.chunk_cells_model(model)}
+    models = {"default": model}
+    for name, over in (("fused_stream", {"fused_stream": "on"}),
+                       ("fused_pair", {"fused_pair": "on"}),
+                       ("stream_pair", {"fused_pair": "on", "fused_stream": "on"})):
+        models[name] = ERGB2DepthRecurrent(dataclasses.replace(cfg, **over), device=dev)
+        models[name].load_state_dict(model.state_dict())
+    models["chunk_cells"] = cs.chunk_cells_model(model)
     order = list(models)
     with torch.no_grad():
         forward_ms = cs.time_chunk_forward(models, order, K, seed)

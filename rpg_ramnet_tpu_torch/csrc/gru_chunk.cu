@@ -119,11 +119,6 @@ K11Kernel kernel_of(int combo) {
   }
 }
 
-bool plan_ok(int C, int tile_h, int tile_w, int split, int ks) {
-  return C % 16 == 0 && (split == 1 || split == 2) && (C / 16) % split == 0 &&
-         (ks == 16 || ks == 32 || ks == 64) && C % ks == 0 && tile_h >= 1 && tile_w >= 1;
-}
-
 }  // namespace
 
 extern "C" {
@@ -136,7 +131,7 @@ extern "C" {
 int ramnet_gru_chunk_max_active_clusters(int C, int tile_h, int tile_w, int split, int combo,
                                          int ks) {
   const K11Kernel kern = kernel_of(combo);
-  if (!kern || !plan_ok(C, tile_h, tile_w, split, ks)) return -1;
+  if (!kern || !k1_plan_ok(C, tile_h, tile_w, split, ks)) return -1;
   return max_active_clusters(kern, k1_smem_bytes(tile_h, tile_w, C, split, ks, false), split);
 }
 
@@ -153,9 +148,12 @@ int ramnet_gru_chunk_forward(const void* h0, const void* gx, const void* w_ur2,
                              const void* w_o2, void* snaps, int S, int K, int H, int W,
                              int C, int tile_h, int tile_w, int split, int combo, int ks,
                              int blocks, void* stream) {
+  K11Args p = {};
+  K1Args& a = p.a;
   const K11Kernel kern = kernel_of(combo);
-  if (!kern || !plan_ok(C, tile_h, tile_w, split, ks) || S < 1 || K < 1 || blocks < 1 ||
-      blocks % split)
+  if (!kern || !make_k1_args(a, h0, gx, w_ur2, w_o2, snaps, nullptr, H, W, C,
+                             (long long)H * W * 3 * C, tile_h, tile_w, split, ks) ||
+      S < 1 || K < 1 || blocks < 1 || blocks % split)
     return (int)cudaErrorInvalidValue;
   int dev = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -167,21 +165,6 @@ int ramnet_gru_chunk_forward(const void* h0, const void* gx, const void* w_ur2,
   const int fit = max_active_clusters(kern, smem, split);
   if (fit < 0) return (int)cudaErrorInvalidValue;
   if (blocks / split > fit) return (int)cudaErrorCooperativeLaunchTooLarge;
-  K11Args p = {};
-  K1Args& a = p.a;
-  a.h = static_cast<const bf16*>(h0);
-  a.gx = static_cast<const bf16*>(gx);
-  a.w_ur = static_cast<const bf16*>(w_ur2);
-  a.w_o = static_cast<const bf16*>(w_o2);
-  a.out = static_cast<bf16*>(snaps);
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.gx_bstride = (long long)H * W * 3 * C;
-  a.TH = tile_h;
-  a.TW = tile_w;
-  a.split = split;
-  a.ks = ks;
   p.plane = (long long)H * W * C;
   p.w_ur_at = (long long)9 * 2 * C * C;
   p.w_o_at = (long long)9 * C * C;

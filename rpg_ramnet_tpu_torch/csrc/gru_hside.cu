@@ -52,9 +52,9 @@
 // slab.  The wrapper plans the tile, the split, the warp jobs and the slab
 // width per shape (ops/gru_hside.py::plan_k1, a cost
 // model fitted to timed plans) and passes the plan.  TMA multicast of the
-// slabs and wgmma are the next steps.  K10a (here) and the whole-chunk
-// cell K11 (gru_chunk.cu) run the same tile under K1's plans; the pair
-// variants K9 and K10b keep the first design's tile (gru_cell.cuh).
+// slabs and wgmma are the next steps.  K10a (here), the whole-chunk cell
+// K11 (gru_chunk.cu) and the pair cells K9 and K10b (gru_cells.cu) run the
+// same tile under K1's plans.
 
 #include "gru_hside_tile.cuh"
 
@@ -110,30 +110,6 @@ cudaError_t launch_kernel(void (*kern)(const K1Args, Extra...), const K1Args& a,
   return err != cudaSuccess ? err : last;
 }
 
-// The arguments of a plan, or false where the tile cannot run it.
-bool make_args(K1Args& a, const void* h, const void* gx, const void* w_ur, const void* w_o,
-               void* out, void* acts, int H, int W, int C, long long gx_bstride,
-               int tile_h, int tile_w, int split, int ks) {
-  if (C % 16 || (split != 1 && split != 2) || (C / 16) % split ||
-      (ks != 16 && ks != 32 && ks != 64) || C % ks || tile_h < 1 || tile_w < 1)
-    return false;
-  a.h = static_cast<const bf16*>(h);
-  a.gx = static_cast<const bf16*>(gx);
-  a.w_ur = static_cast<const bf16*>(w_ur);
-  a.w_o = static_cast<const bf16*>(w_o);
-  a.out = static_cast<bf16*>(out);
-  a.acts = static_cast<bf16*>(acts);
-  a.H = H;
-  a.W = W;
-  a.C = C;
-  a.gx_bstride = gx_bstride;
-  a.TH = tile_h;
-  a.TW = tile_w;
-  a.split = split;
-  a.ks = ks;
-  return true;
-}
-
 dim3 k1_grid(const K1Args& a, int B) {
   return dim3(((a.W + a.TW - 1) / a.TW) * a.split, (a.H + a.TH - 1) / a.TH, B);
 }
@@ -143,8 +119,8 @@ int launch(const void* h, const void* gx, const void* w_ur, const void* w_o, voi
            void* acts, int B, int H, int W, int C, long long gx_bstride, int tile_h,
            int tile_w, int split, int combo, int ks, void* stream) {
   K1Args a;
-  if (!make_args(a, h, gx, w_ur, w_o, out, acts, H, W, C, gx_bstride, tile_h, tile_w, split,
-                 ks))
+  if (!make_k1_args(a, h, gx, w_ur, w_o, out, acts, H, W, C, gx_bstride, tile_h, tile_w,
+                    split, ks))
     return (int)cudaErrorInvalidValue;
   return (int)launch_kernel(kernel_of<kRes>(combo), a, k1_grid(a, B),
                             k1_smem_bytes(tile_h, tile_w, C, split, ks, kRes),
@@ -192,8 +168,8 @@ int ramnet_gru_hside_forward_sel(const void* h, const void* gx_seq, const void* 
                                  int W, int C, int S, int tile_h, int tile_w, int split,
                                  int combo, int ks, void* stream) {
   K1Args a;
-  if (S < 1 || !make_args(a, h, gx_seq, w_ur, w_o, out, nullptr, H, W, C,
-                          (long long)H * W * 3 * C, tile_h, tile_w, split, ks))
+  if (S < 1 || !make_k1_args(a, h, gx_seq, w_ur, w_o, out, nullptr, H, W, C,
+                             (long long)H * W * 3 * C, tile_h, tile_w, split, ks))
     return (int)cudaErrorInvalidValue;
   return (int)launch_kernel(k10a_kernel_of(combo), a, k1_grid(a, 1),
                             k1_smem_bytes(tile_h, tile_w, C, split, ks, false),

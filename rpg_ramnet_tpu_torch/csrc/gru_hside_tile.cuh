@@ -1,10 +1,11 @@
-// The tile of kernels K1, K1-res and K10a (gru_hside.cu) and K11
-// (gru_chunk.cu): one block computes the ConvGRU h-side cell on a TH x TW
-// output tile, for all output channels or, in a thread-block cluster of N
-// blocks, for its C/N of them.  k1_tile is that block's body, given its
-// tile's origin, its cluster rank and the h, gx, output and weight
-// pointers; K1, K1-res and K10a run it once per block (k1_kernel,
-// k10a_kernel), K11 once per tile and step of a persistent grid.
+// The tile of kernels K1, K1-res and K10a (gru_hside.cu), K11
+// (gru_chunk.cu) and K9 and K10b (gru_cells.cu): one block computes the
+// ConvGRU h-side cell on a TH x TW output tile, for all output channels
+// or, in a thread-block cluster of N blocks, for its C/N of them.  k1_tile
+// is that block's body, given its tile's origin, its cluster rank and the
+// h, gx, output and weight pointers; K1, K1-res, K10a, K9 and K10b run it
+// once per block (k1_kernel, k10a_kernel, k9_kernel), K11 once per tile
+// and step of a persistent grid.
 //
 //     z = sigmoid(conv3x3(h, Wz) + gx_z)      r = sigmoid(conv3x3(h, Wr) + gx_r)
 //     a = bf16(r * h)                          o = tanh(conv3x3(a, Wo) + gx_o)
@@ -63,7 +64,8 @@ namespace {
 // The launch's arguments.  h, out [B,H,W,C]; gx [H,W,3C] per batch item,
 // items gx_bstride elements apart (K10a: steps); w_ur [9,2C,C] (update
 // rows, then reset rows), w_o [9,C,C], [tap][out][in]; acts [B,H,W,3C]
-// (K1-res).  K11 passes h0, its snapshots as out and the events weights.
+// (K1-res).  K11 passes h0, its snapshots as out and the events weights;
+// K9 and K10b one K1Args per scale.
 struct K1Args {
   const bf16* h;
   const bf16* gx;
@@ -82,7 +84,7 @@ constexpr int kStages = 2;   // weight slabs in the ring
 constexpr size_t kSmemMax = 232448;   // bytes a block may use on Hopper
 
 // The launch configuration of a grid of blocks in clusters of `split`
-// (K1, K1-res, K10a and K5), and cooperative (K11).
+// (K1, K1-res, K10a, K9, K10b and K5), and cooperative (K11).
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[2];
@@ -140,6 +142,38 @@ inline size_t k1_smem_bytes(int TH, int TW, int C, int split, int ks, bool res) 
           (size_t)(TH + 2) * (TW + 2) * (C + kPad) +
           (size_t)kStages * 2 * cn * (ks + kPad) + (gx_r > gx_c ? gx_r : gx_c)) *
          sizeof(bf16);
+}
+
+// Whether the tile runs a K1 plan (tile_h x tile_w output tile, split
+// blocks per cluster, ks input channels per weight slab) at width C: C %
+// 16, split 1 or 2 dividing C/16, ks 16, 32 or 64 dividing C.
+inline bool k1_plan_ok(int C, int tile_h, int tile_w, int split, int ks) {
+  return C % 16 == 0 && (split == 1 || split == 2) && (C / 16) % split == 0 &&
+         (ks == 16 || ks == 32 || ks == 64) && C % ks == 0 && tile_h >= 1 && tile_w >= 1;
+}
+
+// The arguments of a K1 plan on one scale, or false where the tile cannot
+// run it (k1_plan_ok).  gx_bstride: elements between the gx planes of
+// consecutive batch items (K10a, K11, K10b: steps).
+inline bool make_k1_args(K1Args& a, const void* h, const void* gx, const void* w_ur,
+                         const void* w_o, void* out, void* acts, int H, int W, int C,
+                         long long gx_bstride, int tile_h, int tile_w, int split, int ks) {
+  if (!k1_plan_ok(C, tile_h, tile_w, split, ks)) return false;
+  a.h = static_cast<const bf16*>(h);
+  a.gx = static_cast<const bf16*>(gx);
+  a.w_ur = static_cast<const bf16*>(w_ur);
+  a.w_o = static_cast<const bf16*>(w_o);
+  a.out = static_cast<bf16*>(out);
+  a.acts = static_cast<bf16*>(acts);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.gx_bstride = gx_bstride;
+  a.TH = tile_h;
+  a.TW = tile_w;
+  a.split = split;
+  a.ks = ks;
+  return true;
 }
 
 __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, bool valid) {
@@ -264,8 +298,8 @@ __device__ __forceinline__ void load_slab(const K1Args& a, bool zo, int s, int k
 
 // The block's body: the cell on one output tile of one [H,W,C] plane, for
 // the C/split output channels of the block's cluster rank.  a: the
-// widths, the plan and the weights; `at` (GridTile, K10aTile, or K11's
-// ChunkTile) says where: the block's rank, the tile's origin (y0, x0) in
+// widths, the plan and the weights; `at` (GridTile, K10aTile, PairTile, or
+// K11's ChunkTile) says where: the block's rank, the tile's origin (y0, x0) in
 // the image, and the plane's h, gx [H,W,3C], h' and (kRes) acts [H,W,3C],
 // each in the order below, as K1 computed them before it had a body of its
 // own.
@@ -655,6 +689,50 @@ struct GridTile {
     const size_t plane = (size_t)a.H * a.W * a.C;
     return a.acts + 3 * b * plane;
   }
+};
+
+// K9 and K10b (gru_cells.cu): the cell on two scales in one grid, each
+// scale under its own K1 plan (tile, split, slab) on one warp-job combo,
+// so the two scales' K1Args differ and one body serves both.  Grid: x =
+// tile column * split + cluster rank, y = tile row, z = batch item, as
+// K1's, with the two scales' tile rows stacked along y: scale s on rows
+// [row0[s], row0[s] + rows[s]), the scale whose blocks come first on the
+// lower rows (blocks are dispatched in x, y, z order).  A launch has one
+// cluster size, the larger of the two splits, along x, and x's extent is
+// the larger scale's columns rounded up to a multiple of it, so a cluster
+// never spans two rows and never holds blocks of two scales.  A scale
+// planned at split 1 inside clusters of 2 gives each block of a cluster
+// its own tile; its K1Args.split stays 1, so the body takes none of its
+// cluster barriers or exchanges.  A padding block (x past its scale's
+// cols = tile columns * split) returns before the body, so before any
+// barrier; a split-2 scale's columns are even, so its clusters are whole.
+// The scale is read at run time, s, from the launch's arguments (a
+// __grid_constant__ parameter, so p.s[s] needs no copy); the rest comes
+// from blockIdx as GridTile's does.  K10b reads both scales' gx at its
+// step.
+struct PairArgs {
+  K1Args s[2];
+  int row0[2], rows[2], cols[2];
+};
+
+template <bool kSel>
+struct PairTile {
+  const PairArgs& p;
+  int s;
+  long long step;   // K10b: the step of gx_seq, clamped; K9: 0
+  __device__ int rank(const K1Args& a) const { return blockIdx.x % a.split; }
+  __device__ int y0(const K1Args& a) const { return (blockIdx.y - p.row0[s]) * a.TH; }
+  __device__ int x0(const K1Args& a) const { return (blockIdx.x / a.split) * a.TW; }
+  __device__ const bf16* h(const K1Args& a) const {
+    return a.h + blockIdx.z * ((size_t)a.H * a.W * a.C);
+  }
+  __device__ const bf16* gx(const K1Args& a) const {
+    return a.gx + (kSel ? step : (long long)blockIdx.z) * a.gx_bstride;
+  }
+  __device__ bf16* out(const K1Args& a) const {
+    return a.out + blockIdx.z * ((size_t)a.H * a.W * a.C);
+  }
+  __device__ bf16* acts(const K1Args&) const { return nullptr; }
 };
 
 template <bool kRes, int MR, int NR, int MC, int NC>

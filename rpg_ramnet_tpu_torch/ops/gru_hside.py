@@ -74,12 +74,12 @@ import torch.nn.functional as F
 
 from ..utils.layout import to_nchw, to_nhwc
 
-# H x W output tiles pick_tile chooses from, largest first, for the pair
-# variants K9 and K10b (gru_cell.cuh).  A block of those holds the h tile
-# with a 2-pixel halo and a = r*h with a 1-pixel ring in shared memory;
-# smaller tiles recompute more of the ring but give more blocks.  K1,
-# K1-res, K10a and K11 run plan_k1's plans (below; K11 through
-# ops/gru_chunk.py::plan_k11), K2 its own (plan_k2), K3, K4, K3-res and
+# H x W output tiles pick_tile chooses from, largest first: the tiles of
+# the first kernel design, whose footprints (smem_bytes, smem_bytes_bwd)
+# stay terms of the gate ``supports`` so that it gives the answers it gave;
+# no kernel runs them.  K1, K1-res, K10a, K11, K9 and K10b run plan_k1's
+# plans (below; K11 through ops/gru_chunk.py::plan_k11, K9 and K10b through
+# ops/gru_pair.py::plan_k9), K2 its own (plan_k2), K3, K4, K3-res and
 # K4-res theirs (plan_lstm), K5 its own (plan_k5).
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4))
 _SMEM_MAX = 232448           # bytes a block may use on Hopper
@@ -88,9 +88,10 @@ _MIN_BLOCKS = 128            # about one block per SM of the 132
 
 
 def smem_bytes(tile_h: int, tile_w: int, C: int) -> int:
-    """The pair variants K9 and K10b (gru_cell.cuh): the h tile with its
-    2-pixel halo and the a tile with its 1-pixel ring, bf16, at the
-    kernels' pixel pitch of C + 8."""
+    """The first h-side design's footprint (the h tile with its 2-pixel
+    halo and the a tile with its 1-pixel ring, bf16, at pitch C + 8), kept
+    as a term of ``supports`` so that the gate gives the answers it gave;
+    K1 and its variants run ``plan_k1``'s plans (``k1_smem_bytes``)."""
     return ((tile_h + 4) * (tile_w + 4) + (tile_h + 2) * (tile_w + 2)) \
         * (C + 8) * 2
 
@@ -1092,7 +1093,7 @@ _LSTM_SIGNATURES = {
 # (ops/gru_stream.py), lstm_hside K3, the phased cell K4 and their residual
 # variants K3-res and K4-res, gru_cells the pair cells K9 and K10b
 # (ops/gru_pair.py, ops/gru_stream.py), gru_chunk the whole-chunk cell K11
-# (ops/gru_chunk.py)
+# (ops/gru_chunk.py); the last three on K1's tile
 SOURCES = ("gru_hside", "gru_hside_bwd", "gru_full", "lstm_hside",
            "gru_cells", "gru_chunk")
 
@@ -1150,14 +1151,6 @@ def _check_launch(*tensors) -> None:
                          f"C={tensors[0].shape[-1]}")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the kernels' tensors must be 16-byte aligned")
-
-
-def _tile(h, smem) -> Tuple[int, int]:
-    tile = pick_tile(*h.shape, smem=smem)
-    if tile is None:
-        raise ValueError(f"C={h.shape[-1]} does not fit the kernel's shared "
-                         "memory")
-    return tile
 
 
 def _gx_bstride(h, gx, gates: int = 3) -> int:

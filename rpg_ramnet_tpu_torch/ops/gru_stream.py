@@ -8,7 +8,8 @@ whole chunk's per-scale buffer gx_seq [S, H, W, 3C] at the step held by a
 device int32 ``sel``, so no per-step slice of the buffer is made: K1's
 tile under K1's plan (``plan_k1``) in ``csrc/gru_hside.cu``.  K10b is the
 pair cell K9 (``ops/gru_pair.py``) with the same indexing, one ``sel`` for
-scales 0 and 1, on the first design's tile in ``csrc/gru_cells.cu``.
+scales 0 and 1: K1's tile under a K1 plan per scale (``plan_k9``) in
+``csrc/gru_cells.cu``.
 They run in
 ``ERGB2DepthRecurrent.forward_sequence_precomputed``'s stream branch
 (``fused_stream='on'``): batch 1, ConvGRU, the states K1 takes
@@ -74,18 +75,6 @@ def _launch(h, gx_seq, sel, w_ur, w_o, plan=None):
     return out
 
 
-def _cell_args(h, gx_seq, w_ur, w_o):
-    """(out, the scale's launch arguments) of one K10b scale."""
-    gru_hside._check_launch(h, gx_seq, w_ur, w_o)
-    if not all(t.is_contiguous() for t in (h, gx_seq, w_ur, w_o)):
-        raise ValueError("h, gx_seq, w_ur and w_o must be contiguous")
-    _, H, W, C = h.shape
-    th, tw = gru_hside._tile(h, gru_hside.smem_bytes)
-    out = torch.empty_like(h)
-    return out, (h.data_ptr(), gx_seq.data_ptr(), w_ur.data_ptr(),
-                 w_o.data_ptr(), out.data_ptr(), H, W, C, th, tw)
-
-
 def conv_gru_hside_stream(h: torch.Tensor, gx_seq: torch.Tensor,
                           sel: torch.Tensor, w_ur: torch.Tensor,
                           w_o: torch.Tensor, _plan: Optional[K1Plan] = None
@@ -118,12 +107,41 @@ def conv_gru_hside_stream_pair_plain(h0, gx0_seq, w0_ur, w0_o, h1, gx1_seq,
             conv_gru_hside_stream_plain(h1, gx1_seq, sel, w1_ur, w1_o))
 
 
+def _launch_pair(h0, gx0_seq, w0_ur, w0_o, h1, gx1_seq, w1_ur, w1_o, sel,
+                 plans, first):
+    plans, first = gru_pair.resolve_plans(h0.shape, h1.shape, plans, first,
+                                          "K10b")
+    outs, args = [], []
+    for h, gx_seq, w_ur, w_o, plan in ((h0, gx0_seq, w0_ur, w0_o, plans[0]),
+                                       (h1, gx1_seq, w1_ur, w1_o, plans[1])):
+        gru_hside._check_launch(h, gx_seq, w_ur, w_o)
+        if not all(t.is_contiguous() for t in (h, gx_seq, w_ur, w_o)):
+            raise ValueError("h, gx_seq, w_ur and w_o must be contiguous")
+        _, H, W, C = h.shape
+        outs.append(torch.empty_like(h))
+        args += [h.data_ptr(), gx_seq.data_ptr(), w_ur.data_ptr(),
+                 w_o.data_ptr(), outs[-1].data_ptr(), H, W, C, *plan]
+    lib = gru_pair.library()
+    for h, plan in zip((h0, h1), plans):
+        gru_hside.check_cluster_launch(h, plan, "K10b")
+    err = lib.ramnet_gru_stream_pair_forward(
+        *args, sel.data_ptr(), gx0_seq.shape[0], first,
+        torch.cuda.current_stream(h0.device).cuda_stream)
+    gru_hside._raise_on(err, lib, f"gru_stream_pair (plans {plans})")
+    conv_gru_hside_stream_pair.launches += 1
+    return tuple(outs)
+
+
 def conv_gru_hside_stream_pair(h0, gx0_seq, w0_ur, w0_o, h1, gx1_seq, w1_ur,
-                               w1_o, sel) -> Tuple[torch.Tensor, torch.Tensor]:
+                               w1_o, sel, _plan=None,
+                               _first: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h0', h1'): ``conv_gru_hside_stream`` of scales 0 and 1 at one step
     sel in one launch: K10b for CUDA tensors,
     ``conv_gru_hside_stream_pair_plain`` for CPU tensors.  Inference
-    only."""
+    only.  _plan, _first: a pair of ``K1Plan``s and the scale whose blocks
+    come first, in place of ``gru_pair.plan_k9``'s and ``PAIR_FIRST`` (tests
+    and timing; checked on either device)."""
     _check(h0, gx0_seq, sel, w0_ur, w0_o)
     _check(h1, gx1_seq, sel, w1_ur, w1_o)
     if gx0_seq.shape[0] != gx1_seq.shape[0]:
@@ -135,18 +153,13 @@ def conv_gru_hside_stream_pair(h0, gx0_seq, w0_ur, w0_o, h1, gx1_seq, w1_ur,
     w0_ur, w0_o = w0_ur.to(h0.dtype), w0_o.to(h0.dtype)
     w1_ur, w1_o = w1_ur.to(h1.dtype), w1_o.to(h1.dtype)
     if gru_hside._device_of(h0) == "cpu":
+        if _plan is not None or _first is not None:
+            gru_pair.resolve_plans(h0.shape, h1.shape, _plan, _first, "K10b")
         return conv_gru_hside_stream_pair_plain(h0, gx0_seq, w0_ur, w0_o, h1,
                                                 gx1_seq, w1_ur, w1_o, sel)
     with torch.cuda.device(h0.device):
-        out0, a0 = _cell_args(h0, gx0_seq, w0_ur, w0_o)
-        out1, a1 = _cell_args(h1, gx1_seq, w1_ur, w1_o)
-        lib = gru_pair.library()
-        err = lib.ramnet_gru_stream_pair_forward(
-            *a0, *a1, sel.data_ptr(), gx0_seq.shape[0],
-            torch.cuda.current_stream(h0.device).cuda_stream)
-        gru_hside._raise_on(err, lib, "gru_stream_pair")
-    conv_gru_hside_stream_pair.launches += 1
-    return out0, out1
+        return _launch_pair(h0, gx0_seq, w0_ur, w0_o, h1, gx1_seq, w1_ur,
+                            w1_o, sel, _plan, _first)
 
 
 class StreamPlan:

@@ -1,14 +1,18 @@
 """The decomposition the port's kernels run on K1's tile
 (rpg_ramnet_tpu_torch/csrc/gru_hside_tile.cuh), in plain torch: K1 and
-K10a (one tile per block, ``k1_emulated``) and K11 (every tile of every
+K10a (one tile per block, ``k1_emulated``), K11 (every tile of every
 step, in the order a persistent grid's clusters walk them,
-``k11_emulated``), and the plans the CPU tests run them under.  Shared by
-tests/test_torch_gru_hside_plan.py and test_torch_gru_variants_plan.py,
-which hold them against the JAX Pallas kernels in interpret mode.
+``k11_emulated``) and K9 and K10b (every block of both scales' grid
+through its block -> scale, item, tile and rank map, ``k9_emulated``), and
+the plans the CPU tests run them under.  Shared by
+tests/test_torch_gru_hside_plan.py, test_torch_gru_variants_plan.py and
+test_torch_gru_pair_plan.py, which hold them against the JAX Pallas
+kernels in interpret mode.
 """
 import torch
 import torch.nn.functional as F
 
+from rpg_ramnet_tpu_torch.ops import gru_hside, gru_pair
 from rpg_ramnet_tpu_torch.ops.gru_hside import K1Plan
 
 # images the JAX kernels take (H % 4 == 0, W % 8 == 0) under tiles that
@@ -116,3 +120,65 @@ def k11_emulated(w_ev, w_im, gx_steps, h0, K, plan, clusters):
         h = out[:, :, :H, :W].permute(0, 2, 3, 1)
         snaps.append(h)
     return torch.cat(snaps)
+
+
+def pair_blocks(plans, B, hw0, hw1, first):
+    """K9's grid (``gru_pair.pair_grid``) and its blocks in the order they
+    are dispatched (x, then y, then z), each as
+    csrc/gru_hside_tile.cuh's PairTile maps it: (scale, batch item, tile
+    origin (y0, x0), cluster rank), or None for a padding block."""
+    grid = gru_pair.pair_grid(plans, B, hw0, hw1, first)
+    gx, gy, gz = grid.grid
+    blocks = []
+    for z in range(gz):
+        for y in range(gy):
+            s = 0 if grid.row0[0] <= y < grid.row0[0] + grid.rows[0] else 1
+            p = plans[s]
+            for x in range(gx):
+                blocks.append((s, z, ((y - grid.row0[s]) * p.tile_h,
+                                      (x // p.split) * p.tile_w), x % p.split)
+                              if x < grid.cols[s] else None)
+    return grid, blocks
+
+
+def _gx_planes(h, gx, step):
+    """Each batch item's gx plane [H, W, 3C] as the kernel addresses it:
+    item b at b * gx_bstride elements (K9, ``gru_hside._gx_bstride``), or
+    every item at the clamped step of gx_seq (K10b, step not None)."""
+    B, H, W, C = h.shape
+    if step is not None:
+        return [gx[min(max(step, 0), gx.shape[0] - 1)]] * B
+    bstride = gru_hside._gx_bstride(h, gx)
+    return [torch.as_strided(gx, (H, W, 3 * C), (W * 3 * C, 3 * C, 1),
+                             gx.storage_offset() + b * bstride)
+            for b in range(B)]
+
+
+def k9_emulated(scales, plans, first, step=None):
+    """K9's decomposition (K10b's with step: both scales' gx read at the
+    step of their gx_seq, clamped): every block of the pair grid
+    (``pair_blocks``) computes its rank's channel slice of its tile
+    (``tile_emulated``) under its scale's plan; padding blocks nothing.
+    scales: per scale (h [B, H, W, C], gx, w_ur, w_o), gx [B, H, W, 3C]
+    (any batch stride) or gx_seq [S, H, W, 3C]; the outputs NHWC."""
+    B = scales[0][0].shape[0]
+    grid, blocks = pair_blocks(plans, B, scales[0][0].shape[1:3],
+                               scales[1][0].shape[1:3], first)
+    padded, outs = {}, []
+    for (h, gx, _, _), p in zip(scales, plans):
+        _, H, W, C = h.shape
+        outs.append(torch.zeros(B, C, H + p.tile_h, W + p.tile_w, dtype=h.dtype))
+    for block in blocks:
+        if block is None:
+            continue
+        s, b, (y0, x0), rank = block
+        h, gx, w_ur, w_o = scales[s]
+        p = plans[s]
+        if (s, b) not in padded:
+            padded[(s, b)] = _padded(h[b:b + 1], _gx_planes(h, gx, step)[b][None], p)
+        cn = h.shape[-1] // p.split
+        tile = tile_emulated(*padded[(s, b)], w_ur, w_o, p, y0, x0)
+        outs[s][b, rank * cn:(rank + 1) * cn, y0:y0 + p.tile_h,
+                x0:x0 + p.tile_w] = tile[0, rank * cn:(rank + 1) * cn]
+    return tuple(o[:, :, :h.shape[1], :h.shape[2]].permute(0, 2, 3, 1)
+                 for o, (h, _, _, _) in zip(outs, scales))

@@ -12,7 +12,8 @@ layers' autograd, one training step of the phased recipe and of the
 ConvLSTM state combination with the kernels against fused_gru='off', the
 phased per-package engine with the kernels against fused_gru='off', the chunked path's launch variants (the
 pair cell K9, the gx-streaming cells K10a and K10b, the resident-state
-cell K11) against their plain versions, K10a and K11 under every plan kind
+cell K11) against their plain versions, K9 and K10b under every kind of
+pair launch, K10a and K11 under every plan kind
 their planners can pick at the flagship, ragged and edge shapes and K10a's
 refusals, K11 on many steps and tiles with a grid smaller than the tiles
 and with cluster-split plans (a stale or raced read of h shows at its
@@ -910,6 +911,35 @@ def test_pair_kernel_matches_plain(device, pair):
     for a, b, shape in zip(got, want, pair):
         assert a.shape == shape
         assert (a.float() - b.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("pair", [((1, 128, 256, 64), (1, 64, 128, 128)),
+                                  ((2, 30, 45, 96), (2, 15, 23, 32))],
+                         ids=["flagship", "ragged"])
+def test_pair_kernels_every_plan_kind(device, pair):
+    """K9 (gx as strided views) and K10b (batch 1: step 5 of a 7-step
+    buffer) under every kind of pair launch (gru_pair.k9_plan_kinds: splits
+    1 + 2, 1 + 1 and 2 + 2, every combo, padding blocks, both block
+    orders) within K1's 8e-3 of their plain versions: each scale runs K1's
+    tile under a K1 plan."""
+    from rpg_ramnet_tpu_torch.ops import gru_pair, gru_stream
+    gen = torch.Generator(device=device).manual_seed(5)
+    args, seq = [], []
+    for shape in pair:
+        w = _gru_weights(shape[-1], shape[-1] + 1, device)
+        args += [*_h_gx(shape, device, gen), *w]
+        seq += [*_h_gx((1,) + shape[1:], device, gen, steps=7), *w]
+    sel = torch.tensor([5], dtype=torch.int32, device=device)
+    with torch.no_grad():
+        want = gru_pair.conv_gru_hside_pair_plain(*args)
+        want_seq = gru_stream.conv_gru_hside_stream_pair_plain(*seq, sel)
+        for plans, first in gru_pair.k9_plan_kinds(*pair):
+            got = gru_pair.conv_gru_hside_pair(*args, _plan=plans, _first=first)
+            got_seq = gru_stream.conv_gru_hside_stream_pair(*seq, sel, _plan=plans,
+                                                            _first=first)
+            for a, b in zip(got + got_seq, want + want_seq):
+                err = (a.float() - b.float()).abs().max().item()
+                assert err <= 8e-3, (plans, first, err)
 
 
 def test_stream_kernels_match_plain(device):

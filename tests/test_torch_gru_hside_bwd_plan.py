@@ -235,8 +235,9 @@ def test_k2_plan_wherever_supports(cell):
     assert held >= 40
 
 
-# the first design's tiles that the other kernels keep (pick_tile): the
-# launch variants K9-K11 (smem_bytes), at their shapes
+# the first design's tiles (pick_tile) of the launch variants K9-K11
+# (smem_bytes), at their shapes: a term of the gate ``supports`` since the
+# variants run K1's plans
 OTHER_TILES = {
     ("variants", (1, 128, 256, 64)): (16, 16), ("variants", (1, 64, 128, 128)): (8, 8),
     ("variants", (1, 32, 64, 256)): (4, 4), ("variants", (2, 15, 23, 32)): (4, 4),
@@ -249,7 +250,7 @@ def test_other_kernels_keep_their_tile(key):
     smem = {"variants": gru_hside.smem_bytes}[kind]
     h = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     assert gru_hside.pick_tile(*shape, smem=smem) == OTHER_TILES[key]
-    assert gru_hside._tile(h, smem) == OTHER_TILES[key]
+    assert gru_hside.supports(h)
 
 
 def test_k2_plan_argument_checked_on_cpu():

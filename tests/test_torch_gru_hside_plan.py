@@ -1,13 +1,14 @@
 """The plan of the port's ConvGRU h-side kernels K1 and K1-res
 (ops/gru_hside.py::plan_k1): shared memory, cluster split and tiles at
-every width and cell the port runs, the gate ``supports`` unchanged, the
-pair variants K9 and K10b keeping the first design's tile, the weight
+every width and cell the port runs, the gate ``supports`` unchanged with
+the first pair design's tiles as one of its terms, the weight
 bytes the split saves, the private plan argument, and a plain-torch
 emulation of the kernel's decomposition (output tiles, the a tile with its
 ring, each cluster rank's channel slice; tests/k1_emulation.py) against
 the JAX Pallas kernel in interpret mode.  The kernel itself is tested on a
 card in tests/test_torch_cuda.py; K10a and K11, which run K1's tile, in
-tests/test_torch_gru_variants_plan.py.
+tests/test_torch_gru_variants_plan.py, K9 and K10b in
+tests/test_torch_gru_pair_plan.py.
 """
 import json
 import math
@@ -91,8 +92,9 @@ def test_supports_unchanged(cell):
     assert not gru_hside.supports(torch.empty(1, 8, 8, 64, device="meta"))
 
 
-# the pair variants' tiles (K9, K10b: pick_tile with smem_bytes,
-# csrc/gru_cell.cuh), as before K1's planner
+# the first pair design's tiles (pick_tile with smem_bytes), which K9 and
+# K10b ran before they took K1's plans and which stay a term of the gate
+# ``supports``
 VARIANT_TILES = {(1, 128, 256, 64): ((16, 16), 104256),
                  (1, 64, 128, 128): ((8, 8), 66368),
                  (1, 32, 64, 256): ((4, 4), 52800),
@@ -106,7 +108,7 @@ def test_variants_keep_their_tile(shape):
     tile, smem = VARIANT_TILES[shape]
     h = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     assert gru_hside.pick_tile(*shape) == tile
-    assert gru_hside._tile(h, gru_hside.smem_bytes) == tile
+    assert gru_hside.supports(h)
     assert gru_hside.smem_bytes(*tile, shape[-1]) == smem
 
 
@@ -114,7 +116,7 @@ def test_variants_keep_their_tile(shape):
 def test_split_cuts_weight_bytes(shape):
     """The weight ring streams each weight byte once per block and pass:
     the planner's plans stream fewer bytes than the first design's
-    27*C^2*2 per 32-pixel warp item (csrc/gru_cell.cuh), and at C >= 128,
+    27*C^2*2 per 32-pixel warp item, and at C >= 128,
     among plans of one wave of blocks or more, a cluster split streams
     fewer than any unsplit plan."""
     B, H, W, C = shape
