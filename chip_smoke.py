@@ -20,10 +20,13 @@ entry point, per package and chunked, with the flagship's ConvLSTM
 state-combination variant on the chunked engine; the decoder's opt-in
 formulations (fused_decoder='on': kernel K8; composed_decoder='on')
 through the chunked engine and the eval entry point's per-package engine;
-and TBPTT training of the phased regime (fused_gru='on', B=8, L=10, crop
+TBPTT training of the phased regime (fused_gru='on', B=8, L=10, crop
 224, through the training entry point) with a first step of the
-ConvLSTM state combination.  It imports nothing of JAX or of the JAX
-package.
+ConvLSTM state combination; and lane-batched streaming through the eval
+entry point (--lanes 8 --scan_chunk 4, --lanes 8 with fused_gru='on',
+the phased regime with --lanes 2) with the offline evaluation entry
+(``python -m rpg_ramnet_tpu_torch.eval.evaluation``) on what it wrote.
+It imports nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
@@ -175,7 +178,26 @@ Phases, each printed as one JSON line:
                    K3-res and K4-res per cell against their plain
                    versions (queued, as phase 4; also the kernels' wrapper
                    time, plan, device us, weight MB, registers and
-                   spills).
+                   spills);
+ 20. kernel_lanes  K1 and K5 at the flagship h-side shapes with B = 8 (K1's
+                   gx a step of a [B, K, ...] buffer, as the precomputed
+                   path passes it), K9 at the B = 8 pair, K3 and K4 at the
+                   phased shapes with B = 2, against their plain versions
+                   under the planner's plan: plan, max abs error, device us
+                   per launch beside the first lane's alone (queued);
+ 21. lanes         the eval entry point on ten on-disk sequences of 2-6
+                   packages at 256x512 with --lanes 8 --scan_chunk 4
+                   (K1's launch count at B = 8; again with fused_pair='on':
+                   K9's) and --lanes 8 with fused_gru='on' (K5's), each
+                   item against the single-lane engine's run; the phased
+                   regime with --lanes 2, per package and with
+                   --scan_chunk 4 (K3's and K4's counts at B = 2), against
+                   single lane; the evaluation entry in-process on the
+                   lane and single-lane chunked runs' output trees (both
+                   tables printed: the same keys, frame count and NaN
+                   keys, the all-pixel leg finite); lane maps/s beside the
+                   single lane's on 8 in-memory sequences of 24 packages,
+                   and each forward alone at B = 8 and B = 1.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -290,6 +312,22 @@ DECODER_SEQ_LENGTHS = (6, 3)
 # steps (cut: the data); its cell shapes at the three scales
 PHASED_TRAIN_B = 8
 PHASED_TRAIN_CELLS = ((8, 112, 112, 64), (8, 56, 56, 128), (8, 28, 28, 256))
+# lane-batched streaming (phases 20-21): LANES lanes with LANE_CHUNK
+# packages per forward call (LANES x LANE_CHUNK x 6 steps of gx at
+# 256x512 bf16 hold about 4 GB) over sequences of unequal lengths, so that
+# boundaries fall mid-chunk and lanes run dry at different steps (cut: the
+# data); the flagship h-side shapes at B = LANES (K1, K5; K9 on the first
+# two); the phased regime with PHASED_LANES lanes (K3, K4 at B =
+# PHASED_LANES); a balanced set for the lanes' maps/s: every lane busy
+# for 6 chunks (over 2 chunks the first chunk's load, which nothing hides,
+# took a third of the lanes' wall)
+LANES, LANE_CHUNK = 8, 4
+LANE_SEQ_LENGTHS = (6, 2, 5, 3, 4, 2, 5, 3, 4, 2)
+LANE_CELLS = tuple((LANES,) + c[1:] for c in FLAGSHIP_CELLS)
+PHASED_LANES = 2
+PHASED_LANE_SEQ_LENGTHS = (4, 2, 3)
+PHASED_LANE_CELLS = tuple((PHASED_LANES,) + c[1:] for c in PHASED_CELLS)
+LANE_TIMING_SEQ_LENGTHS = (24,) * LANES
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -1113,11 +1151,7 @@ def write_stream_data(root, K, seed):
     and the event log of STREAM_WINDOWS fixed-size windows on the 346x260
     sensor; returns the log's path."""
     import numpy as np
-    from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
-    for s, n in enumerate(SEQ_LENGTHS):
-        generate_eventscape_sequence(os.path.join(root, "test", f"seq{s:02d}"),
-                                     n_frames=K * n, height=H, width=W,
-                                     seed=seed + s)
+    write_split(root, SEQ_LENGTHS, K, seed, H, W)
     _, h, w = VOX_GRID
     n = STREAM_WINDOWS * int(w * h * STREAM_EVENTS_PER_PIXEL)
     rng = np.random.default_rng(seed)
@@ -1532,14 +1566,15 @@ def time_k3_flagship(dev, gen, iters=50):
     return rows
 
 
-def write_phased_data(root, K, seed):
-    """The phased split: two sequences of PHASED_SEQ_LENGTHS packages at
-    PHASED_H x PHASED_W, timestamps included."""
+def write_split(root, lengths, K, seed, h, w):
+    """An on-disk split under root/test: sequences of these package counts
+    at h x w, timestamps included (a sequence of one package reads as
+    empty: keep them at two or more)."""
     from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
-    for s, n in enumerate(PHASED_SEQ_LENGTHS):
+    for s, n in enumerate(lengths):
         generate_eventscape_sequence(os.path.join(root, "test", f"seq{s:02d}"),
-                                     n_frames=K * n, height=PHASED_H,
-                                     width=PHASED_W, seed=seed + s)
+                                     n_frames=K * n, height=h, width=w,
+                                     seed=seed + s)
 
 
 def time_chunked(models, dataset, chunk, packages, K):
@@ -1591,7 +1626,7 @@ def phased_phases(cfg, K, dev, gen, seed, dataset, packages, first_chunk,
     crop = (PHASED_H, PHASED_W)
     with tempfile.TemporaryDirectory(prefix="ramnet_smoke_phased_") as tmp:
         t0 = time.perf_counter()
-        write_phased_data(tmp, K, seed + 7)
+        write_split(tmp, PHASED_SEQ_LENGTHS, K, seed + 7, PHASED_H, PHASED_W)
         phased_data_s = time.perf_counter() - t0
         files = {m: stream_files(tmp, phased_model, m, PHASED, "phased")
                  for m in ("on", "off")}
@@ -2553,16 +2588,6 @@ def time_chunk_forward(models, order, K, seed, chunks=3):
     return ms
 
 
-def write_decoder_data(root, K, seed):
-    """The eval entry point's split for phase 16: DECODER_SEQ_LENGTHS
-    packages at HxW."""
-    from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
-    for s, n in enumerate(DECODER_SEQ_LENGTHS):
-        generate_eventscape_sequence(os.path.join(root, "test", f"seq{s:02d}"),
-                                     n_frames=K * n, height=H, width=W,
-                                     seed=seed + s)
-
-
 def decoder_engines(cfg, model, dataset, packages, first_chunk, preds_off,
                     K, seed):
     """Phase 16's engines: the slice's dataset through run_chunked_streaming
@@ -2623,7 +2648,7 @@ def decoder_engines(cfg, model, dataset, packages, first_chunk, preds_off,
 
     n_pkg = sum(DECODER_SEQ_LENGTHS)
     with tempfile.TemporaryDirectory(prefix="ramnet_smoke_decoder_") as tmp:
-        write_decoder_data(tmp, K, seed + 11)
+        write_split(tmp, DECODER_SEQ_LENGTHS, K, seed + 11, H, W)
         files = {m: stream_files(tmp, model, "auto", over, f"decoder_{m}")
                  for m, over in (("k8", {"fused_decoder": "on"}),
                                  ("two_stage", TWO_STAGE))}
@@ -2644,6 +2669,379 @@ def decoder_engines(cfg, model, dataset, packages, first_chunk, preds_off,
     latency = time_per_package({"on": models["k8"], "off": models["two_stage"]},
                                K, seed)
     return out, timing, per_package, latency
+
+
+def lane_steps(lengths, lanes, chunk=1):
+    """Steps the lane engines run over sequences of these lengths: the
+    longest lane's item count (round-robin, as
+    inference._round_robin_lanes), rounded up to whole chunks."""
+    longest = max(sum(lengths[i::lanes]) for i in range(lanes))
+    return -(-longest // chunk) * chunk
+
+
+def lane_kernel_rows(cases, iters=20):
+    """{shape: {max_abs_err, plan, device_us (B), device_us_b1 (the first
+    lane alone)}} of kernels against their plain versions: cases are (key,
+    kernel, plain, kernel on the first lane, tol, plan); raises where an
+    error is over its tol.  Device us per launch: CUDA events around
+    ``iters`` launches queued behind a sleep kernel (``cuda_time_us``;
+    torch.profiler drops records this late in a run)."""
+    import torch
+    rows = {}
+    for key, kern, plain, kern1, tol, plan in cases:
+        with torch.no_grad():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            del got, want
+            if not (err <= tol):
+                raise AssertionError(f"{key} vs plain: max abs err {err} > {tol}")
+            us = cuda_time_us(kern, iters, queued=True)
+            us1 = cuda_time_us(kern1, iters, queued=True)
+        rows[key] = {"max_abs_err": err, "tol": tol, "plan": plan,
+                     "device_us": us, "device_us_b1": us1}
+    return rows
+
+
+def lane_kernel_check(dev, seed, K):
+    """Phase 20: K1 and K5 at LANE_CELLS (K1's gx step K // 2 of a [B, K,
+    H, W, 3C] buffer: the batch stride the precomputed path gives it), K9
+    at the first two (gx likewise), K3 and K4 at PHASED_LANE_CELLS (gx a
+    strided view), against their plain versions under the planner's plan:
+    ``lane_kernel_rows`` per kernel."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside, gru_pair
+    gen = torch.Generator().manual_seed(seed)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"k1": {}, "k5": {}, "k9": {}, "k3": {}, "k4": {}}
+    gru = {}
+    for shape in LANE_CELLS:
+        B, Hc, Wc, C = shape
+        key = "x".join(map(str, shape))
+        w_ur, w_o = make_cell_inputs((1, 1, 1, C), dev, gen)[3:]
+        h = (torch.rand(shape, device=dev, generator=dgen) * 2 - 1).bfloat16()
+        gx = torch.randn((B, K, Hc, Wc, 3 * C), device=dev,
+                         generator=dgen).bfloat16()[:, K // 2]
+        gru[shape] = (h, gx, w_ur, w_o)
+        out["k1"].update(lane_kernel_rows([(
+            key, lambda a=gru[shape]: gru_hside.conv_gru_hside(*a),
+            lambda a=gru[shape]: gru_hside.conv_gru_hside_plain(*a),
+            lambda a=gru[shape]: gru_hside.conv_gru_hside(a[0][:1], a[1][:1],
+                                                          *a[2:]),
+            K1_TOL, plan_name(gru_hside.plan_k1(*shape)))]))
+        _, x, h5, w5 = make_full_cell_inputs(shape, dev, gen)
+        out["k5"].update(lane_kernel_rows([(
+            key, lambda: gru_hside.conv_gru_full(x, h5, *w5),
+            lambda: gru_hside.conv_gru_full_plain(x, h5, *w5),
+            lambda: gru_hside.conv_gru_full(x[:1], h5[:1], *w5),
+            CELL_TOL, plan_name(gru_hside.plan_k5(*shape)))]))
+        del x, h5, w5
+    pair = [a for shape in LANE_CELLS[:2] for a in gru[shape]]
+    pair1 = [a[:1] if i % 4 < 2 else a for i, a in enumerate(pair)]
+    out["k9"] = lane_kernel_rows([(
+        "+".join("x".join(map(str, c)) for c in LANE_CELLS[:2]),
+        lambda: gru_pair.conv_gru_hside_pair(*pair),
+        lambda: gru_pair.conv_gru_hside_pair_plain(*pair),
+        lambda: gru_pair.conv_gru_hside_pair(*pair1), K1_TOL,
+        [plan_name(p) for p in gru_pair.plan_k9(*LANE_CELLS[:2])])])
+    del gru, pair, pair1
+    for shape in PHASED_LANE_CELLS:
+        key = "x".join(map(str, shape))
+        inputs = make_lstm_inputs(shape, dev, gen, strided_gx=True)
+        h, c, gx, w4, tau, phase, t = inputs
+        first = (h[:1], c[:1], gx[:1], w4, tau, phase, t[:1])
+        for kind in ("k3", "k4"):
+            kern, plain = lstm_calls(inputs, kind)
+            kern1, _ = lstm_calls(first, kind)
+            out[kind].update(lane_kernel_rows([(
+                key, kern, plain, kern1, CELL_TOL,
+                plan_name(gru_hside.plan_lstm(*shape, phased=kind == "k4")))]))
+        del inputs, first, h, c, gx
+    return out
+
+
+def lane_run(files, tmp, counters, want, lengths, crop=(H, W), extra=(),
+             what=""):
+    """run_eval_entry, then the checks every lane run shares: the launch
+    counts as expected, every item predicted, finite values in [0, 1].
+    Returns (predictions, counts, wall s)."""
+    preds, counts, wall, stats = run_eval_entry(*files, tmp, counters, crop,
+                                                extra)
+    if counts != want or len(preds) != sum(lengths) or stats["nonfinite"] \
+            or stats["out_of_range"]:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}; "
+                             f"{len(preds)} items of {sum(lengths)}, {stats}")
+    return preds, counts, wall
+
+
+def lane_maps_per_s(models, K, seed):
+    """Lane maps/s over LANE_TIMING_SEQ_LENGTHS in memory at 256x512:
+    chunked (run_chunked_streaming against run_batched_chunked_streaming,
+    chunk LANE_CHUNK, models['auto']) and per package (StreamingInference
+    with batched decode, as the eval entry runs it, against
+    run_batched_streaming, models['on']), each in turns single, lanes,
+    lanes, single after the lane phase's warm-up; every map copied to the
+    host.  The best of each pair."""
+    import torch
+    from rpg_ramnet_tpu_torch.eval import (StreamingInference,
+                                           run_batched_chunked_streaming,
+                                           run_batched_streaming,
+                                           run_chunked_streaming)
+    dataset = SyntheticDataset(LANE_TIMING_SEQ_LENGTHS, K, seed)
+    maps = sum(LANE_TIMING_SEQ_LENGTHS) * (K + 1)
+
+    def per_package_single():
+        engine = StreamingInference(models["on"], batched_decode=True)
+        for seq in dataset.datasets:
+            engine.reset(1, H, W)
+            for i in range(len(seq)):
+                item = seq[i]
+                engine.step({"events": item["events"][0],
+                             "image": item["image"][0]})
+
+    runs = {
+        "chunked": (lambda: run_chunked_streaming(
+                        dataset, models["auto"], chunk=LANE_CHUNK,
+                        on_prediction=lambda *a: None),
+                    lambda: run_batched_chunked_streaming(
+                        dataset, models["auto"], n_lanes=LANES,
+                        chunk=LANE_CHUNK, on_prediction=lambda *a: None)),
+        "per_package": (per_package_single,
+                        lambda: run_batched_streaming(
+                            dataset, models["on"], n_lanes=LANES,
+                            on_prediction=lambda *a: None))}
+    out = {"maps": maps, "sequences": list(LANE_TIMING_SEQ_LENGTHS)}
+    for name, (single, lanes) in runs.items():
+        walls = []
+        for fn in (single, lanes, lanes, single):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"maps_per_s_single": maps / min(walls[0], walls[3]),
+                     "maps_per_s_lanes": maps / min(walls[1], walls[2]),
+                     "wall_s_single_lanes_lanes_single": walls}
+    return out
+
+
+def lane_forward_ms(models, K, dev, seed, calls=3):
+    """ms per forward call with the inputs already on the card (no host
+    packing, no copies): the chunked route (``inference._chunk_forward``,
+    models['auto']) on a chunk of LANE_CHUNK packages and forward_package
+    with the lane engine's flags (models['on']), each at B = LANES and
+    B = 1, the least of ``calls`` calls after a warm-up one."""
+    import torch
+    from rpg_ramnet_tpu_torch.eval import inference
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    on = models["on"]
+    flags = dict(allow_fused=True, allow_fused_decoder=True,
+                 allow_composed=on.cfg.composed_decoder == "on")
+    out = {}
+    for b in (LANES, 1):
+        seq = {"events": torch.randn((b, LANE_CHUNK, K, H, W, 5), device=dev,
+                                     generator=gen),
+               "image": torch.rand((b, LANE_CHUNK, H, W, 1), device=dev,
+                                   generator=gen),
+               "reset": torch.zeros((b, LANE_CHUNK), dtype=torch.bool,
+                                    device=dev)}
+        pkg = {k: v[:, 0] for k, v in seq.items()}
+        fwd = inference._chunk_forward(models["auto"], None)
+        runs = {"chunk": lambda: fwd(models["auto"].init_state(b, H, W), seq),
+                "package": lambda: on.forward_package(on.init_state(b, H, W),
+                                                      pkg, **flags)}
+        for name, fn in runs.items():
+            walls = []
+            with torch.inference_mode():
+                for _ in range(calls + 1):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            out[f"{name}_b{b}_ms"] = min(walls[1:])
+        del seq, pkg
+    return out
+
+
+def evaluate_tree(out):
+    """``python -m rpg_ramnet_tpu_torch.eval.evaluation``'s main in-process
+    on the image predictions and targets of an output tree (it prints its
+    table; the targets are log depth at the eval entry's dataset
+    reg_factor, 5.7); returns (metrics, frames)."""
+    from rpg_ramnet_tpu_torch.eval.evaluation import main as evaluation_main
+    pred = os.path.join(out, "npy", "image")
+    metrics = evaluation_main([
+        "--target_dataset", os.path.join(out, "ground_truth", "npy",
+                                         "depth_image"),
+        "--predictions_dataset", pred, "--clip_distance", "80",
+        "--reg_factor", "5.7"])
+    return metrics, len([f for f in os.listdir(pred) if f.endswith(".npy")])
+
+
+def lane_phases(cfg, K, dev, seed, smi):
+    """Phases 20-21: the kernels at the lane shapes, then lane-batched
+    streaming through the eval entry point: lanes x chunk at 256x512 (K1
+    at B = LANES; again with fused_pair='on', K9), per package with
+    fused_gru='on' (K5 at B = LANES), the phased regime with PHASED_LANES
+    lanes per package and chunked (K4, K3 at B = PHASED_LANES), every item
+    against the single-lane engine; the evaluation entry on the chunked
+    runs' output trees; lane maps/s.  Returns what the kernels line
+    reads."""
+    import numpy as np
+    import torch
+    from rpg_ramnet_tpu_torch.eval import evaluation
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside, gru_pair, phased_cell
+
+    # 20. the kernels at the lane shapes against their plain versions
+    t0 = time.perf_counter()
+    krows = lane_kernel_check(dev, seed, K)
+    emit({"phase": "kernel_lanes", "lanes": LANES, "phased_lanes": PHASED_LANES,
+          "k1_tol": K1_TOL, "cell_tol": CELL_TOL, "rows": krows,
+          "wall_s": time.perf_counter() - t0, "nvidia_smi": smi})
+
+    # 21. lane-batched streaming through the entry points
+    model = ERGB2DepthRecurrent(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(seed + 5))
+    k1, k5, k9 = (gru_hside.conv_gru_hside, gru_hside.conv_gru_full,
+                  gru_pair.conv_gru_hside_pair)
+    lstm_counters = [gru_hside.conv_lstm_hside, phased_cell.conv_lstm_phased]
+    chunk_args = ("--scan_chunk", str(LANE_CHUNK))
+    lane_args = ("--lanes", str(LANES))
+    n_chunked = lane_steps(LANE_SEQ_LENGTHS, LANES, LANE_CHUNK)
+    n_single = sum(lane_steps((n,), 1, LANE_CHUNK) for n in LANE_SEQ_LENGTHS)
+    n_lane_pkg = lane_steps(LANE_SEQ_LENGTHS, LANES)
+    ph_lengths = PHASED_LANE_SEQ_LENGTHS
+    ph_lane_args = ("--lanes", str(PHASED_LANES))
+    crop_ph = (PHASED_H, PHASED_W)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_lanes_") as tmp:
+        t0 = time.perf_counter()
+        write_split(tmp, LANE_SEQ_LENGTHS, K, seed + 11, H, W)
+        data_s = time.perf_counter() - t0
+        files = {m: stream_files(tmp, model, m, name="lanes")
+                 for m in ("auto", "on")}
+        pair_files = stream_files(tmp, model, "auto", {"fused_pair": "on"},
+                                  name="lanes_pair")
+        trees = {n: os.path.join(tmp, f"out_{n}") for n in ("single", "lanes")}
+        # (b) lanes x chunk: K1 at B = LANES, then K9 with fused_pair='on'
+        single, c_single, w_single = lane_run(
+            files["auto"], tmp, [k1], [3 * (K + 1) * n_single],
+            LANE_SEQ_LENGTHS,
+            extra=chunk_args + ("--output_path", trees["single"]),
+            what="single-lane chunked")
+        lanes, c_lanes, w_lanes = lane_run(
+            files["auto"], tmp, [k1], [3 * (K + 1) * n_chunked],
+            LANE_SEQ_LENGTHS,
+            extra=lane_args + chunk_args + ("--output_path", trees["lanes"]),
+            what="lanes x chunk")
+        pair, c_pair, w_pair = lane_run(
+            pair_files, tmp, [k9, k1], [(K + 1) * n_chunked] * 2,
+            LANE_SEQ_LENGTHS, extra=lane_args + chunk_args,
+            what="lanes x chunk, fused_pair='on'")
+        out["chunked"] = {
+            "k1_launches": c_lanes[0], "k1_launches_single_lane": c_single[0],
+            "k9_k1_launches_pair": c_pair,
+            "max_abs_err_vs_single_lane": max_pred_diff(lanes, single),
+            "pair_max_abs_err_vs_single_lane": max_pred_diff(pair, single),
+            "wall_s_single_lanes_pair": [w_single, w_lanes, w_pair]}
+        # (c) per package, fused_gru='on': K5 at B = LANES
+        pp_single, c_pp1, w_pp1 = lane_run(
+            files["on"], tmp, [k5], [3 * (K + 1) * sum(LANE_SEQ_LENGTHS)],
+            LANE_SEQ_LENGTHS, what="single-lane per package")
+        pp_lanes, c_ppl, w_ppl = lane_run(
+            files["on"], tmp, [k5], [3 * (K + 1) * n_lane_pkg],
+            LANE_SEQ_LENGTHS, extra=lane_args, what="lanes per package")
+        out["per_package"] = {
+            "k5_launches": c_ppl[0], "k5_launches_single_lane": c_pp1[0],
+            "max_abs_err_vs_single_lane": max_pred_diff(pp_lanes, pp_single),
+            "wall_s_single_lanes": [w_pp1, w_ppl]}
+        # (e) the evaluation entry on the chunked runs' trees
+        tables = {n: evaluate_tree(t) for n, t in trees.items()}
+    (m_single, f_single), (m_lanes, f_lanes) = tables["single"], tables["lanes"]
+
+    def nan_keys(m):
+        return sorted(k for k, v in m.items() if not np.isfinite(v))
+
+    # a depth-cutoff leg with no pixel below its cutoff in some frame is
+    # NaN, as in the reference: the synthetic scenes' box is 5-11 m and the
+    # rest 15-55 m; the all-pixel leg has every pixel
+    all_pixels = evaluation.metrics_keywords()[:len(evaluation._BASE_KEYWORDS)]
+    out["evaluation"] = {
+        "keys": len(m_lanes), "frames": [f_single, f_lanes],
+        "nan_keys": [len(nan_keys(m_single)), len(nan_keys(m_lanes))],
+        "all_pixel_finite": bool(all(np.isfinite(m[k]) for m in (m_single, m_lanes)
+                                     for k in all_pixels)),
+        "max_abs_diff": max((abs(m_lanes[k] - m_single[k]) for k in m_single
+                             if np.isfinite(m_single[k])), default=None)
+        if list(m_single) == list(m_lanes) else None,
+        "lanes_abs_rel_diff": m_lanes.get("_abs_rel_diff"),
+        "single_abs_rel_diff": m_single.get("_abs_rel_diff")}
+    want_frames = sum(max(n - 2, 0) for n in LANE_SEQ_LENGTHS)
+    if list(m_single) != list(m_lanes) or not m_single \
+            or f_single != f_lanes or f_single != want_frames \
+            or nan_keys(m_single) != nan_keys(m_lanes) \
+            or not out["evaluation"]["all_pixel_finite"]:
+        raise AssertionError(f"evaluation of the lane and single-lane trees: "
+                             f"{out['evaluation']}")
+
+    # (d) the phased regime with PHASED_LANES lanes, per package and chunked
+    phased_cfg = dataclasses.replace(
+        cfg, fused_gru="on", **{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in PHASED.items()})
+    phased_model = ERGB2DepthRecurrent(
+        phased_cfg, device=dev, generator=torch.Generator().manual_seed(seed + 6))
+    ph_chunk = lane_steps(ph_lengths, PHASED_LANES, LANE_CHUNK)
+    ph_chunk1 = sum(lane_steps((n,), 1, LANE_CHUNK) for n in ph_lengths)
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_lanes_ph_") as tmp:
+        write_split(tmp, ph_lengths, K, seed + 21, PHASED_H, PHASED_W)
+        ph_files = stream_files(tmp, phased_model, "on", PHASED, "lanes_phased")
+        runs = {}
+        for name, extra, steps in (
+                ("single", (), sum(ph_lengths)),
+                ("lanes", ph_lane_args, lane_steps(ph_lengths, PHASED_LANES)),
+                ("chunked_single", chunk_args, ph_chunk1),
+                ("chunked_lanes", ph_lane_args + chunk_args, ph_chunk)):
+            runs[name] = lane_run(ph_files, tmp, lstm_counters,
+                                  [3 * (K + 1) * steps] * 2, ph_lengths,
+                                  crop_ph, extra, f"phased {name}")
+    out["phased"] = {
+        "k3_k4_launches": {n: r[1] for n, r in runs.items()},
+        "per_package_max_abs_err_vs_single_lane": max_pred_diff(
+            runs["lanes"][0], runs["single"][0]),
+        "chunked_max_abs_err_vs_single_lane": max_pred_diff(
+            runs["chunked_lanes"][0], runs["chunked_single"][0]),
+        "wall_s": {n: r[2] for n, r in runs.items()}}
+    errs = {"chunked": out["chunked"]["max_abs_err_vs_single_lane"],
+            "pair": out["chunked"]["pair_max_abs_err_vs_single_lane"],
+            "per_package": out["per_package"]["max_abs_err_vs_single_lane"],
+            "phased": out["phased"]["per_package_max_abs_err_vs_single_lane"],
+            "phased_chunked": out["phased"]["chunked_max_abs_err_vs_single_lane"]}
+    if not all(e <= SLICE_TOL for e in errs.values()):
+        raise AssertionError(f"lanes vs single lane: {errs} > {SLICE_TOL}")
+
+    # (f) lane maps/s beside the single lane's
+    on_model = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="on"),
+                                   device=dev)
+    on_model.load_state_dict(model.state_dict())
+    timing = lane_maps_per_s({"auto": model, "on": on_model}, K, seed)
+    timing["forward_ms"] = lane_forward_ms({"auto": model, "on": on_model}, K,
+                                           dev, seed)
+    check_no_jax()
+    emit({"phase": "lanes", "config": CONFIG, "H": H, "W": W, "K": K,
+          "lanes": LANES, "chunk": LANE_CHUNK,
+          "sequences": list(LANE_SEQ_LENGTHS),
+          "steps": {"chunked": n_chunked, "per_package": n_lane_pkg},
+          "phased": {"H": PHASED_H, "W": PHASED_W, "lanes": PHASED_LANES,
+                     "sequences": list(ph_lengths), **out.pop("phased")},
+          "tol": SLICE_TOL, "data_write_s": data_s, **out,
+          "maps_per_s": timing, "nvidia_smi": smi})
+    return {"kernels": krows, "k1": c_lanes[0], "k5": c_ppl[0],
+            "k9": c_pair[0], "k3_k4": runs["chunked_lanes"][1]}
 
 
 def main() -> int:
@@ -2939,12 +3337,25 @@ def main() -> int:
     # 17-19. phased and ConvLSTM training: K3-res, K4-res
     ph_train = phased_train_phases(K, dev, gen, args.seed, smi)
 
+    # 20-21. lane-batched streaming: the kernels at the lane shapes, then
+    #        lanes x chunk, per package and phased through the eval entry
+    lanes = lane_phases(cfg, K, dev, args.seed, smi)
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     v1m = vox_times["1M"]
     vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
     flagship_keys = ["x".join(map(str, c)) for c in FLAGSHIP_CELLS]
     S = CHUNK * (K + 1)
     k11_bound = cell_bound("k11_step", FLAGSHIP_CELLS)
+
+    def lane_extra(kind, launches):
+        """A kernel's lane rows (phases 20-21): its launches on the lane
+        path, its plan and device us per shape at the lane batch and at B=1."""
+        rows = lanes["kernels"][kind]
+        return {"launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+                **{f: {k: r[f] for k, r in rows.items()}
+                   for f in ("plan", "device_us", "device_us_b1")}}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None):
@@ -2956,11 +3367,12 @@ def main() -> int:
 
     print(smi)
     emit({"kernels": [
-        entry("gru_hside", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:289",
-              launches, max(e for row in errs.values() for e in row.values()),
-              sum(r["kernel_us"] for r in cells) / 1e3,
-              sum(r["plain_us"] for r in cells) / 1e3,
-              cell_bound("k1", FLAGSHIP_CELLS)),
+        dict(entry("gru_hside", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:289",
+                   launches, max(e for row in errs.values() for e in row.values()),
+                   sum(r["kernel_us"] for r in cells) / 1e3,
+                   sum(r["plain_us"] for r in cells) / 1e3,
+                   cell_bound("k1", FLAGSHIP_CELLS)),
+             lanes=lane_extra("k1", lanes["k1"])),
         entry("gru_hside_res", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:124",
               trained["launches"]["k1_res"],
               max([max(r["res_h_err"], r["res_acts_err"], *r["res_plans"].values())
@@ -2986,7 +3398,8 @@ def main() -> int:
                    cell_bound("k5", FLAGSHIP_CELLS)),
              wrapper_ms=sum(r["kernel_wrapper_us"] for r in full_cells) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["plan"] for r in full_cells},
-             off_layer_ms=sum(r["plain_layer_bf16_us"] for r in full_cells) / 1e3),
+             off_layer_ms=sum(r["plain_layer_bf16_us"] for r in full_cells) / 1e3,
+             lanes=lane_extra("k5", lanes["k5"])),
         dict(entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
                    stream_counts["k6"] + batch_run["auto"]["launches"],
                    max(max(r[p]["k6"], r[p]["k6_stats"]) for r in vox_errs.values()
@@ -3015,7 +3428,8 @@ def main() -> int:
                    cell_bound("k3", PHASED_CELLS)),
              wrapper_ms=sum(r["k3_wrapper_us"] for r in ph["cells"]) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["k3"]["plan"]
-                   for r in ph["cells"] + ph["k3_flagship"]}),
+                   for r in ph["cells"] + ph["k3_flagship"]},
+             lanes=lane_extra("k3", lanes["k3_k4"][0])),
         dict(entry("phased_cell", "lstm_hside.cu",
                    "rpg_ramnet_tpu/ops/phased_cell.py:113", ph["counts"][1],
                    max(e[0] for row in ph["k4_errs"].values() for k, e in row.items()
@@ -3025,7 +3439,8 @@ def main() -> int:
                    cell_bound("k4", PHASED_CELLS)),
              wrapper_ms=sum(r["k4_wrapper_us"] for r in ph["cells"]) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["k4"]["plan"]
-                   for r in ph["cells"]}),
+                   for r in ph["cells"]},
+             lanes=lane_extra("k4", lanes["k3_k4"][1])),
         dict(entry("gru_pair", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_pair.py:69",
                    variants["pair"]["launches"]["k9"],
                    max(e for row in chunk_errs["k9"].values() for e in row.values()),
@@ -3034,7 +3449,8 @@ def main() -> int:
                    cell_bound("k1", FLAGSHIP_CELLS[:2])),
              wrapper_ms=chunk_cells["k9"]["wrapper_us"] / 1e3,
              plan=chunk_cells["k9"]["plans"],
-             k1_pair_ms=chunk_cells["k1_pair"]["kernel_us"] / 1e3),
+             k1_pair_ms=chunk_cells["k1_pair"]["kernel_us"] / 1e3,
+             lanes=lane_extra("k9", lanes["k9"])),
         dict(entry("gru_stream", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_stream.py:102",
                    variants["stream"]["launches"]["k10a"],
                    max(e for row in chunk_errs["k10a"].values() for e in row.values()),

@@ -1,6 +1,10 @@
-from .inference import (CropParameters, SequenceScanInference,
-                        StreamingInference, optimal_crop_size, optimal_scale,
+from .inference import (BatchedStreamingInference, CropParameters,
+                        SequenceScanInference, StreamingInference,
+                        optimal_crop_size, optimal_scale,
+                        run_batched_chunked_streaming, run_batched_streaming,
                         run_chunked_streaming)
 
-__all__ = ["CropParameters", "SequenceScanInference", "StreamingInference",
-           "optimal_crop_size", "optimal_scale", "run_chunked_streaming"]
+__all__ = ["BatchedStreamingInference", "CropParameters",
+           "SequenceScanInference", "StreamingInference", "optimal_crop_size",
+           "optimal_scale", "run_batched_chunked_streaming",
+           "run_batched_streaming", "run_chunked_streaming"]

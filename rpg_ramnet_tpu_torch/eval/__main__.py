@@ -13,6 +13,9 @@ scale and metric lines:
   --scan_chunk N    offline chunked inference, N packages per forward call
                     (run_chunked_streaming); 0, the default, runs the
                     per-package engine with batched decode
+  --lanes N         lane-batched streaming: the sequences round-robin over
+                    N lanes, a reset mask per lane (run_batched_streaming;
+                    with --scan_chunk, run_batched_chunked_streaming)
   --precompute_x, --decode_keys, --dataset_reg_factor   as test.py
   --device          'cuda' (default) or 'cpu'
 
@@ -22,8 +25,10 @@ test.py passes them.  Behaviour kept from test.py: the state resets at
 every sequence boundary,
 predictions are saved only from a sequence's third item on, the metric
 vector runs over the saved items and the metric-space scale over all.
---lanes > 1 and --mesh > 0 are not ported (ROADMAP queue 1, items 14 and
-15).
+With lanes the items arrive out of dataset order; each is handled under
+its global index and its position in its sequence, so the output tree
+and the scale vector are those of one lane.  --mesh > 0 is not ported
+(ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -47,7 +52,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--crop", type=str, default="256,512",
                     help="center-crop H,W (reference: 256,512)")
     ap.add_argument("--lanes", type=int, default=1,
-                    help="lane-batched streaming (not ported: 1 only)")
+                    help="lane-batched streaming over N lanes (with "
+                         "--scan_chunk: lanes x chunk)")
     ap.add_argument("--scan_chunk", type=int, default=0,
                     help="offline chunked inference, N packages per "
                          "forward call (0: the per-package engine)")
@@ -70,9 +76,6 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
     """Run test.py's loop; returns the model.  on_prediction(global index,
     {key: [H, W, 1] numpy prediction}) is called for every item."""
     args = parse_args(argv)
-    if args.lanes > 1:
-        raise NotImplementedError("--lanes > 1 (lane-batched streaming) is "
-                                  "not ported yet: ROADMAP queue 1, item 14")
     if args.mesh > 0:
         raise NotImplementedError("--mesh > 0 (multi-device inference) is "
                                   "not ported yet: ROADMAP queue 1, item 15")
@@ -89,7 +92,8 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
     from ..train.checkpoint import load_any
     from ..utils import require_cuda
     from .inference import (StreamingInference, optimal_scale,
-                            run_chunked_streaming)
+                            run_batched_chunked_streaming,
+                            run_batched_streaming, run_chunked_streaming)
     from .metrics import eval_metrics
     from .writers import DepthOutputWriter
 
@@ -165,8 +169,17 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
             scales[idx] = optimal_scale(img[..., 0], target(item, key)[..., 0],
                                         reg_factor, clip_distance)
 
-    if args.scan_chunk > 0:
-        precompute_x = {"auto": None, "on": True, "off": False}[args.precompute_x]
+    precompute_x = {"auto": None, "on": True, "off": False}[args.precompute_x]
+    if args.lanes > 1 and args.scan_chunk > 0:     # test.py:188-198
+        run_batched_chunked_streaming(dataset, model, n_lanes=args.lanes,
+                                      chunk=args.scan_chunk,
+                                      on_prediction=handle,
+                                      decode_keys=decode_keys,
+                                      precompute_x=precompute_x)
+    elif args.lanes > 1:
+        run_batched_streaming(dataset, model, n_lanes=args.lanes,
+                              on_prediction=handle)
+    elif args.scan_chunk > 0:
         run_chunked_streaming(dataset, model, chunk=args.scan_chunk,
                               on_prediction=handle, decode_keys=decode_keys,
                               precompute_x=precompute_x)

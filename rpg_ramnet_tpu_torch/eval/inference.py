@@ -1,4 +1,5 @@
-"""Inference engines: per-package streaming and offline chunked inference.
+"""Inference engines: per-package streaming, offline chunked inference
+and lane-batched streaming.
 
 Counterpart of ``rpg_ramnet_tpu/eval/inference.py``:
 
@@ -13,15 +14,23 @@ Counterpart of ``rpg_ramnet_tpu/eval/inference.py``:
   ``forward_sequence_batched_decode`` (the phased regime, float32
   configs); without it (``SequenceScanInference``'s default) on
   ``forward_sequence``, bit-identical to per-package streaming;
+- ``BatchedStreamingInference`` and ``run_batched_streaming`` (``test.py
+  --lanes N``): N sequences advance in lockstep, one ``forward_package``
+  per step at batch N, a per-lane reset mask zeroing a lane's state at
+  its sequence boundary; ``run_batched_chunked_streaming`` (``--lanes N
+  --scan_chunk M``): M packages of N lanes per forward call, the reset
+  mask per step and lane;
 - ``CropParameters``, ``optimal_crop_size`` and ``optimal_scale``.
 
 Behaviour kept from the JAX engines: the recurrent state is carried
 across the packages and chunks of a sequence and re-zeroed at every
 sequence boundary; the tail chunk is zero-padded to the chunk length
-(padding only touches the post-sequence state, which is discarded); one
-host thread prepares the next chunk while the device runs the current
-one; in the phased regime the packages' timestamps go with them.  Lanes
-and the spatial mesh are not ported (ROADMAP queue 1, items 14 and 15).
+(padding only touches the post-sequence state, which is discarded); lanes
+that ran dry get zero packages under a standing reset, and their outputs
+go to no callback; one host thread prepares the next chunk or lane step
+while the device runs the current one; in the phased regime the packages'
+timestamps go with them.  The spatial and lane meshes are not ported
+(ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
 
@@ -215,11 +224,38 @@ def _pad_time(x: np.ndarray, length: int) -> np.ndarray:
         [x, np.zeros((length - len(x),) + x.shape[1:], x.dtype)])
 
 
+def _pinned(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """x as a tensor on the host, in pinned memory when ``device`` is a
+    card (so that its copy there can be asynchronous)."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(x)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return _pinned(x, device).to(device, non_blocking=True)
+
+
+def _prefetched(load, args):
+    """load(a) for each a of args in order, each the next one's load
+    running on one host thread while the caller works on the current
+    result."""
+    args = list(args)
+    if not args:
+        return
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(load, args[0])
+        for i in range(len(args)):
+            res = fut.result()
+            if i + 1 < len(args):
+                fut = pool.submit(load, args[i + 1])
+            yield res
+
+
+def _mesh_unported(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh (lanes sharded over several devices) is not ported yet: "
+            "ROADMAP queue 1, item 15")
 
 
 class SequenceScanInference:
@@ -280,8 +316,10 @@ def run_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
     sizes = [len(d) for d in dataset.datasets]
     starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(int)
 
-    def load_chunk(sub, t0, size):
-        items = [sub[i] for i in range(t0, min(t0 + chunk, size))]
+    def load_chunk(task):
+        s, t0 = task
+        sub = dataset.datasets[s]
+        items = [sub[i] for i in range(t0, min(t0 + chunk, sizes[s]))]
         arrs = {"events": np.stack([it["events"][0] for it in items]),
                 "image": np.stack([it["image"][0] for it in items])}
         # the phased regime: the timestamps go with the chunk
@@ -293,37 +331,209 @@ def run_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
             arrs["times_image"] = np.array(
                 [np.asarray(it["times_image"][0]).ravel()[0] for it in items],
                 np.float32)
-        out = {}
-        for k, v in arrs.items():
-            out[k] = torch.from_numpy(_pad_time(v, chunk))
-            if dev.type == "cuda":
-                out[k] = out[k].pin_memory()
-        return items, out
+        return task, items, {k: _pinned(_pad_time(v, chunk), dev)
+                             for k, v in arrs.items()}
 
     tasks = [(s, t0) for s in range(len(sizes))
              for t0 in range(0, sizes[s], chunk)]
-    if not tasks:
+    state, cur_seq = None, -1
+    for (s, t0), items, arrs in _prefetched(load_chunk, tasks):
+        if s != cur_seq:
+            im = arrs["image"]
+            state = model.init_state(1, im.shape[1], im.shape[2])
+            cur_seq = s
+        seq = {k: v.to(dev, non_blocking=True)[None] for k, v in arrs.items()}
+        state, preds = fwd(state, seq)
+        if on_prediction is not None:
+            preds_np = {k: v.cpu().numpy() for k, v in preds.items()}
+            for j, item in enumerate(items):
+                on_prediction(int(starts[s] + t0 + j),
+                              {k: v[j, 0] for k, v in preds_np.items()},
+                              item, t0 + j)
+
+
+class BatchedStreamingInference:
+    """Lane-batched streaming: N independent sequences advance in lockstep,
+    one ``forward_package`` at batch N per step, a per-lane reset mask
+    zeroing a lane's whole state (encoder states included) at its sequence
+    boundary.  Per-item outputs equal single-lane streaming's.  The flags
+    as the JAX engine's: the cells' kernels (K5, K3, K4) only for
+    ``cfg.fused_gru == 'on'``, the fused_decoder policy (K8) allowed, the
+    composed layers only for ``cfg.composed_decoder == 'on'``.  mesh (lanes
+    sharded over devices) is not ported."""
+
+    def __init__(self, model: ERGB2DepthRecurrent, n_lanes: int, height: int,
+                 width: int, mesh=None):
+        _mesh_unported(mesh)
+        self.model = model
+        self.state = model.init_state(n_lanes, height, width)
+        self._flags = dict(allow_fused=model.cfg.fused_gru == "on",
+                           allow_fused_decoder=True,
+                           allow_composed=model.cfg.composed_decoder == "on")
+
+    @torch.inference_mode()
+    def step(self, pkg, reset_mask) -> Dict[str, torch.Tensor]:
+        """pkg: {'events': [N, K, H, W, C], 'image': [N, H, W, C], and for
+        the phased regime 'times_events' [N, K] and 'times_image' [N]}
+        (numpy or tensors); reset_mask: [N] bool -> {key: [N, H, W, 1]}
+        float32 tensors on the model's device."""
+        dev = self.model.device
+        batched = {k: _as_input(v, dev) for k, v in pkg.items()}
+        batched["reset"] = torch.as_tensor(reset_mask, dtype=torch.bool,
+                                           device=dev)
+        self.state, preds = self.model.forward_package(self.state, batched,
+                                                       **self._flags)
+        return preds
+
+
+def _round_robin_lanes(dataset, n_lanes: int):
+    """Distribute the sequences of ``dataset.datasets`` round-robin over
+    lanes: lane_items[lane] = [(global_idx, seq_pos), ...], back to back.
+    Returns (lane_items, starts, sizes)."""
+    sizes = [len(d) for d in dataset.datasets]
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(int)
+    lane_items: List[list] = [[] for _ in range(n_lanes)]
+    for s, (start, size) in enumerate(zip(starts, sizes)):
+        lane_items[s % n_lanes].extend((int(start + i), i)
+                                       for i in range(size))
+    return lane_items, starts, sizes
+
+
+class _Lanes:
+    """A dataset's sequences round-robin over n lanes, packed step by step:
+    at step t lane l holds item t of its sequences back to back, reset
+    where that item starts a sequence; a lane that ran dry holds a zero
+    package under a standing reset."""
+
+    def __init__(self, dataset, n_lanes: int, cfg: ModelConfig):
+        self.dataset = dataset
+        self.lane_items, self.starts, _ = _round_robin_lanes(dataset, n_lanes)
+        self.max_len = max(map(len, self.lane_items), default=0)
+        self.zero = {}
+        if self.max_len:
+            item0 = self.item(*next(li[0] for li in self.lane_items if li))
+            fields = self.fields(item0)
+            # the timestamps go with the packages in the phased regime only
+            if not cfg.use_phased_arch:
+                fields = {k: fields[k] for k in ("events", "image")}
+            self.zero = {k: np.zeros_like(v) for k, v in fields.items()}
+
+    def item(self, gidx: int, seq_pos: int):
+        s = int(np.searchsorted(self.starts, gidx, side="right")) - 1
+        return self.dataset.datasets[s][seq_pos]
+
+    @staticmethod
+    def fields(item):
+        """A dataset item's package arrays: events [K, H, W, C], image
+        [H, W, C], and where it has them times_events [K] and times_image
+        (a float32 scalar)."""
+        out = {"events": item["events"][0], "image": item["image"][0]}
+        if "times_events" in item:
+            out["times_events"] = np.atleast_1d(item["times_events"][0])
+            out["times_image"] = np.float32(
+                np.asarray(item["times_image"][0]).ravel()[0])
+        return out
+
+    def pack(self, t0: int, steps: int):
+        """Steps t0 .. t0+steps-1: ({key: [steps, N, ...] numpy}, reset
+        [steps, N] bool, [(step, lane, global_idx, seq_pos, item)] of the
+        real items in (step, lane) order)."""
+        n = len(self.lane_items)
+        arrs = {k: np.empty((steps, n) + z.shape, z.dtype)
+                for k, z in self.zero.items()}
+        reset = np.ones((steps, n), bool)
+        metas = []
+        for j in range(steps):
+            for lane, items in enumerate(self.lane_items):
+                if t0 + j < len(items):
+                    gidx, pos = items[t0 + j]
+                    item = self.item(gidx, pos)
+                    metas.append((j, lane, gidx, pos, item))
+                    reset[j, lane] = pos == 0
+                    fields = self.fields(item)
+                    for k in arrs:
+                        arrs[k][j, lane] = fields[k]
+                else:
+                    for k, z in self.zero.items():
+                        arrs[k][j, lane] = z
+        return arrs, reset, metas
+
+
+def _hand_out(on_prediction, preds, metas) -> None:
+    """on_prediction(global_idx, {key: [H, W, 1] numpy}, item, seq_pos)
+    for each real item of a lane step or chunk; preds {key: [steps, N, H,
+    W, 1]} tensors."""
+    if on_prediction is None:
         return
-    with ThreadPoolExecutor(1) as pool:
-        fut = pool.submit(load_chunk, dataset.datasets[tasks[0][0]],
-                          tasks[0][1], sizes[tasks[0][0]])
-        state, cur_seq = None, -1
-        for ti, (s, t0) in enumerate(tasks):
-            items, arrs = fut.result()
-            if ti + 1 < len(tasks):
-                s2, t02 = tasks[ti + 1]
-                fut = pool.submit(load_chunk, dataset.datasets[s2], t02,
-                                  sizes[s2])
-            if s != cur_seq:
-                im = arrs["image"]
-                state = model.init_state(1, im.shape[1], im.shape[2])
-                cur_seq = s
-            seq = {k: v.to(dev, non_blocking=True)[None]
-                   for k, v in arrs.items()}
-            state, preds = fwd(state, seq)
-            if on_prediction is not None:
-                preds_np = {k: v.cpu().numpy() for k, v in preds.items()}
-                for j, item in enumerate(items):
-                    on_prediction(int(starts[s] + t0 + j),
-                                  {k: v[j, 0] for k, v in preds_np.items()},
-                                  item, t0 + j)
+    preds_np = {k: v.cpu().numpy() for k, v in preds.items()}
+    for j, lane, gidx, pos, item in metas:
+        on_prediction(gidx, {k: v[j, lane] for k, v in preds_np.items()},
+                      item, pos)
+
+
+@torch.inference_mode()
+def run_batched_streaming(dataset, model: ERGB2DepthRecurrent,
+                          n_lanes: int = 4, on_prediction=None,
+                          mesh=None) -> None:
+    """Lane-batched streaming over a ConcatSequenceDataset-like ``dataset``
+    (the contract of ``run_chunked_streaming``): the sequences go
+    round-robin over ``n_lanes`` lanes, each lane streams its sequences
+    back to back with a reset at every sequence boundary, one
+    ``BatchedStreamingInference.step`` per step.  Per-item outputs equal
+    single-lane streaming's.  on_prediction(global_idx, {key: [H, W, 1]
+    numpy}, item, seq_pos) is called for every real item, steps in order
+    and lanes in order within a step: not in dataset order, hence the
+    global index."""
+    _mesh_unported(mesh)
+    lanes = _Lanes(dataset, n_lanes, model.cfg)
+    if not lanes.max_len:
+        return
+    engine = BatchedStreamingInference(model, n_lanes,
+                                       *lanes.zero["image"].shape[:2])
+    for arrs, reset, metas in _prefetched(lambda t: lanes.pack(t, 1),
+                                          range(lanes.max_len)):
+        preds = engine.step({k: v[0] for k, v in arrs.items()}, reset[0])
+        _hand_out(on_prediction, {k: v[None] for k, v in preds.items()},
+                  metas)
+
+
+@torch.inference_mode()
+def run_batched_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
+                                  n_lanes: int = 8, chunk: int = 2,
+                                  on_prediction=None, decode_keys=None,
+                                  precompute_x: Optional[bool] = None,
+                                  mesh=None) -> None:
+    """Lane-batched and chunked offline streaming: the sequences go
+    round-robin over ``n_lanes`` lanes (run_batched_streaming), and
+    ``chunk`` steps of all lanes run per forward call, routed as
+    run_chunked_streaming's (``_chunk_forward``: the precomputed path
+    where ``_resolve_precompute`` takes it, else
+    forward_sequence_batched_decode), with one decoder pass over all
+    chunk*n_lanes*(K+1) maps.  Sequence boundaries fall mid-chunk, so a
+    per-step, per-lane reset mask goes with the chunk ('reset' [N,
+    chunk]); padded steps past a lane's last item stay reset.  The chunk
+    buffers are [chunk, N, ...], loaded and pinned on one host thread
+    while the device runs the previous chunk.  Per-item outputs equal
+    single-lane streaming's (within float summation order with the x side
+    precomputed).  on_prediction as run_batched_streaming's."""
+    _mesh_unported(mesh)
+    dk = tuple(decode_keys) if decode_keys else None
+    fwd = _chunk_forward(model, precompute_x, dk)
+    dev = model.device
+    lanes = _Lanes(dataset, n_lanes, model.cfg)
+    if not lanes.max_len:
+        return
+
+    def load_chunk(t0):
+        arrs, reset, metas = lanes.pack(t0, chunk)
+        arrs["reset"] = reset
+        return {k: _pinned(v, dev) for k, v in arrs.items()}, metas
+
+    state = model.init_state(n_lanes, *lanes.zero["image"].shape[:2])
+    for arrs, metas in _prefetched(load_chunk,
+                                   range(0, lanes.max_len, chunk)):
+        seq = {k: v.to(dev, non_blocking=True).movedim(0, 1)
+               for k, v in arrs.items()}
+        state, preds = fwd(state, seq)
+        _hand_out(on_prediction, preds, metas)
+

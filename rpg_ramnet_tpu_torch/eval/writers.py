@@ -4,11 +4,12 @@ Counterpart of ``rpg_ramnet_tpu/eval/writers.py`` (reference
 RAM_Net/utils/inference_utils.py: make_event_preview:20, the writers
 :101-149) and the output tree of RAM_Net/test.py:66-90,259-363, which
 ``evaluation.py`` reads.  PIL, cv2 and matplotlib are imported where they
-are used.
+are used; without matplotlib the tree has no color maps.
 """
 from __future__ import annotations
 
 import os
+import warnings
 from os.path import join
 
 import numpy as np
@@ -96,6 +97,16 @@ class DepthOutputWriter:
         self.video_idx = 0
 
     def set_color_mapper(self, sample_depth_chw: np.ndarray) -> None:
+        """The shared color mapper, from one ground-truth frame.  Without
+        matplotlib there is none: no color map or color video frame is
+        written, and the grey frames, the arrays and the input video frames
+        are, so the tree still serves evaluation."""
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            warnings.warn("matplotlib is absent: the output tree gets no "
+                          "color maps")
+            return
         self.color_mapper = build_color_mapper(sample_depth_chw)
 
     def _write_frame(self, kind: str, key: str, idx: int,

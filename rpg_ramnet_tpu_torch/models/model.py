@@ -71,11 +71,19 @@ def _hside_package(net, cfg: ModelConfig, supers, gev, gim,
     return supers, snaps
 
 
-def _check_no_reset(pkg) -> None:
-    if "reset" in pkg:
-        raise NotImplementedError(
-            "per-lane reset masks are not ported yet: ROADMAP queue 1, item "
-            "14 (lane-batched streaming)")
+def _apply_reset(reset: Optional[torch.Tensor], tree):
+    """``tree`` (a state, a supers tuple) with every leaf's lanes zeroed
+    where reset [B] (bool, on the state's device) is set (model.py:77-86):
+    a lane-batched stream resets each lane at its own sequence boundary.
+    None leaves the tree as it is."""
+    if reset is None:
+        return tree
+
+    def mask_leaf(leaf):
+        m = reset.reshape((-1,) + (1,) * (leaf.dim() - 1))
+        return torch.where(m, leaf.new_zeros(()), leaf)
+
+    return statenet.map_state(mask_leaf, tree)
 
 
 def _package_steps(cfg: ModelConfig, pkg):
@@ -96,9 +104,10 @@ def _package_snapshot_step(net, cfg: ModelConfig, state, pkg,
     steps, then the image step; no decodes), returning the new state and
     the decoder views after each step in sel_keys, concatenated over the
     batch.  pkg: NHWC (timestamps for the phased regime); state
-    NCHW-shaped.  allow_fused: let the fused_gru policy run the cells as
-    kernels (K4, K3, K5)."""
-    _check_no_reset(pkg)
+    NCHW-shaped.  A 'reset' [B] mask in pkg zeroes the lanes' whole state
+    first (model.py:101).  allow_fused: let the fused_gru policy run the
+    cells as kernels (K4, K3, K5)."""
+    state = _apply_reset(pkg.get("reset"), state)
     snaps = []
     for key, x, modality, t in _package_steps(cfg, pkg):
         state = statenet.forward_modality(net, cfg, x, state, modality,
@@ -116,7 +125,9 @@ def _package_snapshot_step_pre(net, cfg: ModelConfig, state, pkg,
     (state-independent for recurrent_block_type='conv'), leaving only the
     K+1 h-side cells sequential; gx memory stays bounded to one package.
     allow_fused: let the fused_gru policy pick the h-side kernels, which
-    are differentiable (ops/gru_hside.py::ConvGRUHside, ConvLSTMHside)."""
+    are differentiable (ops/gru_hside.py::ConvGRUHside, ConvLSTMHside).
+    A 'reset' [B] mask in pkg zeroes the lanes' supers first (model.py:
+    158; the encoders of these configs carry no state)."""
     loop = event_loop_range(cfg)
     ev = pkg["events"]                       # [B, K, H, W, Ce]
     b = ev.shape[0]
@@ -128,14 +139,14 @@ def _package_snapshot_step_pre(net, cfg: ModelConfig, state, pkg,
     gx_im = statenet.gru_x_gates(
         net, "image",
         statenet.encoder_features(net, cfg, to_nchw(pkg["image"]), "image"))
-    supers, snaps = _hside_package(net, cfg, state.super_states, gx_ev,
-                                   gx_im, sel_keys, loop,
-                                   allow_fused=allow_fused)
+    supers = _apply_reset(pkg.get("reset"), state.super_states)
+    supers, snaps = _hside_package(net, cfg, supers, gx_ev, gx_im, sel_keys,
+                                   loop, allow_fused=allow_fused)
     return state._replace(super_states=supers), _stack(snaps)
 
 
 # the per-package entries of a sequence dict, [B, L, ...] each
-_SEQ_KEYS = ("events", "image", "times_events", "times_image")
+_SEQ_KEYS = ("events", "image", "times_events", "times_image", "reset")
 
 
 def _stack(snaps):
@@ -297,11 +308,12 @@ class ERGB2DepthRecurrent(nn.Module):
         differentiable through their Functions, K5 inference only).
         allow_fused_decoder, allow_composed: let the fused_decoder
         policy run decoder layers as kernel K8 (inference only) and the
-        composed_decoder policy as the composed layers.  Returns (state,
-        {key: [B, H, W, 1]})."""
-        _check_no_reset(pkg)
+        composed_decoder policy as the composed layers.  A 'reset' [B]
+        bool mask in pkg zeroes the whole state of those lanes before the
+        package (model.py:246).  Returns (state, {key: [B, H, W, 1]})."""
         net, cfg = self.statenetphasedrecurrent, self.cfg
-        state = statenet.map_state(to_nchw, state)
+        state = statenet.map_state(to_nchw,
+                                   _apply_reset(pkg.get("reset"), state))
         preds = {}
         for key, x, modality, t in _package_steps(cfg, pkg):
             state = statenet.forward_modality(net, cfg, x, state, modality,
@@ -320,8 +332,8 @@ class ERGB2DepthRecurrent(nn.Module):
         """forward_package with the K+1 decodes of the package run as ONE
         decoder pass over the stacked per-step super states (model.py:
         291-314).  Decodes never feed the state, so the predictions equal
-        forward_package's.  The flags as forward_package's.  Returns
-        (state, {key: [B, H, W, 1]})."""
+        forward_package's.  The flags and the 'reset' mask as
+        forward_package's.  Returns (state, {key: [B, H, W, 1]})."""
         net, cfg = self.statenetphasedrecurrent, self.cfg
         keys = prediction_keys(cfg)
         b = pkg["image"].shape[0]
@@ -341,8 +353,9 @@ class ERGB2DepthRecurrent(nn.Module):
         the reference semantics, bit-identical to per-package streaming.
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
         and in the phased regime 'times_events' [B, L, K] and
-        'times_image' [B, L].  Returns (state, {key: [L, B, H, W, 1]})."""
-        _check_no_reset(seq)
+        'times_image' [B, L]; 'reset' [B, L] (bool) zeroes a lane's state
+        before the flagged package.  Returns (state, {key: [L, B, H, W,
+        1]})."""
         per_key: Dict[str, List[torch.Tensor]] = {}
         for t in range(seq["image"].shape[1]):
             pkg = {k: seq[k][:, t] for k in _SEQ_KEYS if k in seq}
@@ -381,7 +394,10 @@ class ERGB2DepthRecurrent(nn.Module):
              K8 and the composed layers allowed (their policies decide),
              as JAX's three branches allow them.
 
-        seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]}.
+        seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
+        and 'reset' [B, L] (bool) where lanes reset mid-chunk: the step
+        by step branch zeroes the flagged lanes' supers before package t's
+        h-side cells (model.py:572-582), the other two raise.
         decode_keys: decode only these of prediction_keys (all when None).
         Returns (state, {key: [L, B, H, W, 1]}).  Equals forward_package up
         to float summation order.
@@ -418,11 +434,13 @@ class ERGB2DepthRecurrent(nn.Module):
             supers, preds = branch(net, cfg, state.super_states, gx_ev, gx_im,
                                    sel_keys, l, b, loop, "reset" in seq)
             return state._replace(super_states=supers), preds
-        _check_no_reset(seq)
+        reset = seq.get("reset")
         state = statenet.map_state(to_nchw, state)
         supers = state.super_states
         snaps: List[Tuple[torch.Tensor, ...]] = []
         for t in range(l):
+            if reset is not None:
+                supers = _apply_reset(reset[:, t], supers)
             supers, pkg_snaps = _hside_package(
                 net, cfg, supers, [g[t] for g in gx_ev],
                 [g[t] for g in gx_im], sel_keys, loop, allow_fused=True)
@@ -458,8 +476,10 @@ class ERGB2DepthRecurrent(nn.Module):
 
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
         and in the phased regime 'times_events' [B, L, K] and
-        'times_image' [B, L].  Returns (state, {key: [L, B, H, W, 1]}, or
-        [L, B, H, W] when squeeze_preds)."""
+        'times_image' [B, L]; 'reset' [B, L] (bool) zeroes a lane's state
+        before the flagged package (the lane-batched chunked engine).
+        Returns (state, {key: [L, B, H, W, 1]}, or [L, B, H, W] when
+        squeeze_preds)."""
         net, cfg = self.statenetphasedrecurrent, self.cfg
         sel_keys = [k for k in prediction_keys(cfg)
                     if decode_keys is None or k in decode_keys]

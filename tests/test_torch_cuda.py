@@ -20,14 +20,18 @@ and with cluster-split plans (a stale or raced read of h shows at its
 step), an oversized cooperative grid raising, and the precomputed path
 under each variant against fused_gru='off', the fused decoder kernel K8
 against its plain version at the flagship layers and ragged shapes, its
-refusals, the composed layer against the two-stage one, and both decoder
-options through the chunked and per-package engines (K8's launch counts).
+refusals, the composed layer against the two-stage one, both decoder
+options through the chunked and per-package engines (K8's launch counts),
+and lane-batched streaming: K1, K5 and K9 at B = 8 and K3 and K4 at
+B = 2 against their plain versions, and the lane engines' kernels
+against the single-lane engines.
 
 They skip without a CUDA device.  This file imports nothing of JAX, so it
 also runs where JAX is absent:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -1170,6 +1174,127 @@ def test_chunked_variants_kernels_vs_off(device):
             assert torch.isfinite(p[k]).all()
             assert (p[k] - p_off[k]).abs().max().item() <= 5e-2, (over, k)
 
+
+
+# lane-batched streaming's shapes: the flagship h-side cells at B = 8 (K1
+# and K5; K1's gx a step of a [B, K=5, H, W, 3C] buffer, the batch stride
+# the precomputed path gives it), the B = 8 pair of scales 0 and 1 (K9),
+# the phased cells at B = 2 (K3, K4)
+LANE_CELLS = [(8, 128, 256, 64), (8, 64, 128, 128), (8, 32, 64, 256)]
+PHASED_LANE_CELLS = [(2, 128, 176, 64), (2, 64, 88, 128), (2, 32, 44, 256)]
+
+
+@pytest.mark.parametrize("shape", LANE_CELLS, ids=lambda s: "x".join(map(str, s)))
+def test_lane_shapes_k1_k5_match_plain(device, shape):
+    """K1 (within 8e-3) and K5 (within 2e-2) of their plain versions at
+    B = 8 under the planner's plan, one launch each."""
+    B, H, W, C = shape
+    gen = torch.Generator(device=device).manual_seed(B * C)
+    h, _ = _h_gx(shape, device, gen)
+    gx = torch.randn(B, 5, H, W, 3 * C, device=device, generator=gen).bfloat16()[:, 3]
+    w_ur, w_o = _gru_weights(C, C, device)
+    x, h5, w5 = _full_inputs(shape, device)
+    with torch.no_grad():
+        for fn, plain, args, tol in (
+                (gru_hside.conv_gru_hside, gru_hside.conv_gru_hside_plain,
+                 (h, gx, w_ur, w_o), 8e-3),
+                (gru_hside.conv_gru_full, gru_hside.conv_gru_full_plain,
+                 (x, h5, *w5), 2e-2)):
+            n0 = fn.launches
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1
+            assert got.shape == shape
+            assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_lane_shapes_pair_matches_plain(device):
+    """K9 at the B = 8 pair, gx batch-strided views: within 8e-3 of two
+    plain cells, one launch."""
+    from rpg_ramnet_tpu_torch.ops import gru_pair
+    gen = torch.Generator(device=device).manual_seed(8)
+    args = []
+    for B, H, W, C in LANE_CELLS[:2]:
+        h = (torch.rand(B, H, W, C, device=device, generator=gen) * 2 - 1).bfloat16()
+        gx = torch.randn(B, 5, H, W, 3 * C, device=device, generator=gen).bfloat16()[:, 2]
+        args += [h, gx, *_gru_weights(C, C, device)]
+    n0 = gru_pair.conv_gru_hside_pair.launches
+    with torch.no_grad():
+        got = gru_pair.conv_gru_hside_pair(*args)
+        want = gru_pair.conv_gru_hside_pair_plain(*args)
+    torch.cuda.synchronize()
+    assert gru_pair.conv_gru_hside_pair.launches == n0 + 1
+    for a, b, shape in zip(got, want, LANE_CELLS[:2]):
+        assert a.shape == shape
+        assert (a.float() - b.float()).abs().max().item() <= 8e-3
+
+
+@pytest.mark.parametrize("shape", PHASED_LANE_CELLS,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lane_shapes_k3_k4_match_plain(device, shape):
+    """K3 and K4 at B = 2 on the phased shapes, within 2e-2 of their plain
+    versions under the planner's plan, one launch each."""
+    from rpg_ramnet_tpu_torch.ops import phased_cell
+    h, c, gx, w4, tau, phase, t = _lstm_inputs(shape, device, seed=shape[1])
+    with torch.no_grad():
+        for fn, plain, args in (
+                (gru_hside.conv_lstm_hside, gru_hside.conv_lstm_hside_plain,
+                 (h, c, gx, w4)),
+                (phased_cell.conv_lstm_phased, phased_cell.conv_lstm_phased_plain,
+                 (h, c, gx, w4, tau, phase, t))):
+            n0 = fn.launches
+            got = fn(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1
+            for a, b in zip(got, want):
+                assert a.shape == shape
+                assert (a.float() - b.float()).abs().max().item() <= 2e-2
+
+
+def test_lane_engines_kernels_vs_single_lane(device):
+    """A small flagship-shaped bf16 model: run_batched_chunked_streaming
+    (K1 at batch 3) and run_batched_streaming with fused_gru='on' (K5 at
+    batch 3) over sequences of unequal lengths, each item within 5e-2 of
+    the single-lane engines, the kernels launched the derived number of
+    times."""
+    import numpy as np
+    from rpg_ramnet_tpu_torch.eval import inference
+    cfg = ModelConfig(num_encoders=3, base_num_channels=16,
+                      recurrent_block_type="conv", state_combination="convgru",
+                      num_residual_blocks=1, every_x_rgb_frame=2,
+                      compute_dtype="bfloat16", fused_gru="on")
+    model = ERGB2DepthRecurrent(cfg, device=device)
+    rng = np.random.RandomState(0)
+    # four sequences of 5, 2, 4 and 1 packages; over 3 lanes the first
+    # lane holds 5 + 1
+    data = types.SimpleNamespace(datasets=[
+        [{"events": rng.randn(1, 2, 64, 96, 5).astype(np.float32),
+          "image": rng.rand(1, 64, 96, 1).astype(np.float32)}
+         for _ in range(n)] for n in (5, 2, 4, 1)])
+
+    def run(fn, counter, **kw):
+        out, n0 = {}, counter.launches
+        fn(data, model, on_prediction=lambda g, p, item, pos: out.__setitem__(g, p),
+           **kw)
+        torch.cuda.synchronize()
+        return out, counter.launches - n0
+
+    single, _ = run(inference.run_chunked_streaming, gru_hside.conv_gru_hside,
+                    chunk=2)
+    lanes, k1 = run(inference.run_batched_chunked_streaming,
+                    gru_hside.conv_gru_hside, n_lanes=3, chunk=2)
+    assert k1 == 3 * 3 * 6                    # 3 scales x (K+1) x 3 chunks of 2
+    per_pkg, k5 = run(inference.run_batched_streaming, gru_hside.conv_gru_full,
+                      n_lanes=3)
+    assert k5 == 3 * 3 * 6                    # 3 scales x (K+1) x 6 steps
+    assert sorted(lanes) == sorted(per_pkg) == sorted(single) == list(range(12))
+    for out in (lanes, per_pkg):
+        for g in single:
+            for k in single[g]:
+                assert np.isfinite(out[g][k]).all()
+                assert np.abs(out[g][k] - single[g][k]).max() <= 5e-2, (g, k)
 
 # the flagship decoder layers at 256x512 (B, C, Cout, H, W of the input),
 # at the per-package decode batch 6, and ragged ones: odd H and W, C = 48

@@ -4,7 +4,8 @@
 synthetic split and .pth.tar (tiny float32 config, --device cpu): the same
 output tree, file for file, the saved predictions within 1e-5, and the
 entry point's predictions equal to the per-package engine's run directly;
-``--scan_chunk`` within 1e-5 of the per-package engine.
+``--scan_chunk`` and ``--lanes 2`` within 1e-5 of the per-package
+engine.
 ``python -m rpg_ramnet_tpu_torch.stream`` and ``depth_stream.py`` on the
 same synthetic event log: the same windows, depth maps within 1e-5.
 The JAX CLIs run as subprocesses on the CPU; the port's in-process.
@@ -137,9 +138,16 @@ def test_eval_scan_chunk_matches_per_package(setup, monkeypatch):
         for k in per_package[idx]:
             np.testing.assert_allclose(chunked[idx][k], per_package[idx][k],
                                        atol=ATOL)
-    for flag in ("--lanes", "--mesh"):
-        with pytest.raises(NotImplementedError, match="item 1[45]"):
-            eval_main(base + [flag, "2"])
+    with pytest.raises(NotImplementedError, match="item 15"):
+        eval_main(base + ["--mesh", "2"])
+    # lane-batched streaming runs: two lanes, one sequence each
+    lanes = {}
+    eval_main(base + ["--lanes", "2"], on_prediction=lanes.__setitem__)
+    assert sorted(lanes) == sorted(per_package)
+    for idx in per_package:
+        for k in per_package[idx]:
+            np.testing.assert_allclose(lanes[idx][k], per_package[idx][k],
+                                       atol=ATOL)
 
 
 def _event_log(path, n, height, width, seed=0):

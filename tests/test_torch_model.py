@@ -232,6 +232,7 @@ def test_port_imports_no_jax():
         "import rpg_ramnet_tpu_torch.train.__main__\n"
         "import rpg_ramnet_tpu_torch.eval.__main__, rpg_ramnet_tpu_torch.stream\n"
         "import rpg_ramnet_tpu_torch.eval.filters, rpg_ramnet_tpu_torch.eval.writers\n"
+        "import rpg_ramnet_tpu_torch.eval.evaluation\n"
         "import rpg_ramnet_tpu_torch.ops.voxel, rpg_ramnet_tpu_torch.ops.event_preprocess\n"
         "import rpg_ramnet_tpu_torch.utils.event_readers, rpg_ramnet_tpu_torch.options\n"
         "import rpg_ramnet_tpu_torch.ops.gru_pair, rpg_ramnet_tpu_torch.ops.gru_stream\n"

@@ -9,8 +9,8 @@ JAX with fused_gru='on' and its Pallas kernel in interpret mode, at 5e-2
 on the sigmoid predictions; the host pieces of the live path
 (``CropParameters``, ``EventPreprocessor``, ``UnsharpMaskFilter``, both
 event readers, metrics, ``optimal_scale``) against the JAX package's; and
-the checkpoint loader, the unported options and the decoder's opt-in
-ones.
+the checkpoint loader, a per-lane reset mask in forward_package against
+JAX's, the unported options and the decoder's opt-in ones.
 """
 import dataclasses
 import os
@@ -143,10 +143,24 @@ def test_unported_options_raise():
     _, _, model = _models()
     with pytest.raises(NotImplementedError, match="item 15"):
         inference.StreamingInference(model, spatial_mesh=object())
-    pkg = {k: torch.from_numpy(v[None]) for k, v in _packages()[0].items()}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        model.forward_package(model.init_state(1, H, W),
-                              {**pkg, "reset": torch.zeros(1, dtype=torch.bool)})
+    # a per-lane reset mask is ported: forward_package with one against
+    # JAX's, lanes from a non-zero state, lane 0 reset, lane 1 not
+    jcfg, params, _ = _models()
+    fwd = jax.jit(lambda p, s, pkg: JaxModel.forward_package(p, jcfg, s, pkg))
+    j_state, t_state = JaxModel.init_state(jcfg, 2, H, W), model.init_state(2, H, W)
+    pkgs = [{k: np.stack([a[k], b[k]]) for k in a}
+            for a, b in zip(_packages(4), _packages(5))]
+    with torch.inference_mode():
+        for i, pkg in enumerate(pkgs):
+            if i:
+                pkg = {**pkg, "reset": np.array([True, False])}
+            j_state, want = fwd(params, j_state,
+                                {k: jnp.asarray(v) for k, v in pkg.items()})
+            t_state, got = model.forward_package(
+                t_state, {k: torch.from_numpy(v) for k, v in pkg.items()})
+            for k in want:
+                np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                           atol=ATOL_F32)
     # the decoder's opt-in formulations are ported: both configs build
     # and run one package on the CPU (K8's plain version where its gate
     # holds, the composed layers), as the default does
