@@ -25,8 +25,10 @@ TBPTT training of the phased regime (fused_gru='on', B=8, L=10, crop
 ConvLSTM state combination; and lane-batched streaming through the eval
 entry point (--lanes 8 --scan_chunk 4, --lanes 8 with fused_gru='on',
 the phased regime with --lanes 2) with the offline evaluation entry
-(``python -m rpg_ramnet_tpu_torch.eval.evaluation``) on what it wrote.
-It imports nothing of JAX or of the JAX package.
+(``python -m rpg_ramnet_tpu_torch.eval.evaluation``) on what it wrote;
+and the paper's baselines (the recurrent e, rgb and ergb0 recipes and the
+non-recurrent UNet ERGB2Depth) through the eval and training entry
+points.  It imports nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
@@ -197,7 +199,21 @@ Phases, each printed as one JSON line:
                    tables printed: the same keys, frame count and NaN
                    keys, the all-pixel leg finite); lane maps/s beside the
                    single lane's on 8 in-memory sequences of 24 packages,
-                   and each forward alone at B = 8 and B = 1.
+                   and each forward alone at B = 8 and B = 1;
+ 22. baselines     the paper's baselines, their config files as shipped
+                   (float32) with the paths, crop and batch set in code:
+                   baseline_e, baseline_rgb, baseline_ergb (ergb0) and
+                   baseline_ergb_no_recurrent (ERGB2Depth, raw events in
+                   the folder its config names) through the eval entry
+                   point per package on two on-disk sequences of 8 and 5
+                   packages at 256x512: finite maps in [0, 1] under the
+                   keys prediction_keys names, ERGB2Depth with
+                   --scan_chunk 4 against its per-package run; the ergb0
+                   recipe in bf16 with fused_decoder='on' (K8, three
+                   launches per package) against 'off'; training through
+                   the training entry point (baseline_ergb and
+                   no_recurrent, B=4, L=10, crop 224, two steps and one
+                   validation batch): finite losses, peak memory.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -328,6 +344,24 @@ PHASED_LANES = 2
 PHASED_LANE_SEQ_LENGTHS = (4, 2, 3)
 PHASED_LANE_CELLS = tuple((PHASED_LANES,) + c[1:] for c in PHASED_CELLS)
 LANE_TIMING_SEQ_LENGTHS = (24,) * LANES
+# the paper's baselines (phase 22): the four shipped recipes, read as
+# shipped (float32, base 32, 3 encoders, K=5) with the paths, crop and
+# batch set in code; two on-disk test sequences of 8 and 5 packages at
+# HxW, the no_recurrent one's chunked run against its per-package run;
+# the ergb0 recipe again in bf16 with fused_decoder 'on' (K8) against
+# 'off'; BASELINE_TRAIN_STEPS training steps of two recipes at B=4, L=10,
+# crop 224 (cut: the data)
+BASELINE_CONFIGS = {
+    "e": "configs/train_e2depth_si_grad_loss_statenet_baseline_e.json",
+    "rgb": "configs/train_e2depth_si_grad_loss_statenet_baseline_rgb.json",
+    "ergb0": "configs/train_e2depth_si_grad_loss_statenet_baseline_ergb.json",
+    "no_recurrent":
+        "configs/train_e2depth_si_grad_loss_statenet_baseline_ergb_no_recurrent.json"}
+BASELINE_SEQ_LENGTHS = (8, 5)
+BASELINE_CHUNK = 4
+BASELINE_CHUNK_TOL = 1e-4
+BASELINE_TRAIN_B = 4
+BASELINE_TRAINED = ("ergb0", "no_recurrent")
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -3044,6 +3078,152 @@ def lane_phases(cfg, K, dev, seed, smi):
             "k9": c_pair[0], "k3_k4": runs["chunked_lanes"][1]}
 
 
+def baseline_raw(name, tmp, **trainer):
+    """A baseline config file's dict as shipped, with the run directory in
+    tmp, the splits 'train'/'val' (step_size 1), batch BASELINE_TRAIN_B
+    and crop TRAIN_CROP, and the trainer keys given."""
+    with open(os.path.join(ROOT, BASELINE_CONFIGS[name])) as f:
+        raw = json.load(f)
+    raw["name"] = f"smoke_baseline_{name}"
+    raw["trainer"].update(save_dir=os.path.join(tmp, "runs"), **trainer)
+    raw["data_loader"].update(batch_size=BASELINE_TRAIN_B,
+                              crop_size=TRAIN_CROP)
+    for split, folder in (("train", "train"), ("validation", "val")):
+        raw["data_loader"][split].update(base_folder=folder, step_size=1)
+    return raw
+
+
+def raw_event_files(root):
+    """Copy every sequence's raw event files (events/data/*_events.npy)
+    into events/voxels, the folder the baseline configs name: the
+    no_recurrent recipe reads them there (RawEventsDataset)."""
+    import glob
+    import shutil
+    for src in glob.glob(os.path.join(root, "**", "events", "data",
+                                      "*_events.npy"), recursive=True):
+        shutil.copy(src, src.replace(os.path.join("events", "data"),
+                                     os.path.join("events", "voxels")))
+
+
+def baseline_phases(dev, seed, smi):
+    """Phase 22: the four baseline recipes through the eval entry point per
+    package at HxW on an on-disk split of BASELINE_SEQ_LENGTHS packages
+    (finite maps in [0, 1] under the keys prediction_keys names), the
+    no_recurrent recipe also with --scan_chunk BASELINE_CHUNK against its
+    per-package run; the ergb0 recipe in bf16 with fused_decoder 'on' (K8,
+    three launches per decode pass) against 'off'; TBPTT training through
+    the training entry point for the BASELINE_TRAINED recipes (as shipped:
+    the in-scan decode path, and raw events for no_recurrent).  One JSON
+    line per part; returns what the kernels line reads."""
+    import torch
+    from rpg_ramnet_tpu_torch.core.config import Config
+    from rpg_ramnet_tpu_torch.models import build_model, prediction_keys
+    from rpg_ramnet_tpu_torch.ops import upsample_conv
+    from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
+    t_phase = time.perf_counter()
+    n_pkg = sum(BASELINE_SEQ_LENGTHS)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_baselines_") as tmp:
+        t0 = time.perf_counter()
+        K = Config.load(os.path.join(
+            ROOT, BASELINE_CONFIGS["ergb0"])).model.every_x_rgb_frame
+        write_split(tmp, BASELINE_SEQ_LENGTHS, K, seed + 22, H, W)
+        raw_event_files(tmp)
+        data_s = time.perf_counter() - t0
+
+        def files(name, model_over=None, tag=""):
+            raw = baseline_raw(name, tmp)
+            raw["model"].update(model_over or {})
+            cfg = Config.from_dict(raw)
+            model = build_model(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(seed))
+            cfg_path = os.path.join(tmp, f"{name}{tag}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(raw, f)
+            ckpt = os.path.join(tmp, f"{name}{tag}.pth.tar")
+            export_pth_tar(ckpt, model, raw["arch"], raw)
+            return cfg, cfg_path, ckpt
+
+        runs = {}
+        for name in BASELINE_CONFIGS:
+            cfg, cfg_path, ckpt = files(name)
+            preds, _, wall, stats = run_eval_entry(
+                cfg_path, ckpt, tmp, [upsample_conv.upsample_conv_fused])
+            keys = ({"image"} if cfg.arch == "ERGB2Depth"
+                    else set(prediction_keys(cfg.model)))
+            shapes = {v.shape for p in preds.values() for v in p.values()}
+            runs[name] = {"arch": cfg.arch, "baseline": cfg.model.baseline,
+                          "items": len(preds), "keys": sorted(keys),
+                          "eval_entry_wall_s": wall, **stats}
+            if (len(preds) != n_pkg or stats["nonfinite"]
+                    or stats["out_of_range"] or shapes != {(H, W, 1)}
+                    or any(set(p) != keys for p in preds.values())):
+                raise AssertionError(f"baseline {name}: {runs[name]}, "
+                                     f"shapes {shapes}")
+            if name == "no_recurrent":
+                chunked, _, cwall, cstats = run_eval_entry(
+                    cfg_path, ckpt, tmp, [upsample_conv.upsample_conv_fused],
+                    extra=("--scan_chunk", str(BASELINE_CHUNK)))
+                err = max_pred_diff(chunked, preds)
+                runs[name].update(chunked_items=len(chunked),
+                                  chunked_wall_s=cwall,
+                                  chunked_max_abs_err_vs_per_package=err,
+                                  chunked_tol=BASELINE_CHUNK_TOL)
+                if len(chunked) != n_pkg or not err <= BASELINE_CHUNK_TOL:
+                    raise AssertionError(f"no_recurrent chunked: {runs[name]}")
+        check_no_jax()
+        emit({"phase": "baselines", "H": H, "W": W, "K": K,
+              "sequences": list(BASELINE_SEQ_LENGTHS),
+              "configs": BASELINE_CONFIGS, "dtype": "float32",
+              "runs": runs, "data_write_s": data_s, "nvidia_smi": smi})
+
+        # K8 on the ergb0 recipe's decoder in bf16, 'on' against 'off'
+        n_dec = 3 * n_pkg          # one decode pass per package, 3 layers
+        k8 = {}
+        for mode in ("on", "off"):
+            _, cfg_path, ckpt = files("ergb0", {"compute_dtype": "bfloat16",
+                                                "fused_decoder": mode},
+                                      f"_bf16_{mode}")
+            k8[mode] = run_eval_entry(cfg_path, ckpt, tmp,
+                                      [upsample_conv.upsample_conv_fused])
+        launches = k8["on"][1][0]
+        err = max_pred_diff(k8["on"][0], k8["off"][0])
+        out["k8"] = {"launches": launches, "expected": n_dec,
+                     "off_launches": k8["off"][1][0],
+                     "max_abs_err_vs_off": err, "tol": SLICE_TOL,
+                     "items": len(k8["on"][0]),
+                     "eval_entry_wall_s_on_off": [k8["on"][2], k8["off"][2]],
+                     **k8["on"][3]}
+        if (launches != n_dec or k8["off"][1][0] or not err <= SLICE_TOL
+                or k8["on"][3]["nonfinite"] or k8["on"][3]["out_of_range"]):
+            raise AssertionError(f"ergb0 with K8: {out['k8']}")
+        emit({"phase": "baselines_k8", "config": BASELINE_CONFIGS["ergb0"],
+              "compute_dtype": "bfloat16", **out["k8"], "nvidia_smi": smi})
+
+    # training through the entry point, the recipes as shipped
+    trained = {}
+    for name in BASELINE_TRAINED:
+        with tempfile.TemporaryDirectory(prefix="ramnet_smoke_btrain_") as tmp:
+            t0 = time.perf_counter()
+            write_train_data(os.path.join(tmp, "data"), K, seed + 23,
+                             batch=BASELINE_TRAIN_B)
+            raw_event_files(os.path.join(tmp, "data"))
+            data_s = time.perf_counter() - t0
+            raw = baseline_raw(name, tmp, epochs=1, save_freq=1, log_every=1,
+                               sequence_length=TRAIN_L)
+            trained[name] = {"arch": raw["arch"], "data_write_s": data_s,
+                             **run_training(raw, tmp, {
+                                 "k8": (upsample_conv.upsample_conv_fused, 0)})}
+    check_no_jax()
+    emit({"phase": "baselines_train", "B": BASELINE_TRAIN_B, "L": TRAIN_L,
+          "crop": TRAIN_CROP, "steps": TRAIN_STEPS, "dtype": "float32",
+          "runs": trained, "nvidia_smi": smi})
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit({"phase": "baselines_done", "phase_s": out["phase_s"],
+          "nvidia_smi": smi})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3341,6 +3521,9 @@ def main() -> int:
     #        lanes x chunk, per package and phased through the eval entry
     lanes = lane_phases(cfg, K, dev, args.seed, smi)
 
+    # 22. the paper's baselines through the eval and training entry points
+    baselines = baseline_phases(dev, args.seed, smi)
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     v1m = vox_times["1M"]
     vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
@@ -3480,14 +3663,17 @@ def main() -> int:
                    (S * k11_bound[0], k11_bound[1])),
              wrapper_ms=sum(chunk_cells[f"k11_{k}"]["wrapper_us"] for k in flagship_keys) / 1e3,
              plan={k: chunk_cells[f"k11_{k}"]["plan"] for k in flagship_keys}),
-        entry("upsample_conv", "upsample_conv.cu",
-              "rpg_ramnet_tpu/ops/upsample_conv.py:203",
-              dec_variants["k8"]["launches"]["k8"],
-              max(r["k8_rel_err"] for r in dec_errs.values()),
-              composed_rule["sum_us_batch96"]["k8"] / 1e3,
-              composed_rule["sum_us_batch96"]["two_stage"] / 1e3,
-              decoder_bound(96),
-              composed_rule["sum_us_batch96"]["composed"] / 1e3),
+        dict(entry("upsample_conv", "upsample_conv.cu",
+                   "rpg_ramnet_tpu/ops/upsample_conv.py:203",
+                   dec_variants["k8"]["launches"]["k8"]
+                   + baselines["k8"]["launches"],
+                   max(r["k8_rel_err"] for r in dec_errs.values()),
+                   composed_rule["sum_us_batch96"]["k8"] / 1e3,
+                   composed_rule["sum_us_batch96"]["two_stage"] / 1e3,
+                   decoder_bound(96),
+                   composed_rule["sum_us_batch96"]["composed"] / 1e3),
+             launches_by_path={"chunked": dec_variants["k8"]["launches"]["k8"],
+                               "baseline_ergb0": baselines["k8"]["launches"]}),
         entry("lstm_hside_res", "lstm_hside.cu",
               "rpg_ramnet_tpu/ops/gru_hside.py:356",
               ph_train["launches"]["k3_res"],

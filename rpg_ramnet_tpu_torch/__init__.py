@@ -11,7 +11,10 @@ Layout (each module names its JAX counterpart):
                         parsed from the reference JSON schema
   models/layers.py      conv layers and the ConvGRU cell (nn.Modules)
   models/statenet.py    encoders, x-side gates, h-side combination, decoder
-  models/model.py       ERGB2DepthRecurrent (inference and training forwards)
+                        (the baselines: the image branch alone)
+  models/unet.py        the plain UNet of the non-recurrent baseline
+  models/model.py       ERGB2DepthRecurrent (inference and training forwards),
+                        ERGB2Depth; models.build_model picks one by arch
   ops/gru_hside.py      the ConvGRU h-side cell: kernels K1, K1-res, K2, the
                         ConvGRUHside autograd.Function, plain versions
   ops/gradient.py       sobel gradients and pooling for the gradient loss

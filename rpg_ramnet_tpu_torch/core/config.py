@@ -6,7 +6,8 @@ the ported slices read, with the JAX package's defaults.  These are the
 port's own classes so that it loads nothing of the JAX package.
 ``ModelConfig.from_dict`` reads a config file's ``model`` section and
 inherits ``every_x_rgb_frame`` and ``baseline`` from ``data_loader.train``
-as the reference's train.py does.
+as the reference's train.py does, and ``loss_composition`` from ``trainer``
+as the JAX ``Config.from_dict`` does (``event_loop_range`` reads it).
 """
 from __future__ import annotations
 
@@ -28,7 +29,11 @@ class ModelConfig:
     norm: Optional[str] = None
     use_upsample_conv: bool = True
     every_x_rgb_frame: int = 1
-    baseline: Union[bool, str] = False
+    baseline: Union[bool, str] = False      # False | 'rgb' | 'e' | 'ergb' | 'ergb0'
+    # the supervised keys, inherited from trainer.loss_composition; a
+    # baseline 'e' runs K-1 event steps only where it is the string
+    # 'image' (model.event_loop_range, as JAX), never for a list
+    loss_composition: Union[bool, str, Tuple[str, ...]] = False
     num_output_channels: int = 1
     activation: str = "sigmoid"
     # the post-conv feature map of the first phased encoder is
@@ -67,6 +72,8 @@ class ModelConfig:
         if "spatial_resolution" in kw:
             kw["spatial_resolution"] = tuple(int(v) for v in
                                              kw["spatial_resolution"])
+        if isinstance(kw.get("loss_composition"), list):
+            kw["loss_composition"] = tuple(kw["loss_composition"])
         return ModelConfig(**kw)
 
     @staticmethod
@@ -77,6 +84,8 @@ class ModelConfig:
         model_d.setdefault("every_x_rgb_frame",
                            train_d.get("every_x_rgb_frame", 1))
         model_d.setdefault("baseline", train_d.get("baseline", False))
+        model_d.setdefault("loss_composition", cfg.get("trainer", {}).get(
+            "loss_composition", False))
         model_d.setdefault("use_phased_arch", cfg.get("use_phased_arch", False))
         return ModelConfig.from_dict(model_d)
 

@@ -31,9 +31,12 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
                            every_x_rgb_frame: int = 1, normalize: bool = True,
                            scale_factor: float = 1.0, reg_factor: float = 5.7,
                            load_semantic: bool = False,
-                           use_phased_arch: bool = False
+                           use_phased_arch: bool = False, baseline=False,
+                           loss_composition=False, recurrency: bool = True
                            ) -> "ConcatSequenceDataset":
-    """One dataset per sequence subfolder, concatenated (train.py:37-75)."""
+    """One dataset per sequence subfolder, concatenated (train.py:37-75);
+    baseline, loss_composition and recurrency go to each dataset (JAX
+    loader.py:29-48)."""
     if dataset_type not in DATASETS:
         raise NotImplementedError(
             f"dataset type {dataset_type!r} is not ported yet: ROADMAP queue "
@@ -48,7 +51,9 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
             step_size=step_size, clip_distance=clip_distance,
             every_x_rgb_frame=every_x_rgb_frame, normalize=normalize,
             scale_factor=scale_factor, reg_factor=reg_factor,
-            load_semantic=load_semantic, use_phased_arch=use_phased_arch)
+            load_semantic=load_semantic, use_phased_arch=use_phased_arch,
+            baseline=baseline, loss_composition=loss_composition,
+            recurrency=recurrency)
         for name in sorted(os.listdir(base_folder))])
 
 

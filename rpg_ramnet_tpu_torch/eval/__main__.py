@@ -19,6 +19,9 @@ scale and metric lines:
   --precompute_x, --decode_keys, --dataset_reg_factor   as test.py
   --device          'cuda' (default) or 'cpu'
 
+The model is the config's ``arch``: ERGB2DepthRecurrent (baselines
+included, their datasets packed as the baseline asks) or ERGB2Depth,
+whose dataset reads raw events (recurrency off, test.py:93).
 In the phased regime (the config's top-level use_phased_arch) the
 dataset's items carry their timestamps, which go into each package as
 test.py passes them.  Behaviour kept from test.py: the state resets at
@@ -88,7 +91,7 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
 
     from ..core.config import Config
     from ..data import CenterCrop, concatenate_subfolders
-    from ..models import ERGB2DepthRecurrent
+    from ..models import build_model
     from ..train.checkpoint import load_any
     from ..utils import require_cuda
     from .inference import (StreamingInference, optimal_scale,
@@ -113,9 +116,11 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
         # test.py's quirk, kept for output parity: its datasets load depth
         # targets with reg_factor 5.7 whatever the config says
         reg_factor=args.dataset_reg_factor, use_phased_arch=cfg.use_phased_arch,
-        load_semantic=bool(args.output_path))
+        load_semantic=bool(args.output_path), baseline=vd.baseline,
+        loss_composition=cfg.trainer.loss_composition,
+        recurrency=cfg.arch != "ERGB2Depth")
 
-    model = ERGB2DepthRecurrent(cfg.model, device=device)
+    model = build_model(cfg, device=device)
     load_any(args.path_to_model, model)
     print(f"Loading model weights from: {args.path_to_model}")
     print(f"{cfg.arch}: {sum(p.numel() for p in model.parameters())} "

@@ -22,7 +22,11 @@ Counterpart of ``rpg_ramnet_tpu/eval/inference.py``:
   mask per step and lane;
 - ``CropParameters``, ``optimal_crop_size`` and ``optimal_scale``.
 
-Behaviour kept from the JAX engines: the recurrent state is carried
+Every engine takes ERGB2DepthRecurrent (baselines included: they route
+as any config without x precompute) and ERGB2Depth, the stateless UNet,
+which runs its ``forward_package`` per package and its
+``forward_sequence`` per chunk, as JAX's fallback does (resets are moot
+without state).  Behaviour kept from the JAX engines: the recurrent state is carried
 across the packages and chunks of a sequence and re-zeroed at every
 sequence boundary; the tail chunk is zero-padded to the chunk length
 (padding only touches the post-sequence state, which is discarded); lanes
@@ -36,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -44,8 +48,10 @@ import torch.nn.functional as F
 
 from ..core.config import ModelConfig
 from ..models import statenet
-from ..models.model import ERGB2DepthRecurrent
+from ..models.model import ERGB2Depth, ERGB2DepthRecurrent
 from ..utils.layout import to_nchw, to_nhwc
+
+Model = Union[ERGB2DepthRecurrent, ERGB2Depth]
 
 
 def optimal_crop_size(max_size: int, max_subsample_factor: int) -> int:
@@ -120,7 +126,7 @@ class StreamingInference:
     layers; ``step_modality`` does none of these.  Runs under
     inference_mode."""
 
-    def __init__(self, model: ERGB2DepthRecurrent, decode_keys=None,
+    def __init__(self, model: Model, decode_keys=None,
                  batched_decode: bool = False, spatial_mesh=None):
         if spatial_mesh is not None:
             raise NotImplementedError(
@@ -129,7 +135,9 @@ class StreamingInference:
         self.model = model
         self.cfg = model.cfg
         self.decode_keys = tuple(decode_keys) if decode_keys else None
-        self.batched_decode = batched_decode and self.decode_keys is None
+        self.batched_decode = (batched_decode and self.decode_keys is None
+                               and hasattr(model,
+                                           "forward_package_batched_decode"))
         self.allow_fused = model.cfg.fused_gru == "on"
         self.allow_composed = model.cfg.composed_decoder == "on"
         self._state = None
@@ -165,7 +173,11 @@ class StreamingInference:
         """Single-modality streaming (the events-only live path): one
         encoder sweep and one decode.  x: [H, W, C] unbatched -> [H, W, 1]
         float32, a numpy array for a numpy input, else a tensor on the
-        model's device."""
+        model's device.  StateNet's modalities only: ERGB2Depth has
+        none."""
+        if not hasattr(self.model, "statenetphasedrecurrent"):
+            raise ValueError(f"{type(self.model).__name__} has no modality "
+                             "branches to stream one at a time")
         net = self.model.statenetphasedrecurrent
         as_numpy = isinstance(x, np.ndarray)
         xt = _as_input(x, self.model.device)[None]
@@ -180,19 +192,23 @@ class StreamingInference:
         return pred.cpu().numpy() if as_numpy else pred
 
 
-def _resolve_precompute(cfg: ModelConfig,
-                        precompute_x: Optional[bool]) -> bool:
+def _resolve_precompute(cfg: ModelConfig, precompute_x: Optional[bool],
+                        model=None) -> bool:
     """Tri-state precompute_x: None = auto (on for bf16 compute on the
     configs whose x side is state-independent, where the JAX package
     measured it faster), True forces (the model raises where the config
-    does not support it), False is off."""
+    does not support it), False is off.  Never for a model without the
+    precomputed path (ERGB2Depth)."""
+    if model is not None and not hasattr(model,
+                                         "forward_sequence_precomputed"):
+        return False
     if precompute_x is None:
         return (statenet.supports_x_precompute(cfg)
                 and cfg.compute_dtype == "bfloat16")
     return bool(precompute_x)
 
 
-def _chunk_forward(model: ERGB2DepthRecurrent,
+def _chunk_forward(model: Model,
                    precompute_x: Optional[bool], decode_keys=None,
                    batched_decode: bool = True):
     """forward(state, seq) of the chunked engines, routed as JAX
@@ -201,12 +217,13 @@ def _chunk_forward(model: ERGB2DepthRecurrent,
     forward_sequence_batched_decode with the cells' kernels allowed only
     for fused_gru='on', the fused_decoder policy (K8) allowed, and the
     composed layers only for composed_decoder='on'; without
-    batched_decode, forward_sequence (per-step decodes, no kernels)."""
+    batched_decode, forward_sequence (per-step decodes, no kernels).  A
+    model without deferred decode (ERGB2Depth) takes forward_sequence."""
     cfg = model.cfg
-    if batched_decode and _resolve_precompute(cfg, precompute_x):
+    if batched_decode and _resolve_precompute(cfg, precompute_x, model):
         return lambda state, seq: model.forward_sequence_precomputed(
             state, seq, decode_keys=decode_keys)
-    if batched_decode:
+    if batched_decode and hasattr(model, "forward_sequence_batched_decode"):
         flags = dict(allow_fused=cfg.fused_gru == "on",
                      allow_fused_decoder=True,
                      allow_composed=cfg.composed_decoder == "on")
@@ -267,7 +284,7 @@ class SequenceScanInference:
     as in JAX, which runs forward_sequence: bit-identical to per-package
     streaming (``StreamingInference``)."""
 
-    def __init__(self, model: ERGB2DepthRecurrent, chunk: int = 32,
+    def __init__(self, model: Model, chunk: int = 32,
                  batched_decode: bool = False,
                  precompute_x: Optional[bool] = None):
         self.model = model
@@ -298,7 +315,7 @@ class SequenceScanInference:
 
 
 @torch.inference_mode()
-def run_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
+def run_chunked_streaming(dataset, model: Model,
                           chunk: int = 16, on_prediction=None,
                           batched_decode: bool = True, decode_keys=None,
                           precompute_x: Optional[bool] = None) -> None:
@@ -362,7 +379,7 @@ class BatchedStreamingInference:
     composed layers only for ``cfg.composed_decoder == 'on'``.  mesh (lanes
     sharded over devices) is not ported."""
 
-    def __init__(self, model: ERGB2DepthRecurrent, n_lanes: int, height: int,
+    def __init__(self, model: Model, n_lanes: int, height: int,
                  width: int, mesh=None):
         _mesh_unported(mesh)
         self.model = model
@@ -472,7 +489,7 @@ def _hand_out(on_prediction, preds, metas) -> None:
 
 
 @torch.inference_mode()
-def run_batched_streaming(dataset, model: ERGB2DepthRecurrent,
+def run_batched_streaming(dataset, model: Model,
                           n_lanes: int = 4, on_prediction=None,
                           mesh=None) -> None:
     """Lane-batched streaming over a ConcatSequenceDataset-like ``dataset``
@@ -498,7 +515,7 @@ def run_batched_streaming(dataset, model: ERGB2DepthRecurrent,
 
 
 @torch.inference_mode()
-def run_batched_chunked_streaming(dataset, model: ERGB2DepthRecurrent,
+def run_batched_chunked_streaming(dataset, model: Model,
                                   n_lanes: int = 8, chunk: int = 2,
                                   on_prediction=None, decode_keys=None,
                                   precompute_x: Optional[bool] = None,

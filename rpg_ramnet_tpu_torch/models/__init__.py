@@ -1,3 +1,29 @@
-from .model import ERGB2DepthRecurrent, event_loop_range, prediction_keys
+from typing import Optional
 
-__all__ = ["ERGB2DepthRecurrent", "event_loop_range", "prediction_keys"]
+import torch
+
+from ..core.config import Config
+from .model import ERGB2Depth, ERGB2DepthRecurrent, event_loop_range, prediction_keys
+
+# a config's "arch" -> the port's model class (the MODELS entries of JAX
+# core/registry.py that the port has)
+MODELS = {"ERGB2DepthRecurrent": ERGB2DepthRecurrent, "ERGB2Depth": ERGB2Depth}
+
+
+def get_model(arch: str):
+    """The model class a config's ``arch`` names."""
+    if arch not in MODELS:
+        raise KeyError(f"unknown arch {arch!r}; the port has {sorted(MODELS)}")
+    return MODELS[arch]
+
+
+def build_model(cfg: Config, device=None,
+                generator: Optional[torch.Generator] = None):
+    """A new model of the config file's ``arch`` and ``model`` section on
+    ``device``, its weights drawn from ``generator`` (seeded 0 when
+    None)."""
+    return get_model(cfg.arch)(cfg.model, device=device, generator=generator)
+
+
+__all__ = ["ERGB2Depth", "ERGB2DepthRecurrent", "MODELS", "build_model",
+           "event_loop_range", "get_model", "prediction_keys"]

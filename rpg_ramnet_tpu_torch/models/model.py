@@ -1,7 +1,10 @@
-"""ERGB2DepthRecurrent, the RAM-Net model (RAM_Net/model/model.py:114-219).
+"""ERGB2DepthRecurrent, the RAM-Net model (RAM_Net/model/model.py:114-219),
+and ERGB2Depth, the non-recurrent UNet baseline (model.py:79-111).
 
 Counterpart of ``rpg_ramnet_tpu/models/model.py`` for the recipes that
-``statenet`` ports.
+``statenet`` and ``unet`` port.  A baseline's events run through the
+image branch, K-1 of them per package for 'ergb0' (and for 'e' when
+loss_composition is the string 'image'), none otherwise.
 A datapackage is {'events': [B, K, H, W, Ce], 'image': [B, H, W, Ci]}: K
 event voxel grids, then one frame; in the phased regime also
 'times_events' [B, K] and 'times_image' [B], the steps' timestamps.  The
@@ -36,13 +39,19 @@ from torch.utils.checkpoint import checkpoint
 from ..core.config import ModelConfig
 from ..ops import gru_chunk, gru_hside, gru_stream
 from ..utils.layout import to_nchw, to_nhwc
-from . import statenet
+from . import statenet, unet
 
 
 def event_loop_range(cfg: ModelConfig) -> int:
-    """Number of event sub-steps per datapackage (model/model.py:161-175);
-    baselines are not ported, so it is every_x_rgb_frame."""
-    return cfg.every_x_rgb_frame
+    """Number of event sub-steps per datapackage (model/model.py:161-175).
+    JAX compares loss_composition with the string 'image', so a list such
+    as the shipped ["image"] gives a baseline 'e' no event steps."""
+    if not cfg.is_baseline:
+        return cfg.every_x_rgb_frame
+    if cfg.baseline == "ergb0" or (
+            cfg.baseline == "e" and cfg.loss_composition == "image"):
+        return cfg.every_x_rgb_frame - 1
+    return 0
 
 
 def prediction_keys(cfg: ModelConfig) -> Tuple[str, ...]:
@@ -88,10 +97,12 @@ def _apply_reset(reset: Optional[torch.Tensor], tree):
 
 def _package_steps(cfg: ModelConfig, pkg):
     """(key, NCHW input, modality, timestamps [B] or None) of a package's
-    K event steps and its image step (model.py:99-118)."""
+    K event steps and its image step (model.py:99-118); a baseline's event
+    steps take the image branch (model.py:98, :248)."""
     times_ev = pkg.get("times_events") if cfg.use_phased_arch else None
     times_im = pkg.get("times_image") if cfg.use_phased_arch else None
-    steps = [(f"events{k}", to_nchw(pkg["events"][:, k]), "events",
+    event_modality = "image" if cfg.is_baseline else "events"
+    steps = [(f"events{k}", to_nchw(pkg["events"][:, k]), event_modality,
               None if times_ev is None else times_ev[:, k])
              for k in range(event_loop_range(cfg))]
     steps.append(("image", to_nchw(pkg["image"]), "image", times_im))
@@ -347,21 +358,34 @@ class ERGB2DepthRecurrent(nn.Module):
         return statenet.map_state(to_nhwc, state), preds
 
     def forward_sequence(self, state, seq,
-                         decode_keys: Optional[Sequence[str]] = None):
+                         decode_keys: Optional[Sequence[str]] = None,
+                         remat: bool = False, squeeze_preds: bool = False):
         """L packages of forward_package in order, decoding after every
-        step (model.py:597-636 for inference: no remat, no norm stats):
-        the reference semantics, bit-identical to per-package streaming.
+        step (model.py:597-672 without remat_chunk and norm stats): the
+        reference semantics, bit-identical to per-package streaming, and
+        the training path without deferred decode.
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
         and in the phased regime 'times_events' [B, L, K] and
         'times_image' [B, L]; 'reset' [B, L] (bool) zeroes a lane's state
-        before the flagged package.  Returns (state, {key: [L, B, H, W,
-        1]})."""
+        before the flagged package.  remat: checkpoint each package, its
+        decodes included (torch.utils.checkpoint, non-reentrant).
+        Returns (state, {key: [L, B, H, W, 1]}, or [L, B, H, W] when
+        squeeze_preds)."""
+        def step(state, pkg):
+            return self.forward_package(state, pkg, decode_keys)
+
         per_key: Dict[str, List[torch.Tensor]] = {}
         for t in range(seq["image"].shape[1]):
             pkg = {k: seq[k][:, t] for k in _SEQ_KEYS if k in seq}
-            state, preds = self.forward_package(state, pkg, decode_keys)
+            if remat:
+                state, preds = checkpoint(step, state, pkg,
+                                          use_reentrant=False,
+                                          preserve_rng_state=False)
+            else:
+                state, preds = step(state, pkg)
             for k, v in preds.items():
-                per_key.setdefault(k, []).append(v)
+                per_key.setdefault(k, []).append(v[..., 0] if squeeze_preds
+                                                 else v)
         return state, {k: torch.stack(v) for k, v in per_key.items()}
 
     @torch.inference_mode()
@@ -406,8 +430,9 @@ class ERGB2DepthRecurrent(nn.Module):
         if not statenet.supports_x_precompute(cfg):
             raise ValueError(
                 "forward_sequence_precomputed requires recurrent_block_type="
-                "'conv' and a convgru/convlstm state combination; got "
-                f"{cfg.recurrent_block_type}/{cfg.state_combination}")
+                "'conv' and a convgru/convlstm state combination "
+                f"(non-baseline); got {cfg.recurrent_block_type}/"
+                f"{cfg.state_combination}")
         sel_keys = [k for k in prediction_keys(cfg)
                     if decode_keys is None or k in decode_keys]
         loop = event_loop_range(cfg)
@@ -486,7 +511,7 @@ class ERGB2DepthRecurrent(nn.Module):
         if package_precompute and not statenet.supports_x_precompute(cfg):
             raise ValueError(
                 "package_precompute requires recurrent_block_type='conv' and "
-                "a convgru/convlstm state combination")
+                "a convgru/convlstm state combination (non-baseline)")
         if package_precompute:
             def step(state, pkg):
                 return _package_snapshot_step_pre(net, cfg, state, pkg,
@@ -514,3 +539,64 @@ class ERGB2DepthRecurrent(nn.Module):
         if squeeze_preds:
             preds = {k: v[..., 0] for k, v in preds.items()}
         return statenet.map_state(to_nhwc, state), preds
+
+
+class ERGB2Depth(nn.Module):
+    """The non-recurrent UNet baseline (model.py:79-111), stateless.  Its
+    package input is 'image': the voxel grid of the package's events
+    concatenated with the frame (``SynchronizedFramesEventsRawDataset``).
+    Parameters live under ``unet.`` with the upstream names, float32 and
+    channels_last on ``device``, drawn from ``generator`` (seeded 0 when
+    None), as ERGB2DepthRecurrent's.  Its decoders are the two-stage
+    layers: K8 and the composed layers are StateNet's alone."""
+
+    def __init__(self, cfg: ModelConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        with torch.device("meta"):
+            self.unet = unet.UNet(cfg)
+        self.to_empty(device="cpu")
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.unet.reset_parameters_(generator)
+        self.to(device=device, memory_format=torch.channels_last)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def init_state(self, batch: int, height: int, width: int) -> Tuple:
+        return ()
+
+    def forward_package(self, state, pkg,
+                        decode_keys: Optional[Sequence[str]] = None,
+                        allow_fused: bool = False,
+                        allow_fused_decoder: bool = False,
+                        allow_composed: bool = False):
+        """One package: pkg 'image' [B, H, W, C] (NHWC) or 'image_cf'
+        [B, C, H, W].  The flags are the engines' and change nothing here;
+        a 'reset' mask is moot without state.  Returns (state,
+        {'image': [B, H, W, 1]})."""
+        x = pkg["image_cf"] if "image_cf" in pkg else to_nchw(pkg["image"])
+        return state, {"image": to_nhwc(unet.forward(self.unet, self.cfg,
+                                                     x))}
+
+    def forward_sequence(self, state, seq,
+                         decode_keys: Optional[Sequence[str]] = None,
+                         remat: bool = False, squeeze_preds: bool = False):
+        """L packages as one batch of B*L (model.py:706-745): seq 'image'
+        [B, L, H, W, C], or the time-leading 'image_tcf' [L, B, C, H, W].
+        remat changes nothing (stateless).  Returns (state, {'image':
+        [L, B, H, W, 1]}, or [L, B, H, W] when squeeze_preds)."""
+        if "image_tcf" in seq:
+            img = seq["image_tcf"]
+            l, b = img.shape[:2]
+            x = img.reshape((l * b,) + img.shape[2:])
+        else:
+            img = seq["image"].movedim(1, 0)            # [L, B, H, W, C]
+            l, b = img.shape[:2]
+            x = to_nchw(img.reshape((l * b,) + img.shape[2:]))
+        pred = to_nhwc(unet.forward(self.unet, self.cfg, x))
+        pred = pred.reshape((l, b) + pred.shape[1:])
+        return state, {"image": pred[..., 0] if squeeze_preds else pred}

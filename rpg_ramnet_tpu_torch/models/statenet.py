@@ -1,19 +1,21 @@
 """StateNet, the RAM-Net recurrent multi-modal UNet.
 
-Counterpart of ``rpg_ramnet_tpu/models/statenet.py`` for two recipes: the
-flagship (recurrent_block_type='conv', state_combination='convgru') with
-its ConvLSTM state-combination variant, and the phased irregular-timestamp
+Counterpart of ``rpg_ramnet_tpu/models/statenet.py`` for three recipes:
+the flagship (recurrent_block_type='conv', state_combination='convgru')
+with its ConvLSTM state-combination variant, the phased irregular-timestamp
 regime (recurrent_block_type='convlstm', use_phased_arch, ConvLSTM or
-ConvGRU state combination); sum skips, no norm, upsample-conv decoders,
-as two-stage layers, the fused decoder kernel K8 or the composed layers.
+ConvGRU state combination), and the baselines (``baseline`` 'rgb', 'e',
+'ergb', 'ergb0': the image branch alone, its ConvGRU output feeding the
+next encoder); sum skips, no norm, upsample-conv decoders, as two-stage
+layers, the fused decoder kernel K8 or the composed layers.
 ``StateNet`` holds the parameters under the upstream names
 (StateNetPhasedRecurrent, RAM_Net/model/statenet.py); the functions below
 are the JAX module's, on NCHW-shaped channels_last tensors.
 
 The state is a ``StateNetState``, as in JAX: per scale a super state
 [B, C_i, H/2^(i+1), W/2^(i+1)], or a (hidden, cell) pair for the ConvLSTM
-state combination, and per modality the phased encoders' (c0, h0) pairs
-(empty tuples for conv encoders).
+state combination (one tensor for a baseline), and per modality the
+phased encoders' (c0, h0) pairs (empty tuples for conv encoders).
 """
 from __future__ import annotations
 
@@ -64,8 +66,16 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations outside the ported
     recipes."""
     unported = []
-    if cfg.is_baseline:
-        unported.append("baselines (ROADMAP queue 1, item 12)")
+    if cfg.baseline not in (False, "rgb", "e", "ergb", "ergb0"):
+        raise ValueError(f"unknown baseline {cfg.baseline!r}")
+    if cfg.is_baseline and cfg.state_combination == "convlstm":
+        # JAX keeps a baseline's super state as one tensor, which its
+        # ConvLSTM cell unpacks as (hidden, cell) over the batch axis: the
+        # reference raises on the first step, so there is nothing to hold
+        # a port to
+        unported.append("baselines with state_combination='convlstm' (the "
+                        "JAX reference raises on them; ROADMAP queue 1, "
+                        "item 12)")
     if cfg.recurrent_block_type not in ("conv", "convlstm"):
         raise KeyError(f"unknown recurrent_block_type "
                        f"{cfg.recurrent_block_type}")
@@ -112,8 +122,13 @@ class StateNet(nn.Module):
         super().__init__()
         check_supported(cfg)
         nb = cfg.base_num_channels
+        # a baseline has the image branch only (statenet.py:76-130 of the
+        # JAX package): its events run through it
+        branches = (("rgb", "images"),) if cfg.is_baseline else (
+            ("rgb", "images"), ("events", "events"))
         self.head_rgb = ConvLayer(cfg.num_bins_rgb, nb, 5, 1, 2)
-        self.head_events = ConvLayer(cfg.num_bins_events, nb, 5, 1, 2)
+        if not cfg.is_baseline:
+            self.head_events = ConvLayer(cfg.num_bins_events, nb, 5, 1, 2)
         sizes = list(zip(cfg.encoder_input_sizes, cfg.encoder_output_sizes))
 
         def encoder(s, i, o):
@@ -124,11 +139,12 @@ class StateNet(nn.Module):
             h, w = (r // 2 ** (s + 1) for r in cfg.spatial_resolution)
             return RecurrentPhasedConvLayer(i, o, h, w)
 
-        for name in ("encoders_rgb", "encoders_events"):
-            setattr(self, name, nn.ModuleList(
+        # registered in the upstream order, which fixes the init's draws
+        for enc, _ in branches:
+            setattr(self, f"encoders_{enc}", nn.ModuleList(
                 encoder(s, i, o) for s, (i, o) in enumerate(sizes)))
-        for name in ("state_combination_images", "state_combination_events"):
-            setattr(self, name, nn.ModuleList(
+        for _, comb in branches:
+            setattr(self, f"state_combination_{comb}", nn.ModuleList(
                 RecurrentConvLayer(o, cfg.state_combination)
                 for _, o in sizes))
         self.resblocks = nn.ModuleList(
@@ -170,7 +186,8 @@ def init_state(cfg: ModelConfig, batch: int, height: int, width: int,
         z = torch.zeros((batch, height // 2 ** (i + 1), width // 2 ** (i + 1),
                          cfg.base_num_channels * 2 ** (i + 1)),
                         dtype=dtype, device=device)
-        supers.append((z, z) if cfg.state_combination == "convlstm" else z)
+        pair = cfg.state_combination == "convlstm" and not cfg.is_baseline
+        supers.append((z, z) if pair else z)
         if cfg.recurrent_block_type == "convlstm":
             encoders.append((z, z))
     return StateNetState(super_states=tuple(supers),
@@ -222,7 +239,10 @@ def forward_modality(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
     kernel K4, the ConvLSTM state combination as kernel K3 (after its x
     side) and the ConvGRU one as kernel K5, instead of the plain layers
     (statenet.py:230-290).  Under autograd K4 and K3 are their Functions
-    (K4-res, K3-res, with gradients); K5 is inference only and raises."""
+    (K4-res, K3-res, with gradients); K5 is inference only and raises.
+    A baseline's ConvGRU output feeds the next encoder and is the scale's
+    super state (statenet.py:246-258); its cell is the plain layer
+    whatever allow_fused says, as JAX's."""
     head, encoders, combs = net.branch(modality)
     enc_states = (state.events if modality == "events"
                   else state.image).encoders
@@ -240,7 +260,10 @@ def forward_modality(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
         else:
             x = enc(x)
         cell = comb.recurrent_block
-        if cfg.state_combination == "convlstm":
+        if cfg.is_baseline:
+            x = cell(x, prev)
+            supers.append(x)
+        elif cfg.state_combination == "convlstm":
             if allow_fused and use_fused_cell(cfg, prev[0], "lstm"):
                 supers.append(_lstm_hside(cell, cell.x_gates(x), prev))
             else:
@@ -326,7 +349,7 @@ def combine_hside(net: StateNet, cfg: ModelConfig, supers: Sequence,
 def supers_decoder_view(cfg: ModelConfig, supers: Sequence) -> Tuple:
     """The per-scale tensors the decoder reads from a supers tuple: the
     hidden parts of ConvLSTM pairs (statenet.py:292-295)."""
-    if cfg.state_combination == "convlstm":
+    if cfg.state_combination == "convlstm" and not cfg.is_baseline:
         return tuple(s[0] for s in supers)
     return tuple(supers)
 

@@ -17,7 +17,11 @@ written per window:
         [--voxel_backend auto|sortseg|pallas|scatter|matmul]
 
 ``--voxel_backend`` is this entry point's own: 'auto' runs K6 on the
-card, 'pallas' K7.  ``--display`` needs a screen and is not ported.
+card, 'pallas' K7.  ``--display`` needs a screen and is not ported.  A
+baseline streams each window through its image branch (depth_stream.py's
+``modality``), so its num_bins_rgb must be the grid's num_bins_events
+(baseline 'e'); ERGB2Depth has no modality branches and is refused (the
+JAX live path fails on it too).
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ def main(argv: Optional[Sequence[str]] = None, on_window=None) -> int:
     from .eval.filters import ImageFilter, UnsharpMaskFilter
     from .eval.inference import CropParameters, StreamingInference
     from .eval.writers import _imwrite, ensure_dir, make_event_preview
-    from .models import ERGB2DepthRecurrent
+    from .models import build_model
     from .ops.event_preprocess import EventPreprocessor
     from .ops.voxel import events_to_voxel_grid
     from .train.checkpoint import load_any
@@ -80,9 +84,22 @@ def main(argv: Optional[Sequence[str]] = None, on_window=None) -> int:
     else:
         with open(args.config) as f:
             config_dict = json.load(f)
-    mcfg = Config.from_dict(config_dict).model
+    cfg = Config.from_dict(config_dict)
+    mcfg = cfg.model
+    if cfg.arch == "ERGB2Depth":
+        raise ValueError("the live path streams StateNet's modality "
+                         "branches one window at a time; ERGB2Depth has "
+                         "none (depth_stream.py fails on it too)")
+    # events-only streaming: one modality sweep per window, through the
+    # image branch for a baseline (depth_stream.py:112)
+    modality = "image" if mcfg.is_baseline else "events"
+    bins = mcfg.num_bins_rgb if mcfg.is_baseline else mcfg.num_bins_events
+    if bins != mcfg.num_bins_events:
+        raise ValueError(f"the {modality} branch takes {bins} channels, a "
+                         f"window's grid has num_bins_events = "
+                         f"{mcfg.num_bins_events}")
     device = require_cuda() if args.device == "cuda" else torch.device("cpu")
-    model = ERGB2DepthRecurrent(mcfg, device=device)
+    model = build_model(cfg, device=device)
     load_any(args.path_to_model, model)
     model.eval()
 
@@ -117,9 +134,7 @@ def main(argv: Optional[Sequence[str]] = None, on_window=None) -> int:
                                     height=H, width=W,
                                     backend=args.voxel_backend)
         grid = crop.pad(preprocessor(grid.permute(1, 2, 0)))
-        # events-only streaming: one event-modality sweep and one decode
-        # per window, no frame branch between windows
-        pred = engine.step_modality(grid, "events")
+        pred = engine.step_modality(grid, modality)
         depth = bilateral(crop.crop(unsharp(pred))[..., 0].cpu().numpy())
         windows += 1
         if on_window is not None:

@@ -57,7 +57,7 @@ def main(argv: Optional[Sequence[str]] = None):
     from ..core.config import Config
     from ..data import (BatchLoader, CenterCrop, Compose, RandomCrop,
                         RandomRotationFlip, concatenate_subfolders)
-    from ..models import ERGB2DepthRecurrent
+    from ..models import build_model
     from ..utils import require_cuda
     from . import checkpoint
     from .trainer import Trainer
@@ -70,6 +70,8 @@ def main(argv: Optional[Sequence[str]] = None):
     else:
         device = torch.device("cpu")
     root = os.environ["PREPROCESSED_DATASETS_FOLDER"]
+    # the non-recurrent baseline reads raw events (train.py:61,78)
+    recurrency = cfg.arch != "ERGB2Depth"
 
     def build(split, transform):
         return concatenate_subfolders(
@@ -81,7 +83,10 @@ def main(argv: Optional[Sequence[str]] = None):
             step_size=split.step_size, clip_distance=split.clip_distance,
             every_x_rgb_frame=split.every_x_rgb_frame,
             normalize=cfg.normalize, scale_factor=split.scale_factor,
-            reg_factor=split.reg_factor, use_phased_arch=cfg.use_phased_arch)
+            reg_factor=split.reg_factor, use_phased_arch=cfg.use_phased_arch,
+            baseline=split.baseline,
+            loss_composition=cfg.trainer.loss_composition,
+            recurrency=recurrency)
 
     crop = cfg.crop_size
     train_ds = build(cfg.train_data, Compose([RandomRotationFlip(0.0, 0.5, 0.0),
@@ -92,7 +97,7 @@ def main(argv: Optional[Sequence[str]] = None):
     val_loader = BatchLoader(val_ds, cfg.batch_size, shuffle=False,
                              num_workers=cfg.num_workers)
 
-    model = ERGB2DepthRecurrent(cfg.model, device=device)
+    model = build_model(cfg, device=device)
     init = args.initial_checkpoint
     if init is not None:
         if init.endswith((".pth.tar", ".pth")):

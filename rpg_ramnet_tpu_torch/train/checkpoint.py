@@ -6,8 +6,9 @@ RAM_Net/base/base_trainer.py:133-179).  A checkpoint is a directory
 optimizer's state dicts) and ``meta.json`` (epoch, monitor_best, config,
 log); the best by the monitored metric is copied to ``model_best``.
 ``export_pth_tar`` writes a ``.pth.tar`` with the upstream parameter
-names, which the reference implementation and
-``compat.load_reference_checkpoint`` load.
+names (``statenetphasedrecurrent.*`` for ERGB2DepthRecurrent, ``unet.*``
+for ERGB2Depth: the models' own submodule names), which the reference
+implementation and ``compat.load_reference_checkpoint`` load.
 """
 from __future__ import annotations
 

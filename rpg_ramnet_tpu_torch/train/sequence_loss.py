@@ -5,8 +5,12 @@ RAM_Net/trainer/lstm_trainer.py:152-226,228-390): per-step losses for the
 supervised keys (loss_composition/loss_weights), summed over the L packages
 of a window, /L, plus the weighted multi-scale gradient loss and the
 optional downsampled MSE loss.  The window runs through
-``ERGB2DepthRecurrent.forward_sequence_batched_decode`` (the deferred-decode
-branch), which decodes only the supervised keys, once.
+``ERGB2DepthRecurrent.forward_sequence_batched_decode`` with
+trainer.deferred_decode (the supervised keys decoded once, after the
+packages), else through ``forward_sequence`` (a decode per package and
+supervised key, each package checkpointed with its decodes); ERGB2Depth,
+which has no deferred decode, always through its ``forward_sequence``
+(the window as one batch).
 
 Known reference bug (lstm_trainer.py:253,281): all supervised keys alias
 one loss-accumulator dict, so the reference's effective total is num_keys
@@ -23,13 +27,12 @@ import numpy as np
 import torch
 
 from ..core.config import Config
-from ..models import statenet
+from ..models import get_model, statenet, unet
 from ..models.model import prediction_keys
 from . import losses as L
 
-_IN_SCAN = ("the in-scan decode path (forward_sequence with per-step "
-            "decodes, remat_chunk > 1, training-mode BN/IN) is not ported "
-            "yet: ROADMAP queue 1, item 8")
+_IN_SCAN = ("the in-scan decode path with remat_chunk > 1 or "
+            "training-mode BN/IN is not ported yet: ROADMAP queue 1, item 8")
 
 
 def supervised_keys(cfg: Config) -> Tuple[str, ...]:
@@ -71,19 +74,25 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
 
     batch: pack_train_batch's tensors, with 'times_events' [B, L, K] and
     'times_image' [B, L] for the phased regime.  state0: the model's zero
-    state.  The deferred-decode branch of the JAX package
-    (sequence_loss.py:174): trainer.deferred_decode with remat_chunk 1, the
-    package's x side batched when trainer.precompute_x holds, every
-    package checkpointed when ``remat``.  The cells may run the kernels
+    state.  The branches of the JAX package (sequence_loss.py:157-220):
+    the deferred-decode branch for trainer.deferred_decode with
+    remat_chunk 1 (a model without it, ERGB2Depth, takes its
+    forward_sequence), the package's x side batched when
+    trainer.precompute_x holds (never for a baseline, as JAX warns), every
+    package checkpointed when ``remat``; the cells may run the kernels
     where precompute_x holds or fused_gru is 'on' (JAX's allow_fused):
     the ConvGRU and ConvLSTM h-side cells (ConvGRUHside, ConvLSTMHside)
     with precompute_x, else the phased encoders' cells (PhasedCell) and
-    the ConvLSTM state combination's (ConvLSTMHside).  The in-scan branch
-    and the configurations ``statenet.check_supported`` names raise
+    the ConvLSTM state combination's (ConvLSTMHside).  Otherwise the
+    in-scan branch: forward_sequence with its decodes, on the plain
+    cells.  The in-scan branch's remat_chunk > 1 and training-mode BN/IN,
+    and the configurations ``check_supported`` names, raise
     NotImplementedError."""
     mcfg = cfg.model
     tr = cfg.trainer
-    statenet.check_supported(mcfg)
+    model_cls = get_model(cfg.arch)
+    deferred_model = hasattr(model_cls, "forward_sequence_batched_decode")
+    (statenet if deferred_model else unet).check_supported(mcfg)
     keys = supervised_keys(cfg)
     lc = tr.loss_composition
     weights = {k: (tr.loss_weights[list(lc).index(k)] if lc else 1.0)
@@ -125,17 +134,23 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
     allow_fused = pre_x or mcfg.fused_gru == "on"
 
     def loss_fn(model, state0, batch):
-        if not deferred:
-            raise NotImplementedError(_IN_SCAN)
         seq = {k: batch[k] for k in ("events", "image", "times_events",
                                      "times_image") if k in batch}
-        # the composed decoder layers on the L*B*|keys|-deep decode batch
-        # (differentiable; statenet._use_composed_decoder's policy), never
-        # K8, which has no gradient (sequence_loss.py:190-200 of JAX)
-        _, preds = model.forward_sequence_batched_decode(
-            state0, seq, decode_keys=keys, remat=remat, squeeze_preds=True,
-            package_precompute=pre_x, allow_fused=allow_fused,
-            allow_composed=True)
+        if deferred and deferred_model:
+            # the composed decoder layers on the L*B*|keys|-deep decode
+            # batch (differentiable; statenet._use_composed_decoder's
+            # policy), never K8, which has no gradient
+            # (sequence_loss.py:190-200 of JAX)
+            _, preds = model.forward_sequence_batched_decode(
+                state0, seq, decode_keys=keys, remat=remat,
+                squeeze_preds=True, package_precompute=pre_x,
+                allow_fused=allow_fused, allow_composed=True)
+        elif deferred_model and (rc > 1 or train_norm):
+            raise NotImplementedError(_IN_SCAN)
+        else:
+            _, preds = model.forward_sequence(
+                state0, seq, decode_keys=keys, remat=remat,
+                squeeze_preds=True)
         l_steps = batch["image"].shape[1]
         total_si = total_grad = total_mse = 0.0
         per_key: Dict[str, torch.Tensor] = {}

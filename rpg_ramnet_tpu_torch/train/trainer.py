@@ -23,7 +23,7 @@ import torch
 from ..compat import load_reference_checkpoint
 from ..core.config import Config
 from ..data.loader import BatchLoader
-from ..models.model import ERGB2DepthRecurrent
+from ..models import build_model
 from . import checkpoint
 from .optim import lr_at_epoch, make_optimizer, set_learning_rate
 from .sequence_loss import pack_train_batch
@@ -44,7 +44,7 @@ class JsonlLogger:
 
 
 class Trainer:
-    """Trains ``model`` (a fresh ERGB2DepthRecurrent on ``device`` when
+    """Trains ``model`` (a fresh model of cfg.arch on ``device`` when
     None) with cfg's optimizer and schedule.  resume: a checkpoint
     directory of this trainer (model, optimizer, epoch) or a reference
     .pth.tar (weights and epoch; the optimizer starts afresh)."""
@@ -52,7 +52,7 @@ class Trainer:
     def __init__(self, cfg: Config, train_loader: BatchLoader,
                  valid_loader: Optional[BatchLoader] = None,
                  resume: Optional[str] = None,
-                 model: Optional[ERGB2DepthRecurrent] = None,
+                 model: Optional[torch.nn.Module] = None,
                  device: Optional[torch.device] = None,
                  run_dir: Optional[str] = None):
         self.cfg = cfg
@@ -65,8 +65,8 @@ class Trainer:
             json.dump(cfg.raw, f, indent=2)
         self.jsonl = JsonlLogger(join(self.run_dir, "train_log.jsonl"))
         self.ckpt = checkpoint.CheckpointManager(self.run_dir)
-        self.model = model if model is not None else ERGB2DepthRecurrent(
-            cfg.model, device=device)
+        self.model = (model if model is not None
+                      else build_model(cfg, device=device))
         self.device = self.model.device
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.train_step = make_train_step(cfg, self.model, self.optimizer)

@@ -227,7 +227,8 @@ def test_bf16_config_keeps_float32_masters():
 UNPORTED = {
     "remat_policy": ({"trainer": {"remat_policy": "enc_out"}}, "init"),
     "remat_chunk": ({"trainer": {"remat_chunk": 2}}, "call"),
-    "in_scan_decode": ({"trainer": {"deferred_decode": False}}, "call"),
+    "in_scan_decode": ({"trainer": {"deferred_decode": False,
+                                    "remat_chunk": 2}}, "call"),
     "grad_accum": ({"trainer": {"grad_accum": 2}}, "step"),
     "optimizer": ({"optimizer_type": "SGD"}, "optimizer"),
 }
