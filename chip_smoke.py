@@ -26,9 +26,11 @@ ConvLSTM state combination; and lane-batched streaming through the eval
 entry point (--lanes 8 --scan_chunk 4, --lanes 8 with fused_gru='on',
 the phased regime with --lanes 2) with the offline evaluation entry
 (``python -m rpg_ramnet_tpu_torch.eval.evaluation``) on what it wrote;
-and the paper's baselines (the recurrent e, rgb and ergb0 recipes and the
+the paper's baselines (the recurrent e, rgb and ergb0 recipes and the
 non-recurrent UNet ERGB2Depth) through the eval and training entry
-points.  It imports nothing of JAX or of the JAX package.
+points; and the trainer's previews, gradient accumulation, checkpoint
+policies and resume through the training entry point.  It imports
+nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
@@ -213,7 +215,25 @@ Phases, each printed as one JSON line:
                    launches per package) against 'off'; training through
                    the training entry point (baseline_ergb and
                    no_recurrent, B=4, L=10, crop 224, two steps and one
-                   validation batch): finite losses, peak memory.
+                   validation batch): finite losses, peak memory;
+ 23. trainer       the rest of the trainer (previews off in phases 6,
+                   18 and 22): K1-res and K2 at micro-batch 8 (the B=16
+                   recipe under grad_accum 2) against their plain versions,
+                   their plans and device us beside B=16's; the first step
+                   under grad_accum 2 and remat_policy 'gru_gx' against
+                   'off'; the training entry point for 2 epochs of 2 steps
+                   with validation, the flagship's preview settings and
+                   state previews, async checkpoints and a writer that
+                   records the calls (the tags expected given which of
+                   tensorboard, PIL and matplotlib import; K1-res, K2 and
+                   K1 launch counts), then resumed from its epoch-0
+                   checkpoint (epoch 1's parameters against the straight
+                   run's, deterministic library algorithms on); peak memory
+                   and seq/s per (remat_policy, grad_accum) in alternating
+                   rounds, with the spread of identical programs (the
+                   policies are one program in the port); remat_chunk 2
+                   on the ergb0 baseline through the entry point against
+                   remat_chunk 1.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -362,6 +382,18 @@ BASELINE_CHUNK = 4
 BASELINE_CHUNK_TOL = 1e-4
 BASELINE_TRAIN_B = 4
 BASELINE_TRAINED = ("ergb0", "no_recurrent")
+# phase 23: the trainer through the entry point with its previews, the
+# B=16 recipe under grad_accum 2 (K1-res, K2 at micro-batch 8) and
+# remat_policy 'gru_gx' (accepted; the port's checkpoint recomputes each
+# package whole); the policies' and accumulations' peak memory and seq/s;
+# remat_chunk 2 on the ergb0 baseline's in-scan path
+TRAINER_ACCUM, TRAINER_POLICY, TRAINER_EPOCHS = 2, "gru_gx", 2
+MICRO_TRAIN_CELLS = tuple((TRAIN_B // TRAINER_ACCUM,) + c[1:]
+                          for c in TRAIN_CELLS)
+PLAN_OFF_RATIO = 0.6   # a B=8 pick above this share of B=16's time is off
+TRAINER_RUNS = (("none", 1), ("none", 2), ("enc_out", 2), ("gru_gx", 2),
+                ("gru_gx", 1))          # (remat_policy, grad_accum) timed
+REMAT_CHUNK_TOL = 1e-3  # ergb0, remat_chunk 2 vs 1: relative loss difference
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -699,7 +731,7 @@ def launch_device_us(fn, calls):
     return sum(times) / len(times), len(times)
 
 
-def time_train_cells(dev, gen, iters=20):
+def time_train_cells(dev, gen, iters=20, shapes=TRAIN_CELLS):
     """Microseconds per cell of K1-res and K2 and of their plain versions
     at the training shapes, in turns plain, kernel, kernel, plain; each
     kernel also unqueued (its wrapper's time), with its plan, device us
@@ -707,7 +739,7 @@ def time_train_cells(dev, gen, iters=20):
     from rpg_ramnet_tpu_torch.ops import gru_hside
     import torch
     rows = []
-    for shape in TRAIN_CELLS:
+    for shape in shapes:
         _, h, gx, w_ur, w_o = make_cell_inputs(shape, dev, gen)
         g = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
         _, acts = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o)
@@ -857,13 +889,16 @@ def write_train_data(root, K, seed, batch=TRAIN_B):
 
 def train_config(tmp):
     """The flagship config with trainer.precompute_x on, the run directory
-    and data folders in tmp, one epoch, a checkpoint after it."""
+    and data folders in tmp, one epoch, a checkpoint after it, no
+    previews."""
     with open(os.path.join(ROOT, CONFIG)) as f:
         raw = json.load(f)
     raw["name"] = "smoke_train"
+    # previews off: phase 23 drives them
     raw["trainer"].update(precompute_x=True, epochs=1, save_freq=1,
                           log_every=1, save_dir=os.path.join(tmp, "runs"),
-                          sequence_length=TRAIN_L)
+                          sequence_length=TRAIN_L, still_previews=False,
+                          movie=False)
     raw["data_loader"]["batch_size"] = TRAIN_B
     for split, folder in (("train", "train"), ("validation", "val")):
         raw["data_loader"][split].update(base_folder=folder, step_size=1)
@@ -871,18 +906,22 @@ def train_config(tmp):
     return raw
 
 
-def first_step_vs_off(cfg, root, dev, seed, counters):
+def first_step_vs_off(cfg, root, dev, seed, counters, step_grads=False):
     """Loss and every parameter gradient of one window batch
     (cfg.batch_size windows, with timestamps where cfg.use_phased_arch)
     with the kernels (cfg.model.fused_gru, 'auto' or 'on') and with the
     plain layers ('off'), from the same weights.  counters: {name:
     (wrapper, launches expected with the kernels)}; 'off' must launch
-    none.  Returns the batch, both models and the comparison."""
+    none.  step_grads: the gradients of the train step (make_grad_fn:
+    cfg.trainer.grad_accum micro-batches) in place of one backward of the
+    remat'd loss.  Returns the batch, both
+    models and the comparison."""
     import torch
     from rpg_ramnet_tpu_torch.data import BatchLoader, concatenate_subfolders
+    from rpg_ramnet_tpu_torch.data.loader import device_prefetch
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
-    from rpg_ramnet_tpu_torch.train.sequence_loss import (make_sequence_loss,
-                                                          pack_train_batch)
+    from rpg_ramnet_tpu_torch.train.sequence_loss import make_sequence_loss
+    from rpg_ramnet_tpu_torch.train.train_step import make_grad_fn
     split = cfg.train_data
     ds = concatenate_subfolders(
         os.path.join(root, "train"), split.type, split.event_folder,
@@ -891,8 +930,7 @@ def first_step_vs_off(cfg, root, dev, seed, counters):
         every_x_rgb_frame=split.every_x_rgb_frame,
         reg_factor=split.reg_factor, use_phased_arch=cfg.use_phased_arch)
     b = cfg.batch_size
-    batch = pack_train_batch(next(iter(BatchLoader(ds, b, shuffle=False))),
-                             dev)
+    batch = next(device_prefetch(BatchLoader(ds, b, shuffle=False), dev))
     kern = cfg.model.fused_gru
     models, losses, grads, launched = {}, {}, {}, {}
     for mode in (kern, "off"):
@@ -901,9 +939,12 @@ def first_step_vs_off(cfg, root, dev, seed, counters):
         model = ERGB2DepthRecurrent(c.model, device=dev,
                                     generator=torch.Generator().manual_seed(seed))
         n0 = {k: w.launches for k, (w, _) in counters.items()}
-        loss, _ = make_sequence_loss(c, remat=True)(
-            model, model.init_state(b, TRAIN_CROP, TRAIN_CROP), batch)
-        loss.backward()
+        if step_grads:
+            loss = make_grad_fn(c, model)(batch)["loss"]
+        else:
+            loss, _ = make_sequence_loss(c, remat=True)(
+                model, model.init_state(b, TRAIN_CROP, TRAIN_CROP), batch)
+            loss.backward()
         torch.cuda.synchronize()
         launched[mode] = {k: w.launches - n0[k] for k, (w, _) in counters.items()}
         models[mode], losses[mode] = model, loss.item()
@@ -960,14 +1001,15 @@ def time_training(cfg, models, batch, steps=2):
             "train_wall_s_off_on_on_off": walls, "steps_per_run": steps}
 
 
-def run_training(raw, tmp, counters):
+def run_training(raw, tmp, counters, writer=None, resume=None, keep=None):
     """The entry point in-process on the synthetic split, with every
     launch count in counters ({name: (wrapper, expected launches)}) set to
-    0 just before; returns its log, the counts read just after and the
-    peak memory."""
+    0 just before; returns its first epoch's log, the counts read just
+    after and the peak memory.  writer: the trainer's TensorBoard writer;
+    resume: the -r argument; keep: a list the trainer is appended to."""
     import torch
     from rpg_ramnet_tpu_torch.train.__main__ import main as train_main
-    cfg_path = os.path.join(tmp, "train_config.json")
+    cfg_path = os.path.join(tmp, f"{raw['name']}_config.json")
     with open(cfg_path, "w") as f:
         json.dump(raw, f)
     os.environ["PREPROCESSED_DATASETS_FOLDER"] = os.path.join(tmp, "data")
@@ -975,7 +1017,8 @@ def run_training(raw, tmp, counters):
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = train_main(["-c", cfg_path])
+    trainer = train_main(["-c", cfg_path]
+                         + (["-r", resume] if resume else []), writer=writer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {k: w.launches for k, (w, _) in counters.items()}
@@ -986,9 +1029,12 @@ def run_training(raw, tmp, counters):
     losses = [log["train_loss"], log["val_loss"]]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite losses: {log}")
-    ckpt = os.path.join(trainer.run_dir, "checkpoint-epoch0", "state.pt")
+    ckpt = os.path.join(trainer.run_dir, f"checkpoint-epoch{log['epoch']}",
+                        "state.pt")
     if not os.path.exists(ckpt):
         raise AssertionError(f"no checkpoint at {ckpt}")
+    if keep is not None:
+        keep.append(trainer)
     return {"launches": got, "launches_expected": want,
             "train_loss": log["train_loss"], "val_loss": log["val_loss"],
             "grad_norm": log["train_grad_norm"],
@@ -3081,11 +3127,12 @@ def lane_phases(cfg, K, dev, seed, smi):
 def baseline_raw(name, tmp, **trainer):
     """A baseline config file's dict as shipped, with the run directory in
     tmp, the splits 'train'/'val' (step_size 1), batch BASELINE_TRAIN_B
-    and crop TRAIN_CROP, and the trainer keys given."""
+    and crop TRAIN_CROP, no previews, and the trainer keys given."""
     with open(os.path.join(ROOT, BASELINE_CONFIGS[name])) as f:
         raw = json.load(f)
     raw["name"] = f"smoke_baseline_{name}"
-    raw["trainer"].update(save_dir=os.path.join(tmp, "runs"), **trainer)
+    raw["trainer"].update(save_dir=os.path.join(tmp, "runs"),
+                          still_previews=False, movie=False, **trainer)
     raw["data_loader"].update(batch_size=BASELINE_TRAIN_B,
                               crop_size=TRAIN_CROP)
     for split, folder in (("train", "train"), ("validation", "val")):
@@ -3222,6 +3269,365 @@ def baseline_phases(dev, seed, smi):
     emit({"phase": "baselines_done", "phase_s": out["phase_s"],
           "nvidia_smi": smi})
     return out
+
+
+class TagRecorder:
+    """A TensorBoard writer that records what the trainer writes: the tags
+    by kind, each payload checked (finite scalars, images and histogram
+    values; movies GIF-encoded)."""
+
+    def __init__(self):
+        self.tags = {"scalars": set(), "images": set(), "histograms": set()}
+        self.bad = []
+
+    def _record(self, kind, tag, value=None):
+        import numpy as np
+        self.tags[kind].add(tag)
+        if value is not None and not np.isfinite(
+                np.asarray(value, dtype=np.float64)).all():
+            self.bad.append(tag)
+
+    def add_scalar(self, tag, value, step):
+        self._record("scalars", tag, value)
+
+    def add_image(self, tag, img, step, **kw):
+        self._record("images", tag, img)
+
+    def add_histogram(self, tag, values, step, **kw):
+        self._record("histograms", tag, values)
+
+    def add_figure(self, tag, figure, global_step=None, **kw):
+        import matplotlib.pyplot as plt
+        plt.close(figure)
+        self._record("images", tag)
+
+    def _get_file_writer(self):
+        return self
+
+    def add_summary(self, summary, step):
+        for v in summary.value:
+            self._record("images", v.tag)
+            if v.image.encoded_image_string[:6] != b"GIF89a":
+                self.bad.append(v.tag)
+
+    def flush(self):
+        pass
+
+
+def expected_trainer_tags(trainer, log, have):
+    """The tags the JAX trainer writes for trainer's config in one epoch
+    (trainer.py:166-339), given which of tensorboard, PIL and matplotlib
+    import (have): movies need the first two, the gradient-flow figure
+    the third."""
+    from rpg_ramnet_tpu_torch.models import prediction_keys
+    from rpg_ramnet_tpu_torch.utils.training_utils import strip_arch_prefix
+    cfg = trainer.cfg
+    keys = prediction_keys(cfg.model)
+    K = cfg.model.every_x_rgb_frame
+    scalars = {k for k, v in log.items() if isinstance(v, (int, float))}
+    images = {f"state_change_{k}"
+              for k in [f"events{k}" for k in range(K)] + ["image"]}
+    for prefix, n in (("preview_", cfg.trainer.num_previews),
+                      ("val_preview_", cfg.trainer.num_val_previews)):
+        scalars |= {f"{prefix}metric_{m}" for m in cfg.metrics}
+        images |= {f"{prefix}{i}_{k}__input_pred_gt"
+                   for i in range(n) for k in keys}
+        if have["PIL"] and have["tensorboard"]:
+            images |= {f"movie_{i}__{k}__prediction__groundtruth"
+                       for i in range(n) for k in keys}
+    if have["matplotlib"]:
+        images.add("grad_figure")
+    histograms = {f"{strip_arch_prefix(n)}/{kind}"
+                  for n, _ in trainer.model.named_parameters()
+                  for kind in ("weights", "grad")}
+    return {"scalars": scalars, "images": images, "histograms": histograms}
+
+
+def micro_kernel_check(dev, gen):
+    """K1-res (h', acts: max abs error) and K2 (dh, dgx: max abs error over
+    the plain version's max magnitude) against their plain versions at
+    the micro-batch shapes, under the planners' picks."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    rows = []
+    for shape in MICRO_TRAIN_CELLS:
+        _, h, gx, w_ur, w_o = make_cell_inputs(shape, dev, gen)
+        g = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        got_h, got_acts = gru_hside.conv_gru_hside_res(h, gx, w_ur, w_o)
+        want_h, want_acts = gru_hside.conv_gru_hside_res_plain(h, gx, w_ur, w_o)
+        dh, dgx = gru_hside.conv_gru_hside_bwd(g, h, want_acts, w_ur, w_o)
+        want_dh, want_dgx = gru_hside.conv_gru_hside_bwd_plain(
+            g, h, want_acts, w_ur, w_o)
+        torch.cuda.synchronize()
+        row = {"shape": list(shape),
+               "res_h_err": (got_h.float() - want_h.float()).abs().max().item(),
+               "res_acts_err": (got_acts.float() - want_acts.float()).abs().max().item(),
+               "bwd_dh_rel": rel_err(dh, want_dh),
+               "bwd_dgx_rel": rel_err(dgx, want_dgx)}
+        rows.append(row)
+        if not (max(row["res_h_err"], row["res_acts_err"]) <= K1_TOL
+                and max(row["bwd_dh_rel"], row["bwd_dgx_rel"]) <= GRAD_TOL):
+            raise AssertionError(f"K1-res / K2 vs plain at {shape}: {row}")
+    return rows
+
+
+def time_policy_runs(cfg, model, batch, steps=2, rounds=4):
+    """Peak memory and training sequences/s of make_train_step on one
+    window batch per (remat_policy, grad_accum) of TRAINER_RUNS: one
+    warm-up step each, then ``rounds`` rounds of ``steps`` timed steps
+    per run, the runs in turn, in reverse order every other round.  Per
+    run the median seq/s over the rounds and their range, the peak over
+    its steps and what a step adds to the memory allocated before it.
+    The policies run the same program (the port recomputes each package
+    whole whatever remat_policy says), so the runs that share grad_accum
+    measure the spread of identical programs ('same_program_spread':
+    the largest median over the smallest, less 1)."""
+    import statistics
+
+    import torch
+    from rpg_ramnet_tpu_torch.train.optim import make_optimizer
+    from rpg_ramnet_tpu_torch.train.train_step import make_train_step
+    steps_of, walls, peaks, extras = {}, {}, {}, {}
+    for policy, accum in TRAINER_RUNS:
+        c = dataclasses.replace(cfg, trainer=dataclasses.replace(
+            cfg.trainer, remat_policy=policy, grad_accum=accum))
+        key = f"{policy}/accum{accum}"
+        steps_of[key] = make_train_step(c, model,
+                                        make_optimizer(c, model.parameters()))
+        steps_of[key](batch)
+        walls[key], peaks[key], extras[key] = [], 0, 0
+    torch.cuda.synchronize()
+    order = list(steps_of)
+    for r in range(rounds):
+        for key in (order if r % 2 == 0 else order[::-1]):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                aux = steps_of[key](batch)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+            if not math.isfinite(aux["loss"]):
+                raise AssertionError(f"non-finite loss ({key}): {aux}")
+            peak = torch.cuda.max_memory_allocated()
+            peaks[key] = max(peaks[key], peak)
+            extras[key] = max(extras[key], peak - base)
+    model.zero_grad(set_to_none=True)
+    seqs = batch["image"].shape[0] * steps
+    out = {}
+    for key in order:
+        rates = [seqs / w for w in walls[key]]
+        out[key] = {"seq_per_s": statistics.median(rates),
+                    "seq_per_s_min": min(rates), "seq_per_s_max": max(rates),
+                    "rounds": rounds, "steps": steps,
+                    "peak_gib": peaks[key] / 2 ** 30,
+                    "step_extra_gib": extras[key] / 2 ** 30}
+    spread = {}
+    for accum in sorted({a for _, a in TRAINER_RUNS}):
+        med = [out[f"{p}/accum{a}"]["seq_per_s"] for p, a in TRAINER_RUNS
+               if a == accum]
+        spread[f"accum{accum}"] = max(med) / min(med) - 1
+    out["same_program_spread"] = spread
+    return out
+
+
+def trainer_phases(dev, gen, seed, smi, train_cells):
+    """Phase 23: K1-res and K2 at the micro-batch shapes against their
+    plain versions, their plans and device us beside B=16's (train_cells,
+    phase 7); the flagship's first step under grad_accum 2 and 'gru_gx'
+    against 'off'; the training entry point for TRAINER_EPOCHS epochs
+    with the shipped preview settings and state previews, a recording
+    writer, async checkpoints, and a run resumed from its first
+    checkpoint; peak memory and seq/s per (remat_policy, grad_accum);
+    remat_chunk 2 on the ergb0 baseline through the entry point.  One JSON
+    line per part; returns what the kernels line reads."""
+    import warnings
+
+    import torch
+    from rpg_ramnet_tpu_torch.core.config import Config
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.train.trainer import importable
+    t_phase = time.perf_counter()
+
+    # 23a. the h-side training kernels at micro-batch 8
+    rows = micro_kernel_check(dev, gen)
+    b16 = {tuple(r["shape"][1:]): r for r in train_cells}
+    for row, t in zip(rows, time_train_cells(dev, gen,
+                                             shapes=MICRO_TRAIN_CELLS)):
+        ref = b16[tuple(row["shape"][1:])]
+        for kind, rep in (("res", "res_k1"), ("bwd", "bwd_k2")):
+            ratio = t[f"{kind}_kernel_us"] / ref[f"{kind}_kernel_us"]
+            row[kind] = {"plan": t[rep]["plan"], "plan_b16": ref[rep]["plan"],
+                         "kernel_us": t[f"{kind}_kernel_us"],
+                         "plain_us": t[f"{kind}_plain_us"],
+                         "kernel_us_b16": ref[f"{kind}_kernel_us"],
+                         "b8_over_b16": ratio,
+                         "pick_off": ratio > PLAN_OFF_RATIO,
+                         "device_us_profiler": t[rep]["device_us"],
+                         "wrapper_us": t[rep]["wrapper_us"]}
+    emit({"phase": "kernel_train_micro", "k1_tol": K1_TOL,
+          "grad_tol": GRAD_TOL, "off_ratio": PLAN_OFF_RATIO, "cells": rows,
+          "nvidia_smi": smi})
+
+    K = Config.load(os.path.join(ROOT, CONFIG)).model.every_x_rgb_frame
+    n_cells = 3 * (K + 1) * TRAIN_L
+    with open(os.path.join(ROOT, CONFIG)) as f:
+        shipped = json.load(f)["trainer"]
+    have = {m: importable(m) for m in ("tensorboard", "PIL", "matplotlib")}
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_trainer_") as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_train_data(data, K, seed + 30, batch=TRAIN_B)
+        data_s = time.perf_counter() - t0
+        raw = train_config(tmp)
+        raw["name"] = "smoke_trainer"
+        raw["trainer"].pop("movie")          # the shipped default, True
+        raw["trainer"].update(
+            still_previews=shipped["still_previews"], state_preview=True,
+            epochs=TRAINER_EPOCHS, grad_accum=TRAINER_ACCUM,
+            remat_policy=TRAINER_POLICY, async_checkpoint=True)
+        cfg = Config.from_dict(raw)
+
+        # 23b. the first step under grad_accum and the policy, vs 'off':
+        #      per micro-batch K1-res twice per cell (the recompute), K2 once
+        batch, models, first = first_step_vs_off(
+            cfg, data, dev, seed,
+            {"k1_res": (gru_hside.conv_gru_hside_res,
+                        2 * TRAINER_ACCUM * n_cells),
+             "k2": (gru_hside.conv_gru_hside_bwd, TRAINER_ACCUM * n_cells)},
+            step_grads=True)
+        del models["off"]
+        torch.cuda.empty_cache()
+        emit({"phase": "trainer_first_step", "config": CONFIG,
+              "grad_accum": TRAINER_ACCUM, "remat_policy": TRAINER_POLICY,
+              "first_step_vs_off": first, "nvidia_smi": smi})
+
+        # 23c. the entry point, straight and resumed at epoch 1, with
+        #      deterministic library algorithms where there are any; an
+        #      epoch: TRAIN_STEPS steps and the histograms' backward (each
+        #      in TRAINER_ACCUM micro-batches, remat'd), one validation
+        #      batch (K1)
+        per_epoch = {
+            "k1_res": 2 * n_cells * TRAINER_ACCUM * (TRAIN_STEPS + 1),
+            "k2": n_cells * TRAINER_ACCUM * (TRAIN_STEPS + 1),
+            "k1_validation": n_cells}
+        wrappers = {"k1_res": gru_hside.conv_gru_hside_res,
+                    "k2": gru_hside.conv_gru_hside_bwd,
+                    "k1_validation": gru_hside.conv_gru_hside}
+        deterministic = (torch.backends.cudnn.deterministic,
+                         torch.backends.cudnn.benchmark,
+                         torch.are_deterministic_algorithms_enabled(),
+                         torch.is_deterministic_algorithms_warn_only_enabled())
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        recorders, trainers, runs = {}, [], {}
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for name, epochs, resume in (
+                        ("straight", TRAINER_EPOCHS, None),
+                        ("resumed", TRAINER_EPOCHS - 1, os.path.join(
+                            tmp, "runs", "smoke_trainer", "checkpoint-epoch0"))):
+                    run_raw = {**raw, "name": f"smoke_trainer_{name}"
+                               if resume else raw["name"]}
+                    recorders[name] = TagRecorder()
+                    runs[name] = run_training(
+                        run_raw, tmp, {k: (w, n * epochs) for k, (w, n) in
+                                       ((k, (wrappers[k], per_epoch[k]))
+                                        for k in per_epoch)},
+                        writer=recorders[name], resume=resume, keep=trainers)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic[0]
+            torch.backends.cudnn.benchmark = deterministic[1]
+            torch.use_deterministic_algorithms(deterministic[2],
+                                               warn_only=deterministic[3])
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+        alerts = sorted({str(w.message).split(".")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+        straight, resumed = trainers
+        for t in trainers:
+            if t.preview_errors:
+                raise AssertionError(f"previews failed: {t.preview_errors}")
+        tags = {}
+        for name, t in zip(("straight", "resumed"), trainers):
+            want = expected_trainer_tags(t, t.jsonl.entries[0], have)
+            got = recorders[name].tags
+            tags[name] = {k: len(v) for k, v in got.items()}
+            if got != want or recorders[name].bad:
+                raise AssertionError(
+                    f"{name} run's TensorBoard tags: missing "
+                    f"{ {k: sorted(want[k] - got[k])[:5] for k in want} }, "
+                    f"extra { {k: sorted(got[k] - want[k])[:5] for k in want} }, "
+                    f"bad payloads {recorders[name].bad[:5]}")
+        metas = {}
+        for t in trainers:
+            for e in sorted(os.listdir(t.run_dir)):
+                if e.startswith(("checkpoint-", "model_best")):
+                    with open(os.path.join(t.run_dir, e, "meta.json")) as f:
+                        m = json.load(f)
+                    metas[f"{t.cfg.name}/{e}"] = [m["epoch"], m["monitor_best"]]
+        diffs = [(a.float() - b.float()).abs().max().item() for a, b in zip(
+            straight.model.state_dict().values(),
+            resumed.model.state_dict().values())]
+        lr = float(cfg.optimizer["lr"])
+        resume_check = {
+            "max_abs_diff": max(diffs), "bitwise": max(diffs) == 0.0,
+            "nondeterministic_alerts": alerts,
+            "adam_bound": 2 * lr * TRAIN_STEPS,
+            "straight_epoch1_train_loss": straight.jsonl.entries[1]["train_loss"],
+            "resumed_epoch1_train_loss": resumed.jsonl.entries[0]["train_loss"]}
+        # bitwise where every algorithm ran deterministically; otherwise
+        # (atomics in a library backward) Adam's bound for noise gradients
+        if (resume_check["max_abs_diff"] > 0.0 if not alerts
+                else resume_check["max_abs_diff"] > resume_check["adam_bound"]):
+            raise AssertionError(f"resumed run vs straight: {resume_check}")
+        if metas.get("smoke_trainer/checkpoint-epoch0", [0, 0])[1] != float("inf"):
+            raise AssertionError(f"checkpoint-epoch0's monitor_best: {metas}")
+        check_no_jax()
+        emit({"phase": "trainer", "config": CONFIG, "B": TRAIN_B, "L": TRAIN_L,
+              "crop": TRAIN_CROP, "K": K, "epochs": TRAINER_EPOCHS,
+              "steps_per_epoch": TRAIN_STEPS, "grad_accum": TRAINER_ACCUM,
+              "remat_policy": TRAINER_POLICY, "async_checkpoint": True,
+              "state_preview": True, "imported": have, "tag_counts": tags,
+              "data_write_s": data_s, "runs": runs, "resume": resume_check,
+              "checkpoint_monitor_best": metas, "nvidia_smi": smi})
+        del straight, resumed, trainers, recorders
+        torch.cuda.empty_cache()
+
+        # 23d. peak memory and seq/s per checkpoint policy and accumulation
+        policies = time_policy_runs(cfg, models[cfg.model.fused_gru], batch)
+        del models, batch
+        torch.cuda.empty_cache()
+        emit({"phase": "trainer_memory", "B": TRAIN_B, "L": TRAIN_L,
+              "crop": TRAIN_CROP, "runs": policies, "nvidia_smi": smi})
+
+    # 23e. remat_chunk 2 on the ergb0 baseline (the in-scan decode path)
+    chunked = {}
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_rchunk_") as tmp:
+        write_train_data(os.path.join(tmp, "data"), K, seed + 31,
+                         batch=BASELINE_TRAIN_B)
+        for rc in (1, 2):
+            braw = baseline_raw("ergb0", tmp, epochs=1, save_freq=1,
+                                log_every=1, sequence_length=TRAIN_L,
+                                remat_chunk=rc)
+            braw["name"] += f"_rc{rc}"
+            chunked[rc] = run_training(braw, tmp, {}, writer=TagRecorder())
+    rel = abs(chunked[2]["train_loss"] - chunked[1]["train_loss"]) / abs(
+        chunked[1]["train_loss"])
+    if not (math.isfinite(chunked[2]["train_loss"]) and rel <= REMAT_CHUNK_TOL):
+        raise AssertionError(f"ergb0 remat_chunk 2 vs 1: {rel}, {chunked}")
+    check_no_jax()
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "trainer_remat_chunk", "config": BASELINE_CONFIGS["ergb0"],
+          "B": BASELINE_TRAIN_B, "L": TRAIN_L, "steps": TRAIN_STEPS,
+          "runs": {f"remat_chunk{rc}": r for rc, r in chunked.items()},
+          "loss_rel_diff": rel, "tol": REMAT_CHUNK_TOL, "phase_s": phase_s,
+          "nvidia_smi": smi})
+    return {"rows": rows, "launches": runs["straight"]["launches"],
+            "phase_s": phase_s}
 
 
 def main() -> int:
@@ -3524,6 +3930,9 @@ def main() -> int:
     # 22. the paper's baselines through the eval and training entry points
     baselines = baseline_phases(dev, args.seed, smi)
 
+    # 23. the trainer: previews, grad_accum, checkpoint policies, resume
+    trainer = trainer_phases(dev, gen, args.seed, smi, train_cells)
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     v1m = vox_times["1M"]
     vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
@@ -3539,6 +3948,15 @@ def main() -> int:
                 "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
                 **{f: {k: r[f] for k, r in rows.items()}
                    for f in ("plan", "device_us", "device_us_b1")}}
+
+    def micro_extra(kind, launches):
+        """K1-res's or K2's micro-batch rows (phase 23): launches on the
+        trainer's path, the plan and device us per shape at B=8 and the
+        B=8 time over the B=16 time."""
+        rows = {"x".join(map(str, r["shape"])): r[kind] for r in trainer["rows"]}
+        return {"launches": launches,
+                **{f: {k: r[f] for k, r in rows.items()}
+                   for f in ("plan", "kernel_us", "b8_over_b16")}}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None):
@@ -3556,14 +3974,19 @@ def main() -> int:
                    sum(r["plain_us"] for r in cells) / 1e3,
                    cell_bound("k1", FLAGSHIP_CELLS)),
              lanes=lane_extra("k1", lanes["k1"])),
-        entry("gru_hside_res", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:124",
-              trained["launches"]["k1_res"],
-              max([max(r["res_h_err"], r["res_acts_err"], *r["res_plans"].values())
-                   for r in train_rows]
-                  + [e for row in res_edges.values() for e in row["k1_res"].values()]),
-              sum(r["res_kernel_us"] for r in train_cells) / 1e3,
-              sum(r["res_plain_us"] for r in train_cells) / 1e3,
-              cell_bound("k1_res", TRAIN_CELLS)),
+        dict(entry("gru_hside_res", "gru_hside.cu",
+                   "rpg_ramnet_tpu/ops/gru_hside.py:124",
+                   trained["launches"]["k1_res"],
+                   max([max(r["res_h_err"], r["res_acts_err"],
+                            *r["res_plans"].values()) for r in train_rows]
+                       + [e for row in res_edges.values()
+                          for e in row["k1_res"].values()]
+                       + [max(r["res_h_err"], r["res_acts_err"])
+                          for r in trainer["rows"]]),
+                   sum(r["res_kernel_us"] for r in train_cells) / 1e3,
+                   sum(r["res_plain_us"] for r in train_cells) / 1e3,
+                   cell_bound("k1_res", TRAIN_CELLS)),
+             micro_batch=micro_extra("res", trainer["launches"]["k1_res"])),
         dict(entry("gru_hside_bwd", "gru_hside_bwd.cu",
                    "rpg_ramnet_tpu/ops/gru_hside.py:535", trained["launches"]["k2"],
                    max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
@@ -3571,7 +3994,8 @@ def main() -> int:
                    sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
                    sum(r["bwd_plain_us"] for r in train_cells) / 1e3,
                    cell_bound("k2", TRAIN_CELLS)),
-             wrapper_ms=sum(r["bwd_k2"]["wrapper_us"] for r in train_cells) / 1e3),
+             wrapper_ms=sum(r["bwd_k2"]["wrapper_us"] for r in train_cells) / 1e3,
+             micro_batch=micro_extra("bwd", trainer["launches"]["k2"])),
         dict(entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
                    k5_launches,
                    max(e for row in k5_errs.values() for k, e in row.items()

@@ -1,4 +1,5 @@
-"""Weights into the port: from the JAX package's params or a .pth.tar.
+"""Weights into the port: from the JAX package's params or a .pth.tar,
+and a reference checkpoint's Adam state into the port's optimizer.
 
 The port's parameter names are the upstream torch names, so both sources
 load with ``load_state_dict(strict=True)`` and no remapping.
@@ -66,3 +67,40 @@ def load_reference_checkpoint(model: nn.Module, path: str) -> nn.Module:
     sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def ordered_param_names(state_dict: Dict[str, Any]) -> list:
+    """A reference state dict's parameter names in torch registration
+    order, which is the index order of its optimizer's state
+    (``optim.Adam(model.parameters())``, base_trainer.py:36-43); the
+    buffers (BN running stats, num_batches_tracked) left out.  The
+    counterpart of JAX ``compat/torch_import.py::ordered_param_names``."""
+    return [n for n in state_dict
+            if not n.endswith("num_batches_tracked") and ".running_" not in n]
+
+
+def import_reference_optimizer_state(optimizer: torch.optim.Optimizer,
+                                     model: nn.Module,
+                                     ckpt: Dict[str, Any]) -> None:
+    """Load a reference checkpoint's torch Adam state ('exp_avg',
+    'exp_avg_sq', 'step' per parameter index) into ``optimizer`` (an Adam
+    or AdamW over ``model.parameters()``), so that a resumed run continues
+    the reference's moments (JAX ``import_torch_optimizer_state``,
+    compat/torch_import.py:115-176).  Each index is mapped to its name
+    through ``ordered_param_names`` of the checkpoint's state dict and to
+    the port's parameter of that name; every parameter takes the largest
+    step, as JAX's one Adam count, and one absent from the checkpoint's
+    state zero moments."""
+    names = ordered_param_names(ckpt["state_dict"])
+    moments, step = {}, 0
+    for idx, st in ckpt["optimizer"]["state"].items():
+        moments[names[int(idx)]] = (st["exp_avg"], st["exp_avg_sq"])
+        step = max(step, int(torch.as_tensor(st["step"]).item()))
+    for name, p in model.named_parameters():
+        state = {"step": torch.tensor(float(step))}
+        for key, i in (("exp_avg", 0), ("exp_avg_sq", 1)):
+            buf = torch.zeros_like(p, memory_format=torch.preserve_format)
+            if name in moments:
+                buf.copy_(torch.as_tensor(moments[name][i]))
+            state[key] = buf
+        optimizer.state[p] = state

@@ -144,19 +144,42 @@ class TrainerConfig:
     verbosity: int = 2
     monitor: str = "val_loss"
     monitor_mode: str = "min"
+    # per-epoch TensorBoard previews (lstm_trainer.py:480-550): grids of
+    # num_previews training and num_val_previews validation items, their
+    # movies, the preview metric vector, weight and gradient histograms
+    num_previews: int = 2
+    num_val_previews: int = 2
+    still_previews: bool = False
+    movie: bool = True
+    grid_loss: bool = False
+    # the '--record' super-state change images (lstm_trainer.py:295-377)
+    state_preview: bool = False
     loss_composition: Union[bool, Tuple[str, ...]] = False
     loss_weights: Tuple[float, ...] = (1.0,)
     # replicate the reference's loss-aliasing scale (x num_keys)
     legacy_loss_scaling: bool = False
+    # the preview metrics: False scores each key's first-step prediction
+    # against the last supervised key's first-step depth (the reference,
+    # lstm_trainer.py:283,377,516); True each key against its own depth,
+    # averaged over the window
+    preview_metrics_all_steps: bool = False
     log_every: int = 25
     remat: bool = True          # torch.utils.checkpoint per package
-    remat_chunk: int = 1        # packages per checkpoint
+    remat_chunk: int = 1        # packages per checkpoint (in-scan path)
     # decode the supervised keys once, outside the per-package loop
     deferred_decode: bool = False
     # with deferred_decode: batch each package's x side, leaving only the
     # h-side cells sequential (and on the fused cell kernels)
     precompute_x: bool = False
+    # what each package's checkpoint saves: 'none', or a '+'-joined list
+    # of tags ('enc_out': the encoder outputs; 'gru_gx': the x-side gate
+    # pre-activations of the precompute_x path)
     remat_policy: str = "none"
+    # micro-batches per optimizer step (gradients averaged); the JAX
+    # package reads it from the raw config (train_step.py:47)
+    grad_accum: int = 1
+    # write checkpoints on a background thread (trainer.py:63)
+    async_checkpoint: bool = False
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "TrainerConfig":
@@ -198,6 +221,9 @@ class Config:
     # the config file's top-level key, which test.py passes to the dataset
     # (timestamps in the items)
     use_phased_arch: bool = False
+    # the preview metric vector's metrics (eval.metrics.get_metric names)
+    metrics: Tuple[str, ...] = ("mse", "abs_rel_diff",
+                                "scale_invariant_error", "median_error")
     trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict,
                                             hash=False, compare=False)
@@ -235,6 +261,7 @@ class Config:
                 0.5 if mse_loss is None
                 else float(mse_loss.get("downsampling_factor", 0.5))),
             use_phased_arch=bool(cfg.get("use_phased_arch", False)),
+            metrics=tuple(cfg.get("metrics", Config.metrics)),
             trainer=TrainerConfig.from_dict(cfg.get("trainer", {})),
             raw=cfg)
 

@@ -2,12 +2,12 @@
 
 Counterpart of ``rpg_ramnet_tpu/data/loader.py`` (reference: torch
 DataLoader + ConcatDatasetCustom, RAM_Net/train.py:23-75,189-196):
-``concatenate_subfolders``, ``ConcatSequenceDataset`` and a thread-pooled
-``BatchLoader`` producing fixed-shape numpy batches, two batches in flight.
+``concatenate_subfolders``, ``ConcatSequenceDataset``, a thread-pooled
+``BatchLoader`` producing fixed-shape numpy batches, two batches in
+flight, and ``device_prefetch``, which copies the next batches to the
+card on a side CUDA stream while the current one trains.
 Augmentation seeds are per (seed, epoch, index), so an epoch is
-reproducible and resume continues the exact data order.  The trainer moves
-batches to the card (``train.sequence_loss.pack_train_batch``); a device
-prefetcher on CUDA streams is not ported yet (ROADMAP queue 1, item 13).
+reproducible and resume continues the exact data order.
 """
 from __future__ import annotations
 
@@ -15,9 +15,10 @@ import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from os.path import join
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .datasets import DATASETS
 
@@ -91,7 +92,9 @@ class BatchLoader:
     """Shuffled epoch iterator over a ConcatSequenceDataset producing
     batched numpy dicts ('events' [B, L, K, H, W, C], 'image'
     [B, L, H, W, C], ...); num_workers threads load the items, two batches
-    ahead.  drop_last as torch's DataLoader (False by default)."""
+    ahead.  drop_last as torch's DataLoader (False by default).  JAX's
+    process workers have no caller there and are not ported (ROADMAP
+    queue 1, item 8)."""
 
     def __init__(self, dataset: ConcatSequenceDataset, batch_size: int,
                  shuffle: bool = True, num_workers: int = 4,
@@ -140,3 +143,54 @@ class BatchLoader:
                 yield _stack_items([f.result() for f in futs])
             for futs in inflight:
                 yield _stack_items([f.result() for f in futs])
+
+
+def device_prefetch(iterator: Iterable[Dict[str, np.ndarray]],
+                    device: torch.device, size: int = 2
+                    ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Yields the batches of ``iterator`` (dicts of numpy arrays) as
+    tensors on ``device``, the next ``size`` already copied or in flight
+    while the consumer computes on the current one (JAX
+    ``device_prefetch``, loader.py:206-233).  On a CUDA device each batch
+    is staged in pinned host memory and copied on a side stream; the
+    consumer's stream waits for the copy before it gets the batch, and the
+    tensors are recorded on the consumer's stream, so the allocator keeps
+    their memory until the work queued on them is done.  On the CPU the
+    arrays become tensors without a copy."""
+    if device.type != "cuda":
+        for batch in iterator:
+            yield {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in batch.items()}
+        return
+    copy_stream = torch.cuda.Stream(device)
+
+    def put(batch):
+        pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                  for k, v in batch.items()}
+        with torch.cuda.stream(copy_stream):
+            out = {k: v.to(device, non_blocking=True)
+                   for k, v in pinned.items()}
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        # the pinned buffers stay referenced until the copy has completed
+        return out, done, pinned
+
+    buf = []
+    it = iter(iterator)
+    for batch in it:
+        buf.append(put(batch))
+        if len(buf) == size:
+            break
+    while buf:
+        out, done, pinned = buf.pop(0)
+        nxt = next(it, None)
+        if nxt is not None:
+            buf.append(put(nxt))
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        for v in out.values():
+            v.record_stream(consumer)
+        yield out
+        # the staging goes back to torch's pinned-memory cache, which
+        # reuses a block only once the copies recorded on it have completed
+        del out, pinned

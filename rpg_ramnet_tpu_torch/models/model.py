@@ -359,33 +359,49 @@ class ERGB2DepthRecurrent(nn.Module):
 
     def forward_sequence(self, state, seq,
                          decode_keys: Optional[Sequence[str]] = None,
-                         remat: bool = False, squeeze_preds: bool = False):
+                         remat: bool = False, squeeze_preds: bool = False,
+                         remat_chunk: int = 1):
         """L packages of forward_package in order, decoding after every
-        step (model.py:597-672 without remat_chunk and norm stats): the
-        reference semantics, bit-identical to per-package streaming, and
-        the training path without deferred decode.
+        step (model.py:597-672 without norm stats): the reference
+        semantics, bit-identical to per-package streaming, and the
+        training path without deferred decode.
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
         and in the phased regime 'times_events' [B, L, K] and
         'times_image' [B, L]; 'reset' [B, L] (bool) zeroes a lane's state
-        before the flagged package.  remat: checkpoint each package, its
-        decodes included (torch.utils.checkpoint, non-reentrant).
+        before the flagged package.  remat: checkpoint each group of
+        ``remat_chunk`` packages, their decodes included (non-reentrant
+        torch.utils.checkpoint; L % remat_chunk == 0).  A larger chunk
+        recomputes the same forward but keeps a chunk's activations live
+        at once.
         Returns (state, {key: [L, B, H, W, 1]}, or [L, B, H, W] when
         squeeze_preds)."""
-        def step(state, pkg):
-            return self.forward_package(state, pkg, decode_keys)
+        l = seq["image"].shape[1]
+        rc = max(int(remat_chunk), 1)
+        if l % rc:
+            raise ValueError(f"L={l} must be divisible by remat_chunk={rc}")
+
+        def group(state, pkgs):
+            out = []
+            for pkg in pkgs:
+                state, preds = self.forward_package(state, pkg, decode_keys)
+                out.append(preds)
+            return state, out
+
+        def step(state, pkgs):
+            if remat:
+                return checkpoint(group, state, pkgs, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return group(state, pkgs)
 
         per_key: Dict[str, List[torch.Tensor]] = {}
-        for t in range(seq["image"].shape[1]):
-            pkg = {k: seq[k][:, t] for k in _SEQ_KEYS if k in seq}
-            if remat:
-                state, preds = checkpoint(step, state, pkg,
-                                          use_reentrant=False,
-                                          preserve_rng_state=False)
-            else:
-                state, preds = step(state, pkg)
-            for k, v in preds.items():
-                per_key.setdefault(k, []).append(v[..., 0] if squeeze_preds
-                                                 else v)
+        for t0 in range(0, l, rc):
+            pkgs = [{k: seq[k][:, t] for k in _SEQ_KEYS if k in seq}
+                    for t in range(t0, t0 + rc)]
+            state, out = step(state, pkgs)
+            for preds in out:
+                for k, v in preds.items():
+                    per_key.setdefault(k, []).append(
+                        v[..., 0] if squeeze_preds else v)
         return state, {k: torch.stack(v) for k, v in per_key.items()}
 
     @torch.inference_mode()

@@ -3,7 +3,8 @@
 Counterpart of the repo's ``train.py`` (reference RAM_Net/train.py:246-279):
   -c/--config              JSON config (reference schema, usable as-is)
   -r/--resume              checkpoint directory to resume (model, optimizer,
-                           epoch), or a reference .pth.tar (weights, epoch)
+                           epoch), or a reference .pth.tar (weights, epoch,
+                           and its Adam moments for an Adam/AdamW config)
   -i/--initial_checkpoint  weights-only init (.pth.tar or checkpoint dir)
   -g/--gpu_id              the CUDA device index
   --device                 'cuda' (default) or 'cpu'
@@ -11,7 +12,13 @@ The dataset root comes from $PREPROCESSED_DATASETS_FOLDER (train.py:95), a
 run directory that already exists is refused (train.py:276), and the
 transforms are the reference's: RandomRotationFlip(0, 0.5, 0) +
 RandomCrop for training, CenterCrop for validation, of
-data_loader.crop_size (224 by default).
+data_loader.crop_size (224 by default).  The trainer reads the rest from
+the config as the JAX train.py does: optimizer_type (Adam, AdamW, SGD,
+RMSprop), trainer.grad_accum, remat, remat_chunk, remat_policy,
+deferred_decode, precompute_x, async_checkpoint and the preview settings
+(num_previews, num_val_previews, still_previews, movie, state_preview,
+preview_metrics_all_steps; metrics); TensorBoard files go to
+<save_dir>/<name>/tensorboard.
 """
 from __future__ import annotations
 
@@ -25,9 +32,10 @@ from typing import Optional, Sequence
 import torch
 
 
-def main(argv: Optional[Sequence[str]] = None):
+def main(argv: Optional[Sequence[str]] = None, writer=None):
     """Parse the flags, build data, model and trainer, train; returns the
-    trainer."""
+    trainer.  writer: a TensorBoard writer for the trainer in place of its
+    SummaryWriter (a caller in the same process that records the calls)."""
     ap = argparse.ArgumentParser(description="RAM-Net training (PyTorch)")
     ap.add_argument("-c", "--config", default=None, type=str)
     ap.add_argument("-r", "--resume", default=None, type=str)
@@ -106,7 +114,7 @@ def main(argv: Optional[Sequence[str]] = None):
             checkpoint.restore(init, model)
         print(f"Loaded initial model weights from: {init}")
     trainer = Trainer(cfg, train_loader, val_loader, resume=args.resume,
-                      model=model)
+                      model=model, writer=writer)
     trainer.train()
     return trainer
 

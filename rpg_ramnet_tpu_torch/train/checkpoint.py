@@ -5,6 +5,7 @@ RAM_Net/base/base_trainer.py:133-179).  A checkpoint is a directory
 ``<run_dir>/checkpoint-epoch{E}`` holding ``state.pt`` (the model's and the
 optimizer's state dicts) and ``meta.json`` (epoch, monitor_best, config,
 log); the best by the monitored metric is copied to ``model_best``.
+``async_checkpoint`` writes the files on a background thread.
 ``export_pth_tar`` writes a ``.pth.tar`` with the upstream parameter
 names (``statenetphasedrecurrent.*`` for ERGB2DepthRecurrent, ``unet.*``
 for ERGB2Depth: the models' own submodule names), which the reference
@@ -15,35 +16,83 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from os.path import join
 from typing import Any, Dict, Optional
 
 import torch
 
 
+def _to_host(tree):
+    """A copy of a (nested) state dict with every tensor on the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
 class CheckpointManager:
-    def __init__(self, run_dir: str):
+    """Writes the run's checkpoints.  use_async: ``save`` copies the
+    model's and optimizer's state to the host, then writes the files on a
+    background thread while training goes on (JAX: Orbax's
+    AsyncCheckpointer, checkpoint.py:30-46); the next save, ``save_best``
+    and ``wait`` wait for it first, and re-raise what it raised.  Both
+    modes write the same files."""
+
+    def __init__(self, run_dir: str, use_async: bool = False):
         self.run_dir = run_dir
+        self.use_async = use_async
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
         os.makedirs(run_dir, exist_ok=True)
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
     def save(self, name: str, model, optimizer, *, epoch: int,
              monitor_best: float, config: Dict[str, Any],
              logger: Optional[Dict[str, Any]] = None) -> str:
+        self.wait()
         path = join(self.run_dir, name)
         if os.path.exists(path):
             shutil.rmtree(path)
         os.makedirs(path)
-        torch.save({"state_dict": model.state_dict(),
-                    "optimizer": optimizer.state_dict()},
-                   join(path, "state.pt"))
-        with open(join(path, "meta.json"), "w") as f:
-            json.dump({"epoch": epoch, "monitor_best": float(monitor_best),
-                       "config": config, "logger": logger or {}}, f,
-                      default=float)
+        state = _to_host({"state_dict": model.state_dict(),
+                          "optimizer": optimizer.state_dict()})
+        meta = json.dumps({"epoch": epoch, "monitor_best": float(monitor_best),
+                           "config": config, "logger": logger or {}},
+                          default=float)
+
+        def write():
+            torch.save(state, join(path, "state.pt"))
+            with open(join(path, "meta.json"), "w") as f:
+                f.write(meta)
+
+        if not self.use_async:
+            write()
+            return path
+
+        def run():
+            try:
+                write()
+            except Exception as e:     # re-raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, name=f"save-{name}")
+        self._thread.start()
         return path
 
     def save_best(self, src_name: str) -> None:
         """Copy a checkpoint to model_best (base_trainer.py:154-156)."""
+        self.wait()
         dst = join(self.run_dir, "model_best")
         if os.path.exists(dst):
             shutil.rmtree(dst)

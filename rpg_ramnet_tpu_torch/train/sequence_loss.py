@@ -23,7 +23,6 @@ from __future__ import annotations
 import warnings
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 
 from ..core.config import Config
@@ -31,8 +30,6 @@ from ..models import get_model, statenet, unet
 from ..models.model import prediction_keys
 from . import losses as L
 
-_IN_SCAN = ("the in-scan decode path with remat_chunk > 1 or "
-            "training-mode BN/IN is not ported yet: ROADMAP queue 1, item 8")
 
 
 def supervised_keys(cfg: Config) -> Tuple[str, ...]:
@@ -41,22 +38,6 @@ def supervised_keys(cfg: Config) -> Tuple[str, ...]:
     if not lc:
         return all_keys
     return tuple(k for k in all_keys if k in lc)
-
-
-def pack_train_batch(batch: Dict[str, np.ndarray],
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """A loader batch of numpy arrays (NHWC, batch-leading: 'events'
-    [B, L, K, H, W, Ce], 'image' [B, L, H, W, Ci], 'depth_events'
-    [B, L, K, H, W, 1], 'depth_image' [B, L, H, W, 1]) as tensors on
-    ``device``; for a CUDA device through pinned memory without blocking.
-    The NHWC layout is already the one the model's channels_last convs
-    read, so nothing is transposed."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = (t.pin_memory().to(device, non_blocking=True)
-                  if device.type == "cuda" else t.to(device))
-    return out
 
 
 def _target_for(batch: Dict[str, torch.Tensor], key: str) -> torch.Tensor:
@@ -68,11 +49,13 @@ def _target_for(batch: Dict[str, torch.Tensor], key: str) -> torch.Tensor:
     return t[..., 0].movedim(1, 0)
 
 
-def make_sequence_loss(cfg: Config, remat: bool = False,
-                       training: bool = True):
+def make_sequence_loss(cfg: Config, remat: bool = False):
     """Returns loss_fn(model, state0, batch) -> (scalar, aux dict).
 
-    batch: pack_train_batch's tensors, with 'times_events' [B, L, K] and
+    batch: a loader batch as tensors (``data.device_prefetch``): 'events'
+    [B, L, K, H, W, Ce], 'image' [B, L, H, W, Ci], 'depth_events'
+    [B, L, K, H, W, 1], 'depth_image' [B, L, H, W, 1] (NHWC, the layout the
+    model's channels_last convs read), with 'times_events' [B, L, K] and
     'times_image' [B, L] for the phased regime.  state0: the model's zero
     state.  The branches of the JAX package (sequence_loss.py:157-220):
     the deferred-decode branch for trainer.deferred_decode with
@@ -85,8 +68,10 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
     with precompute_x, else the phased encoders' cells (PhasedCell) and
     the ConvLSTM state combination's (ConvLSTMHside).  Otherwise the
     in-scan branch: forward_sequence with its decodes, on the plain
-    cells.  The in-scan branch's remat_chunk > 1 and training-mode BN/IN,
-    and the configurations ``check_supported`` names, raise
+    cells, checkpointed in groups of trainer.remat_chunk packages.
+    trainer.remat_policy is accepted and every checkpoint recomputes its
+    packages whole, as 'none' (ROADMAP queue 3).  The configurations
+    ``check_supported`` names (BN/IN norms among them) raise
     NotImplementedError."""
     mcfg = cfg.model
     tr = cfg.trainer
@@ -103,32 +88,19 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
     use_mse = cfg.mse_loss_weight is not None
     num_keys = max(len(keys), 1)
     rc = max(int(tr.remat_chunk), 1)
-    train_norm = training and mcfg.norm in ("BN", "IN")
-    if tr.remat_policy not in ("", "none"):
-        raise NotImplementedError(
-            f"trainer.remat_policy={tr.remat_policy!r} (saving tagged "
-            "activations in the per-package checkpoint) is not ported yet: "
-            "ROADMAP queue 1, item 8")
     if tr.deferred_decode and rc > 1:
         warnings.warn(
             "trainer.deferred_decode is incompatible with remat_chunk>1 "
             "(the batched-decode scan checkpoints per package); honoring "
             "remat_chunk with the in-scan decode path instead",
             stacklevel=2)
-    if tr.deferred_decode and train_norm:
-        warnings.warn(
-            "trainer.deferred_decode is incompatible with training-mode "
-            "BN/IN (batch stats must match the reference's per-step "
-            "statistics); using the in-scan decode path",
-            stacklevel=2)
-    deferred = tr.deferred_decode and not train_norm and rc == 1
+    deferred = tr.deferred_decode and rc == 1
     pre_x = bool(tr.precompute_x)
     if pre_x and not (deferred and statenet.supports_x_precompute(mcfg)):
         warnings.warn(
             "trainer.precompute_x requires an effective deferred_decode "
-            "(remat_chunk==1, no BN/IN training mode) AND "
-            "recurrent_block_type='conv' with convgru/convlstm state "
-            "combination; ignoring it",
+            "(remat_chunk==1) AND recurrent_block_type='conv' with "
+            "convgru/convlstm state combination; ignoring it",
             stacklevel=2)
         pre_x = False
     allow_fused = pre_x or mcfg.fused_gru == "on"
@@ -145,8 +117,10 @@ def make_sequence_loss(cfg: Config, remat: bool = False,
                 state0, seq, decode_keys=keys, remat=remat,
                 squeeze_preds=True, package_precompute=pre_x,
                 allow_fused=allow_fused, allow_composed=True)
-        elif deferred_model and (rc > 1 or train_norm):
-            raise NotImplementedError(_IN_SCAN)
+        elif deferred_model:
+            _, preds = model.forward_sequence(
+                state0, seq, decode_keys=keys, remat=remat,
+                squeeze_preds=True, remat_chunk=rc)
         else:
             _, preds = model.forward_sequence(
                 state0, seq, decode_keys=keys, remat=remat,

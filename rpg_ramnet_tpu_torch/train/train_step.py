@@ -2,10 +2,11 @@
 
 Counterpart of ``rpg_ramnet_tpu/train/train_step.py`` (reference
 lstm_trainer.py:445-453: zero_grad, forward over the L packages, one
-backward, optimizer step).  Each window starts from the zero state
-(model.py:146-159).  Gradients come from autograd, with each package
-checkpointed when ``remat``; the h-side cells' backward is the fused
-kernel K2 where the fused_gru policy takes the kernels.
+backward, optimizer step).  Each window, and with trainer.grad_accum
+each micro-batch, starts from the zero state (model.py:146-159).
+Gradients come from autograd, with each package checkpointed when
+``remat``; the h-side cells' backward is the fused kernel K2 where the
+fused_gru policy takes the kernels.
 """
 from __future__ import annotations
 
@@ -23,28 +24,62 @@ def _batch_dims(batch):
     return s[0], s[2], s[3]
 
 
-def make_train_step(cfg: Config, model, optimizer: torch.optim.Optimizer,
-                    remat: Optional[bool] = None):
-    """Returns step(batch) -> aux: one optimizer step on one window, with
-    the loss terms and the global gradient norm ('grad_norm') as floats.
-    remat defaults to cfg.trainer.remat."""
-    if int(cfg.raw.get("trainer", {}).get("grad_accum", 1)) > 1:
-        raise NotImplementedError(
-            "trainer.grad_accum > 1 is not ported yet: ROADMAP queue 1, "
-            "item 8")
+def micro_batch(batch: Dict[str, torch.Tensor], n: int, i: int
+                ) -> Dict[str, torch.Tensor]:
+    """The i-th of n equal micro-batches along the batch dimension (every
+    key of the port's batches is batch-leading)."""
+    b = batch["image"].shape[0]
+    if b % n:
+        raise ValueError(f"batch {b} is not divisible by grad_accum={n}")
+    size = b // n
+    return {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+
+
+def make_grad_fn(cfg: Config, model, remat: Optional[bool] = None):
+    """Returns grads(batch) -> aux: the parameters' .grad set to the
+    window's gradients and the loss terms as tensors.  With
+    cfg.trainer.grad_accum n > 1 the batch runs as n micro-batches of
+    B/n, each from its own zero state; their gradients and loss terms are
+    summed, then divided by n (JAX train_step.py:47-85).  remat defaults
+    to cfg.trainer.remat."""
+    n = max(int(cfg.trainer.grad_accum), 1)
     loss_fn = make_sequence_loss(
         cfg, remat=cfg.trainer.remat if remat is None else remat)
 
+    def grads(batch) -> Dict[str, torch.Tensor]:
+        model.zero_grad(set_to_none=True)
+        total: Dict[str, torch.Tensor] = {}
+        for i in range(n):
+            mb = micro_batch(batch, n, i) if n > 1 else batch
+            loss, aux = loss_fn(model, model.init_state(*_batch_dims(mb)), mb)
+            loss.backward()
+            for k, v in aux.items():
+                total[k] = total[k] + v.detach() if k in total else v.detach()
+        if n > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(n)
+            total = {k: v / n for k, v in total.items()}
+        return total
+
+    return grads
+
+
+def make_train_step(cfg: Config, model, optimizer: torch.optim.Optimizer,
+                    remat: Optional[bool] = None):
+    """Returns step(batch) -> aux: one optimizer step on one window, with
+    the loss terms and the global norm of the (averaged) gradients
+    ('grad_norm') as floats.  remat defaults to cfg.trainer.remat;
+    cfg.trainer.grad_accum splits the window batch (make_grad_fn)."""
+    grads = make_grad_fn(cfg, model, remat)
+
     def step(batch) -> Dict[str, float]:
-        state0 = model.init_state(*_batch_dims(batch))
-        optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(model, state0, batch)
-        loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        aux = grads(batch)
+        gs = [p.grad for p in model.parameters() if p.grad is not None]
         aux["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in gs]))
         optimizer.step()
-        return {k: float(v.detach()) for k, v in aux.items()}
+        return {k: float(v) for k, v in aux.items()}
 
     return step
 
@@ -52,7 +87,7 @@ def make_train_step(cfg: Config, model, optimizer: torch.optim.Optimizer,
 def make_eval_step(cfg: Config, model):
     """Returns step(batch) -> aux: the validation loss terms of one window,
     without gradients."""
-    loss_fn = make_sequence_loss(cfg, training=False)
+    loss_fn = make_sequence_loss(cfg)
 
     @torch.no_grad()
     def step(batch) -> Dict[str, float]:

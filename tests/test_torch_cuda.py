@@ -23,8 +23,8 @@ against its plain version at the flagship layers and ragged shapes, its
 refusals, the composed layer against the two-stage one, both decoder
 options through the chunked and per-package engines (K8's launch counts),
 and lane-batched streaming: K1, K5 and K9 at B = 8 and K3 and K4 at
-B = 2 against their plain versions, and the lane engines' kernels
-against the single-lane engines.
+B = 2 against their plain versions, the lane engines' kernels
+against the single-lane engines, and the trainer's device_prefetch.
 
 They skip without a CUDA device.  This file imports nothing of JAX, so it
 also runs where JAX is absent:
@@ -1421,3 +1421,23 @@ def test_decoder_options_through_engines(device):
             for g in want:
                 for k in want[g]:
                     assert abs(got[g][k] - want[g][k]).max() <= 5e-2, (over, g, k)
+
+
+def test_device_prefetch_copies_on_a_side_stream(device):
+    """device_prefetch on the card: every batch arrives with the loader's
+    values on the consumer's stream, while the next ones are copied on a
+    side stream during a long kernel of the consumer."""
+    import numpy as np
+    from rpg_ramnet_tpu_torch.data.loader import device_prefetch
+    rng = np.random.RandomState(0)
+    batches = [{"events": rng.randn(4, 2, 3, 64, 64, 5).astype(np.float32),
+                "image": rng.rand(4, 2, 64, 64, 1).astype(np.float32)}
+               for _ in range(5)]
+    got = []
+    for batch in device_prefetch(iter(batches), device, size=2):
+        torch.cuda._sleep(2_000_000)      # the step the copies overlap
+        got.append({k: (v.is_cuda, v.cpu().numpy()) for k, v in batch.items()})
+    assert len(got) == len(batches)
+    for g, want in zip(got, batches):
+        for k, v in want.items():
+            assert g[k][0] and np.array_equal(g[k][1], v), k

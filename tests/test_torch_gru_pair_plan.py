@@ -13,6 +13,7 @@ combos against csrc/gru_cells.cu; the gate ``supports_pair``
 unchanged.  The kernels themselves are tested on a card in
 tests/test_torch_cuda.py and chip_smoke.py phase 14.
 """
+import functools
 import itertools
 import re
 from pathlib import Path
@@ -93,10 +94,12 @@ def test_k9_emulated_matches_jax_kernel(B, s0, s1, p0, p1, first):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
 
 
+@functools.lru_cache(maxsize=None)
 def _stream_scale(H, W, C, seed, L=2, K=2):
     """The JAX StreamPlan of one scale over L packages of K event steps
     (float32), the port's folded weights of both cells, gx_ev as a step
-    sequence [L*K, H, W, 3C], gx_im [L, H, W, 3C] and h0."""
+    sequence [L*K, H, W, 3C], gx_im [L, H, W, 3C] and h0; built once per
+    module for each scale (the tests read them, none writes)."""
     rng = np.random.RandomState(seed)
     (p_ev, c_ev), (p_im, c_im) = cell(C, seed), cell(C, seed + 1)
     gx_ev = rng.randn(L, 1, K, H, W, 3 * C).astype(np.float32)

@@ -11,6 +11,7 @@ and ``gru_chunk.supports`` unchanged.  The kernels themselves are tested
 on a card in tests/test_torch_cuda.py.
 """
 import ctypes
+import functools
 import re
 from pathlib import Path
 
@@ -51,10 +52,28 @@ def resident(plan):
     return RESIDENT[plan.split]
 
 
+@functools.lru_cache(maxsize=None)
 def _weights(C, seed):
-    """A JAX ConvGRU param dict and the port's folded float32 weights."""
+    """A JAX ConvGRU param dict and the port's folded float32 weights,
+    built once per module for each (C, seed) (the tests read them, none
+    writes)."""
     p, c = cell(C, seed)
     return p, folded(c, F32)
+
+
+@functools.lru_cache(maxsize=None)
+def _k10a_inputs(H, W, C, L=2, loop=2):
+    """The JAX StreamPlan over L packages of `loop` event steps (float32)
+    with gx_ev, gx_im and h (numpy), built once per module per shape for
+    the events and the image step."""
+    rng = np.random.RandomState(C + H)
+    (p_ev, _), (p_im, _) = _weights(C, 1), _weights(C, 2)
+    gx_ev = rng.randn(L, 1, loop, H, W, 3 * C).astype(np.float32)
+    gx_im = rng.randn(L, 1, H, W, 3 * C).astype(np.float32)
+    h = (rng.rand(1, H, W, C) * 2 - 1).astype(np.float32)
+    jplan = jax_gru_stream.StreamPlan(p_ev, p_im, jnp.asarray(gx_ev),
+                                      jnp.asarray(gx_im), jnp.asarray(h))
+    return jplan, gx_ev, gx_im, h
 
 
 @pytest.mark.parametrize("k", [1, None], ids=["events", "image"])
@@ -65,13 +84,8 @@ def test_k10a_emulated_matches_jax_kernel(H, W, C, plan, k):
     (StreamPlan.step, interpret mode) within 1e-5, at an events and an
     image step."""
     L, loop = 2, 2
-    rng = np.random.RandomState(C + H)
-    (p_ev, w_ev), (p_im, w_im) = _weights(C, 1), _weights(C, 2)
-    gx_ev = rng.randn(L, 1, loop, H, W, 3 * C).astype(np.float32)
-    gx_im = rng.randn(L, 1, H, W, 3 * C).astype(np.float32)
-    h = (rng.rand(1, H, W, C) * 2 - 1).astype(np.float32)
-    jplan = jax_gru_stream.StreamPlan(p_ev, p_im, jnp.asarray(gx_ev),
-                                      jnp.asarray(gx_im), jnp.asarray(h))
+    (_, w_ev), (_, w_im) = _weights(C, 1), _weights(C, 2)
+    jplan, gx_ev, gx_im, h = _k10a_inputs(H, W, C, L, loop)
     want = np.asarray(jplan.step(jnp.asarray(h), 1, k))
     if k is None:
         gx_seq, sel, (w_ur, w_o) = gx_im.reshape(L, H, W, 3 * C), 1, w_im

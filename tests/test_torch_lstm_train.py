@@ -486,13 +486,16 @@ def test_train_entry_point_phased_cpu(tmp_path, monkeypatch):
     (tmp_path / "cfg.json").write_text(json.dumps(raw))
     monkeypatch.setenv("PREPROCESSED_DATASETS_FOLDER", str(tmp_path / "data"))
     packed = []
-    real_pack = ttrainer.pack_train_batch
+    real_prefetch = ttrainer.device_prefetch
 
-    def pack(batch, device):
-        packed.append(batch)
-        return real_pack(batch, device)
+    def prefetch(batches, device, **kw):
+        def record():
+            for batch in batches:
+                packed.append(batch)
+                yield batch
+        return real_prefetch(record(), device, **kw)
 
-    monkeypatch.setattr(ttrainer, "pack_train_batch", pack)
+    monkeypatch.setattr(ttrainer, "device_prefetch", prefetch)
     trainer = train_main(["-c", str(tmp_path / "cfg.json"), "--device", "cpu"])
     log = trainer.jsonl.entries[0]
     assert np.isfinite(log["train_loss"]) and np.isfinite(log["val_loss"])

@@ -7,7 +7,8 @@ own fused-vs-unfused check (tests/test_train.py:471: atol 5e-5, rtol
 1e-3), with precompute_x and the fused cell (the JAX Pallas kernels in
 interpret mode, the port's ConvGRUHside on its plain versions) and
 without; three Adam steps against the JAX train step; the configuration
-defaults; and the float32 masters under a bf16 config.
+defaults; the float32 masters under a bf16 config; and the refusals that
+remain (training-mode BN/IN, an unknown optimizer).
 """
 import dataclasses
 import os
@@ -163,6 +164,18 @@ def test_three_adam_steps_match_jax():
     assert np.mean(diffs > 1e-6) < 1e-2, np.mean(diffs > 1e-6)
 
 
+# trainer keys the JAX package reads from the raw config, with its
+# defaults (train_step.py:47, trainer.py:63)
+JAX_RAW_TRAINER = {"grad_accum": 1, "async_checkpoint": False}
+
+
+def _jax_trainer_value(jcfg, name):
+    if name in JAX_RAW_TRAINER:
+        return type(JAX_RAW_TRAINER[name])(jcfg.raw.get("trainer", {}).get(
+            name, JAX_RAW_TRAINER[name]))
+    return getattr(jcfg.trainer, name)
+
+
 def test_config_defaults_and_schedule_match_jax():
     for tcls, jcls in ((tconfig.TrainerConfig, jconfig.TrainerConfig),
                        (tconfig.DataSplitConfig, jconfig.DataSplitConfig),
@@ -172,12 +185,20 @@ def test_config_defaults_and_schedule_match_jax():
             if f.name in ("raw", "model", "train_data", "val_data",
                           "trainer", "crop_size"):
                 continue
-            assert getattr(t, f.name) == getattr(j, f.name), (tcls, f.name)
+            want = (JAX_RAW_TRAINER[f.name] if tcls is tconfig.TrainerConfig
+                    and f.name in JAX_RAW_TRAINER else getattr(j, f.name))
+            assert getattr(t, f.name) == want, (tcls, f.name)
     path = os.path.join(
         REPO, "configs/train_e2depth_si_grad_loss_statenet_ergb_tpu_bf16.json")
     t, j = tconfig.Config.load(path), jconfig.Config.load(path)
     for f in dataclasses.fields(tconfig.TrainerConfig):
-        assert getattr(t.trainer, f.name) == getattr(j.trainer, f.name)
+        assert getattr(t.trainer, f.name) == _jax_trainer_value(j, f.name)
+    assert t.metrics == j.metrics
+    raw = {**j.raw, "trainer": {**j.raw["trainer"], "grad_accum": 2,
+                                "async_checkpoint": True}}
+    tc, jc = tconfig.Config.from_dict(raw), jconfig.Config.from_dict(raw)
+    for name in JAX_RAW_TRAINER:
+        assert getattr(tc.trainer, name) == _jax_trainer_value(jc, name)
     assert t.train_data == tconfig.DataSplitConfig(**{
         f.name: getattr(j.train_data, f.name)
         for f in dataclasses.fields(tconfig.DataSplitConfig)})
@@ -224,36 +245,27 @@ def test_bf16_config_keeps_float32_masters():
     assert all(moved), sum(moved)
 
 
-UNPORTED = {
-    "remat_policy": ({"trainer": {"remat_policy": "enc_out"}}, "init"),
-    "remat_chunk": ({"trainer": {"remat_chunk": 2}}, "call"),
-    "in_scan_decode": ({"trainer": {"deferred_decode": False,
-                                    "remat_chunk": 2}}, "call"),
-    "grad_accum": ({"trainer": {"grad_accum": 2}}, "step"),
-    "optimizer": ({"optimizer_type": "SGD"}, "optimizer"),
+REFUSED = {
+    # case: (config overrides, the error, what it matches)
+    "bn_training": ({"model": {"norm": "BN"}}, NotImplementedError, "item 12"),
+    "in_training": ({"model": {"norm": "IN"}}, NotImplementedError, "item 12"),
+    "unknown_optimizer": ({"optimizer_type": "Adagrad"}, KeyError, "Adagrad"),
 }
 
 
-@pytest.mark.parametrize("case", UNPORTED)
-@pytest.mark.filterwarnings("ignore:trainer.deferred_decode is incompatible")
-@pytest.mark.filterwarnings("ignore:trainer.precompute_x requires")
+@pytest.mark.parametrize("case", REFUSED)
 def test_unported_training_options_raise(case):
-    """Training options of the JAX package that the port does not run yet
-    raise NotImplementedError naming the ROADMAP, where they are read."""
-    over, where = UNPORTED[case]
+    """What the port does not train raises where it is read: BN/IN norms,
+    which statenet.check_supported refuses when the loss is built
+    (NotImplementedError naming ROADMAP item 12, where training-mode norms
+    go), and an optimizer JAX does not know either (KeyError, as JAX's)."""
+    over, error, match = REFUSED[case]
     raw = _raw()
-    raw = {**raw, **{k: v for k, v in over.items() if k != "trainer"},
-           "trainer": {**raw["trainer"], **over.get("trainer", {})}}
+    raw = {**raw, **{k: v for k, v in over.items() if k != "model"},
+           "model": {**raw["model"], **over.get("model", {})}}
     cfg = tconfig.Config.from_dict(raw)
-    model = ERGB2DepthRecurrent(cfg.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if where == "init":
+    with pytest.raises(error, match=match):
+        if "model" in over:
             make_sequence_loss(cfg)
-        elif where == "call":
-            make_sequence_loss(cfg)(
-                model, model.init_state(B, H, W),
-                {k: torch.from_numpy(v) for k, v in _batch().items()})
-        elif where == "step":
-            make_train_step(cfg, model, make_optimizer(cfg, model.parameters()))
         else:
-            make_optimizer(cfg, model.parameters())
+            make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(1))])
