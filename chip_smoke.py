@@ -28,9 +28,12 @@ the phased regime with --lanes 2) with the offline evaluation entry
 (``python -m rpg_ramnet_tpu_torch.eval.evaluation``) on what it wrote;
 the paper's baselines (the recurrent e, rgb and ergb0 recipes and the
 non-recurrent UNet ERGB2Depth) through the eval and training entry
-points; and the trainer's previews, gradient accumulation, checkpoint
-policies and resume through the training entry point.  It imports
-nothing of JAX or of the JAX package.
+points; the trainer's previews, gradient accumulation, checkpoint
+policies and resume through the training entry point; and the model zoo
+(BN/IN norms in eval and training mode, concat and no skips,
+transposed-conv and fast-upsample decoders, ConvLSTM encoders, the
+'conv' and 'sum' state combinations) through the eval and training entry
+points.  It imports nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
@@ -233,7 +236,26 @@ Phases, each printed as one JSON line:
                    rounds, with the spread of identical programs (the
                    policies are one program in the port); remat_chunk 2
                    on the ergb0 baseline through the entry point against
-                   remat_chunk 1.
+                   remat_chunk 1;
+ 24. zoo           the model zoo: the flagship recipe (bf16) with options
+                   set in code, on two on-disk sequences of 4 and 3
+                   packages at 256x512 through the eval entry point:
+                   (a) BN, concat skips, transposed-conv decoders, chunked
+                   with x precompute (K1) and per package with
+                   fused_gru='on' (K5), each against 'off'; (b) IN,
+                   ConvLSTM encoders (not phased), no skips, per package
+                   with fused_gru and fused_decoder 'on' (K5; K8 gated
+                   off by the norm) against 'off', and the same norm-free
+                   (K8 with skip=None on every layer); (c) norm-free concat
+                   skips and fast-upsample decoders, the first step with
+                   precompute_x (K1-res, K2) against 'off' at B=4, L=10,
+                   crop 224; (d) BN training, two steps with remat on and
+                   off, each from the same parameters (the running stats
+                   agree after each), then the training entry
+                   point for an epoch and resumed from its checkpoint (the
+                   buffers restored bit for bit); (e) the 'conv' and 'sum'
+                   state combinations per package: finite maps of the
+                   right shape.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -394,6 +416,27 @@ PLAN_OFF_RATIO = 0.6   # a B=8 pick above this share of B=16's time is off
 TRAINER_RUNS = (("none", 1), ("none", 2), ("enc_out", 2), ("gru_gx", 2),
                 ("gru_gx", 1))          # (remat_policy, grad_accum) timed
 REMAT_CHUNK_TOL = 1e-3  # ergb0, remat_chunk 2 vs 1: relative loss difference
+# the model zoo (phase 24): the flagship recipe with each case's model
+# options set in code; two on-disk sequences of 4 and 3 packages at HxW
+# through the eval entry point, chunk 4 (cut: the data); training at B=4,
+# L=10, crop 224, two steps (cut: the data)
+ZOO = {
+    "a": {"norm": "BN", "skip_type": "concat", "use_upsample_conv": False},
+    "b": {"norm": "IN", "recurrent_block_type": "convlstm",
+          "skip_type": "no_skip", "fused_decoder": "on"},
+    "b_norm_free": {"recurrent_block_type": "convlstm",
+                    "skip_type": "no_skip", "fused_decoder": "on"},
+    "c": {"skip_type": "concat", "fast_upsample": True},
+    "d": {"norm": "BN"},
+    "conv": {"state_combination": "conv"},
+    "sum": {"state_combination": "sum"},
+}
+ZOO_SEQ_LENGTHS = (4, 3)
+ZOO_CHUNK = 4
+ZOO_TRAIN_B = 4
+ZOO_STATS_TOL = 1e-3   # (d) running stats, remat on vs off from the same
+                       # parameters: max abs error over the largest
+                       # magnitude, after each step
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -3630,6 +3673,250 @@ def trainer_phases(dev, gen, seed, smi, train_cells):
             "phase_s": phase_s}
 
 
+def perturb_norm_stats(model, seed):
+    """The norms' running stats set to seeded values off torch's init
+    (mean in [-0.25, 0.25), var in [0.5, 1.5)), so the eval-mode norms
+    move the maps."""
+    import torch
+    from rpg_ramnet_tpu_torch.models.layers import extract_norm_stats
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for s in extract_norm_stats(model).values():
+            for name, lo in (("running_mean", -0.25), ("running_var", 0.5)):
+                t = s[name]
+                t.copy_(lo + torch.rand(t.shape, generator=g).to(t.device)
+                        * (0.5 if lo < 0 else 1.0))
+
+
+def stats_rel_diff(a, b):
+    """Max abs difference of two norm-stats dicts over the largest
+    magnitude in the second."""
+    diff = max(float((a[k][n] - b[k][n]).abs().max()) for k in b for n in b[k])
+    scale = max(float(b[k][n].abs().max()) for k in b for n in b[k])
+    return diff / scale
+
+
+def zoo_phases(dev, seed, smi):
+    """Phase 24: the model zoo's options at the flagship width (bf16, base
+    32, 3 encoders, 2 residual blocks, K=5), each config the flagship
+    JSON with the ZOO overrides.  Through the eval entry point on an
+    on-disk split of ZOO_SEQ_LENGTHS packages at HxW: (a) BN + concat +
+    transposed-conv decoders chunked (K1) and per package with
+    fused_gru='on' (K5), each against 'off'; (b) IN + ConvLSTM encoders +
+    no_skip per package with fused_gru and fused_decoder 'on' (K5; no K8:
+    the norm gates it off) against 'off', and its norm-free twin with K8
+    taking skip=None on every layer; (e) the 'conv' and 'sum' state
+    combinations per package.  Training: (c) norm-free concat +
+    fast-upsample, the first step with precompute_x (K1-res, K2) against
+    'off'; (d) BN, two steps with remat on and off, then the training
+    entry point for one epoch, resumed for a second from its checkpoint.
+    Every map finite in [0, 1] of shape (H, W, 1).  One JSON line per
+    part; returns the launches the kernels line adds."""
+    import torch
+    from rpg_ramnet_tpu_torch.core.config import Config
+    from rpg_ramnet_tpu_torch.data import BatchLoader, concatenate_subfolders
+    from rpg_ramnet_tpu_torch.data.loader import device_prefetch
+    from rpg_ramnet_tpu_torch.models import build_model
+    from rpg_ramnet_tpu_torch.models.layers import extract_norm_stats
+    from rpg_ramnet_tpu_torch.ops import gru_hside, upsample_conv
+    from rpg_ramnet_tpu_torch.train import checkpoint
+    from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
+    from rpg_ramnet_tpu_torch.train.optim import make_optimizer
+    from rpg_ramnet_tpu_torch.train.train_step import make_train_step
+    t_phase = time.perf_counter()
+    k1, k5 = gru_hside.conv_gru_hside, gru_hside.conv_gru_full
+    k8 = upsample_conv.upsample_conv_fused
+    K = Config.load(os.path.join(ROOT, CONFIG)).model.every_x_rgb_frame
+    n_pkg = sum(ZOO_SEQ_LENGTHS)
+    padded = sum(-(-n // ZOO_CHUNK) * ZOO_CHUNK for n in ZOO_SEQ_LENGTHS)
+    launches = {"k1": 0, "k5": 0, "k8": 0, "k1_res": 0, "k2": 0}
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_zoo_") as tmp:
+        write_split(tmp, ZOO_SEQ_LENGTHS, K, seed + 24, H, W)
+
+        def run(case, counters, extra=(), **model_over):
+            """The case's config (and model_over) with seeded weights and
+            norm stats through the eval entry point; the maps checked."""
+            raw = raw_config({**ZOO[case], **model_over})
+            raw["name"] = f"smoke_zoo_{case}"
+            model = build_model(Config.from_dict(raw), device=dev,
+                                generator=torch.Generator().manual_seed(seed))
+            perturb_norm_stats(model, seed)
+            tag = "_".join([case, *map(str, model_over.values())])
+            cfg_path = os.path.join(tmp, f"zoo_{tag}.json")
+            ckpt = os.path.join(tmp, f"zoo_{tag}.pth.tar")
+            with open(cfg_path, "w") as f:
+                json.dump(raw, f)
+            export_pth_tar(ckpt, model, raw["arch"], raw)
+            preds, counts, wall, stats = run_eval_entry(
+                cfg_path, ckpt, tmp, counters, extra=extra)
+            shapes = {v.shape for p in preds.values() for v in p.values()}
+            if (len(preds) != n_pkg or stats["nonfinite"]
+                    or stats["out_of_range"] or shapes != {(H, W, 1)}):
+                raise AssertionError(f"zoo {tag}: {len(preds)} items, "
+                                     f"{stats}, shapes {shapes}")
+            return preds, counts, wall
+
+        def versus_off(case, kernel, counters, want, extra=(), **on):
+            """The case with the kernels (``on``) and with fused_gru and
+            fused_decoder 'off': launches per counter, max |dmap|."""
+            p_on, n_on, w_on = run(case, counters, extra, **on)
+            p_off, n_off, w_off = run(case, counters, extra, fused_gru="off",
+                                      fused_decoder="off")
+            err = max_pred_diff(p_on, p_off)
+            row = {"kernel": kernel, "launches": n_on, "expected": want,
+                   "off_launches": n_off, "max_abs_err_vs_off": err,
+                   "tol": SLICE_TOL, "overrides": {**ZOO[case], **on},
+                   "eval_entry_wall_s_on_off": [w_on, w_off]}
+            if n_on != want or any(n_off) or not err <= SLICE_TOL:
+                raise AssertionError(f"zoo {case} {kernel}: {row}")
+            return row
+
+        # (a) chunked with x precompute: K1 on every h-side cell
+        rows["a_chunked_k1"] = versus_off(
+            "a", "k1", [k1], [3 * (K + 1) * padded],
+            ("--scan_chunk", str(ZOO_CHUNK)))
+        # (a) per package, fused_gru='on': K5 on every cell
+        rows["a_per_package_k5"] = versus_off(
+            "a", "k5", [k5], [3 * (K + 1) * n_pkg], fused_gru="on")
+        # (b) ConvLSTM encoders (plain cells) and the K5 combination; the
+        # norm keeps K8 off whatever fused_decoder says
+        rows["b_per_package_k5"] = versus_off(
+            "b", "k5", [k5, k8], [3 * (K + 1) * n_pkg, 0], fused_gru="on")
+        # (b) norm-free: K8 on each of the 3 layers of a package's decode
+        # pass, no skip on any.  The spy stands in for the wrapper under
+        # its module name, so the wrapper counts its launches on the spy
+        skips = []
+
+        def spy(layer, x, skip=None, *args, **kw):
+            skips.append(skip is None)
+            return k8(layer, x, skip, *args, **kw)
+
+        spy.launches = 0
+        upsample_conv.upsample_conv_fused = spy
+        try:
+            rows["b_norm_free_k8"] = versus_off(
+                "b_norm_free", "k8", [k5, spy],
+                [3 * (K + 1) * n_pkg, 3 * n_pkg], fused_gru="on")
+        finally:
+            upsample_conv.upsample_conv_fused = k8
+        rows["b_norm_free_k8"]["k8_calls_without_skip"] = sum(skips)
+        if len(skips) != 3 * n_pkg or not all(skips):
+            raise AssertionError(f"K8 took a skip under no_skip: {skips}")
+        # (e) the parameter-free and the conv state combinations
+        for case in ("conv", "sum"):
+            _, _, wall = run(case, [k1])
+            rows[f"e_{case}"] = {"items": n_pkg, "eval_entry_wall_s": wall}
+        launches["k1"] += rows["a_chunked_k1"]["launches"][0]
+        launches["k5"] += sum(rows[r]["launches"][0] for r in
+                              ("a_per_package_k5", "b_per_package_k5",
+                               "b_norm_free_k8"))
+        launches["k8"] += rows["b_norm_free_k8"]["launches"][1]
+        check_no_jax()
+        emit({"phase": "zoo", "config": CONFIG, "H": H, "W": W, "K": K,
+              "sequences": list(ZOO_SEQ_LENGTHS), "chunk": ZOO_CHUNK,
+              "dtype": "bfloat16", "runs": rows, "nvidia_smi": smi})
+
+    # training: the data at the crop, B = ZOO_TRAIN_B windows per step
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_zoo_train_") as tmp:
+        root = os.path.join(tmp, "data")
+        write_train_data(root, K, seed + 25, batch=ZOO_TRAIN_B)
+
+        def train_raw(case, **trainer):
+            raw = train_config(tmp)
+            raw["name"] = f"smoke_zoo_{case}"
+            raw["model"].update(ZOO[case])
+            raw["data_loader"]["batch_size"] = ZOO_TRAIN_B
+            raw["trainer"].update(trainer)
+            return raw
+
+        # (c) the first step with precompute_x: K1-res twice per h-side
+        # cell (the checkpoint's recompute), K2 once
+        n_cells = 3 * (K + 1) * TRAIN_L
+        _, _, first = first_step_vs_off(
+            Config.from_dict(train_raw("c")), root, dev, seed,
+            {"k1_res": (gru_hside.conv_gru_hside_res, 2 * n_cells),
+             "k2": (gru_hside.conv_gru_hside_bwd, n_cells)})
+        launches["k1_res"] += first["launches"]["k1_res"]
+        launches["k2"] += first["launches"]["k2"]
+
+        # (d) BN: the in-scan path, two steps with remat on and off
+        raw = train_raw("d", precompute_x=False, deferred_decode=False)
+        cfg = Config.from_dict(raw)
+        split = cfg.train_data
+        ds = concatenate_subfolders(
+            os.path.join(root, "train"), split.type, split.event_folder,
+            split.depth_folder, split.frame_folder, TRAIN_L, step_size=1,
+            clip_distance=split.clip_distance,
+            every_x_rgb_frame=split.every_x_rgb_frame,
+            reg_factor=split.reg_factor)
+        batches = list(device_prefetch(
+            BatchLoader(ds, ZOO_TRAIN_B, shuffle=False), dev))[:TRAIN_STEPS]
+        # each step of the remat'd model and the other one from the same
+        # parameters and stats: the backward's atomics (the bilinear
+        # resize's among them) let independently trained twins drift
+        # apart in the parameters, which moved step 2's stats by 1.7e-3 on
+        # an H100, whereas a doubled update moves them by the momentum's
+        # order (1e-1)
+        models = {r: build_model(cfg, device=dev,
+                                 generator=torch.Generator().manual_seed(seed))
+                  for r in (True, False)}
+        steps = {r: make_train_step(cfg, m, make_optimizer(cfg, m.parameters()),
+                                    remat=r) for r, m in models.items()}
+        diffs, losses, walls = [], {True: [], False: []}, {True: 0.0, False: 0.0}
+        for b in batches:
+            models[False].load_state_dict(models[True].state_dict())
+            for remat in (True, False):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses[remat].append(steps[remat](b)["loss"])
+                torch.cuda.synchronize()
+                walls[remat] += time.perf_counter() - t0
+            diffs.append(stats_rel_diff(
+                *(extract_norm_stats(models[r]) for r in (True, False))))
+        final = extract_norm_stats(models[True])
+        moved = stats_rel_diff(final, {
+            k: {"running_mean": torch.zeros_like(s["running_mean"]),
+                "running_var": torch.ones_like(s["running_var"])}
+            for k, s in final.items()})
+        d_row = {"B": ZOO_TRAIN_B, "L": TRAIN_L, "crop": TRAIN_CROP,
+                 "steps": len(batches), "norms": len(final),
+                 "stats_rel_diff_remat_vs_not_per_step": diffs,
+                 "tol": ZOO_STATS_TOL, "stats_moved_from_init": moved,
+                 "loss_remat": losses[True], "loss_no_remat": losses[False],
+                 "wall_s_remat_no_remat": [walls[True], walls[False]]}
+        del models, steps
+        if (len(batches) != TRAIN_STEPS or not max(diffs) <= ZOO_STATS_TOL
+                or not moved > 0
+                or not all(math.isfinite(v) for v in losses[True] + losses[False])):
+            raise AssertionError(f"zoo BN training: {d_row}")
+        # the entry point: an epoch, then resumed for a second from its
+        # checkpoint, whose buffers a fresh model restores bit for bit
+        kept = []
+        trained = run_training(train_raw("d", precompute_x=False),
+                               tmp, {}, keep=kept)
+        ckpt = os.path.join(kept[0].run_dir, "checkpoint-epoch0")
+        fresh = build_model(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(seed + 1))
+        checkpoint.restore(ckpt, fresh)
+        buffers = dict(kept[0].model.named_buffers())
+        if not buffers or not all(torch.equal(v, buffers[k])
+                                  for k, v in fresh.named_buffers()):
+            raise AssertionError("zoo BN: the checkpoint's buffers differ")
+        resumed = run_training(train_raw("d", precompute_x=False, epochs=2),
+                               tmp, {}, resume=ckpt)
+        check_no_jax()
+        emit({"phase": "zoo_train", "config": CONFIG,
+              "c_first_step_vs_off": {**first, "overrides": ZOO["c"]},
+              "d_bn_remat_vs_not": d_row,
+              "d_entry_point": trained, "d_resumed": resumed,
+              "d_buffers_restored": len(buffers), "nvidia_smi": smi})
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "zoo_done", "phase_s": phase_s, "launches": launches,
+          "nvidia_smi": smi})
+    return {"launches": launches, "rows": rows, "phase_s": phase_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3933,6 +4220,10 @@ def main() -> int:
     # 23. the trainer: previews, grad_accum, checkpoint policies, resume
     trainer = trainer_phases(dev, gen, args.seed, smi, train_cells)
 
+    # 24. the model zoo: norms, skips, decoders, encoders, combinations
+    zoo = zoo_phases(dev, args.seed, smi)
+    zl = zoo["launches"]
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     v1m = vox_times["1M"]
     vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
@@ -3969,14 +4260,16 @@ def main() -> int:
     print(smi)
     emit({"kernels": [
         dict(entry("gru_hside", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:289",
-                   launches, max(e for row in errs.values() for e in row.values()),
+                   launches + zl["k1"],
+                   max(e for row in errs.values() for e in row.values()),
                    sum(r["kernel_us"] for r in cells) / 1e3,
                    sum(r["plain_us"] for r in cells) / 1e3,
                    cell_bound("k1", FLAGSHIP_CELLS)),
+             launches_by_path={"slice": launches, "zoo": zl["k1"]},
              lanes=lane_extra("k1", lanes["k1"])),
         dict(entry("gru_hside_res", "gru_hside.cu",
                    "rpg_ramnet_tpu/ops/gru_hside.py:124",
-                   trained["launches"]["k1_res"],
+                   trained["launches"]["k1_res"] + zl["k1_res"],
                    max([max(r["res_h_err"], r["res_acts_err"],
                             *r["res_plans"].values()) for r in train_rows]
                        + [e for row in res_edges.values()
@@ -3986,18 +4279,23 @@ def main() -> int:
                    sum(r["res_kernel_us"] for r in train_cells) / 1e3,
                    sum(r["res_plain_us"] for r in train_cells) / 1e3,
                    cell_bound("k1_res", TRAIN_CELLS)),
+             launches_by_path={"train": trained["launches"]["k1_res"],
+                               "zoo": zl["k1_res"]},
              micro_batch=micro_extra("res", trainer["launches"]["k1_res"])),
         dict(entry("gru_hside_bwd", "gru_hside_bwd.cu",
-                   "rpg_ramnet_tpu/ops/gru_hside.py:535", trained["launches"]["k2"],
+                   "rpg_ramnet_tpu/ops/gru_hside.py:535",
+                   trained["launches"]["k2"] + zl["k2"],
                    max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
                        for r in train_rows),
                    sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
                    sum(r["bwd_plain_us"] for r in train_cells) / 1e3,
                    cell_bound("k2", TRAIN_CELLS)),
              wrapper_ms=sum(r["bwd_k2"]["wrapper_us"] for r in train_cells) / 1e3,
+             launches_by_path={"train": trained["launches"]["k2"],
+                               "zoo": zl["k2"]},
              micro_batch=micro_extra("bwd", trainer["launches"]["k2"])),
         dict(entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
-                   k5_launches,
+                   k5_launches + zl["k5"],
                    max(e for row in k5_errs.values() for k, e in row.items()
                        if k != "exact_gates"),
                    sum(r["kernel_us"] for r in full_cells) / 1e3,
@@ -4006,6 +4304,7 @@ def main() -> int:
              wrapper_ms=sum(r["kernel_wrapper_us"] for r in full_cells) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["plan"] for r in full_cells},
              off_layer_ms=sum(r["plain_layer_bf16_us"] for r in full_cells) / 1e3,
+             launches_by_path={"stream": k5_launches, "zoo": zl["k5"]},
              lanes=lane_extra("k5", lanes["k5"])),
         dict(entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
                    stream_counts["k6"] + batch_run["auto"]["launches"],
@@ -4090,14 +4389,15 @@ def main() -> int:
         dict(entry("upsample_conv", "upsample_conv.cu",
                    "rpg_ramnet_tpu/ops/upsample_conv.py:203",
                    dec_variants["k8"]["launches"]["k8"]
-                   + baselines["k8"]["launches"],
+                   + baselines["k8"]["launches"] + zl["k8"],
                    max(r["k8_rel_err"] for r in dec_errs.values()),
                    composed_rule["sum_us_batch96"]["k8"] / 1e3,
                    composed_rule["sum_us_batch96"]["two_stage"] / 1e3,
                    decoder_bound(96),
                    composed_rule["sum_us_batch96"]["composed"] / 1e3),
              launches_by_path={"chunked": dec_variants["k8"]["launches"]["k8"],
-                               "baseline_ergb0": baselines["k8"]["launches"]}),
+                               "baseline_ergb0": baselines["k8"]["launches"],
+                               "zoo": zl["k8"]}),
         entry("lstm_hside_res", "lstm_hside.cu",
               "rpg_ramnet_tpu/ops/gru_hside.py:356",
               ph_train["launches"]["k3_res"],

@@ -61,7 +61,10 @@ def load_reference_checkpoint(model: nn.Module, path: str) -> nn.Module:
     'state_dict', as RAM_Net/base/base_trainer.py:133-158 writes it, or a
     bare state dict) into ``model``.  Upstream checkpoints pickle more
     than tensors (the config and logger), so this unpickles: load only
-    trusted files."""
+    trusted files.  The port's norms keep no ``num_batches_tracked`` (their
+    momentum is fixed, so the count is never read): the key is dropped
+    where upstream's BatchNorm2d/InstanceNorm2d wrote it, and a file with
+    or without it loads with strict=True."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("state_dict", ckpt)
     sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}

@@ -8,8 +8,13 @@ state dict loads with ``strict=True``.
 
     JAX function                         port
     conv2d / conv_layer_apply            ConvLayer.forward
+    _apply_norm, _train_bn, _train_in    Norm.forward (NormCtx: training)
+    extract_norm_stats                   extract_norm_stats
+    merge_norm_stats                     merge_norm_stats
     upsample2x_bilinear                  upsample2x_bilinear
     upsample_conv_layer_apply            UpsampleConvLayer.forward
+    upsample_conv_layer_fast_apply       upsample_conv_layer_fast
+    transposed_conv_layer_apply          TransposedConvLayer.forward
     compose_upsample_conv_kernel         compose_upsample_conv_kernel
                                          (UpsampleConvLayer.composed_weights)
     upsample_conv_layer_composed_apply   upsample_conv_layer_composed
@@ -25,6 +30,7 @@ state dict loads with ``strict=True``.
     conv_lstm_apply_hside                ConvLSTM.hside
     the fold of conv_lstm_hside_fused    ConvLSTM.hside_weights (K3, K4)
     recurrent_conv_layer_apply           RecurrentConvLayer.forward
+    recurrent2_conv_layer_apply          Recurrent2ConvLayer.forward
     phased_lstm_gate_init                PhasedLSTMGate
     phased_gate_k                        phased_gate_k
     phased_conv_lstm_apply               PhasedConvLSTM.forward
@@ -33,7 +39,17 @@ state dict loads with ``strict=True``.
 Parameters stay float32 (the masters an optimizer updates); every layer
 casts its weights to its input's dtype at use, as the JAX layers do
 (``conv2d``: ``w.astype(x.dtype)``), so one model serves float32 and bf16
-compute, training and inference.
+compute, training and inference.  A norm computes in float32 and returns
+its input's dtype (JAX's norms promote a bf16 input to float32 through
+the float32 running stats and affine weights, so everything after them
+runs in float32 there: ROADMAP queue 3).
+
+Norms (``norm`` 'BN' or 'IN', JAX layers.py:129-249) run in eval mode,
+on the running stats, unless a layer is given a ``NormCtx``: then they
+normalize by the batch's statistics and put the updated running stats
+into the ctx, never into the buffers, so a recompute under
+torch.utils.checkpoint cannot update them twice.  The caller writes them
+back (``merge_norm_stats``) after the step.
 
 Modules take and return NCHW-shaped tensors.  The model keeps them in
 ``torch.channels_last`` memory, which is physically the JAX package's NHWC:
@@ -45,7 +61,7 @@ NCHW-contiguous input (the channel-first head input of the JAX
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -93,18 +109,171 @@ def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
                          align_corners=False)
 
 
+NORM_MOMENTUM = 0.1
+NORM_EPS = 1e-5
+
+
+class NormCtx:
+    """Training-mode norms' running stats, carried as values (JAX
+    layers.py:151-178).  ``stats``: {key: {'running_mean', 'running_var'}}
+    at the start of the carried span (``extract_norm_stats``); ``out``
+    collects the updates of the norms that ran, so a norm applied several
+    times (the event encoders, K times per package) sees its own earlier
+    update, in call order (``fetch``).  ``merged()`` is the stats after
+    the span."""
+
+    def __init__(self, stats: Dict[str, Dict[str, torch.Tensor]]):
+        self.stats = stats
+        self.out: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def fetch(self, key: str, norm: "Norm") -> Dict[str, torch.Tensor]:
+        if key in self.out:
+            return self.out[key]
+        if key in self.stats:
+            return self.stats[key]
+        return {"running_mean": norm.running_mean,
+                "running_var": norm.running_var}
+
+    def update(self, key: str, norm: "Norm", mean: torch.Tensor,
+               var: torch.Tensor) -> None:
+        """Momentum update of ``key``'s stats by a batch's mean and
+        unbiased variance (float32 [C], detached)."""
+        old, m = self.fetch(key, norm), NORM_MOMENTUM
+        self.out[key] = {
+            "running_mean": (1 - m) * old["running_mean"] + m * mean,
+            "running_var": (1 - m) * old["running_var"] + m * var}
+
+    def merged(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {**self.stats, **self.out}
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v.float().view(1, -1, 1, 1)
+
+
+class Norm(nn.Module):
+    """BatchNorm2d (affine, 'BN') or InstanceNorm2d(track_running_stats=
+    True) (non-affine, 'IN') as upstream's ConvLayer has them
+    (submodules.py:13-24), with the buffers ``running_mean`` and
+    ``running_var`` and no ``num_batches_tracked``: the momentum is fixed,
+    so the count is never read, and a state dict then has exactly the
+    names JAX's ``params_to_state_dict`` gives (a reference checkpoint's
+    counts are dropped on load, ``compat.load_reference_checkpoint``).
+    ``key``: the norm's dotted path in its network (JAX's param path),
+    which names its stats in a NormCtx; the network sets it
+    (``name_norms``)."""
+
+    def __init__(self, kind: str, channels: int):
+        super().__init__()
+        if kind not in ("BN", "IN"):
+            raise KeyError(f"unknown norm {kind!r}")
+        self.kind = kind
+        self.key = ""
+        if kind == "BN":
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def reset_parameters_(self) -> None:
+        """torch's init, as the constructor's: weight 1, bias 0, running
+        stats (0, 1) (a model built on the meta device needs it)."""
+        with torch.no_grad():
+            if self.kind == "BN":
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, ctx: Optional[NormCtx] = None
+                ) -> torch.Tensor:
+        """NCHW-shaped x in, x's dtype out.  Without ctx (eval,
+        ``_apply_norm``): normalized by the running stats, then BN's
+        affine.  With ctx (training, ``_train_bn``/``_train_in``): by the
+        batch's biased statistics, over (N, H, W) for BN and per instance
+        over (H, W) for IN, and the ctx's stats move by the momentum
+        towards the unbiased variance and the mean (IN: their batch
+        means)."""
+        xf = x.float()
+        if ctx is None:
+            y = ((xf - _per_channel(self.running_mean))
+                 * torch.rsqrt(_per_channel(self.running_var) + NORM_EPS))
+        else:
+            dims = (0, 2, 3) if self.kind == "BN" else (2, 3)
+            m = xf.mean(dims, keepdim=True)
+            v = (xf - m).square().mean(dims, keepdim=True)
+            y = (xf - m) * torch.rsqrt(v + NORM_EPS)
+            n = math.prod(x.shape[d] for d in dims)
+            unbiased = v.detach() * (n / max(n - 1, 1))
+            # [1 or B, C, 1, 1] -> [C] (IN: the batch mean of its stats)
+            ctx.update(self.key, self, m.detach().mean((0, 2, 3)),
+                       unbiased.mean((0, 2, 3)))
+        if self.kind == "BN":
+            y = y * _per_channel(self.weight) + _per_channel(self.bias)
+        return y.to(x.dtype)
+
+
+def instance_norm_plain(x: torch.Tensor) -> torch.Tensor:
+    """InstanceNorm2d() without running stats or affine (the residual
+    blocks' IN, submodules.py:193-194): per-instance biased statistics in
+    training and eval alike, in float32, returned in x's dtype."""
+    xf = x.float()
+    m = xf.mean((2, 3), keepdim=True)
+    v = (xf - m).square().mean((2, 3), keepdim=True)
+    return ((xf - m) * torch.rsqrt(v + NORM_EPS)).to(x.dtype)
+
+
+def name_norms(net: nn.Module) -> None:
+    """Set every Norm's ``key`` to its dotted path in ``net``."""
+    for name, m in net.named_modules():
+        if isinstance(m, Norm):
+            m.key = name
+
+
+def extract_norm_stats(net: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{key: {'running_mean', 'running_var'}} of every Norm of ``net``
+    (JAX ``extract_norm_stats``, layers.py:869-888): the stats a training
+    window starts from.  The tensors are the buffers themselves."""
+    return {m.key: {"running_mean": m.running_mean,
+                    "running_var": m.running_var}
+            for m in net.modules() if isinstance(m, Norm)}
+
+
+def merge_norm_stats(net: nn.Module,
+                     stats: Dict[str, Dict[str, torch.Tensor]]) -> None:
+    """Copy ``stats`` into the buffers of the Norms they name (JAX
+    ``merge_norm_stats``, layers.py:891-915); unnamed norms keep theirs."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Norm) and m.key in stats:
+                m.running_mean.copy_(stats[m.key]["running_mean"])
+                m.running_var.copy_(stats[m.key]["running_var"])
+
+
+def _norm(norm: Optional[str], channels: int) -> Optional[Norm]:
+    return None if norm is None else Norm(norm, channels)
+
+
 class ConvLayer(nn.Module):
-    """Conv + activation (submodules.py:8-35, norm-free)."""
+    """Conv, norm, activation (submodules.py:8-35): under BN the conv has
+    no bias (submodules.py:13)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int = 0,
-                 activation: Optional[str] = "relu"):
+                 activation: Optional[str] = "relu",
+                 norm: Optional[str] = None):
         super().__init__()
-        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding)
+        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding,
+                                bias=norm != "BN")
+        self.norm_layer = _norm(norm, out_ch)
         self.activation = activation
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return activate(conv(self.conv2d, x), self.activation)
+    def forward(self, x: torch.Tensor, ctx: Optional[NormCtx] = None
+                ) -> torch.Tensor:
+        y = conv(self.conv2d, x)
+        if self.norm_layer is not None:
+            y = self.norm_layer(y, ctx)
+        return activate(y, self.activation)
 
 
 class _FoldedGates(nn.Module):
@@ -132,23 +301,34 @@ class _FoldedGates(nn.Module):
 
 
 class UpsampleConvLayer(_FoldedGates):
-    """Bilinear x2 then conv + activation (submodules.py:69-97).  Its
+    """Bilinear x2 then conv, norm, activation (submodules.py:69-97).  Its
     weights also come folded for the fused decoder kernel K8
     (``fused_weights``) and composed for the transposed-conv formulation
-    (``composed_weights``)."""
+    (``composed_weights``), both of which the decoder takes norm-free
+    only."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 padding: int = 0, activation: Optional[str] = "relu"):
+                 padding: int = 0, activation: Optional[str] = "relu",
+                 norm: Optional[str] = None):
         super().__init__()
-        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, 1, padding)
+        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, 1, padding,
+                                bias=norm != "BN")
+        self.norm_layer = _norm(norm, out_ch)
         self.activation = activation
 
     def gates(self):
         return (self.conv2d,)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return activate(conv(self.conv2d, upsample2x_bilinear(x)),
-                        self.activation)
+    def finish(self, y: torch.Tensor, ctx: Optional[NormCtx] = None
+               ) -> torch.Tensor:
+        """The norm and the activation on the conv's output."""
+        if self.norm_layer is not None:
+            y = self.norm_layer(y, ctx)
+        return activate(y, self.activation)
+
+    def forward(self, x: torch.Tensor, ctx: Optional[NormCtx] = None
+                ) -> torch.Tensor:
+        return self.finish(conv(self.conv2d, upsample2x_bilinear(x)), ctx)
 
     def fused_weights(self, dtype: torch.dtype
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,28 +405,134 @@ def upsample_conv_layer_composed(layer: UpsampleConvLayer, x: torch.Tensor,
         xs = xs.contiguous(memory_format=torch.channels_last)
         return conv(layer.conv2d, upsample2x_bilinear(xs))
 
+    _restitch_borders(y, ref_up, x)
+    return activate(y, activation)
+
+
+# -- subpixel ("fast upsample") formulation of bilinear-2x + 5x5 conv --------
+#
+# In the interior the composite is, per output phase, a 4x4 convolution at
+# the low resolution: the half-pixel bilinear stencils (0.25, 0.75)
+# composed with the 5x5 weights through the 4x5 matrices below.  The outer
+# two rows and columns of the 2x image mix the resize's clamp with the
+# conv's zero padding, so they are recomputed with the two-stage op on
+# 4-pixel slabs and stitched in (JAX layers.py:256-333, computed there
+# outside any Pallas kernel: library convolutions here).
+
+_S0 = ((0.25, 0.00, 0.00, 0.00, 0.00),
+       (0.75, 0.75, 0.25, 0.00, 0.00),
+       (0.00, 0.25, 0.75, 0.75, 0.25),
+       (0.00, 0.00, 0.00, 0.25, 0.75))           # dm in {-2..1}
+_S1 = ((0.75, 0.25, 0.00, 0.00, 0.00),
+       (0.25, 0.75, 0.75, 0.25, 0.00),
+       (0.00, 0.00, 0.25, 0.75, 0.75),
+       (0.00, 0.00, 0.00, 0.00, 0.25))           # dm in {-1..2}
+
+
+def fast_phase_kernels(w: torch.Tensor):
+    """OIHW w [Cout, C, 5, 5] -> {(p, q): [Cout, C, 4, 4]}, the phase
+    kernels of output rows 2i+p and columns 2j+q (JAX ``_phase_kernels``),
+    in w's dtype."""
+    s = {p: torch.tensor(m, dtype=w.dtype, device=w.device)
+         for p, m in ((0, _S0), (1, _S1))}
+    return {(p, q): torch.einsum("au,oiuv,bv->oiab", s[p], w, s[q])
+            for p in (0, 1) for q in (0, 1)}
+
+
+def _restitch_borders(y: torch.Tensor, ref_up, x: torch.Tensor) -> None:
+    """Overwrite the outer two rows and columns of the 2x output y with
+    the two-stage op ``ref_up`` on 4-pixel slabs of x, then the corners
+    with 4x4 corner slabs (both clamps interact there)."""
     y[:, :, :2] = ref_up(x[:, :, :4])[:, :, :2]
     y[:, :, -2:] = ref_up(x[:, :, -4:])[:, :, -2:]
     y[..., :2] = ref_up(x[..., :4])[..., :2]
     y[..., -2:] = ref_up(x[..., -4:])[..., -2:]
-    # corners: both clamps interact; 4x4 corner slabs give them exactly
     y[..., :2, :2] = ref_up(x[..., :4, :4])[..., :2, :2]
     y[..., :2, -2:] = ref_up(x[..., :4, -4:])[..., :2, -2:]
     y[..., -2:, :2] = ref_up(x[..., -4:, :4])[..., -2:, :2]
     y[..., -2:, -2:] = ref_up(x[..., -4:, -4:])[..., -2:, -2:]
-    return activate(y, activation)
+
+
+def upsample_conv_layer_fast(layer: UpsampleConvLayer, x: torch.Tensor,
+                             ctx: Optional[NormCtx] = None) -> torch.Tensor:
+    """The exact fast equivalent of ``layer(x, ctx)`` (JAX
+    ``upsample_conv_layer_fast_apply``): the interior as four 4x4 phase
+    convolutions on the edge-padded low-resolution x, the borders and
+    corners restitched from 4-pixel slabs of the two-stage op, then the
+    bias, the norm and the activation.  NCHW-shaped in and out, in x's
+    dtype; library ops, so differentiable.  It equals the two-stage layer
+    up to float summation order."""
+    w = layer.conv2d.weight
+    n, _, h, wd = x.shape
+    xr = F.pad(x, (2, 2, 2, 2), mode="replicate")
+    y = x.new_empty((n, w.shape[0], 2 * h, 2 * wd))
+    for (p, q), k in fast_phase_kernels(w).items():
+        # phase 0 taps dm in {-2..1} (offset 0), phase 1 {-1..2} (offset 1)
+        y[:, :, p::2, q::2] = F.conv2d(xr[:, :, p:p + h + 3, q:q + wd + 3],
+                                       k.to(x.dtype))
+
+    def ref_up(xs):
+        return F.conv2d(upsample2x_bilinear(xs), w.to(x.dtype), None, 1, 2)
+
+    _restitch_borders(y, ref_up, x)
+    if layer.conv2d.bias is not None:
+        y = y + layer.conv2d.bias.to(y.dtype).view(1, -1, 1, 1)
+    return layer.finish(y, ctx)
+
+
+class TransposedConvLayer(nn.Module):
+    """Transposed conv (k 5, stride 2, padding 2, output padding 1), norm,
+    activation (submodules.py:38-66); no conv bias under BN.  Its weight
+    is torch's (in, out, kh, kw), which ``compat.params_to_state_dict``
+    maps JAX's to."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 5,
+                 padding: int = 2, activation: Optional[str] = "relu",
+                 norm: Optional[str] = None):
+        super().__init__()
+        self.transposed_conv2d = nn.ConvTranspose2d(
+            in_ch, out_ch, kernel_size, stride=2, padding=padding,
+            output_padding=1, bias=norm != "BN")
+        self.norm_layer = _norm(norm, out_ch)
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor, ctx: Optional[NormCtx] = None
+                ) -> torch.Tensor:
+        t = self.transposed_conv2d
+        b = None if t.bias is None else t.bias.to(x.dtype)
+        y = F.conv_transpose2d(x, t.weight.to(x.dtype), b, stride=2,
+                               padding=t.padding, output_padding=1)
+        if self.norm_layer is not None:
+            y = self.norm_layer(y, ctx)
+        return activate(y, self.activation)
 
 
 class ResidualBlock(nn.Module):
-    """Two 3x3 convs with an identity skip (submodules.py:182-215)."""
+    """Two 3x3 convs with an identity skip (submodules.py:182-215).  BN:
+    no conv biases, norms ``bn1`` and ``bn2`` with running stats; IN: the
+    plain instance norm after each conv, no parameters or stats."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, norm: Optional[str] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(channels, channels, 3, 1, 1)
-        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1)
+        self.norm = norm
+        self.conv1 = nn.Conv2d(channels, channels, 3, 1, 1, bias=norm != "BN")
+        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1, bias=norm != "BN")
+        if norm == "BN":
+            self.bn1 = Norm("BN", channels)
+            self.bn2 = Norm("BN", channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = conv(self.conv2, torch.relu(conv(self.conv1, x)))
+    def _norm(self, i: int, y: torch.Tensor, ctx: Optional[NormCtx]
+              ) -> torch.Tensor:
+        if self.norm == "BN":
+            return getattr(self, f"bn{i}")(y, ctx)
+        if self.norm == "IN":
+            return instance_norm_plain(y)
+        return y
+
+    def forward(self, x: torch.Tensor, ctx: Optional[NormCtx] = None
+                ) -> torch.Tensor:
+        out = torch.relu(self._norm(1, conv(self.conv1, x), ctx))
+        out = self._norm(2, conv(self.conv2, out), ctx)
         return torch.relu(out + x)
 
 
@@ -424,6 +710,21 @@ class RecurrentConvLayer(nn.Module):
         self.recurrent_block = cell(channels, channels)
 
 
+class Recurrent2ConvLayer(nn.Module):
+    """A 5x5 stride-2 ConvLayer (with the norm), then a ConvLSTM
+    (submodules.py:122-142): the ConvLSTM encoders without
+    use_phased_arch.  Returns (hidden, (hidden, cell))."""
+
+    def __init__(self, in_ch: int, out_ch: int, norm: Optional[str] = None):
+        super().__init__()
+        self.conv = ConvLayer(in_ch, out_ch, 5, 2, 2, norm=norm)
+        self.recurrent_block = ConvLSTM(out_ch, out_ch)
+
+    def forward(self, x: torch.Tensor, state, ctx: Optional[NormCtx] = None):
+        state = self.recurrent_block(self.conv(x, ctx), state)
+        return state[0], state
+
+
 class PhasedLSTMGate(nn.Module):
     """The PhasedLSTM time gate (submodules.py:218-300): a period ``tau``
     and a ``phase`` per flattened torch-order feature (c*H*W + y*W + x).
@@ -514,12 +815,14 @@ class PhasedConvLSTM(nn.Module):
 
 class RecurrentPhasedConvLayer(nn.Module):
     """RecurrentPhasedConvLayer (submodules.py:145-157): a 5x5 stride-2
-    conv with ReLU, then a PhasedConvLSTM over the post-conv feature map
-    (height x width)."""
+    conv with the norm and ReLU, then a PhasedConvLSTM over the post-conv
+    feature map (height x width).  Its norm runs in eval mode, in training
+    too: JAX passes it no NormCtx (layers.py:834-842; ROADMAP queue 3)."""
 
-    def __init__(self, in_ch: int, out_ch: int, height: int, width: int):
+    def __init__(self, in_ch: int, out_ch: int, height: int, width: int,
+                 norm: Optional[str] = None):
         super().__init__()
-        self.conv = ConvLayer(in_ch, out_ch, 5, 2, 2)
+        self.conv = ConvLayer(in_ch, out_ch, 5, 2, 2, norm=norm)
         self.recurrent_block = PhasedConvLSTM(out_ch, out_ch, height, width)
 
     def forward(self, x: torch.Tensor, times: torch.Tensor, state,

@@ -17,7 +17,10 @@ public tensors are NHWC.
                                      decodes as one batched pass (the
                                      per-package streaming engine)
     forward_sequence                 L packages of forward_package: the
-                                     chunked engines' in-scan route
+                                     chunked engines' in-scan route, and
+                                     training without deferred decode
+                                     (with training-mode norms, their
+                                     running stats carried through)
     forward_sequence_precomputed     a chunk of packages (inference):
                                      batched x side, sequential h side, one
                                      batched decode
@@ -40,6 +43,7 @@ from ..core.config import ModelConfig
 from ..ops import gru_chunk, gru_hside, gru_stream
 from ..utils.layout import to_nchw, to_nhwc
 from . import statenet, unet
+from .layers import NormCtx
 
 
 def event_loop_range(cfg: ModelConfig) -> int:
@@ -310,7 +314,8 @@ class ERGB2DepthRecurrent(nn.Module):
                         decode_keys: Optional[Sequence[str]] = None,
                         allow_fused: bool = False,
                         allow_fused_decoder: bool = False,
-                        allow_composed: bool = False):
+                        allow_composed: bool = False,
+                        ctx: Optional[NormCtx] = None):
         """One datapackage: K event steps then the image step, decoding
         after every step (model.py:176-217), with the whole cells: the
         reference semantics.  decode_keys: decode only these keys (all
@@ -321,19 +326,22 @@ class ERGB2DepthRecurrent(nn.Module):
         policy run decoder layers as kernel K8 (inference only) and the
         composed_decoder policy as the composed layers.  A 'reset' [B]
         bool mask in pkg zeroes the whole state of those lanes before the
-        package (model.py:246).  Returns (state, {key: [B, H, W, 1]})."""
+        package (model.py:246), the encoders' included.  ctx: training-mode
+        norms (layers.NormCtx), eval mode when None.  Returns (state,
+        {key: [B, H, W, 1]})."""
         net, cfg = self.statenetphasedrecurrent, self.cfg
         state = statenet.map_state(to_nchw,
                                    _apply_reset(pkg.get("reset"), state))
         preds = {}
         for key, x, modality, t in _package_steps(cfg, pkg):
             state = statenet.forward_modality(net, cfg, x, state, modality,
-                                              times=t, allow_fused=allow_fused)
+                                              times=t, allow_fused=allow_fused,
+                                              ctx=ctx)
             if decode_keys is None or key in decode_keys:
                 preds[key] = to_nhwc(statenet.forward_decoder_supers(
                     net, cfg, statenet.decoder_view(cfg, state),
                     allow_fused=allow_fused_decoder,
-                    allow_composed=allow_composed))
+                    allow_composed=allow_composed, ctx=ctx))
         return statenet.map_state(to_nhwc, state), preds
 
     def forward_package_batched_decode(self, state, pkg,
@@ -360,11 +368,11 @@ class ERGB2DepthRecurrent(nn.Module):
     def forward_sequence(self, state, seq,
                          decode_keys: Optional[Sequence[str]] = None,
                          remat: bool = False, squeeze_preds: bool = False,
-                         remat_chunk: int = 1):
+                         remat_chunk: int = 1, norm_stats=None):
         """L packages of forward_package in order, decoding after every
-        step (model.py:597-672 without norm stats): the reference
-        semantics, bit-identical to per-package streaming, and the
-        training path without deferred decode.
+        step (model.py:597-672): the reference semantics, bit-identical to
+        per-package streaming, and the training path without deferred
+        decode.
         seq: {'events': [B, L, K, H, W, Ce], 'image': [B, L, H, W, Ci]},
         and in the phased regime 'times_events' [B, L, K] and
         'times_image' [B, L]; 'reset' [B, L] (bool) zeroes a lane's state
@@ -373,36 +381,49 @@ class ERGB2DepthRecurrent(nn.Module):
         torch.utils.checkpoint; L % remat_chunk == 0).  A larger chunk
         recomputes the same forward but keeps a chunk's activations live
         at once.
+        norm_stats: training-mode norms from these running stats
+        (layers.extract_norm_stats), carried through the window as values:
+        each group takes the stats in and gives the updated ones out, so
+        the checkpoint's recompute, which discards its outputs, cannot
+        update them twice.
         Returns (state, {key: [L, B, H, W, 1]}, or [L, B, H, W] when
-        squeeze_preds)."""
+        squeeze_preds), and the final stats third when norm_stats is
+        given."""
         l = seq["image"].shape[1]
         rc = max(int(remat_chunk), 1)
         if l % rc:
             raise ValueError(f"L={l} must be divisible by remat_chunk={rc}")
 
-        def group(state, pkgs):
+        def group(state, stats, pkgs):
+            ctx = None if stats is None else NormCtx(stats)
             out = []
             for pkg in pkgs:
-                state, preds = self.forward_package(state, pkg, decode_keys)
+                state, preds = self.forward_package(state, pkg, decode_keys,
+                                                    ctx=ctx)
                 out.append(preds)
-            return state, out
+            return state, None if ctx is None else ctx.merged(), out
 
-        def step(state, pkgs):
+        def step(state, stats, pkgs):
             if remat:
-                return checkpoint(group, state, pkgs, use_reentrant=False,
+                return checkpoint(group, state, stats, pkgs,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
-            return group(state, pkgs)
+            return group(state, stats, pkgs)
 
+        stats = norm_stats
         per_key: Dict[str, List[torch.Tensor]] = {}
         for t0 in range(0, l, rc):
             pkgs = [{k: seq[k][:, t] for k in _SEQ_KEYS if k in seq}
                     for t in range(t0, t0 + rc)]
-            state, out = step(state, pkgs)
+            state, stats, out = step(state, stats, pkgs)
             for preds in out:
                 for k, v in preds.items():
                     per_key.setdefault(k, []).append(
                         v[..., 0] if squeeze_preds else v)
-        return state, {k: torch.stack(v) for k, v in per_key.items()}
+        preds = {k: torch.stack(v) for k, v in per_key.items()}
+        if norm_stats is not None:
+            return state, preds, stats
+        return state, preds
 
     @torch.inference_mode()
     def forward_sequence_precomputed(self, state, seq,
@@ -589,22 +610,28 @@ class ERGB2Depth(nn.Module):
                         decode_keys: Optional[Sequence[str]] = None,
                         allow_fused: bool = False,
                         allow_fused_decoder: bool = False,
-                        allow_composed: bool = False):
+                        allow_composed: bool = False,
+                        ctx: Optional[NormCtx] = None):
         """One package: pkg 'image' [B, H, W, C] (NHWC) or 'image_cf'
         [B, C, H, W].  The flags are the engines' and change nothing here;
-        a 'reset' mask is moot without state.  Returns (state,
-        {'image': [B, H, W, 1]})."""
+        a 'reset' mask is moot without state.  ctx: training-mode norms.
+        Returns (state, {'image': [B, H, W, 1]})."""
         x = pkg["image_cf"] if "image_cf" in pkg else to_nchw(pkg["image"])
         return state, {"image": to_nhwc(unet.forward(self.unet, self.cfg,
-                                                     x))}
+                                                     x, ctx))}
 
     def forward_sequence(self, state, seq,
                          decode_keys: Optional[Sequence[str]] = None,
-                         remat: bool = False, squeeze_preds: bool = False):
+                         remat: bool = False, squeeze_preds: bool = False,
+                         remat_chunk: int = 1, norm_stats=None):
         """L packages as one batch of B*L (model.py:706-745): seq 'image'
         [B, L, H, W, C], or the time-leading 'image_tcf' [L, B, C, H, W].
-        remat changes nothing (stateless).  Returns (state, {'image':
-        [L, B, H, W, 1]}, or [L, B, H, W] when squeeze_preds)."""
+        remat and remat_chunk change nothing (stateless).  norm_stats:
+        training-mode norms from these running stats, the window's L*B
+        maps one batch of their statistics, so one update per norm (JAX's
+        fold of time into the batch).  Returns (state, {'image':
+        [L, B, H, W, 1]}, or [L, B, H, W] when squeeze_preds), and the
+        updated stats third when norm_stats is given."""
         if "image_tcf" in seq:
             img = seq["image_tcf"]
             l, b = img.shape[:2]
@@ -613,6 +640,10 @@ class ERGB2Depth(nn.Module):
             img = seq["image"].movedim(1, 0)            # [L, B, H, W, C]
             l, b = img.shape[:2]
             x = to_nchw(img.reshape((l * b,) + img.shape[2:]))
-        pred = to_nhwc(unet.forward(self.unet, self.cfg, x))
+        ctx = None if norm_stats is None else NormCtx(norm_stats)
+        pred = to_nhwc(unet.forward(self.unet, self.cfg, x, ctx))
         pred = pred.reshape((l, b) + pred.shape[1:])
-        return state, {"image": pred[..., 0] if squeeze_preds else pred}
+        preds = {"image": pred[..., 0] if squeeze_preds else pred}
+        if ctx is not None:
+            return state, preds, ctx.merged()
+        return state, preds

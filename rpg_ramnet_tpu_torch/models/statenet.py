@@ -1,21 +1,27 @@
 """StateNet, the RAM-Net recurrent multi-modal UNet.
 
-Counterpart of ``rpg_ramnet_tpu/models/statenet.py`` for three recipes:
-the flagship (recurrent_block_type='conv', state_combination='convgru')
-with its ConvLSTM state-combination variant, the phased irregular-timestamp
-regime (recurrent_block_type='convlstm', use_phased_arch, ConvLSTM or
-ConvGRU state combination), and the baselines (``baseline`` 'rgb', 'e',
-'ergb', 'ergb0': the image branch alone, its ConvGRU output feeding the
-next encoder); sum skips, no norm, upsample-conv decoders, as two-stage
-layers, the fused decoder kernel K8 or the composed layers.
-``StateNet`` holds the parameters under the upstream names
-(StateNetPhasedRecurrent, RAM_Net/model/statenet.py); the functions below
-are the JAX module's, on NCHW-shaped channels_last tensors.
+Counterpart of ``rpg_ramnet_tpu/models/statenet.py``, every option of its
+config schema: encoders 'conv' (strided convs), 'convlstm' (a strided conv,
+then a ConvLSTM with its own state) or phased ConvLSTM encoders
+(use_phased_arch, the irregular-timestamp regime); state combinations
+'convgru', 'convlstm', 'conv' (a 2C->C 5x5 conv on the encoder output and
+the previous super state) and 'sum'; the baselines (``baseline`` 'rgb',
+'e', 'ergb', 'ergb0': the image branch alone, its combination's output
+feeding the next encoder); norms None, 'BN' and 'IN' (eval mode on the
+running stats, training mode with a ``layers.NormCtx``); skips 'sum',
+'concat' and 'no_skip'; upsample-conv decoders (two-stage, fast, the fused
+decoder kernel K8 or the composed layers) and transposed-conv decoders.
+The one configuration refused is the ConvLSTM-combination baseline, on
+which the JAX reference raises.  ``StateNet`` holds the parameters under
+the upstream names (StateNetPhasedRecurrent, RAM_Net/model/statenet.py);
+the functions below are the JAX module's, on NCHW-shaped channels_last
+tensors.
 
 The state is a ``StateNetState``, as in JAX: per scale a super state
 [B, C_i, H/2^(i+1), W/2^(i+1)], or a (hidden, cell) pair for the ConvLSTM
 state combination (one tensor for a baseline), and per modality the
-phased encoders' (c0, h0) pairs (empty tuples for conv encoders).
+ConvLSTM encoders' (hidden, cell) or the phased encoders' (c0, h0) pairs
+(empty tuples for conv encoders).
 """
 from __future__ import annotations
 
@@ -27,15 +33,18 @@ import torch.nn as nn
 from ..core.config import ModelConfig
 from ..ops import gru_hside, gru_pair, upsample_conv
 from ..utils.layout import to_nchw, to_nhwc
-from .layers import (ConvGRU, ConvLayer, PhasedLSTMGate, RecurrentConvLayer,
+from .layers import (ConvGRU, ConvLayer, Norm, NormCtx, PhasedLSTMGate,
+                     Recurrent2ConvLayer, RecurrentConvLayer,
                      RecurrentPhasedConvLayer, ResidualBlock,
-                     UpsampleConvLayer, activate, init_conv_,
-                     upsample_conv_layer_composed)
+                     TransposedConvLayer, UpsampleConvLayer, activate,
+                     init_conv_, name_norms, upsample_conv_layer_composed,
+                     upsample_conv_layer_fast)
 
 
 class ModalityState(NamedTuple):
-    """Per-modality recurrent state: per scale the phased encoder's
-    (c0, h0), or an empty tuple for conv encoders."""
+    """Per-modality recurrent state: per scale the ConvLSTM encoder's
+    (hidden, cell) or the phased encoder's (c0, h0), or an empty tuple for
+    conv encoders."""
     encoders: Tuple
 
 
@@ -63,9 +72,9 @@ def is_phased(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configurations outside the ported
-    recipes."""
-    unported = []
+    """Raise for configurations the port cannot run: unknown option
+    values, and the ConvLSTM-combination baseline (NotImplementedError),
+    on which the JAX reference itself raises."""
     if cfg.baseline not in (False, "rgb", "e", "ergb", "ergb0"):
         raise ValueError(f"unknown baseline {cfg.baseline!r}")
     if cfg.is_baseline and cfg.state_combination == "convlstm":
@@ -73,33 +82,23 @@ def check_supported(cfg: ModelConfig) -> None:
         # ConvLSTM cell unpacks as (hidden, cell) over the batch axis: the
         # reference raises on the first step, so there is nothing to hold
         # a port to
-        unported.append("baselines with state_combination='convlstm' (the "
-                        "JAX reference raises on them; ROADMAP queue 1, "
-                        "item 12)")
+        raise NotImplementedError(
+            "baselines with state_combination='convlstm': the JAX reference "
+            "raises on them (ROADMAP queue 3)")
     if cfg.recurrent_block_type not in ("conv", "convlstm"):
         raise KeyError(f"unknown recurrent_block_type "
                        f"{cfg.recurrent_block_type}")
-    if cfg.recurrent_block_type == "convlstm" and not cfg.use_phased_arch:
-        unported.append("convlstm encoders without use_phased_arch "
-                        "(ROADMAP queue 1, item 12)")
-    if cfg.state_combination not in ("convgru", "convlstm"):
-        unported.append(f"state_combination={cfg.state_combination!r} "
-                        "(ROADMAP queue 1, item 12)")
-    if cfg.norm is not None:
-        unported.append("BN/IN norms (ROADMAP queue 1, item 12)")
-    if cfg.skip_type != "sum":
-        unported.append(f"skip_type={cfg.skip_type!r} "
-                        "(ROADMAP queue 1, item 12)")
-    if not cfg.use_upsample_conv or cfg.fast_upsample:
-        unported.append("transposed-conv and fast-upsample decoders "
-                        "(ROADMAP queue 1, item 12)")
+    if cfg.state_combination not in ("convgru", "convlstm", "conv", "sum"):
+        raise KeyError(f"unknown state_combination {cfg.state_combination}")
+    if cfg.norm not in (None, "BN", "IN"):
+        raise KeyError(f"unknown norm {cfg.norm!r}")
+    if cfg.skip_type not in ("sum", "concat", "no_skip"):
+        raise KeyError(f"unknown skip_type {cfg.skip_type!r}")
     for name in ("fused_gru", "fused_pair", "fused_stream", "fused_decoder",
                  "composed_decoder"):
         if getattr(cfg, name) not in ("auto", "on", "off"):
             raise ValueError(f"{name} must be auto/on/off, got "
                              f"{getattr(cfg, name)!r}")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
 
 def supports_x_precompute(cfg: ModelConfig) -> bool:
@@ -114,14 +113,45 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def decoder_layer(cfg: ModelConfig, in_ch: int, out_ch: int) -> nn.Module:
+    """One decoder layer: the upsample-conv layer (two-stage, fast, K8 or
+    composed at run time) or the transposed-conv layer, with the norm."""
+    if cfg.use_upsample_conv:
+        return UpsampleConvLayer(in_ch, out_ch, 5, padding=2, norm=cfg.norm)
+    return TransposedConvLayer(in_ch, out_ch, 5, padding=2, norm=cfg.norm)
+
+
+def reset_parameters_(net: nn.Module, generator: torch.Generator) -> None:
+    """Upstream init: torch's conv default (the ConvLSTM gates and the
+    transposed convs included), orthogonal ConvGRU gates, the phased
+    gates' periods and phases, and torch's norm init (weight 1, bias 0,
+    running stats (0, 1)), the draws in ``modules()`` order."""
+    for m in net.modules():
+        if isinstance(m, (ConvGRU, PhasedLSTMGate)):
+            m.reset_parameters_(generator)
+        elif isinstance(m, Norm):
+            m.reset_parameters_()
+    grus = {id(g) for m in net.modules() if isinstance(m, ConvGRU)
+            for g in m.gates()}
+    for m in net.modules():
+        if (isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))
+                and id(m) not in grus):
+            init_conv_(m, generator)
+
+
 class StateNet(nn.Module):
-    """Parameters of StateNet (statenet.py:139-202 upstream); the names are
-    those of ``params_to_state_dict``."""
+    """Parameters of StateNet (statenet.py:139-202 upstream, JAX
+    statenet.py:81-159); the names are those of ``params_to_state_dict``.
+    The heads are norm-free; every other conv carries cfg.norm.  Under
+    concat skips decoder 0 takes in_c channels and the others 2*in_c, as
+    JAX sizes them (the upstream sizes every decoder at 2*in_c, so an
+    upstream concat checkpoint does not load: ROADMAP queue 3)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         check_supported(cfg)
         nb = cfg.base_num_channels
+        norm = cfg.norm
         # a baseline has the image branch only (statenet.py:76-130 of the
         # JAX package): its events run through it
         branches = (("rgb", "images"),) if cfg.is_baseline else (
@@ -132,45 +162,46 @@ class StateNet(nn.Module):
         sizes = list(zip(cfg.encoder_input_sizes, cfg.encoder_output_sizes))
 
         def encoder(s, i, o):
-            if not is_phased(cfg):
-                return ConvLayer(i, o, 5, 2, 2)
-            # the time gate spans the post-conv feature map of scale s
-            # (statenet.py:98-108 of the JAX package)
-            h, w = (r // 2 ** (s + 1) for r in cfg.spatial_resolution)
-            return RecurrentPhasedConvLayer(i, o, h, w)
+            if is_phased(cfg):
+                # the time gate spans the post-conv feature map of scale s
+                # (statenet.py:98-108 of the JAX package)
+                h, w = (r // 2 ** (s + 1) for r in cfg.spatial_resolution)
+                return RecurrentPhasedConvLayer(i, o, h, w, norm)
+            if cfg.recurrent_block_type == "convlstm":
+                return Recurrent2ConvLayer(i, o, norm)
+            return ConvLayer(i, o, 5, 2, 2, norm=norm)
+
+        def combination(o):
+            if cfg.state_combination == "conv":
+                return ConvLayer(2 * o, o, 5, 1, 2, norm=norm)
+            return RecurrentConvLayer(o, cfg.state_combination)
 
         # registered in the upstream order, which fixes the init's draws
         for enc, _ in branches:
             setattr(self, f"encoders_{enc}", nn.ModuleList(
                 encoder(s, i, o) for s, (i, o) in enumerate(sizes)))
         for _, comb in branches:
+            # 'sum' has no parameters
             setattr(self, f"state_combination_{comb}", nn.ModuleList(
-                RecurrentConvLayer(o, cfg.state_combination)
-                for _, o in sizes))
+                combination(o) for _, o in sizes
+                if cfg.state_combination != "sum"))
         self.resblocks = nn.ModuleList(
-            ResidualBlock(cfg.max_num_channels)
+            ResidualBlock(cfg.max_num_channels, norm)
             for _ in range(cfg.num_residual_blocks))
         self.decoders = nn.ModuleList(
-            UpsampleConvLayer(c, c // 2, 5, padding=2)
-            for c in reversed(cfg.encoder_output_sizes))
+            decoder_layer(cfg, 2 * c if cfg.skip_type == "concat" and i > 0
+                          else c, c // 2)
+            for i, c in enumerate(reversed(cfg.encoder_output_sizes)))
         self.pred = ConvLayer(nb, cfg.num_output_channels, 1, 1, 0,
-                              activation=None)
+                              activation=None, norm=norm)
+        name_norms(self)
 
     def reset_parameters_(self, generator: torch.Generator) -> None:
-        """Upstream init: torch's conv default (the ConvLSTM gates
-        included), orthogonal ConvGRU gates, the phased gates' periods and
-        phases."""
-        for m in self.modules():
-            if isinstance(m, (ConvGRU, PhasedLSTMGate)):
-                m.reset_parameters_(generator)
-        grus = {id(g) for m in self.modules() if isinstance(m, ConvGRU)
-                for g in m.gates()}
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d) and id(m) not in grus:
-                init_conv_(m, generator)
+        reset_parameters_(self, generator)
 
     def branch(self, modality: str):
-        """(head, encoders, state combinations) of one modality."""
+        """(head, encoders, state combinations) of one modality; the
+        combinations are an empty list for 'sum'."""
         if modality == "events":
             return (self.head_events, self.encoders_events,
                     self.state_combination_events)
@@ -228,10 +259,32 @@ def _lstm_hside(cell, gx: torch.Tensor, state):
     return to_nchw(hid), to_nchw(cell_new)
 
 
+def _combine(cfg: ModelConfig, comb, x: torch.Tensor, prev,
+             allow_fused: bool, ctx: Optional[NormCtx]):
+    """One scale's state combination of the encoder output x with the
+    previous super state (statenet.py:246-299): the new super state."""
+    if cfg.state_combination == "conv":
+        return comb(torch.cat([x, prev], dim=1), ctx)
+    if cfg.state_combination == "sum":
+        return x + prev
+    cell = comb.recurrent_block
+    if cfg.is_baseline:
+        return cell(x, prev)
+    if cfg.state_combination == "convlstm":
+        if allow_fused and use_fused_cell(cfg, prev[0], "lstm"):
+            return _lstm_hside(cell, cell.x_gates(x), prev)
+        return cell(x, prev)
+    if allow_fused and use_fused_cell(cfg, prev, "full"):
+        return to_nchw(gru_hside.conv_gru_full(
+            to_nhwc(x), to_nhwc(prev), *cell.full_weights(prev.dtype)))
+    return cell(x, prev)
+
+
 def forward_modality(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
                      state: StateNetState, modality: str,
                      times: Optional[torch.Tensor] = None,
-                     allow_fused: bool = False) -> StateNetState:
+                     allow_fused: bool = False,
+                     ctx: Optional[NormCtx] = None) -> StateNetState:
     """One encoder sweep of one modality with the whole cells per scale
     (the reference semantics), returning the new state.  times [B]: the
     step's timestamps for the phased encoders (zeros when None).
@@ -240,16 +293,18 @@ def forward_modality(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
     side) and the ConvGRU one as kernel K5, instead of the plain layers
     (statenet.py:230-290).  Under autograd K4 and K3 are their Functions
     (K4-res, K3-res, with gradients); K5 is inference only and raises.
-    A baseline's ConvGRU output feeds the next encoder and is the scale's
-    super state (statenet.py:246-258); its cell is the plain layer
-    whatever allow_fused says, as JAX's."""
+    The ConvLSTM encoders (without use_phased_arch) and the 'conv' and
+    'sum' combinations are plain layers, as JAX's.  A baseline's
+    combination output feeds the next encoder and is the scale's super
+    state (statenet.py:246-258); its cell is the plain layer whatever
+    allow_fused says, as JAX's.  ctx: training-mode norms (the phased
+    encoders' stay in eval mode, as JAX's)."""
     head, encoders, combs = net.branch(modality)
     enc_states = (state.events if modality == "events"
                   else state.image).encoders
     x = head(x.to(compute_dtype(cfg)))
     supers, enc_new = [], []
-    for i, (enc, comb, prev) in enumerate(zip(encoders, combs,
-                                              state.super_states)):
+    for i, (enc, prev) in enumerate(zip(encoders, state.super_states)):
         if is_phased(cfg):
             t = times if times is not None else torch.zeros(
                 x.shape[0], device=x.device)
@@ -257,33 +312,26 @@ def forward_modality(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
                                                   "lstm")
             x, st = enc(x, t, enc_states[i], fused=fuse)
             enc_new.append(st)
+        elif cfg.recurrent_block_type == "convlstm":
+            x, st = enc(x, enc_states[i], ctx)
+            enc_new.append(st)
         else:
-            x = enc(x)
-        cell = comb.recurrent_block
+            x = enc(x, ctx)
+        comb = combs[i] if len(combs) else None
+        supers.append(_combine(cfg, comb, x, prev, allow_fused, ctx))
         if cfg.is_baseline:
-            x = cell(x, prev)
-            supers.append(x)
-        elif cfg.state_combination == "convlstm":
-            if allow_fused and use_fused_cell(cfg, prev[0], "lstm"):
-                supers.append(_lstm_hside(cell, cell.x_gates(x), prev))
-            else:
-                supers.append(cell(x, prev))
-        elif allow_fused and use_fused_cell(cfg, prev, "full"):
-            supers.append(to_nchw(gru_hside.conv_gru_full(
-                to_nhwc(x), to_nhwc(prev), *cell.full_weights(prev.dtype))))
-        else:
-            supers.append(cell(x, prev))
+            x = supers[-1]
     state = state._replace(super_states=tuple(supers))
-    if is_phased(cfg):
+    if cfg.recurrent_block_type == "convlstm":
         state = state._replace(**{modality: ModalityState(tuple(enc_new))})
     return state
 
 
 def encoder_features(net: StateNet, cfg: ModelConfig, x: torch.Tensor,
                      modality: str) -> List[torch.Tensor]:
-    """Head + strided encoder convs on any batch (state-independent for
-    recurrent_block_type='conv'): the per-scale x each recurrent cell of
-    the state combination consumes."""
+    """Head + strided encoder convs (norms in eval mode) on any batch
+    (state-independent for recurrent_block_type='conv'): the per-scale x
+    each recurrent cell of the state combination consumes."""
     head, encoders, _ = net.branch(modality)
     x = head(x.to(compute_dtype(cfg)))
     xs = []
@@ -419,35 +467,59 @@ def _use_composed_decoder(cfg: ModelConfig, x: torch.Tensor) -> bool:
     return composed_auto(x.device.type, x.dtype, x.shape[0])
 
 
+def apply_skip(cfg: ModelConfig, x: torch.Tensor, skip: torch.Tensor
+               ) -> torch.Tensor:
+    """The skip connection of cfg.skip_type (JAX ``_skip``): the sum, the
+    channel concat, or x alone ('no_skip')."""
+    if cfg.skip_type == "sum":
+        return x + skip
+    if cfg.skip_type == "concat":
+        return torch.cat([x, skip], dim=1)
+    return x
+
+
 def forward_decoder_supers(net: StateNet, cfg: ModelConfig,
                            supers: Sequence[torch.Tensor],
                            allow_fused: bool = False,
-                           allow_composed: bool = False) -> torch.Tensor:
+                           allow_composed: bool = False,
+                           ctx: Optional[NormCtx] = None) -> torch.Tensor:
     """The shared decoder on per-scale hidden states: resblocks on the
-    deepest, then upsample-conv layers with sum skips of the shallower
-    ones, the 1x1 pred conv and the activation in float32 [N, 1, H, W].
+    deepest, then the decoder layers, each after the skip of the
+    shallower super state at its scale (none before the first), the 1x1
+    pred conv (no head skip) and the activation in float32 [N, 1, H, W].
 
-    Per layer, as JAX statenet.py:544-599 (the ported recipes are all
-    norm-free upsample-conv decoders with sum skips):
-    allow_fused and the fused_decoder policy: the skip sum, the upsample
-    and the conv as kernel K8 (inference only); else the skip is summed,
-    then allow_composed and the composed_decoder policy: the composed
-    transposed-conv layer; else the two-stage layer."""
+    Per layer, as JAX statenet.py:544-599: allow_fused and the
+    fused_decoder policy, for norm-free two-stage upsample-conv layers
+    with sum or no skips: the skip sum (none under no_skip), the upsample
+    and the conv as kernel K8 (inference only); else the skip, then
+    allow_composed and the composed_decoder policy for norm-free
+    two-stage upsample-conv layers: the composed transposed-conv layer;
+    else the layer itself (fast_upsample: its fast formulation).  ctx:
+    training-mode norms."""
     x = supers[-1]
     for rb in net.resblocks:
-        x = rb(x)
+        x = rb(x, ctx)
     n = cfg.num_encoders
+    two_stage = (cfg.use_upsample_conv and not cfg.fast_upsample
+                 and cfg.norm is None)
+    fuse_layers = (allow_fused and two_stage
+                   and cfg.skip_type in ("sum", "no_skip"))
+    composed_layers = allow_composed and two_stage
     for i, dec in enumerate(net.decoders):
         skip = supers[n - i - 1] if i > 0 else None
-        if allow_fused and _use_fused_decoder(cfg, x, dec.conv2d.out_channels,
-                                              skip):
+        fused_skip = skip if cfg.skip_type == "sum" else None
+        if fuse_layers and _use_fused_decoder(cfg, x, dec.conv2d.out_channels,
+                                              fused_skip):
             x = to_nchw(upsample_conv.upsample_conv_fused(
-                dec, to_nhwc(x), None if skip is None else to_nhwc(skip)))
+                dec, to_nhwc(x),
+                None if fused_skip is None else to_nhwc(fused_skip)))
             continue
         if skip is not None:
-            x = x + skip                # _skip, skip_type='sum'
-        if allow_composed and _use_composed_decoder(cfg, x):
+            x = apply_skip(cfg, x, skip)
+        if composed_layers and _use_composed_decoder(cfg, x):
             x = upsample_conv_layer_composed(dec, x, "relu")
+        elif cfg.use_upsample_conv and cfg.fast_upsample:
+            x = upsample_conv_layer_fast(dec, x, ctx)
         else:
-            x = dec(x)
-    return activate(net.pred(x).float(), cfg.activation)
+            x = dec(x, ctx)
+    return activate(net.pred(x, ctx).float(), cfg.activation)

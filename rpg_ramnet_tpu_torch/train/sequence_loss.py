@@ -10,7 +10,10 @@ trainer.deferred_decode (the supervised keys decoded once, after the
 packages), else through ``forward_sequence`` (a decode per package and
 supervised key, each package checkpointed with its decodes); ERGB2Depth,
 which has no deferred decode, always through its ``forward_sequence``
-(the window as one batch).
+(the window as one batch).  With BN/IN norms a training loss runs them in
+training mode (batch statistics), the running stats carried through the
+window by ``forward_sequence`` and returned as aux['norm_stats'], which
+the train step writes back (JAX sequence_loss.py:103-173).
 
 Known reference bug (lstm_trainer.py:253,281): all supervised keys alias
 one loss-accumulator dict, so the reference's effective total is num_keys
@@ -27,6 +30,7 @@ import torch
 
 from ..core.config import Config
 from ..models import get_model, statenet, unet
+from ..models.layers import extract_norm_stats
 from ..models.model import prediction_keys
 from . import losses as L
 
@@ -49,7 +53,8 @@ def _target_for(batch: Dict[str, torch.Tensor], key: str) -> torch.Tensor:
     return t[..., 0].movedim(1, 0)
 
 
-def make_sequence_loss(cfg: Config, remat: bool = False):
+def make_sequence_loss(cfg: Config, remat: bool = False,
+                       training: bool = True):
     """Returns loss_fn(model, state0, batch) -> (scalar, aux dict).
 
     batch: a loader batch as tensors (``data.device_prefetch``): 'events'
@@ -57,22 +62,26 @@ def make_sequence_loss(cfg: Config, remat: bool = False):
     [B, L, K, H, W, 1], 'depth_image' [B, L, H, W, 1] (NHWC, the layout the
     model's channels_last convs read), with 'times_events' [B, L, K] and
     'times_image' [B, L] for the phased regime.  state0: the model's zero
-    state.  The branches of the JAX package (sequence_loss.py:157-220):
-    the deferred-decode branch for trainer.deferred_decode with
-    remat_chunk 1 (a model without it, ERGB2Depth, takes its
-    forward_sequence), the package's x side batched when
-    trainer.precompute_x holds (never for a baseline, as JAX warns), every
-    package checkpointed when ``remat``; the cells may run the kernels
-    where precompute_x holds or fused_gru is 'on' (JAX's allow_fused):
-    the ConvGRU and ConvLSTM h-side cells (ConvGRUHside, ConvLSTMHside)
-    with precompute_x, else the phased encoders' cells (PhasedCell) and
-    the ConvLSTM state combination's (ConvLSTMHside).  Otherwise the
-    in-scan branch: forward_sequence with its decodes, on the plain
-    cells, checkpointed in groups of trainer.remat_chunk packages.
-    trainer.remat_policy is accepted and every checkpoint recomputes its
-    packages whole, as 'none' (ROADMAP queue 3).  The configurations
-    ``check_supported`` names (BN/IN norms among them) raise
-    NotImplementedError."""
+    state.  The branches of the JAX package (sequence_loss.py:124-220):
+    training with BN/IN norms (``training`` and cfg.model.norm): the
+    in-scan branch with the norms in training mode from the model's
+    running stats, every package group checkpointed when ``remat``,
+    deferred_decode and precompute_x given way with JAX's warnings, and
+    aux['norm_stats'] the window's final stats (no gradient).  Else the
+    deferred-decode branch for trainer.deferred_decode with remat_chunk 1
+    (a model without it, ERGB2Depth, takes its forward_sequence), the
+    package's x side batched when trainer.precompute_x holds (never for a
+    baseline, as JAX warns), every package checkpointed when ``remat``;
+    the cells may run the kernels where precompute_x holds or fused_gru is
+    'on' (JAX's allow_fused): the ConvGRU and ConvLSTM h-side cells
+    (ConvGRUHside, ConvLSTMHside) with precompute_x, else the phased
+    encoders' cells (PhasedCell) and the ConvLSTM state combination's
+    (ConvLSTMHside).  Otherwise the in-scan branch: forward_sequence with
+    its decodes, on the plain cells, checkpointed in groups of
+    trainer.remat_chunk packages.  trainer.remat_policy is accepted and
+    every checkpoint recomputes its packages whole, as 'none' (ROADMAP
+    queue 3).  training=False: the norms in eval mode, as the reference
+    validates under model.eval()."""
     mcfg = cfg.model
     tr = cfg.trainer
     model_cls = get_model(cfg.arch)
@@ -88,19 +97,27 @@ def make_sequence_loss(cfg: Config, remat: bool = False):
     use_mse = cfg.mse_loss_weight is not None
     num_keys = max(len(keys), 1)
     rc = max(int(tr.remat_chunk), 1)
+    train_norm = training and mcfg.norm in ("BN", "IN")
     if tr.deferred_decode and rc > 1:
         warnings.warn(
             "trainer.deferred_decode is incompatible with remat_chunk>1 "
             "(the batched-decode scan checkpoints per package); honoring "
             "remat_chunk with the in-scan decode path instead",
             stacklevel=2)
-    deferred = tr.deferred_decode and rc == 1
+    if tr.deferred_decode and train_norm:
+        warnings.warn(
+            "trainer.deferred_decode is incompatible with training-mode "
+            "BN/IN (batch stats must match the reference's per-step "
+            "statistics); using the in-scan decode path",
+            stacklevel=2)
+    deferred = tr.deferred_decode and rc == 1 and not train_norm
     pre_x = bool(tr.precompute_x)
     if pre_x and not (deferred and statenet.supports_x_precompute(mcfg)):
         warnings.warn(
             "trainer.precompute_x requires an effective deferred_decode "
-            "(remat_chunk==1) AND recurrent_block_type='conv' with "
-            "convgru/convlstm state combination; ignoring it",
+            "(remat_chunk==1, no BN/IN training mode) AND "
+            "recurrent_block_type='conv' with convgru/convlstm state "
+            "combination; ignoring it",
             stacklevel=2)
         pre_x = False
     allow_fused = pre_x or mcfg.fused_gru == "on"
@@ -108,7 +125,13 @@ def make_sequence_loss(cfg: Config, remat: bool = False):
     def loss_fn(model, state0, batch):
         seq = {k: batch[k] for k in ("events", "image", "times_events",
                                      "times_image") if k in batch}
-        if deferred and deferred_model:
+        stats = None
+        if train_norm:
+            _, preds, stats = model.forward_sequence(
+                state0, seq, decode_keys=keys, remat=remat,
+                squeeze_preds=True, remat_chunk=rc,
+                norm_stats=extract_norm_stats(model))
+        elif deferred and deferred_model:
             # the composed decoder layers on the L*B*|keys|-deep decode
             # batch (differentiable; statenet._use_composed_decoder's
             # policy), never K8, which has no gradient
@@ -117,14 +140,10 @@ def make_sequence_loss(cfg: Config, remat: bool = False):
                 state0, seq, decode_keys=keys, remat=remat,
                 squeeze_preds=True, package_precompute=pre_x,
                 allow_fused=allow_fused, allow_composed=True)
-        elif deferred_model:
-            _, preds = model.forward_sequence(
-                state0, seq, decode_keys=keys, remat=remat,
-                squeeze_preds=True, remat_chunk=rc)
         else:
             _, preds = model.forward_sequence(
                 state0, seq, decode_keys=keys, remat=remat,
-                squeeze_preds=True)
+                squeeze_preds=True, remat_chunk=rc)
         l_steps = batch["image"].shape[1]
         total_si = total_grad = total_mse = 0.0
         per_key: Dict[str, torch.Tensor] = {}
@@ -163,6 +182,8 @@ def make_sequence_loss(cfg: Config, remat: bool = False):
         if use_mse:
             aux["L_mse"] = total_mse
         aux.update(per_key)
+        if stats is not None:
+            aux["norm_stats"] = stats
         return loss, aux
 
     return loss_fn

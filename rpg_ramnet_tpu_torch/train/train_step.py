@@ -6,7 +6,12 @@ backward, optimizer step).  Each window, and with trainer.grad_accum
 each micro-batch, starts from the zero state (model.py:146-159).
 Gradients come from autograd, with each package checkpointed when
 ``remat``; the h-side cells' backward is the fused kernel K2 where the
-fused_gru policy takes the kernels.
+fused_gru policy takes the kernels.  With BN/IN norms the train step
+writes the window's running stats into the norms' buffers after the
+optimizer step (JAX train_step.py:86-93); under grad_accum n they are the
+average of the n micro-batches' final stats, each micro-batch started
+from the same stats, as JAX averages its aux.  The eval step runs the
+norms in eval mode.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.config import Config
+from ..models.layers import merge_norm_stats
 from .sequence_loss import make_sequence_loss
 
 
@@ -40,8 +46,9 @@ def make_grad_fn(cfg: Config, model, remat: Optional[bool] = None):
     window's gradients and the loss terms as tensors.  With
     cfg.trainer.grad_accum n > 1 the batch runs as n micro-batches of
     B/n, each from its own zero state; their gradients and loss terms are
-    summed, then divided by n (JAX train_step.py:47-85).  remat defaults
-    to cfg.trainer.remat."""
+    summed, then divided by n (JAX train_step.py:47-85), and so are the
+    training-mode norms' final running stats ('norm_stats', the buffers
+    left as they were).  remat defaults to cfg.trainer.remat."""
     n = max(int(cfg.trainer.grad_accum), 1)
     loss_fn = make_sequence_loss(
         cfg, remat=cfg.trainer.remat if remat is None else remat)
@@ -49,10 +56,13 @@ def make_grad_fn(cfg: Config, model, remat: Optional[bool] = None):
     def grads(batch) -> Dict[str, torch.Tensor]:
         model.zero_grad(set_to_none=True)
         total: Dict[str, torch.Tensor] = {}
+        stats = []
         for i in range(n):
             mb = micro_batch(batch, n, i) if n > 1 else batch
             loss, aux = loss_fn(model, model.init_state(*_batch_dims(mb)), mb)
             loss.backward()
+            if "norm_stats" in aux:
+                stats.append(aux.pop("norm_stats"))
             for k, v in aux.items():
                 total[k] = total[k] + v.detach() if k in total else v.detach()
         if n > 1:
@@ -60,6 +70,11 @@ def make_grad_fn(cfg: Config, model, remat: Optional[bool] = None):
                 if p.grad is not None:
                     p.grad.div_(n)
             total = {k: v / n for k, v in total.items()}
+        if stats:
+            total["norm_stats"] = {
+                key: {name: sum(s[key][name] for s in stats) / n
+                      for name in stats[0][key]}
+                for key in stats[0]}
         return total
 
     return grads
@@ -75,10 +90,13 @@ def make_train_step(cfg: Config, model, optimizer: torch.optim.Optimizer,
 
     def step(batch) -> Dict[str, float]:
         aux = grads(batch)
+        stats = aux.pop("norm_stats", None)
         gs = [p.grad for p in model.parameters() if p.grad is not None]
         aux["grad_norm"] = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in gs]))
         optimizer.step()
+        if stats is not None:
+            merge_norm_stats(model, stats)
         return {k: float(v) for k, v in aux.items()}
 
     return step
@@ -86,8 +104,8 @@ def make_train_step(cfg: Config, model, optimizer: torch.optim.Optimizer,
 
 def make_eval_step(cfg: Config, model):
     """Returns step(batch) -> aux: the validation loss terms of one window,
-    without gradients."""
-    loss_fn = make_sequence_loss(cfg)
+    without gradients, the norms in eval mode."""
+    loss_fn = make_sequence_loss(cfg, training=False)
 
     @torch.no_grad()
     def step(batch) -> Dict[str, float]:

@@ -10,9 +10,10 @@ into a JAX param tree) on numpy-seeded inputs at small size (2 encoders,
 base 4, K=3, 16x32, B=2):
 
 - ``event_loop_range``/``prediction_keys`` and what ``check_supported``
-  accepts (the four shipped baseline configs) and still refuses (the rest
-  of ROADMAP queue 1, item 12, and the ConvLSTM-combination baseline, on
-  which the JAX reference itself raises);
+  accepts (the four shipped baseline configs, and on 'ergb0' each option
+  of the model zoo, against JAX's first packages) and refuses (the
+  ConvLSTM-combination baseline, on which the JAX reference itself
+  raises);
 - ``forward_package`` and ``forward_sequence_batched_decode``: every
   prediction and the final super states;
 - the baseline packing of ``SynchronizedFramesEventsDataset`` on a tiny
@@ -163,31 +164,50 @@ def test_shipped_baseline_configs_parse_and_build(name):
     assert all(k.startswith(prefix) for k in model.state_dict())
 
 
-REFUSED = {
-    "BN": (dict(norm="BN"), "norms"),
-    "IN": (dict(norm="IN"), "norms"),
-    "conv_combination": (dict(state_combination="conv"), "state_combination"),
-    "sum_combination": (dict(state_combination="sum"), "state_combination"),
-    "concat_skip": (dict(skip_type="concat"), "skip_type"),
-    "no_skip": (dict(skip_type="no_skip"), "skip_type"),
-    "transposed_decoder": (dict(use_upsample_conv=False), "transposed"),
-    "fast_upsample": (dict(fast_upsample=True), "fast-upsample"),
-    "convlstm_encoders": (dict(recurrent_block_type="convlstm"),
-                          "without use_phased_arch"),
-    "convlstm_baseline": (dict(state_combination="convlstm"),
-                          "JAX reference raises"),
+OPTIONS = {
+    "BN": dict(norm="BN"),
+    "IN": dict(norm="IN"),
+    "conv_combination": dict(state_combination="conv"),
+    "sum_combination": dict(state_combination="sum"),
+    "concat_skip": dict(skip_type="concat"),
+    "no_skip": dict(skip_type="no_skip"),
+    "transposed_decoder": dict(use_upsample_conv=False),
+    "fast_upsample": dict(fast_upsample=True),
+    "convlstm_encoders": dict(recurrent_block_type="convlstm"),
+    "convlstm_baseline": dict(state_combination="convlstm"),
 }
 
 
-@pytest.mark.parametrize("case", sorted(REFUSED))
+@pytest.mark.parametrize("case", sorted(OPTIONS))
 def test_check_supported_refuses_the_rest_of_item_12(case):
-    """A baseline with one of the options the port does not run yet: the
-    model refuses it naming ROADMAP queue 1, item 12."""
-    over, what = REFUSED[case]
-    cfg = ModelConfig.from_dict(dict(KINDS["ergb0"], **over))
-    with pytest.raises(NotImplementedError, match=what) as err:
-        ERGB2DepthRecurrent(cfg)
-    assert "item 12" in str(err.value)
+    """Item 12's options on a baseline ('ergb0'): each builds and its
+    first two packages match JAX's, predictions and super states (float32
+    tolerance above).  The one refusal left is the ConvLSTM-combination
+    baseline, on which the JAX reference raises (ROADMAP queue 3)."""
+    d = dict(KINDS["ergb0"], **OPTIONS[case])
+    cfg = ModelConfig.from_dict(d)
+    if case == "convlstm_baseline":
+        with pytest.raises(NotImplementedError,
+                           match="JAX reference raises") as err:
+            ERGB2DepthRecurrent(cfg)
+        assert "queue 3" in str(err.value)
+        return
+    statenet.check_supported(cfg)
+    model = ERGB2DepthRecurrent(cfg, generator=torch.Generator().manual_seed(5))
+    jcfg, params = jconfig.ModelConfig.from_dict(d), _jax_tree(model)
+    seq = _sequence("ergb0")
+    jstate, state = JaxModel.init_state(jcfg, B, H, W), model.init_state(B, H, W)
+    for t in range(L):
+        pkg = {k: v[:, t] for k, v in seq.items()}
+        jstate, jpreds = JaxModel.forward_package(
+            params, jcfg, jstate, {k: jnp.asarray(v) for k, v in pkg.items()})
+        with torch.no_grad():
+            state, preds = model.forward_package(
+                state, {k: torch.from_numpy(v) for k, v in pkg.items()})
+        for k in jpreds:
+            _close(preds[k].numpy(), jpreds[k], err_msg=f"{t} {k}")
+    for got, want in zip(state.super_states, jstate.super_states):
+        _close(got.numpy(), want)
 
 
 def test_convlstm_baseline_raises_in_jax_too():
@@ -206,7 +226,7 @@ def test_convlstm_baseline_raises_in_jax_too():
         JaxModel.forward_package(params, jcfg, state, {
             "events": jnp.zeros((3, 0, H, W, 0)),
             "image": jnp.ones((3, H, W, 1))})
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="queue 3"):
         statenet.check_supported(ModelConfig.from_dict(d))
 
 

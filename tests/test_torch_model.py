@@ -187,7 +187,7 @@ def test_config_checkpoint_and_unported_paths(tmp_path):
             cfg.compute_dtype, cfg.norm) == (3, 32, 5, "bfloat16", None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         statenet.check_supported(dataclasses.replace(
-            cfg, recurrent_block_type="convlstm"))
+            cfg, baseline="rgb", state_combination="convlstm"))
     _, _, model = _models()
     # the resident-state kernel K11 takes bf16 states only (the JAX
     # package's ValueError)

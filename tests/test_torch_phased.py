@@ -464,8 +464,9 @@ def test_params_load_strict(recipe, tmp_path):
 def test_training_and_unported_raise(recipe):
     """Either recipe trains: make_sequence_loss builds, and one window's
     loss is finite with a gradient for every parameter.  Plain convlstm
-    encoders (no use_phased_arch) stay unported, in check_supported and
-    in make_sequence_loss."""
+    encoders (no use_phased_arch) build and train too; what stays
+    unported is the ConvLSTM-combination baseline, in check_supported
+    and in make_sequence_loss."""
     mcfg = ModelConfig.from_dict(PHASED if recipe == "phased" else LSTM_COMB)
     cfg = Config(model=mcfg, use_phased_arch=recipe == "phased",
                  trainer=TrainerConfig(deferred_decode=True))
@@ -483,9 +484,16 @@ def test_training_and_unported_raise(recipe):
     assert np.isfinite(loss.item())
     for name, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
-    unported = dataclasses.replace(mcfg, recurrent_block_type="convlstm",
-                                   use_phased_arch=False)
-    with pytest.raises(NotImplementedError, match="without use_phased_arch"):
+    plain = dataclasses.replace(mcfg, recurrent_block_type="convlstm",
+                                use_phased_arch=False)
+    statenet.check_supported(plain)
+    model = ERGB2DepthRecurrent(plain)
+    loss, _ = make_sequence_loss(Config(model=plain), remat=True)(
+        model, model.init_state(1, H, W), batch)
+    assert np.isfinite(loss.item())
+    unported = dataclasses.replace(mcfg, baseline="rgb",
+                                   state_combination="convlstm")
+    with pytest.raises(NotImplementedError, match="JAX reference raises"):
         statenet.check_supported(unported)
-    with pytest.raises(NotImplementedError, match="without use_phased_arch"):
+    with pytest.raises(NotImplementedError, match="JAX reference raises"):
         make_sequence_loss(Config(model=unported))

@@ -7,8 +7,8 @@ own fused-vs-unfused check (tests/test_train.py:471: atol 5e-5, rtol
 1e-3), with precompute_x and the fused cell (the JAX Pallas kernels in
 interpret mode, the port's ConvGRUHside on its plain versions) and
 without; three Adam steps against the JAX train step; the configuration
-defaults; the float32 masters under a bf16 config; and the refusals that
-remain (training-mode BN/IN, an unknown optimizer).
+defaults; the float32 masters under a bf16 config; training-mode BN/IN
+building; and the refusal that remains (an unknown optimizer).
 """
 import dataclasses
 import os
@@ -246,26 +246,33 @@ def test_bf16_config_keeps_float32_masters():
 
 
 REFUSED = {
-    # case: (config overrides, the error, what it matches)
-    "bn_training": ({"model": {"norm": "BN"}}, NotImplementedError, "item 12"),
-    "in_training": ({"model": {"norm": "IN"}}, NotImplementedError, "item 12"),
+    # case: (config overrides, the error, what it matches); error None:
+    # the option trains
+    "bn_training": ({"model": {"norm": "BN"}}, None, None),
+    "in_training": ({"model": {"norm": "IN"}}, None, None),
     "unknown_optimizer": ({"optimizer_type": "Adagrad"}, KeyError, "Adagrad"),
 }
 
 
 @pytest.mark.parametrize("case", REFUSED)
 def test_unported_training_options_raise(case):
-    """What the port does not train raises where it is read: BN/IN norms,
-    which statenet.check_supported refuses when the loss is built
-    (NotImplementedError naming ROADMAP item 12, where training-mode norms
-    go), and an optimizer JAX does not know either (KeyError, as JAX's)."""
+    """An optimizer JAX does not know raises where it is read (KeyError,
+    as JAX's).  BN/IN norms train: the loss builds despite precompute_x
+    (ignored with JAX's warning: training-mode norms take the in-scan
+    path), and one window gives a finite loss and the running stats to
+    write back (their parity with JAX: tests/test_torch_zoo_train.py)."""
     over, error, match = REFUSED[case]
     raw = _raw()
     raw = {**raw, **{k: v for k, v in over.items() if k != "model"},
            "model": {**raw["model"], **over.get("model", {})}}
     cfg = tconfig.Config.from_dict(raw)
-    with pytest.raises(error, match=match):
-        if "model" in over:
-            make_sequence_loss(cfg)
-        else:
+    if error is not None:
+        with pytest.raises(error, match=match):
             make_optimizer(cfg, [torch.nn.Parameter(torch.zeros(1))])
+        return
+    with pytest.warns(UserWarning, match="precompute_x requires"):
+        loss_fn = make_sequence_loss(cfg, remat=False)
+    model = ERGB2DepthRecurrent(cfg.model)
+    loss, aux = loss_fn(model, model.init_state(B, H, W),
+                        {k: torch.from_numpy(v) for k, v in _batch().items()})
+    assert np.isfinite(loss.item()) and aux["norm_stats"]

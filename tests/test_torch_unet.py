@@ -9,7 +9,8 @@ size (2 encoders, base 4, 16x32, B=2, L=3) on numpy-seeded inputs:
 - ``forward_package`` on 'image' (NHWC) and 'image_cf' (NCHW), and
   ``forward_sequence`` on the batch-leading 'image' and the chunked
   engines' time-leading 'image_tcf', squeezed and not; bf16 compute;
-- what ``unet.check_supported`` refuses (item 12 of ROADMAP queue 1);
+- the options of ``unet.check_supported`` (norms, skips, decoders)
+  against JAX, and its one refusal, 'no_skip', on which JAX raises;
 - the raw-event datasets (``SynchronizedFramesEventsRawDataset`` and the
   ``recurrency=False`` windows) against JAX's on a tiny on-disk split;
 - the first step's loss and every gradient (``make_sequence_loss``);
@@ -170,20 +171,34 @@ def test_bf16_compute_matches_jax():
     _close(preds["image"].numpy(), jpreds["image"], atol=ATOL_BF16, rtol=0)
 
 
-@pytest.mark.parametrize("over,what", [
-    (dict(norm="BN"), "norms"), (dict(norm="IN"), "norms"),
-    (dict(skip_type="concat"), "skip_type"),
-    (dict(skip_type="no_skip"), "skip_type"),
-    (dict(use_upsample_conv=False), "transposed"),
-    (dict(fast_upsample=True), "fast-upsample")],
+@pytest.mark.parametrize("over", [
+    dict(norm="BN"), dict(norm="IN"), dict(skip_type="concat"),
+    dict(skip_type="no_skip"), dict(use_upsample_conv=False),
+    dict(fast_upsample=True)],
     ids=["BN", "IN", "concat", "no_skip", "transposed", "fast_upsample"])
-def test_check_supported_refuses_unported_options(over, what):
-    cfg = ModelConfig.from_dict({**CFG, **over})
-    with pytest.raises(NotImplementedError, match=what) as err:
-        ERGB2Depth(cfg)
-    assert "item 12" in str(err.value)
-    with pytest.raises(NotImplementedError, match=what):
-        unet.check_supported(cfg)
+def test_check_supported_refuses_unported_options(over):
+    """The UNet's options build and match JAX's forward_sequence (float32
+    tolerance above), the norms on running stats off torch's init; the
+    one refusal is 'no_skip', whose JAX layers are sized for a concat, so
+    that JAX's forward raises (ROADMAP queue 3)."""
+    if over.get("skip_type") == "no_skip":
+        cfg = ModelConfig.from_dict({**CFG, **over})
+        with pytest.raises(NotImplementedError, match="JAX reference raises"):
+            ERGB2Depth(cfg)
+        with pytest.raises(NotImplementedError, match="queue 3"):
+            unet.check_supported(cfg)
+        return
+    jcfg, _, model = _models(**over)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            buf.uniform_(0.5, 1.5) if "var" in name else buf.uniform_(-.5, .5)
+    params = _jax_tree(model)
+    x = _images(4)
+    _, jpreds = JaxUNetModel.forward_sequence(params, jcfg, (),
+                                              {"image": jnp.asarray(x)})
+    with torch.no_grad():
+        _, preds = model.forward_sequence((), {"image": torch.from_numpy(x)})
+    _close(preds["image"].numpy(), jpreds["image"])
 
 
 # -- the raw-event datasets --------------------------------------------------
