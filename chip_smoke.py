@@ -33,7 +33,10 @@ policies and resume through the training entry point; and the model zoo
 (BN/IN norms in eval and training mode, concat and no skips,
 transposed-conv and fast-upsample decoders, ConvLSTM encoders, the
 'conv' and 'sum' state combinations) through the eval and training entry
-points.  It imports nothing of JAX or of the JAX package.
+points; and flagship training from raw events, voxelized on the card a
+batch at a time by the device data path
+(``rpg_ramnet_tpu_torch.data.raw_pipeline``) at 256x512.  It imports
+nothing of JAX or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
@@ -255,7 +258,19 @@ Phases, each printed as one JSON line:
                    point for an epoch and resumed from its checkpoint (the
                    buffers restored bit for bit); (e) the 'conv' and 'sum'
                    state combinations per package: finite maps of the
-                   right shape.
+                   right shape;
+ 25. raw_pipeline  flagship training from raw events at 256x512 (B=16,
+                   L=10, K=5, precompute_x): RawEventSequenceDataset on a
+                   synthetic on-disk split (every item padded to 32768
+                   events a window), BatchLoader, device_voxelize_prefetch
+                   (K6: one launch sequence per batch of 800 windows, the
+                   tiled path) and make_train_step for RAW_STEPS steps:
+                   the K6, K1-res and K2 launch counts, finite losses,
+                   peak memory; each batch's grids against the plain
+                   scatter, K7 on the first batch, the first step with
+                   K6's grids against the scatter's (loss, gradient
+                   cosines), the per-batch voxelize ms (CUDA events) beside
+                   the step's s.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -437,6 +452,14 @@ ZOO_TRAIN_B = 4
 ZOO_STATS_TOL = 1e-3   # (d) running stats, remat on vs off from the same
                        # parameters: max abs error over the largest
                        # magnitude, after each step
+# phase 25: flagship training from raw events through the device data path
+# (rpg_ramnet_tpu_torch/data/raw_pipeline.py): TRAIN_B windows of TRAIN_L
+# packages of K raw event windows at HxW (EventScape's size: raw events
+# cannot be cropped), every item padded to the RAW_N_MAX bucket, so that
+# a batch is batch800's 800 windows; RAW_EVENTS events a window (0.23 a
+# pixel); RAW_STEPS steps over as many shuffled epochs of the split's
+# TRAIN_B windows (cut: the data)
+RAW_N_MAX, RAW_EVENTS, RAW_STEPS = 32768, 30000, 2
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -744,11 +767,19 @@ def device_time_us(fn, calls):
             names[e.name] = names.get(e.name, 0.0) + e.device_time / calls
     if sum(names.values()) > 0:
         return sum(names.values()), names
+    return graph_time_us(fn, calls), {}
+
+
+def graph_time_us(fn, calls):
+    """Device us per call of fn: the CUDA events time of a CUDA graph's
+    replay of ``calls`` calls (what the profiler timers fall back to where
+    it keeps no record)."""
+    import torch
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    return cuda_time_us(graph.replay, 3) / calls, {}
+    return cuda_time_us(graph.replay, 3) / calls
 
 
 def launch_device_us(fn, calls):
@@ -772,6 +803,33 @@ def launch_device_us(fn, calls):
     if not times:
         return device_time_us(fn, calls)[0], 0
     return sum(times) / len(times), len(times)
+
+
+def call_device_us(fn, calls):
+    """(device us per call, {kernel name: mean us}, records) of fn, which
+    launches each of its kernels (memsets included) once per call: per
+    name the mean of the records torch.profiler kept over ``calls`` calls
+    after one warm-up call, summed over the names, so that records the
+    profiler drops do not cut the time as a sum over the calls would
+    (launch_device_us for several kernels).  Where it keeps none, the
+    CUDA events time of a CUDA graph's replay of the calls (graph_time_us;
+    not a second profile, which could keep a part of them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names.setdefault(e.name, []).append(e.device_time)
+    if not names:
+        return graph_time_us(fn, calls), {}, 0
+    means = {k: sum(v) / len(v) for k, v in names.items()}
+    return sum(means.values()), means, sum(len(v) for v in names.values())
 
 
 def time_train_cells(dev, gen, iters=20, shapes=TRAIN_CELLS):
@@ -1490,13 +1548,14 @@ def make_window_batch(counts, n, dev, seed):
     return ev, counts
 
 
-def index_add_inputs(ev, n_valid, cells):
+def index_add_inputs(ev, n_valid, cells, grid=VOX_GRID):
     """The flat indices (window offsets added) and values of every
-    window's contributions, those outside the grid as (0, 0.0): what the
-    one index_add_ call that computes the grids takes."""
+    window's contributions to (num_bins, H, W) grids, those outside the
+    grid as (0, 0.0): what the one index_add_ call that computes the grids
+    takes."""
     import torch
     from rpg_ramnet_tpu_torch.ops import voxel
-    nb, h, w = VOX_GRID
+    nb, h, w = grid
     idx, vals, ok = voxel._contributions(ev, n_valid, nb, h, w)
     if ev.dim() == 3:
         idx = idx + torch.arange(ev.shape[0], device=ev.device)[:, None] * cells
@@ -1512,7 +1571,9 @@ def spread(values):
 
 def time_voxelizers(dev, seed, sizes=tuple(VOX_SIZES)):
     """Per size of VOX_SIZES: device us per call (torch.profiler's
-    durations, per kernel too) and wrapper us per call (CUDA events around
+    durations, per kernel too: summed over the calls and divided by them
+    for one window, per kernel name the mean of the records kept for a
+    batch of windows, ``call_device_us``) and wrapper us per call (CUDA events around
     back-to-back calls, host work included) of K6 (without and with
     stats), K7 (float32 and bf16 factors) on the path the size picks, K6
     on the other path, and the one index_add_ call that computes the grids
@@ -1554,10 +1615,14 @@ def time_voxelizers(dev, seed, sizes=tuple(VOX_SIZES)):
         reps = 20 if B == 1 else 3
         dev_us = {k: [] for k in calls}
         wrap_us = {k: [] for k in calls}
-        per_kernel = {}
+        per_kernel, records = {}, {k: [] for k in calls}
         for _ in range(VOX_TURNS):
             for k in list(calls) + list(reversed(calls)):
-                t, per_kernel[k] = device_time_us(calls[k], reps)
+                if B == 1:
+                    t, per_kernel[k] = device_time_us(calls[k], reps)
+                else:
+                    t, per_kernel[k], kept = call_device_us(calls[k], reps)
+                    records[k].append(kept)
                 dev_us[k].append(t)
                 wrap_us[k].append(cuda_time_us(calls[k], reps))
         bound_ms, _ = voxel_bound(n, B)
@@ -1566,6 +1631,7 @@ def time_voxelizers(dev, seed, sizes=tuple(VOX_SIZES)):
                "device_us": {k: spread(v) for k, v in dev_us.items()},
                "wrapper_us": {k: spread(v) for k, v in wrap_us.items()},
                "device_us_per_kernel": per_kernel,
+               **({"device_records": records} if B > 1 else {}),
                "mev_per_s": {k: B * n / min(v) for k, v in dev_us.items()},
                "bound_share": {k: bound_ms * 1e3 / min(v)
                                for k, v in dev_us.items()}}
@@ -3917,6 +3983,216 @@ def zoo_phases(dev, seed, smi):
     return {"launches": launches, "rows": rows, "phase_s": phase_s}
 
 
+def raw_pipeline_phases(dev, seed, smi):
+    """Phase 25: flagship training from raw events.  A synthetic on-disk
+    split at HxW read by ``RawEventSequenceDataset`` (every item padded to
+    RAW_N_MAX), batched by ``BatchLoader`` at TRAIN_B x TRAIN_L,
+    voxelized on the card by ``device_voxelize_prefetch`` (K6, one launch
+    sequence per batch of 800 windows, on the tiled path) and trained by
+    ``make_train_step`` with the flagship recipe and precompute_x (K1-res,
+    K2) for RAW_STEPS steps, the launch counts set to 0 just before and
+    read just after; then each batch's grids against the plain scatter of
+    the same windows on the card, K7 ('pallas') on the first batch, the
+    first step's loss and gradients with K6's grids against the scatter's
+    from the same weights, and the per-batch voxelize time (CUDA events)
+    beside the step's.  One JSON line; returns what the kernels line
+    adds."""
+    import numpy as np
+    import torch
+    from rpg_ramnet_tpu_torch.core.config import Config
+    from rpg_ramnet_tpu_torch.data import (BatchLoader, ConcatSequenceDataset,
+                                           generate_split)
+    from rpg_ramnet_tpu_torch.data.raw_pipeline import (
+        RawEventSequenceDataset, device_voxelize_prefetch, voxelize_batch)
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside, voxel
+    from rpg_ramnet_tpu_torch.train.optim import make_optimizer
+    from rpg_ramnet_tpu_torch.train.train_step import make_grad_fn, make_train_step
+    t_phase = time.perf_counter()
+    k6, k7 = voxel.events_to_voxel_grid_sortseg, voxel.events_to_voxel_grid_pallas
+    counters = {"k6": k6, "k7": k7, "k1_res": gru_hside.conv_gru_hside_res,
+                "k2": gru_hside.conv_gru_hside_bwd}
+    with open(os.path.join(ROOT, CONFIG)) as f:
+        raw = json.load(f)
+    raw["trainer"].update(precompute_x=True, sequence_length=TRAIN_L)
+    raw["data_loader"]["batch_size"] = TRAIN_B
+    cfg = Config.from_dict(raw)
+    split = raw["data_loader"]["train"]
+    K, nb = cfg.model.every_x_rgb_frame, cfg.model.num_bins_events
+    grid_kw = dict(num_bins=nb, height=H, width=W)
+    n_cells = 3 * (K + 1) * TRAIN_L
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_raw_") as tmp:
+        t0 = time.perf_counter()
+        generate_split(os.path.join(tmp, "train"), n_sequences=1, seed=seed,
+                       n_frames=TRAIN_L * K + K * (TRAIN_B - 1), height=H,
+                       width=W, events_per_frame=RAW_EVENTS)
+        data_s = time.perf_counter() - t0
+        ds = RawEventSequenceDataset(
+            os.path.join(tmp, "train", "seq00"), split["event_folder"],
+            split["depth_folder"], split["frame_folder"],
+            sequence_length=TRAIN_L, step_size=1,
+            clip_distance=split["clip_distance"], every_x_rgb_frame=K,
+            reg_factor=split["reg_factor"], n_max=RAW_N_MAX)
+        loader = BatchLoader(ConcatSequenceDataset([ds]), TRAIN_B,
+                             shuffle=True, seed=seed)
+        host = []
+
+        def loaded():
+            for _ in range(RAW_STEPS):
+                for b in loader:
+                    host.append(b)
+                    yield b
+
+        model = ERGB2DepthRecurrent(cfg.model, device=dev,
+                                    generator=torch.Generator().manual_seed(seed))
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        step = make_train_step(cfg, model, make_optimizer(cfg, model.parameters()))
+        # the main path, its counts set to 0 just before and read just after
+        for w in counters.values():
+            w.launches = 0
+        for w in (k6, k7):
+            w.path_launches = dict.fromkeys(voxel.PATHS, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, grids = [], [], []
+        t0 = time.perf_counter()
+        for batch in device_voxelize_prefetch(loaded(), **grid_kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            aux = step(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(aux["loss"])
+            grids.append(batch["events"])
+        path_s = time.perf_counter() - t0
+        launched = {k: w.launches for k, w in counters.items()}
+        by_path = {k: dict(counters[k].path_launches) for k in ("k6", "k7")}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"k6": RAW_STEPS, "k7": 0, "k1_res": 2 * n_cells * RAW_STEPS,
+            "k2": n_cells * RAW_STEPS}
+    windows = TRAIN_B * TRAIN_L * K
+    shapes = [list(b["events_raw"].shape) for b in host]
+    if (launched != want or by_path["k6"]["tiled"] != RAW_STEPS
+            or shapes != [[TRAIN_B, TRAIN_L, K, RAW_N_MAX, 4]] * RAW_STEPS
+            or [list(g.shape) for g in grids]
+            != [[TRAIN_B, TRAIN_L, K, H, W, nb]] * RAW_STEPS
+            or not all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"raw pipeline: launches {launched} by path "
+                             f"{by_path}, expected {want}; batches {shapes}; "
+                             f"losses {losses}")
+
+    def on_card(b):
+        return (torch.from_numpy(b["events_raw"]).to(dev),
+                torch.from_numpy(b["events_count"]).to(dev))
+
+    def rel_err(got, ref):
+        return ((got - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+
+    # each batch's grids against the plain scatter of its windows: K6's
+    # (K7's on the first batch) before the normalization, and the stage's
+    # normalized grids over the cells both hold nonzero.  A cell whose
+    # contributions cancel can sum to exactly 0 in one order of the adds
+    # and not in another; the normalization leaves a 0 and moves any other
+    # value by its window's mean/std, so such cells are counted apart,
+    # with the largest |value| either sum left there (a rounding residue).
+    # The plain scatter adds atomically too: its one run is normalized here
+    grid_errs, norm_errs, k7_errs, cancelled, finite = [], [], [], [], []
+    k7.launches = 0
+    for i, (b, g) in enumerate(zip(host, grids)):
+        ev, n = on_card(b)
+        plain = voxelize_batch(ev, n, backend="scatter", normalize=False, **grid_kw)
+        k6_raw = voxelize_batch(ev, n, backend="sortseg", normalize=False, **grid_kw)
+        grid_errs.append(rel_err(k6_raw, plain))
+        if i == 0:
+            k7_errs.append(rel_err(voxelize_batch(
+                ev, n, backend="pallas", normalize=False, **grid_kw), plain))
+        apart = (plain != 0) != (g != 0)
+        cancelled.append({"cells": int(apart.sum()),
+                          "max_abs_plain": plain[apart].abs().max().item()
+                          if apart.any() else 0.0,
+                          "max_abs_k6": k6_raw[apart].abs().max().item()
+                          if apart.any() else 0.0})
+        del k6_raw
+        flat = plain.reshape(windows, H, W, nb)
+        plain = voxel.normalize_voxel_grid(flat, tuple(
+            s[:, None, None, None] for s in voxel.voxel_stats(flat))).reshape(g.shape)
+        norm_errs.append(rel_err(torch.where(apart, 0.0, g),
+                                 torch.where(apart, 0.0, plain)))
+        finite.append(bool(g.isfinite().all()))
+        if i == 0:
+            plain0 = plain
+        del plain, flat, apart, ev, n
+    k7_launches = k7.launches
+    residue = max(max(c["max_abs_plain"], c["max_abs_k6"]) for c in cancelled)
+    if not (max(grid_errs + norm_errs + k7_errs) <= VOX_TOL and all(finite)
+            and residue <= VOX_TOL and k7_launches == 1):
+        raise AssertionError(f"raw pipeline grids vs the plain scatter: "
+                             f"{grid_errs}, normalized {norm_errs}, "
+                             f"cancelled cells {cancelled}, K7 {k7_errs} "
+                             f"({k7_launches} launches), finite {finite}")
+    # the first step from the same weights, on K6's grids and the scatter's
+    twin = ERGB2DepthRecurrent(cfg.model, device=dev)
+    twin.load_state_dict(init)
+    grad_fn = make_grad_fn(cfg, twin)
+    rest = {k: torch.from_numpy(v).to(dev) for k, v in host[0].items()
+            if k not in ("events_raw", "events_count")}
+    first = {}
+    for name, g in (("k6", grids[0]), ("scatter", plain0)):
+        loss = grad_fn({**rest, "events": g})["loss"].item()
+        first[name] = (loss, {n: p.grad.float().clone()
+                              for n, p in twin.named_parameters()})
+    cos = {n: torch.nn.functional.cosine_similarity(
+        first["k6"][1][n].flatten(), first["scatter"][1][n].flatten(),
+        dim=0).item() for n in first["k6"][1]}
+    worst = min(cos, key=cos.get)
+    step_row = {"loss_k6": first["k6"][0], "loss_scatter": first["scatter"][0],
+                "loss_rel_diff": abs(first["k6"][0] - first["scatter"][0])
+                / abs(first["scatter"][0]), "loss_tol": LOSS_TOL,
+                "grad_cos_min": cos[worst], "grad_cos_min_tensor": worst,
+                "cos_tol": COS_TOL, "tensors": len(cos)}
+    if not (step_row["loss_rel_diff"] <= LOSS_TOL
+            and step_row["grad_cos_min"] >= COS_TOL):
+        raise AssertionError(f"raw pipeline first step, K6 vs scatter: {step_row}")
+    del first, twin, grids, plain0, rest
+    # the per-batch stage on the card: K6 with the normalization, the plain
+    # scatter with it, K6 alone, one index_add_ of the contributions
+    ev, n = on_card(host[0])
+    flat_ev, flat_n = ev.reshape(windows, RAW_N_MAX, 4), n.reshape(windows)
+    idx, vals = index_add_inputs(flat_ev, flat_n, nb * H * W, (nb, H, W))
+    flat = torch.empty(windows * nb * H * W, device=dev)
+    times = {
+        "voxelize_ms": cuda_time_us(lambda: voxelize_batch(ev, n, backend="auto",
+                                                           **grid_kw), 3) / 1e3,
+        "voxelize_plain_ms": cuda_time_us(lambda: voxelize_batch(
+            ev, n, backend="scatter", **grid_kw), 3) / 1e3,
+        "k6_ms": cuda_time_us(lambda: k6(flat_ev, flat_n, with_stats=True,
+                                         **grid_kw), 3) / 1e3,
+        "index_add_ms": cuda_time_us(
+            lambda: flat.zero_().index_add_(0, idx, vals), 3) / 1e3}
+    events = int(n.sum().item())
+    bound_ms = (16 * events + 4 * windows + 4 * windows * nb * H * W) \
+        / HBM_BYTES_PER_S * 1e3
+    del ev, n, flat_ev, flat_n, idx, vals, flat
+    torch.cuda.empty_cache()
+    check_no_jax()
+    phase_s = time.perf_counter() - t_phase
+    row = {"phase": "raw_pipeline", "config": CONFIG, "precompute_x": True,
+           "B": TRAIN_B, "L": TRAIN_L, "K": K, "H": H, "W": W,
+           "n_max": RAW_N_MAX, "events_per_window": RAW_EVENTS,
+           "windows_per_batch": windows, "events_first_batch": events,
+           "steps": RAW_STEPS, "data_write_s": data_s,
+           "launches": launched, "launches_expected": want,
+           "launches_by_path": by_path, "grid_max_rel_err": grid_errs,
+           "normalized_max_rel_err": norm_errs, "cancelled_cells": cancelled,
+           "k7_max_rel_err": k7_errs[0], "vox_tol": VOX_TOL,
+           "first_step_k6_vs_scatter": step_row, "losses": losses,
+           "step_s": step_s, "path_s": path_s, "peak_mem_gib": peak_gib,
+           **times, "bound_ms": bound_ms, "bound_by": "bytes",
+           "phase_s": phase_s, "nvidia_smi": smi}
+    emit(row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4224,6 +4500,10 @@ def main() -> int:
     zoo = zoo_phases(dev, args.seed, smi)
     zl = zoo["launches"]
 
+    # 25. flagship training from raw events: K6 over each batch's windows
+    rawp = raw_pipeline_phases(dev, args.seed, smi)
+    rl = rawp["launches"]
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     v1m = vox_times["1M"]
     vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
@@ -4269,7 +4549,7 @@ def main() -> int:
              lanes=lane_extra("k1", lanes["k1"])),
         dict(entry("gru_hside_res", "gru_hside.cu",
                    "rpg_ramnet_tpu/ops/gru_hside.py:124",
-                   trained["launches"]["k1_res"] + zl["k1_res"],
+                   trained["launches"]["k1_res"] + zl["k1_res"] + rl["k1_res"],
                    max([max(r["res_h_err"], r["res_acts_err"],
                             *r["res_plans"].values()) for r in train_rows]
                        + [e for row in res_edges.values()
@@ -4280,11 +4560,11 @@ def main() -> int:
                    sum(r["res_plain_us"] for r in train_cells) / 1e3,
                    cell_bound("k1_res", TRAIN_CELLS)),
              launches_by_path={"train": trained["launches"]["k1_res"],
-                               "zoo": zl["k1_res"]},
+                               "zoo": zl["k1_res"], "raw_pipeline": rl["k1_res"]},
              micro_batch=micro_extra("res", trainer["launches"]["k1_res"])),
         dict(entry("gru_hside_bwd", "gru_hside_bwd.cu",
                    "rpg_ramnet_tpu/ops/gru_hside.py:535",
-                   trained["launches"]["k2"] + zl["k2"],
+                   trained["launches"]["k2"] + zl["k2"] + rl["k2"],
                    max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
                        for r in train_rows),
                    sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
@@ -4292,7 +4572,7 @@ def main() -> int:
                    cell_bound("k2", TRAIN_CELLS)),
              wrapper_ms=sum(r["bwd_k2"]["wrapper_us"] for r in train_cells) / 1e3,
              launches_by_path={"train": trained["launches"]["k2"],
-                               "zoo": zl["k2"]},
+                               "zoo": zl["k2"], "raw_pipeline": rl["k2"]},
              micro_batch=micro_extra("bwd", trainer["launches"]["k2"])),
         dict(entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
                    k5_launches + zl["k5"],
@@ -4307,13 +4587,18 @@ def main() -> int:
              launches_by_path={"stream": k5_launches, "zoo": zl["k5"]},
              lanes=lane_extra("k5", lanes["k5"])),
         dict(entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
-                   stream_counts["k6"] + batch_run["auto"]["launches"],
-                   max(max(r[p]["k6"], r[p]["k6_stats"]) for r in vox_errs.values()
-                       for p in voxel.PATHS),
+                   stream_counts["k6"] + batch_run["auto"]["launches"] + rl["k6"],
+                   max([max(r[p]["k6"], r[p]["k6_stats"]) for r in vox_errs.values()
+                        for p in voxel.PATHS] + rawp["grid_max_rel_err"]),
                    vdev["k6"], vdev["plain_scatter"], voxel_bound(VOX_EVENTS),
                    vdev["index_add"]),
              launches_by_path={"stream": stream_counts["by_path"]["k6"],
-                               "batch": batch_run["auto"]["by_path"]},
+                               "batch": batch_run["auto"]["by_path"],
+                               "raw_pipeline": rawp["launches_by_path"]["k6"]},
+             raw_pipeline={f: rawp[f] for f in (
+                 "voxelize_ms", "voxelize_plain_ms", "k6_ms", "index_add_ms",
+                 "bound_ms", "bound_by", "grid_max_rel_err",
+                 "normalized_max_rel_err", "cancelled_cells")},
              path_at_1m=v1m["path"],
              plain_wrapper_ms=v1m["wrapper_us"]["plain_scatter"]["min"] / 1e3),
         dict(entry("voxel_onehot", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:242",
@@ -4322,7 +4607,9 @@ def main() -> int:
                    vdev["k7_f32"], vdev["plain_matmul"], voxel_bound(VOX_EVENTS),
                    vdev["index_add"]),
              launches_by_path={"stream": k7_counts["by_path"]["k7"],
-                               "batch": batch_run["pallas"]["by_path"]},
+                               "batch": batch_run["pallas"]["by_path"],
+                               "raw_pipeline": rawp["launches_by_path"]["k7"]},
+             raw_pipeline_pallas_max_rel_err=rawp["k7_max_rel_err"],
              path_at_1m=v1m["path"],
              plain_wrapper_ms=v1m["wrapper_us"]["plain_matmul"]["min"] / 1e3),
         dict(entry("lstm_hside", "lstm_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:368",

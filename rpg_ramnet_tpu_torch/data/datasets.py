@@ -3,7 +3,8 @@ datapackages and TBPTT windows of them.
 
 Counterpart of ``rpg_ramnet_tpu/data/datasets.py``: ``VoxelGridDataset``
 (precomputed voxel grids, ``.npy``), ``RawEventsDataset`` (raw event
-windows), ``SynchronizedFramesEventsDataset`` with the baselines'
+windows), ``FrameDataset`` (grayscale frames),
+``SynchronizedFramesEventsDataset`` with the baselines'
 packing, ``SynchronizedFramesEventsRawDataset`` (the non-recurrent
 baseline's input) and ``SequenceSynchronizedFramesEventsDataset``
 (reference RAM_Net/data_loader/event_dataset.py:113-189,
@@ -26,9 +27,11 @@ folder's name says "mvsec"; with load_semantic, the semantic labels
 <seq>/semantic/data/*_%04d_gt_labelIds.png ('semantic_events' [K, H, W, 1],
 'semantic_image' [H, W, 1]) that test.py writes out; raw events
 <seq>/<event_folder>/*_%04d_events.npy ([N, 4] rows t, x, y, polarity).
-scale_factor < 1 is not ported (ROADMAP queue 1, item 6).  With use_phased_arch (the irregular-timestamp regime) an item
-also carries its steps' timestamps: 'times_events' [K] and 'times_image'
-(a scalar), float32 seconds from the sequence's first event stamp.
+scale_factor < 1 down-scales every window's maps as cv2.resize does in
+the JAX package (``resize_hw``; numpy, so that no cv2 is needed).  With
+use_phased_arch (the irregular-timestamp regime) an item also carries its
+steps' timestamps: 'times_events' [K] and 'times_image' (a scalar),
+float32 seconds from the sequence's first event stamp.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from ..core.registry import DATASETS
 from ..ops.depth import depth_to_log_np, rgb_to_gray_np
 from ..ops.voxel import events_to_voxel_grid_np, normalize_voxel_grid_np
 from .timestamps import TimestampIndex, first_element_greater_than, is_mvsec_folder
@@ -82,6 +86,42 @@ def _apply_transform(x: np.ndarray, transform, seed: Optional[int]) -> np.ndarra
     rng = np.random.RandomState(
         seed if seed is not None else np.random.randint(2 ** 31))
     return transform(x, rng, False)
+
+
+def _linear_taps(n_in: int, n_out: int, wide: bool):
+    """cv2's INTER_LINEAR taps along one axis: pixel centres at (d + 0.5)
+    * n_in / n_out - 0.5, the two neighbours and their float32 weights,
+    clamped to the border.  cv2 (5.0) forms the weights in float64 for
+    1, 3 or 4 channels (wide) and from the centre rounded to float32
+    otherwise."""
+    f = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    if not wide:
+        f = f.astype(np.float32)
+    i0 = np.floor(f).astype(np.int64)
+    w1 = np.where((i0 < 0) | (i0 >= n_in - 1), 0.0, f - i0.astype(f.dtype))
+    i0 = np.clip(i0, 0, n_in - 1)
+    return (i0, np.minimum(i0 + 1, n_in - 1), (1.0 - w1).astype(np.float32),
+            w1.astype(np.float32))
+
+
+def resize_hw(v: np.ndarray, height: int, width: int,
+              nearest: bool = False) -> np.ndarray:
+    """v [..., H, W, C] -> [..., height, width, C] as ``cv2.resize(img,
+    (width, height), interpolation)`` of each [H, W, C] image: bilinear
+    with half-pixel centres and clamped borders, the rows of the width
+    pass combined second (INTER_LINEAR), or the source pixel
+    floor(d * n_in / n_out) (INTER_NEAREST)."""
+    h, w = v.shape[-3], v.shape[-2]
+    if nearest:
+        rows = np.minimum(np.floor(np.arange(height) * (1.0 / (height / h))), h - 1)
+        cols = np.minimum(np.floor(np.arange(width) * (1.0 / (width / w))), w - 1)
+        return v[..., rows.astype(np.int64)[:, None], cols.astype(np.int64), :]
+    wide = v.shape[-1] in (1, 3, 4)
+    c0, c1, a0, a1 = _linear_taps(w, width, wide)
+    x = v[..., c0, :] * a0[:, None] + v[..., c1, :] * a1[:, None]
+    r0, r1, b0, b1 = _linear_taps(h, height, wide)
+    return (x[..., r0, :, :] * b0[:, None, None]
+            + x[..., r1, :, :] * b1[:, None, None])
 
 
 class VoxelGridDataset:
@@ -142,6 +182,35 @@ class RawEventsDataset:
     def __getitem__(self, i: int) -> np.ndarray:
         assert 0 <= i < len(self)
         return np.load(self.files[self.index.index_at(i)])
+
+
+class FrameDataset:
+    """Grayscale-converted RGB frames (event_dataset.py:192-238): [H, W, 1]
+    float32, in [0, 1] when normalize."""
+
+    def __init__(self, base_folder: str, frame_folder: str,
+                 start_time: float = 0.0, stop_time: float = 0.0,
+                 transform=None, normalize: bool = True):
+        self.base_folder = base_folder
+        self.frame_folder = join(base_folder, frame_folder)
+        self.transform = transform
+        self.normalize = normalize
+        self.use_mvsec = is_mvsec_folder(base_folder)
+        self.index = TimestampIndex.load(self.frame_folder, start_time,
+                                         stop_time,
+                                         mvsec_drop_last=self.use_mvsec)
+        self.files = index_files(self.frame_folder, "image", self.use_mvsec)
+
+    def __len__(self) -> int:
+        return self.index.length
+
+    def __getitem__(self, i: int, seed: Optional[int] = None) -> np.ndarray:
+        assert 0 <= i < len(self)
+        rgb = _read_image(self.files[self.index.index_at(i)])
+        gray = rgb_to_gray_np(rgb) if rgb.ndim == 3 else rgb
+        if self.normalize:
+            gray = gray / 255.0
+        return _apply_transform(gray[..., None], self.transform, seed)
 
 
 class SynchronizedFramesEventsDataset:
@@ -383,6 +452,7 @@ class SynchronizedFramesEventsRawDataset:
         return item
 
 
+@DATASETS.register("SequenceSynchronizedFramesEventsDataset")
 class SequenceSynchronizedFramesEventsDataset:
     """Length-L windows of datapackages with a shared augmentation seed and
     optional pause augmentation (dataset.py:23-141): 'events'
@@ -403,11 +473,8 @@ class SequenceSynchronizedFramesEventsDataset:
                  baseline: Union[bool, str] = False, loss_composition=False,
                  recurrency: bool = True):
         assert sequence_length > 0 and step_size > 0 and clip_distance > 0
-        if scale_factor < 1.0:
-            raise NotImplementedError(
-                "scale_factor < 1 (cv2 resizing) is not ported yet: ROADMAP "
-                "queue 1, item 6")
         self.L = sequence_length
+        self.scale_factor = scale_factor
         # recurrency False: the non-recurrent baseline's raw-event packages
         # (datasets.py:480-500 of the JAX package; no semantic labels)
         if recurrency:
@@ -459,9 +526,18 @@ class SequenceSynchronizedFramesEventsDataset:
             else:
                 k += 1
                 packages.append(self.dataset.__getitem__(j + k, seed))
-        return {key: np.stack([p[key] for p in packages])
-                for key in packages[0]}
+        out = {key: np.stack([p[key] for p in packages])
+               for key in packages[0]}
+        if self.scale_factor < 1.0:
+            out = {k: self._downsample(k, v) for k, v in out.items()}
+        return out
 
-
-DATASETS = {"SequenceSynchronizedFramesEventsDataset":
-            SequenceSynchronizedFramesEventsDataset}
+    def _downsample(self, key: str, v: np.ndarray) -> np.ndarray:
+        """Every [H, W, C] map of v to (int(h * s), int(w * s)) (JAX
+        datasets.py:550-568): nearest for the semantic labels, linear
+        otherwise; timestamps and arrays of fewer than 3 dims unchanged."""
+        if key.startswith("times") or v.ndim < 3:
+            return v
+        s = self.scale_factor
+        return resize_hw(v, int(v.shape[-3] * s), int(v.shape[-2] * s),
+                         nearest="semantic" in key)

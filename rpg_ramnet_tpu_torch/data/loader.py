@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .datasets import DATASETS
+from ..core.registry import DATASETS
 
 
 def concatenate_subfolders(base_folder: str, dataset_type: str,
@@ -42,7 +42,7 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
         raise NotImplementedError(
             f"dataset type {dataset_type!r} is not ported yet: ROADMAP queue "
             "1, item 6")
-    cls = DATASETS[dataset_type]
+    cls = DATASETS.get(dataset_type)
     return ConcatSequenceDataset([
         cls(base_folder=join(base_folder, name), event_folder=event_folder,
             depth_folder=depth_folder, frame_folder=frame_folder,
@@ -146,7 +146,7 @@ class BatchLoader:
 
 
 def device_prefetch(iterator: Iterable[Dict[str, np.ndarray]],
-                    device: torch.device, size: int = 2
+                    device: torch.device, size: int = 2, stage=None
                     ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yields the batches of ``iterator`` (dicts of numpy arrays) as
     tensors on ``device``, the next ``size`` already copied or in flight
@@ -156,11 +156,14 @@ def device_prefetch(iterator: Iterable[Dict[str, np.ndarray]],
     consumer's stream waits for the copy before it gets the batch, and the
     tensors are recorded on the consumer's stream, so the allocator keeps
     their memory until the work queued on them is done.  On the CPU the
-    arrays become tensors without a copy."""
+    arrays become tensors without a copy.  stage: a function of the
+    batch's device tensors run after the copy, on the side stream (the
+    raw pipeline's voxelization), whose dict is yielded."""
     if device.type != "cuda":
         for batch in iterator:
-            yield {k: torch.from_numpy(np.ascontiguousarray(v))
+            out = {k: torch.from_numpy(np.ascontiguousarray(v))
                    for k, v in batch.items()}
+            yield out if stage is None else stage(out)
         return
     copy_stream = torch.cuda.Stream(device)
 
@@ -170,6 +173,8 @@ def device_prefetch(iterator: Iterable[Dict[str, np.ndarray]],
         with torch.cuda.stream(copy_stream):
             out = {k: v.to(device, non_blocking=True)
                    for k, v in pinned.items()}
+            if stage is not None:
+                out = stage(out)
             done = torch.cuda.Event()
             done.record(copy_stream)
         # the pinned buffers stay referenced until the copy has completed

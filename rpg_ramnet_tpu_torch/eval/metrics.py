@@ -10,26 +10,32 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core.registry import METRICS
+
 EPS = 1e-6
 
 
+@METRICS.register("abs_rel_diff")
 def abs_rel_diff(y_input, y_target, eps: float = EPS):
     abs_diff = np.abs(y_target - y_input)
     return (abs_diff[~np.isnan(abs_diff)]
             / (y_target[~np.isnan(y_target)] + eps)).mean()
 
 
+@METRICS.register("squ_rel_diff")
 def squ_rel_diff(y_input, y_target, eps: float = EPS):
     abs_diff = np.abs(y_target - y_input)
     ok = ~np.isnan(abs_diff)
     return (abs_diff[ok] ** 2 / (y_target[ok] ** 2 + eps)).mean()
 
 
+@METRICS.register("rms_linear")
 def rms_linear(y_input, y_target):
     abs_diff = np.abs(y_target - y_input)
     return np.sqrt((abs_diff[~np.isnan(abs_diff)] ** 2).mean())
 
 
+@METRICS.register("scale_invariant_error")
 def scale_invariant_error(y_input, y_target):
     """Operates on |target - input| of its inputs (metric.py:22-25)."""
     log_diff = np.abs(y_target - y_input)
@@ -37,16 +43,19 @@ def scale_invariant_error(y_input, y_target):
     return (log_diff[ok] ** 2).mean() - (log_diff[ok].mean()) ** 2
 
 
+@METRICS.register("mean_error")
 def mean_error(y_input, y_target):
     abs_diff = np.abs(y_target - y_input)
     return abs_diff[~np.isnan(abs_diff)].mean()
 
 
+@METRICS.register("median_error")
 def median_error(y_input, y_target):
     abs_diff = np.abs(y_target - y_input)
     return np.median(abs_diff[~np.isnan(abs_diff)])
 
 
+@METRICS.register("mse")
 def mse(y_input, y_target):
     """Per-sample MSE over non-NaN target pixels, averaged over the batch
     (metric.py:35-54); inputs [N, C, H, W] with C in {1, 3}."""
@@ -90,6 +99,7 @@ def _ssim_single(x: np.ndarray, y: np.ndarray, win: int = 7,
     return float(s.mean())
 
 
+@METRICS.register("structural_similarity")
 def structural_similarity(y_input, y_target):
     """Batch SSIM, [N, C, H, W] with C in {1, 3} (metric.py:57-74): the
     mean over the batch of the per-image SSIM, averaged over the
@@ -106,20 +116,9 @@ def structural_similarity(y_input, y_target):
     return total / float(n)
 
 
-METRICS = {"mse": mse, "abs_rel_diff": abs_rel_diff,
-           "squ_rel_diff": squ_rel_diff,
-           "scale_invariant_error": scale_invariant_error,
-           "median_error": median_error, "mean_error": mean_error,
-           "rms_linear": rms_linear,
-           "structural_similarity": structural_similarity}
-
-
 def get_metric(name: str):
     """The metric of that name (KeyError, listing the names, otherwise)."""
-    if name not in METRICS:
-        raise KeyError(f"Unknown metric '{name}'. Available: "
-                       f"{sorted(METRICS)}")
-    return METRICS[name]
+    return METRICS.get(name)
 
 
 def eval_metrics(output: np.ndarray, target: np.ndarray,

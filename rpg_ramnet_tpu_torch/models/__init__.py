@@ -3,18 +3,13 @@ from typing import Optional
 import torch
 
 from ..core.config import Config
+from ..core.registry import MODELS
 from .model import ERGB2Depth, ERGB2DepthRecurrent, event_loop_range, prediction_keys
-
-# a config's "arch" -> the port's model class (the MODELS entries of JAX
-# core/registry.py that the port has)
-MODELS = {"ERGB2DepthRecurrent": ERGB2DepthRecurrent, "ERGB2Depth": ERGB2Depth}
 
 
 def get_model(arch: str):
     """The model class a config's ``arch`` names."""
-    if arch not in MODELS:
-        raise KeyError(f"unknown arch {arch!r}; the port has {sorted(MODELS)}")
-    return MODELS[arch]
+    return MODELS.get(arch)
 
 
 def build_model(cfg: Config, device=None,

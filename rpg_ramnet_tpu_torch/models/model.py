@@ -40,6 +40,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import ModelConfig
+from ..core.registry import MODELS
 from ..ops import gru_chunk, gru_hside, gru_stream
 from ..utils.layout import to_nchw, to_nhwc
 from . import statenet, unet
@@ -280,6 +281,7 @@ def _stream_cells(net, cfg: ModelConfig, supers, gx_ev, gx_im,
                                      True)
 
 
+@MODELS.register("ERGB2DepthRecurrent")
 class ERGB2DepthRecurrent(nn.Module):
     """RAM-Net.  Parameters live under ``statenetphasedrecurrent.`` with
     the upstream names, in float32 (the masters an optimizer updates) and
@@ -578,6 +580,7 @@ class ERGB2DepthRecurrent(nn.Module):
         return statenet.map_state(to_nhwc, state), preds
 
 
+@MODELS.register("ERGB2Depth")
 class ERGB2Depth(nn.Module):
     """The non-recurrent UNet baseline (model.py:79-111), stateless.  Its
     package input is 'image': the voxel grid of the package's events

@@ -7,21 +7,22 @@ voxelized on the device (``ops.voxel.events_to_voxel_grid``: kernel K6 on
 the card), preprocessed (hot pixels, flip, normalization), reflection-
 padded to a multiple of 2^num_encoders, run through the recurrent model
 one event-modality sweep per window (``StreamingInference.step_modality``),
-unsharp-masked and cropped back, bilateral-filtered on the host and
-written per window:
+unsharp-masked and cropped back, bilateral-filtered on the host, shown
+in a window with --display (``eval.display.DepthDisplay``, cv2; needs a
+screen) and written per window:
 
     python -m rpg_ramnet_tpu_torch.stream -i events.txt \\
         --path_to_model <ckpt> --height 260 --width 346 \\
         [--fixed_duration --window_duration 50] \\
         [-o out_dir --save_numpy --show_events] [--device cpu] \\
+        [--display --display_wait_time 1] \\
         [--voxel_backend auto|sortseg|pallas|scatter|matmul]
 
 ``--voxel_backend`` is this entry point's own: 'auto' runs K6 on the
-card, 'pallas' K7.  ``--display`` needs a screen and is not ported.  A
-baseline streams each window through its image branch (depth_stream.py's
-``modality``), so its num_bins_rgb must be the grid's num_bins_events
-(baseline 'e'); ERGB2Depth has no modality branches and is refused (the
-JAX live path fails on it too).
+card, 'pallas' K7.  A baseline streams each window through its image
+branch (depth_stream.py's ``modality``), so its num_bins_rgb must be the
+grid's num_bins_events (baseline 'e'); ERGB2Depth has no modality
+branches and is refused (the JAX live path fails on it too).
 """
 from __future__ import annotations
 
@@ -63,9 +64,6 @@ def main(argv: Optional[Sequence[str]] = None, on_window=None) -> int:
     """Run the stream; returns the number of windows.  on_window(index,
     depth [H, W] float32 numpy) is called for every window."""
     args = parse_args(argv)
-    if args.display:
-        raise NotImplementedError("--display needs a screen; the window "
-                                  "display (eval/display.py) is not ported")
     from .core.config import Config
     from .eval.filters import ImageFilter, UnsharpMaskFilter
     from .eval.inference import CropParameters, StreamingInference
@@ -120,6 +118,10 @@ def main(argv: Optional[Sequence[str]] = None, on_window=None) -> int:
     bilateral = ImageFilter(args.bilateral_filter_sigma)
     engine = StreamingInference(model)
     engine.reset(1, crop.height_crop, crop.width_crop)
+    display = None
+    if args.display:
+        from .eval.display import DepthDisplay
+        display = DepthDisplay("depth", reg_factor=args.reg_factor)
 
     out_dir = args.output_folder
     if out_dir:
@@ -137,6 +139,8 @@ def main(argv: Optional[Sequence[str]] = None, on_window=None) -> int:
         pred = engine.step_modality(grid, modality)
         depth = bilateral(crop.crop(unsharp(pred))[..., 0].cpu().numpy())
         windows += 1
+        if display is not None:
+            display.show(depth, args.display_wait_time)
         if on_window is not None:
             on_window(idx, depth)
         if out_dir:

@@ -10,6 +10,8 @@ log); the best by the monitored metric is copied to ``model_best``.
 names (``statenetphasedrecurrent.*`` for ERGB2DepthRecurrent, ``unet.*``
 for ERGB2Depth: the models' own submodule names), which the reference
 implementation and ``compat.load_reference_checkpoint`` load.
+``load_any`` also reads the JAX package's Orbax checkpoint directories
+(``tree/`` + ``meta.json``) with ``tensorstore``, where it is installed.
 """
 from __future__ import annotations
 
@@ -111,11 +113,48 @@ def restore(path: str, model, optimizer=None) -> Dict[str, Any]:
         return json.load(f)
 
 
+def read_orbax_params(path: str) -> Dict[str, Any]:
+    """The ``params`` subtree of a JAX Orbax checkpoint directory as numpy
+    arrays keyed by their path below it (list indices as strings): what
+    ``compat.params_to_state_dict`` walks.  Reads ``tree/_METADATA``
+    (JSON: one entry per leaf, keyed by the leaf's path tuple) and each
+    leaf's zarr array in the OCDBT store with ``tensorstore``, which loads
+    no JAX; raises ImportError, naming the way round, where tensorstore
+    is not installed."""
+    tree = join(path, "tree")
+    with open(join(tree, "_METADATA")) as f:
+        leaves = json.load(f)["tree_metadata"]
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"reading the JAX package's Orbax checkpoint {path} needs "
+            "tensorstore, which is not installed here; export it to a "
+            ".pth.tar with the JAX package "
+            "(rpg_ramnet_tpu.train.checkpoint.export_pth_tar) and load that"
+        ) from e
+    params: Dict[str, Any] = {}
+    base = "file://" + os.path.abspath(tree) + "/"
+    for leaf in leaves.values():
+        keys = [k["key"] for k in leaf["key_metadata"]]
+        if keys[0] != "params":
+            continue
+        node = params
+        for k in keys[1:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = ts.open({
+            "driver": "zarr",
+            "kvstore": {"driver": "ocdbt", "base": base,
+                        "path": ".".join(keys)}}).result().read().result()
+    return params
+
+
 def load_any(path: str, model) -> Dict[str, Any]:
     """Load weights into ``model`` from a checkpoint directory of the port
-    (``state.pt`` + ``meta.json``) or a reference ``.pth.tar``; returns
-    the meta (config, epoch) the checkpoint carries.  The counterpart of
-    the JAX ``load_any``; its Orbax directories are not read yet."""
+    (``state.pt`` + ``meta.json``), a JAX Orbax directory (``tree/`` +
+    ``meta.json``: its params, ``read_orbax_params``) or a reference
+    ``.pth.tar``; returns the meta (config, epoch, ...) the checkpoint
+    carries.  The counterpart of the JAX ``load_any``."""
     if path.endswith((".pth.tar", ".pth")) or os.path.isfile(path):
         from ..compat import load_reference_checkpoint
         load_reference_checkpoint(model, path)
@@ -124,10 +163,10 @@ def load_any(path: str, model) -> Dict[str, Any]:
     if os.path.exists(join(path, "state.pt")):
         return restore(path, model)
     if os.path.isdir(join(path, "tree")):
-        raise NotImplementedError(
-            f"{path} is an Orbax checkpoint of the JAX package: reading it "
-            "is not ported yet (ROADMAP queue 1, item 6); export it to a "
-            ".pth.tar with the JAX package")
+        from ..compat import params_from_jax
+        params_from_jax(model, read_orbax_params(path), type(model).__name__)
+        with open(join(path, "meta.json")) as f:
+            return json.load(f)
     raise FileNotFoundError(f"no checkpoint at {path}")
 
 

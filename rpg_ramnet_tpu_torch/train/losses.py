@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.registry import LOSSES
 from ..ops.gradient import avg_pool, spatial_gradient
 
 
@@ -18,6 +19,7 @@ def _nanmean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, x, 0.0).sum() / mask.sum().clamp_min(1)
 
 
+@LOSSES.register("scale_invariant_loss")
 def scale_invariant_loss(y_input, y_target, weight: float = 1.0,
                          n_lambda: float = 1.0):
     """weight * (mean(d^2) - n_lambda * mean(d)^2), d = input - target over
@@ -29,6 +31,7 @@ def scale_invariant_loss(y_input, y_target, weight: float = 1.0,
     return weight * (_nanmean(d * d, ok) - n_lambda * m1 * m1)
 
 
+@LOSSES.register("scale_invariant_log_loss")
 def scale_invariant_log_loss(y_input, y_target, n_lambda: float = 1.0):
     """The scale-invariant loss on log values (loss.py:12-15)."""
     d = torch.log(y_input) - torch.log(y_target)
@@ -37,6 +40,7 @@ def scale_invariant_log_loss(y_input, y_target, n_lambda: float = 1.0):
     return _nanmean(d * d, ok) - n_lambda * _nanmean(d, ok) ** 2
 
 
+@LOSSES.register("mse_loss")
 def mse_loss(y_input, y_target):
     """MSE over the entries whose target is not NaN (loss.py:18-19)."""
     ok = ~torch.isnan(y_target)
@@ -88,12 +92,5 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return wh.transpose(0, 1) @ (x @ ww)
 
 
-LOSSES = {"scale_invariant_loss": scale_invariant_loss,
-          "scale_invariant_log_loss": scale_invariant_log_loss,
-          "mse_loss": mse_loss}
-
-
 def get_loss(name: str):
-    if name not in LOSSES:
-        raise KeyError(f"unknown loss {name!r}; known: {sorted(LOSSES)}")
-    return LOSSES[name]
+    return LOSSES.get(name)

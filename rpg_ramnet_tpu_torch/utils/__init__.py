@@ -1,3 +1,5 @@
 from .device import require_cuda
+from .timers import DeviceTimer, Timer, print_timing_info, profile_trace
 
-__all__ = ["require_cuda"]
+__all__ = ["DeviceTimer", "Timer", "print_timing_info", "profile_trace",
+           "require_cuda"]

@@ -5,7 +5,8 @@
 
 --sizes runs chip_smoke.py's ``time_voxelizers`` at the named sizes.
 --sweep times K6 (without and with stats) on each of the kernel's two
-paths, one-pass and tiled, by device time (torch.profiler) in mirrored
+paths, one-pass and tiled, by device time (torch.profiler; for batches
+per kernel the mean of the records it kept) in mirrored
 turns, over single windows of growing size and batches of growing window
 count on 5x260x346: what the kernel's size rule (csrc/voxel.cu,
 kOnePassGridBytes) is read from.  Exits non-zero without a CUDA device.
@@ -49,9 +50,12 @@ def path_sweep(dev, seed):
                  for p in voxel.PATHS for k, s in (("k6", False), ("k6_stats", True))}
         times = {k: [] for k in calls}
         reps = 20 if B * n <= 1 << 22 else 3
+        # a batch of windows: per kernel name the mean of the records the
+        # profiler kept (smoke.call_device_us), as phase 10 times batch800
+        timer = smoke.device_time_us if B == 1 else smoke.call_device_us
         for _ in range(SWEEP_TURNS):
             for k in list(calls) + list(reversed(calls)):
-                times[k].append(smoke.device_time_us(calls[k], reps)[0])
+                times[k].append(timer(calls[k], reps)[0])
         rows.append({"windows": B, "events_per_window": n,
                      "grid_mb": B * nb * h * w * 4 / 2 ** 20,
                      "picked": voxel._launch_plan(B, n, nb, h, w)[0],
