@@ -35,8 +35,12 @@ transposed-conv and fast-upsample decoders, ConvLSTM encoders, the
 'conv' and 'sum' state combinations) through the eval and training entry
 points; and flagship training from raw events, voxelized on the card a
 batch at a time by the device data path
-(``rpg_ramnet_tpu_torch.data.raw_pipeline``) at 256x512.  It imports
-nothing of JAX or of the JAX package.
+(``rpg_ramnet_tpu_torch.data.raw_pipeline``) at 256x512; and data
+parallelism (``rpg_ramnet_tpu_torch.parallel``): the flagship's training
+step as two gloo ranks sharing the card, the training entry point as an
+NCCL world of one, lanes over a two-replica mesh of the card and the raw
+pipeline's per-rank shares.  It imports nothing of JAX or of the JAX
+package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
@@ -270,7 +274,24 @@ Phases, each printed as one JSON line:
                    scatter, K7 on the first batch, the first step with
                    K6's grids against the scatter's (loss, gradient
                    cosines), the per-batch voxelize ms (CUDA events) beside
-                   the step's s.
+                   the step's s;
+ 26. parallel      data parallelism at full width on the one card: two gloo
+                   ranks (``chip_smoke.py --ddp_worker`` subprocesses with
+                   torchrun's environment, each on cuda:0 with B=8) take
+                   one train step of a B=16, L=10, 224² global batch:
+                   each rank's K1-res and K2 counts and peak memory, the
+                   loss and every gradient against one process on the
+                   whole batch; the training entry point as an NCCL world
+                   of one (a subprocess, 2 steps at B=4): its JSONL entry
+                   and checkpoint; run_batched_chunked_streaming (8
+                   lanes, chunk 4: K1 at B=4 per replica) and
+                   run_batched_streaming with fused_gru='on' (K5 at B=4)
+                   over a [cuda:0, cuda:0] mesh against the single-device
+                   engine, every item; the eval entry point with --mesh 1
+                   --lanes 8 --scan_chunk 4 against no mesh; one 800-window
+                   raw batch through device_voxelize_prefetch as 2 shares
+                   against the whole batch's grids; K1 and K5 at B=4
+                   against their plain versions (plan, device us).
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -460,6 +481,14 @@ ZOO_STATS_TOL = 1e-3   # (d) running stats, remat on vs off from the same
 # pixel); RAW_STEPS steps over as many shuffled epochs of the split's
 # TRAIN_B windows (cut: the data)
 RAW_N_MAX, RAW_EVENTS, RAW_STEPS = 32768, 30000, 2
+# phase 26: two gloo ranks sharing the card (NCCL refuses two ranks on one
+# GPU), each at TRAIN_B / PAR_RANKS; lanes over a [cuda:0, cuda:0] mesh
+# (K1 and K5 at LANES / 2 per replica); the NCCL world of one at NCCL_B
+PAR_RANKS = 2
+MESH_CELLS = tuple((LANES // PAR_RANKS,) + c[1:] for c in FLAGSHIP_CELLS)
+MESH_ENTRY_SEQ_LENGTHS = (4, 2, 3, 2, 2, 3, 2, 2)
+NCCL_B = 4
+VOX_SHARD_TOL = 1e-6   # a share's normalized grids vs the whole batch's
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -4193,9 +4222,446 @@ def raw_pipeline_phases(dev, seed, smi):
     return row
 
 
+def parallel_train_config():
+    """The flagship config as phase 6 trains it (precompute_x, TRAIN_L,
+    the global batch TRAIN_B), as a Config."""
+    from rpg_ramnet_tpu_torch.core.config import Config
+    with open(os.path.join(ROOT, CONFIG)) as f:
+        raw = json.load(f)
+    raw["trainer"].update(precompute_x=True, sequence_length=TRAIN_L)
+    raw["data_loader"]["batch_size"] = TRAIN_B
+    return Config.from_dict(raw)
+
+
+def parallel_windows(items, K, dev, seed):
+    """Windows ``items`` of phase 26's global batch at TRAIN_CROP, each
+    made on the card from its own seed (so that each rank makes its own
+    items alone), stacked into a batch."""
+    import torch
+    c, out = TRAIN_CROP, {}
+    for i in items:
+        g = torch.Generator(device=dev).manual_seed(seed * 1000 + i)
+        win = {"events": torch.randn((TRAIN_L, K, c, c, 5), device=dev,
+                                     generator=g),
+               "image": torch.rand((TRAIN_L, c, c, 1), device=dev, generator=g),
+               "depth_events": torch.rand((TRAIN_L, K, c, c, 1), device=dev,
+                                          generator=g),
+               "depth_image": torch.rand((TRAIN_L, c, c, 1), device=dev,
+                                         generator=g)}
+        for k, v in win.items():
+            out.setdefault(k, []).append(v)
+    return {k: torch.stack(v) for k, v in out.items()}
+
+
+def ddp_worker(out_dir, seed):
+    """One of phase 26's ranks (``chip_smoke.py --ddp_worker DIR``, with
+    torchrun's environment): gloo on the current card, the flagship's
+    weights from the seed (rank 0's broadcast), this rank's TRAIN_B /
+    world windows, one train step's gradients (``make_grad_fn``: the
+    global batch's loss, the gradients averaged over the ranks), the
+    K1-res and K2 counts set to 0 just before and read just after, the
+    peak memory; rank 0 also saves the gradients."""
+    import torch
+    import torch.distributed as dist
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.parallel import distributed
+    from rpg_ramnet_tpu_torch.train.train_step import make_grad_fn
+    from rpg_ramnet_tpu_torch.utils import require_cuda
+    dev = require_cuda()
+    distributed.init_from_env("gloo")
+    try:
+        r, w = distributed.rank(), distributed.world()
+        cfg = parallel_train_config()
+        K = cfg.model.every_x_rgb_frame
+        per = TRAIN_B // w
+        batch = parallel_windows(range(r * per, (r + 1) * per), K, dev, seed)
+        model = ERGB2DepthRecurrent(cfg.model, device=dev,
+                                    generator=torch.Generator().manual_seed(seed))
+        distributed.broadcast_module(model)
+        grads = make_grad_fn(cfg, model)
+        k1r, k2 = gru_hside.conv_gru_hside_res, gru_hside.conv_gru_hside_bwd
+        k1r.launches = k2.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        aux = grads(batch)
+        torch.cuda.synchronize()
+        row = {"rank": r, "world": w, "backend": dist.get_backend(),
+               "batch": per, "loss": aux["loss"].item(),
+               "launches": {"k1_res": k1r.launches, "k2": k2.launches},
+               "step_s": time.perf_counter() - t0,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if r == 0:
+            torch.save({n: p.grad.float().cpu()
+                        for n, p in model.named_parameters()
+                        if p.grad is not None},
+                       os.path.join(out_dir, "grads.pt"))
+        with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+            json.dump(row, f)
+    finally:
+        distributed.destroy()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start(cmd, log, env):
+    """cmd started from the repository's root, its output to the file
+    log (a pipe left unread while this process works could fill)."""
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    proc.log = log
+    return proc
+
+
+def spawn_ranks(out_dir, seed):
+    """PAR_RANKS processes of ``ddp_worker`` with torchrun's environment
+    (rank r on the current card); returns them, started."""
+    env = {**os.environ, "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port()), "WORLD_SIZE": str(PAR_RANKS)}
+    return [start([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                   "--seed", str(seed), "--ddp_worker", out_dir],
+                  os.path.join(out_dir, f"rank{r}.log"),
+                  {**env, "RANK": str(r), "LOCAL_RANK": "0"})
+            for r in range(PAR_RANKS)]
+
+
+def wait_all(procs, timeout):
+    """Each process's output; raises if one fails or outlives timeout (all
+    are ended either way)."""
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for p in procs:
+        with open(p.log) as f:
+            outs.append(f.read())
+        if p.returncode != 0:
+            raise AssertionError(f"{p.args} exited {p.returncode}:\n"
+                                 f"{outs[-1][-3000:]}")
+    return outs
+
+
+def single_step_grads(dev, seed, K):
+    """Phase 26 (a)'s comparison: one process's train-step gradients on
+    the whole global batch (its launches are not the path's)."""
+    import torch
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.train.train_step import make_grad_fn
+    cfg = parallel_train_config()
+    model = ERGB2DepthRecurrent(cfg.model, device=dev,
+                                generator=torch.Generator().manual_seed(seed))
+    aux = make_grad_fn(cfg, model)(parallel_windows(range(TRAIN_B), K, dev, seed))
+    return aux["loss"].item(), {n: p.grad.float() for n, p in
+                                model.named_parameters() if p.grad is not None}
+
+
+def ddp_vs_single(procs, out_dir, single, dev, K):
+    """Phase 26 (a): the two gloo ranks (``spawn_ranks``, waited for here)
+    against the single process's (loss, gradients) on the same global
+    batch: loss, least gradient cosine, each rank's launches and peak
+    memory."""
+    import torch
+    t0 = time.perf_counter()
+    wait_all(procs, 300)
+    rows = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            rows.append(json.load(f))
+    grads = torch.load(os.path.join(out_dir, "grads.pt"))
+    single_loss, single = single
+    if sorted(grads) != sorted(single):
+        raise AssertionError("two gloo ranks vs one process: gradients of "
+                             "other tensors")
+    cos = {n: torch.nn.functional.cosine_similarity(
+        grads[n].to(dev).flatten(), single[n].flatten(), dim=0).item()
+        for n in single}
+    worst = min(cos, key=cos.get)
+    n_cells = 3 * (K + 1) * TRAIN_L
+    want = {"k1_res": 2 * n_cells, "k2": n_cells}
+    out = {"ranks": rows, "single_loss": single_loss,
+           "loss_rel_diff": abs(rows[0]["loss"] - single_loss) / abs(single_loss),
+           "loss_tol": LOSS_TOL, "grad_cos_min": cos[worst],
+           "grad_cos_min_tensor": worst, "cos_tol": COS_TOL,
+           "tensors": len(cos), "launches_expected_per_rank": want,
+           "waited_s": time.perf_counter() - t0}
+    if (any(r["launches"] != want or r["backend"] != "gloo"
+            or r["loss"] != rows[0]["loss"] for r in rows)
+            or not math.isfinite(single_loss)
+            or not out["loss_rel_diff"] <= LOSS_TOL
+            or not out["grad_cos_min"] >= COS_TOL):
+        raise AssertionError(f"two gloo ranks vs one process: {out}")
+    return out
+
+
+def start_nccl_world_of_one(tmp, K, seed):
+    """Phase 26 (b), started: the training entry point as a world of one
+    over NCCL (torchrun's environment in a subprocess) for one epoch of
+    TRAIN_STEPS steps at NCCL_B on a synthetic split in tmp.  Returns
+    (process, run directory, start time)."""
+    write_train_data(os.path.join(tmp, "data"), K, seed, batch=NCCL_B)
+    raw = train_config(tmp)
+    raw["name"] = "smoke_nccl"
+    raw["data_loader"]["batch_size"] = NCCL_B
+    cfg_path = os.path.join(tmp, "nccl_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    env = {**os.environ, "PREPROCESSED_DATASETS_FOLDER": os.path.join(tmp, "data"),
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
+    proc = start([sys.executable, "-m", "rpg_ramnet_tpu_torch.train", "-c",
+                  cfg_path], os.path.join(tmp, "train.log"), env)
+    return proc, os.path.join(tmp, "runs", raw["name"]), time.perf_counter()
+
+
+def nccl_world_of_one(proc, run, t0):
+    """Phase 26 (b), waited for: its 'over nccl' line, one JSONL entry
+    with finite losses and the epoch's checkpoint."""
+    log = wait_all([proc], 300)[0]
+    with open(os.path.join(run, "train_log.jsonl")) as f:
+        entries = [json.loads(ln) for ln in f]
+    out = {"batch": NCCL_B, "steps": TRAIN_STEPS,
+           "wall_s": time.perf_counter() - t0,
+           "over_nccl": "rank 0 of 1 over nccl" in log,
+           "log_entries": len(entries),
+           "checkpoint": os.path.exists(os.path.join(
+               run, "checkpoint-epoch0", "state.pt"))}
+    if entries:
+        out.update(train_loss=entries[0]["train_loss"],
+                   val_loss=entries[0]["val_loss"])
+    if not (out["over_nccl"] and len(entries) == 1 and out["checkpoint"]
+            and all(math.isfinite(out[k]) for k in ("train_loss", "val_loss"))):
+        raise AssertionError(f"NCCL world of one: {out}\n{log[-3000:]}")
+    return out
+
+
+def mesh_kernel_check(dev, seed):
+    """Phase 26: K1 (gx a step of a [B, K, ...] buffer) and K5 at
+    MESH_CELLS, each replica's shapes on the lane mesh, against their
+    plain versions under the planner's plan (``lane_kernel_rows``)."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    gen = torch.Generator().manual_seed(seed)
+    dgen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"k1": {}, "k5": {}}
+    for shape in MESH_CELLS:
+        B, Hc, Wc, C = shape
+        key = "x".join(map(str, shape))
+        w_ur, w_o = make_cell_inputs((1, 1, 1, C), dev, gen)[3:]
+        h = (torch.rand(shape, device=dev, generator=dgen) * 2 - 1).bfloat16()
+        gx = torch.randn((B, 5, Hc, Wc, 3 * C), device=dev,
+                         generator=dgen).bfloat16()[:, 2]
+        a = (h, gx, w_ur, w_o)
+        out["k1"].update(lane_kernel_rows([(
+            key, lambda: gru_hside.conv_gru_hside(*a),
+            lambda: gru_hside.conv_gru_hside_plain(*a),
+            lambda: gru_hside.conv_gru_hside(h[:1], gx[:1], w_ur, w_o),
+            K1_TOL, plan_name(gru_hside.plan_k1(*shape)))]))
+        _, x, h5, w5 = make_full_cell_inputs(shape, dev, gen)
+        out["k5"].update(lane_kernel_rows([(
+            key, lambda: gru_hside.conv_gru_full(x, h5, *w5),
+            lambda: gru_hside.conv_gru_full_plain(x, h5, *w5),
+            lambda: gru_hside.conv_gru_full(x[:1], h5[:1], *w5),
+            CELL_TOL, plan_name(gru_hside.plan_k5(*shape)))]))
+        del x, h5, w5, a, h, gx
+    return out
+
+
+def lane_mesh_runs(cfg, K, dev, seed):
+    """Phase 26 (c): the lane engines over a [cuda:0, cuda:0] mesh (a
+    replica and LANES / 2 lanes each) against the single-device engine
+    on the same in-memory sequences (LANE_SEQ_LENGTHS at 256x512): lanes
+    x chunk (K1 at B = LANES / 2) and per package with fused_gru='on' (K5
+    at B = LANES / 2), every item's maps; then the eval entry point with
+    --mesh 1 --lanes LANES --scan_chunk LANE_CHUNK against the same
+    command without --mesh."""
+    import numpy as np
+    import torch
+    from rpg_ramnet_tpu_torch.core.config import MeshConfig
+    from rpg_ramnet_tpu_torch.eval import inference
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.parallel import make_mesh
+    k1, k5 = gru_hside.conv_gru_hside, gru_hside.conv_gru_full
+    mesh = make_mesh(MeshConfig(data=PAR_RANKS, model=1), [dev] * PAR_RANKS)
+    ds = SyntheticDataset(LANE_SEQ_LENGTHS, K, seed + 21)
+    model = ERGB2DepthRecurrent(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(seed + 21))
+    on_model = ERGB2DepthRecurrent(dataclasses.replace(cfg, fused_gru="on"),
+                                   device=dev)
+    on_model.load_state_dict(model.state_dict())
+    n_chunked = lane_steps(LANE_SEQ_LENGTHS, LANES, LANE_CHUNK)
+    n_pkg = lane_steps(LANE_SEQ_LENGTHS, LANES)
+    out = {}
+    for name, run, m, kern, kw, steps in (
+            ("chunked", inference.run_batched_chunked_streaming, model, k1,
+             {"chunk": LANE_CHUNK}, n_chunked),
+            ("per_package", inference.run_batched_streaming, on_model, k5, {},
+             n_pkg)):
+        preds = {}
+        counts = {}
+        walls = {}
+        for which, mesh_arg in (("mesh", mesh), ("single", None)):
+            got = {}
+            kern.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(ds, m, n_lanes=LANES, mesh=mesh_arg, **kw,
+                on_prediction=lambda g, p, item, pos: got.__setitem__(g, p))
+            torch.cuda.synchronize()
+            walls[which] = time.perf_counter() - t0
+            counts[which] = kern.launches
+            preds[which] = got
+        want = PAR_RANKS * 3 * (K + 1) * steps
+        err = max_pred_diff(preds["mesh"], preds["single"])
+        finite = all(np.isfinite(v).all() for p in preds["mesh"].values()
+                     for v in p.values())
+        out[name] = {"launches": counts["mesh"], "launches_expected": want,
+                     "launches_single_device": counts["single"],
+                     "items": len(preds["mesh"]), "max_abs_err_vs_single":
+                     err, "tol": SLICE_TOL, "wall_s_mesh_single":
+                     [walls["mesh"], walls["single"]]}
+        if (counts["mesh"] != want or len(preds["mesh"]) != sum(LANE_SEQ_LENGTHS)
+                or sorted(preds["mesh"]) != sorted(preds["single"])
+                or not finite or not err <= SLICE_TOL):
+            raise AssertionError(f"lane mesh, {name}: {out[name]}")
+    # the eval entry point end to end: a mesh of one card
+    lengths = MESH_ENTRY_SEQ_LENGTHS
+    n = 3 * (K + 1) * lane_steps(lengths, LANES, LANE_CHUNK)
+    args = ("--lanes", str(LANES), "--scan_chunk", str(LANE_CHUNK))
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_mesh_") as tmp:
+        write_split(tmp, lengths, K, seed + 31, H, W)
+        files = stream_files(tmp, model, "auto", name="mesh")
+        with_mesh, c_mesh, w_mesh = lane_run(
+            files, tmp, [k1], [n], lengths, extra=args + ("--mesh", "1"),
+            what="eval entry --mesh 1")
+        without, _, w_plain = lane_run(files, tmp, [k1], [n], lengths,
+                                       extra=args, what="eval entry, no mesh")
+    out["eval_entry_mesh_1"] = {
+        "k1_launches": c_mesh[0], "items": len(with_mesh),
+        "max_abs_err_vs_no_mesh": max_pred_diff(with_mesh, without),
+        "wall_s_mesh_no_mesh": [w_mesh, w_plain]}
+    if not out["eval_entry_mesh_1"]["max_abs_err_vs_no_mesh"] <= SLICE_TOL:
+        raise AssertionError(f"eval entry --mesh 1: {out['eval_entry_mesh_1']}")
+    return out
+
+
+def sharded_raw_batch(dev, seed, K):
+    """Phase 26 (d): one raw batch of TRAIN_B x TRAIN_L x K windows (RAW_EVENTS
+    events each, padded to RAW_N_MAX) at HxW through
+    ``device_voxelize_prefetch`` whole and as PAR_RANKS shares
+    (``sharding=(r, PAR_RANKS)``): each share's normalized grids against
+    that share of the whole batch's, over the cells both hold nonzero (a
+    cell whose atomic adds cancel can hold 0 in one run and a residue in
+    the other: counted apart, as phase 25), and K6's launches (one per
+    share)."""
+    import numpy as np
+    import torch
+    from rpg_ramnet_tpu_torch.data.raw_pipeline import device_voxelize_prefetch
+    from rpg_ramnet_tpu_torch.ops import voxel
+    rng = np.random.default_rng(seed + 41)
+    shape = (TRAIN_B, TRAIN_L, K, RAW_N_MAX)
+    ev = np.zeros(shape + (4,), np.float32)
+    ev[..., 0] = np.sort(rng.uniform(0.0, 0.05, shape), axis=-1)
+    ev[..., 1] = rng.integers(0, W, shape)
+    ev[..., 2] = rng.integers(0, H, shape)
+    ev[..., 3] = rng.integers(0, 2, shape)
+    ev[..., RAW_EVENTS:, :] = 0
+    batch = {"events_raw": ev,
+             "events_count": np.full(shape[:3], RAW_EVENTS, np.int32),
+             "image": rng.random((TRAIN_B, TRAIN_L, 4, 4, 1), dtype=np.float32)}
+    kw = dict(num_bins=5, height=H, width=W, device=dev)
+    k6 = voxel.events_to_voxel_grid_sortseg
+    whole = next(device_voxelize_prefetch(iter([batch]), **kw))["events"]
+    torch.cuda.synchronize()
+    k6.launches = 0
+    errs, apart, per = [], [], TRAIN_B // PAR_RANKS
+    for r in range(PAR_RANKS):
+        got = next(device_voxelize_prefetch(iter([batch]), sharding=(r, PAR_RANKS),
+                                            **kw))["events"]
+        want = whole[r * per:(r + 1) * per]
+        off = (got != 0) != (want != 0)
+        apart.append(int(off.sum()))
+        errs.append(((torch.where(off, 0.0, got) - torch.where(off, 0.0, want))
+                     .abs().max() / want.abs().max().clamp(min=1.0)).item())
+        if list(got.shape) != [per, TRAIN_L, K, H, W, 5]:
+            raise AssertionError(f"share {r}: grids {list(got.shape)}")
+        del got, want, off
+    torch.cuda.synchronize()
+    out = {"windows": TRAIN_B * TRAIN_L * K, "shares": PAR_RANKS,
+           "k6_launches": k6.launches, "max_rel_err": errs,
+           "cancelled_cells": apart, "tol": VOX_SHARD_TOL}
+    del whole
+    if k6.launches != PAR_RANKS or not max(errs) <= VOX_SHARD_TOL:
+        raise AssertionError(f"sharded raw batch: {out}")
+    return out
+
+
+def parallel_phases(dev, seed, smi):
+    """Phase 26: data parallelism at the flagship's full width on the one
+    card: (a) two gloo ranks sharing it, one train step of TRAIN_B windows
+    (TRAIN_B / 2 a rank) against the single process on the same global
+    batch; (b) the training entry point as a world of one over NCCL; (c)
+    the lane engines over a [cuda:0, cuda:0] mesh against the
+    single-device engine, and the eval entry with --mesh 1; (d) the raw
+    pipeline's shares; then K1 and K5 at the mesh's replica shapes
+    against their plain versions.  (a) and (b) run as subprocesses while
+    this process runs its comparison step, (c) and (d), so those walls
+    are under contention; the kernels are timed after them.  One JSON
+    line; returns what the kernels line adds."""
+    import torch
+    from rpg_ramnet_tpu_torch.core.config import ModelConfig
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig.load(os.path.join(ROOT, CONFIG))
+    K = cfg.every_x_rgb_frame
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="ramnet_smoke_par_") as tmp:
+        try:
+            nccl_dir, ranks_dir = (os.path.join(tmp, d) for d in ("nccl", "ranks"))
+            os.makedirs(ranks_dir)
+            nccl_run = start_nccl_world_of_one(nccl_dir, K, seed)
+            procs.append(nccl_run[0])
+            ranks = spawn_ranks(ranks_dir, seed)
+            procs += ranks
+            single = single_step_grads(dev, seed, K)
+            lanes = lane_mesh_runs(cfg, K, dev, seed)
+            raw = sharded_raw_batch(dev, seed, K)
+            ddp = ddp_vs_single(ranks, ranks_dir, single, dev, K)
+            del single
+            nccl = nccl_world_of_one(*nccl_run)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    torch.cuda.empty_cache()
+    krows = mesh_kernel_check(dev, seed)
+    check_no_jax()
+    row = {"phase": "parallel", "config": CONFIG, "ranks": PAR_RANKS,
+           "B": TRAIN_B, "L": TRAIN_L, "crop": TRAIN_CROP, "K": K,
+           "ddp_gloo_one_card": ddp, "nccl_world_of_one": nccl,
+           "nccl_across_cards": "not run: one card",
+           "mesh_kernels": krows, "lane_mesh": lanes, "raw_shares": raw,
+           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(row)
+    return row
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ddp_worker", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4203,6 +4669,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 2
+    if args.ddp_worker:        # one rank of phase 26
+        ddp_worker(args.ddp_worker, args.seed)
+        return 0
     from rpg_ramnet_tpu_torch import kernels
     from rpg_ramnet_tpu_torch.core.config import ModelConfig
     from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, event_loop_range
@@ -4504,6 +4973,15 @@ def main() -> int:
     rawp = raw_pipeline_phases(dev, args.seed, smi)
     rl = rawp["launches"]
 
+    # 26. data parallelism: two gloo ranks on the card, NCCL as a world of
+    #     one, lanes over a [cuda:0, cuda:0] mesh, the raw pipeline's shares
+    par = parallel_phases(dev, args.seed, smi)
+    pl = {k: sum(r["launches"][k] for r in par["ddp_gloo_one_card"]["ranks"])
+          for k in ("k1_res", "k2")}
+    pl.update(k1=par["lane_mesh"]["chunked"]["launches"],
+              k5=par["lane_mesh"]["per_package"]["launches"],
+              k6=par["raw_shares"]["k6_launches"])
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     v1m = vox_times["1M"]
     vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
@@ -4540,16 +5018,19 @@ def main() -> int:
     print(smi)
     emit({"kernels": [
         dict(entry("gru_hside", "gru_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:289",
-                   launches + zl["k1"],
+                   launches + zl["k1"] + pl["k1"],
                    max(e for row in errs.values() for e in row.values()),
                    sum(r["kernel_us"] for r in cells) / 1e3,
                    sum(r["plain_us"] for r in cells) / 1e3,
                    cell_bound("k1", FLAGSHIP_CELLS)),
-             launches_by_path={"slice": launches, "zoo": zl["k1"]},
-             lanes=lane_extra("k1", lanes["k1"])),
+             launches_by_path={"slice": launches, "zoo": zl["k1"],
+                               "parallel_lane_mesh": pl["k1"]},
+             lanes=lane_extra("k1", lanes["k1"]),
+             lane_mesh=par["mesh_kernels"]["k1"]),
         dict(entry("gru_hside_res", "gru_hside.cu",
                    "rpg_ramnet_tpu/ops/gru_hside.py:124",
-                   trained["launches"]["k1_res"] + zl["k1_res"] + rl["k1_res"],
+                   trained["launches"]["k1_res"] + zl["k1_res"] + rl["k1_res"]
+                   + pl["k1_res"],
                    max([max(r["res_h_err"], r["res_acts_err"],
                             *r["res_plans"].values()) for r in train_rows]
                        + [e for row in res_edges.values()
@@ -4560,11 +5041,12 @@ def main() -> int:
                    sum(r["res_plain_us"] for r in train_cells) / 1e3,
                    cell_bound("k1_res", TRAIN_CELLS)),
              launches_by_path={"train": trained["launches"]["k1_res"],
-                               "zoo": zl["k1_res"], "raw_pipeline": rl["k1_res"]},
+                               "zoo": zl["k1_res"], "raw_pipeline": rl["k1_res"],
+                               "parallel_ranks": pl["k1_res"]},
              micro_batch=micro_extra("res", trainer["launches"]["k1_res"])),
         dict(entry("gru_hside_bwd", "gru_hside_bwd.cu",
                    "rpg_ramnet_tpu/ops/gru_hside.py:535",
-                   trained["launches"]["k2"] + zl["k2"] + rl["k2"],
+                   trained["launches"]["k2"] + zl["k2"] + rl["k2"] + pl["k2"],
                    max(max(r["bwd_dh_abs_err"], r["bwd_dgx_abs_err"])
                        for r in train_rows),
                    sum(r["bwd_kernel_us"] for r in train_cells) / 1e3,
@@ -4572,10 +5054,11 @@ def main() -> int:
                    cell_bound("k2", TRAIN_CELLS)),
              wrapper_ms=sum(r["bwd_k2"]["wrapper_us"] for r in train_cells) / 1e3,
              launches_by_path={"train": trained["launches"]["k2"],
-                               "zoo": zl["k2"], "raw_pipeline": rl["k2"]},
+                               "zoo": zl["k2"], "raw_pipeline": rl["k2"],
+                               "parallel_ranks": pl["k2"]},
              micro_batch=micro_extra("bwd", trainer["launches"]["k2"])),
         dict(entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
-                   k5_launches + zl["k5"],
+                   k5_launches + zl["k5"] + pl["k5"],
                    max(e for row in k5_errs.values() for k, e in row.items()
                        if k != "exact_gates"),
                    sum(r["kernel_us"] for r in full_cells) / 1e3,
@@ -4584,17 +5067,21 @@ def main() -> int:
              wrapper_ms=sum(r["kernel_wrapper_us"] for r in full_cells) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["plan"] for r in full_cells},
              off_layer_ms=sum(r["plain_layer_bf16_us"] for r in full_cells) / 1e3,
-             launches_by_path={"stream": k5_launches, "zoo": zl["k5"]},
-             lanes=lane_extra("k5", lanes["k5"])),
+             launches_by_path={"stream": k5_launches, "zoo": zl["k5"],
+                               "parallel_lane_mesh": pl["k5"]},
+             lanes=lane_extra("k5", lanes["k5"]),
+             lane_mesh=par["mesh_kernels"]["k5"]),
         dict(entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
-                   stream_counts["k6"] + batch_run["auto"]["launches"] + rl["k6"],
+                   stream_counts["k6"] + batch_run["auto"]["launches"] + rl["k6"]
+                   + pl["k6"],
                    max([max(r[p]["k6"], r[p]["k6_stats"]) for r in vox_errs.values()
                         for p in voxel.PATHS] + rawp["grid_max_rel_err"]),
                    vdev["k6"], vdev["plain_scatter"], voxel_bound(VOX_EVENTS),
                    vdev["index_add"]),
              launches_by_path={"stream": stream_counts["by_path"]["k6"],
                                "batch": batch_run["auto"]["by_path"],
-                               "raw_pipeline": rawp["launches_by_path"]["k6"]},
+                               "raw_pipeline": rawp["launches_by_path"]["k6"],
+                               "parallel_raw_shares": pl["k6"]},
              raw_pipeline={f: rawp[f] for f in (
                  "voxelize_ms", "voxelize_plain_ms", "k6_ms", "index_add_ms",
                  "bound_ms", "bound_by", "grid_max_rel_err",

@@ -1,7 +1,7 @@
 """Configuration, parsed from the reference JSON schema.
 
 Counterpart of ``rpg_ramnet_tpu/core/config.py`` (``ModelConfig``,
-``DataSplitConfig``, ``TrainerConfig``, ``Config``), reduced to the fields
+``DataSplitConfig``, ``TrainerConfig``, ``MeshConfig``, ``Config``), reduced to the fields
 the ported slices read, with the JAX package's defaults.  These are the
 port's own classes so that it loads nothing of the JAX package.
 ``ModelConfig.from_dict`` reads a config file's ``model`` section and
@@ -192,6 +192,24 @@ class TrainerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device mesh of a config's ``mesh`` key (JAX config.py:244-258):
+    ``data`` devices on the data axis (-1: all the devices there are,
+    divided by ``model``), ``model`` on the model axis (spatial
+    partitioning, not ported: ROADMAP queue 1, item 15).  ``dcn_data`` is
+    parsed and ignored, as JAX's ``make_mesh`` ignores it."""
+    data: int = -1
+    model: int = 1
+    dcn_data: int = 1
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "MeshConfig":
+        return MeshConfig(data=int(d.get("data", -1)),
+                          model=int(d.get("model", 1)),
+                          dcn_data=int(d.get("dcn_data", 1)))
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """A whole reference-schema config file (what train.py reads)."""
     name: str = "run"
@@ -225,6 +243,7 @@ class Config:
     metrics: Tuple[str, ...] = ("mse", "abs_rel_diff",
                                 "scale_invariant_error", "median_error")
     trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     raw: Dict[str, Any] = dataclasses.field(default_factory=dict,
                                             hash=False, compare=False)
 
@@ -263,6 +282,7 @@ class Config:
             use_phased_arch=bool(cfg.get("use_phased_arch", False)),
             metrics=tuple(cfg.get("metrics", Config.metrics)),
             trainer=TrainerConfig.from_dict(cfg.get("trainer", {})),
+            mesh=MeshConfig.from_dict(cfg.get("mesh", {})),
             raw=cfg)
 
     @staticmethod

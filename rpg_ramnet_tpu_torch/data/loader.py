@@ -7,7 +7,9 @@ DataLoader + ConcatDatasetCustom, RAM_Net/train.py:23-75,189-196):
 flight, and ``device_prefetch``, which copies the next batches to the
 card on a side CUDA stream while the current one trains.
 Augmentation seeds are per (seed, epoch, index), so an epoch is
-reproducible and resume continues the exact data order.
+reproducible and resume continues the exact data order.  Under
+data-parallel training every rank draws the same global order and loads
+only its items of each global batch (``shard``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.registry import DATASETS
+from ..parallel.input_pipeline import as_shard, local_indices
 
 
 def concatenate_subfolders(base_folder: str, dataset_type: str,
@@ -94,11 +97,14 @@ class BatchLoader:
     [B, L, H, W, C], ...); num_workers threads load the items, two batches
     ahead.  drop_last as torch's DataLoader (False by default).  JAX's
     process workers have no caller there and are not ported (ROADMAP
-    queue 1, item 8)."""
+    queue 1, item 8).  shard: (rank, world[, grad_accum]): batch_size is
+    the global batch, whose order is the same on every rank, and each
+    batch holds only rank's items of it (``local_indices``: its share of
+    each micro-batch); a global batch that does not divide raises."""
 
     def __init__(self, dataset: ConcatSequenceDataset, batch_size: int,
                  shuffle: bool = True, num_workers: int = 4,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, shard=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -106,6 +112,7 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        self.shard = as_shard(shard)
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -129,6 +136,8 @@ class BatchLoader:
                    for i in range(0, n, self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.shard is not None:
+            batches = [b[local_indices(len(b), *self.shard)] for b in batches]
 
         def load(i: int):
             seed = zlib.crc32(f"{self.seed}/{epoch}/{int(i)}".encode()) \

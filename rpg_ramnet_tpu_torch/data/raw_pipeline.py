@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import voxel as V
+from ..parallel.input_pipeline import as_shard, local_batch
 from .loader import device_prefetch
 
 
@@ -175,12 +176,14 @@ def device_voxelize_prefetch(iterator, *, num_bins: int, height: int,
     device: None for the current CUDA device, or torch.device('cpu').
     ``loader.device_prefetch`` stages the batches: on a CUDA device the
     copy and the voxelization run on its side stream, so that the voxel
-    kernel runs beside the consumer's work.  sharding (the JAX package's
-    device layout) belongs to parallelism and is not taken (ROADMAP queue
-    1, item 15)."""
-    if sharding is not None:
-        raise NotImplementedError("sharding: parallelism is not ported yet "
-                                  "(ROADMAP queue 1, item 15)")
+    kernel runs beside the consumer's work.  sharding: (index, count[,
+    grad_accum]), the rank's (or device's) share of each host batch
+    (``parallel.input_pipeline.local_batch``), taken before the copy, so
+    that the voxelizer sees B/count*L*K windows (JAX: the batch's device
+    layout over the mesh)."""
+    shard = as_shard(sharding)
+    if shard is not None:
+        iterator = (local_batch(b, *shard) for b in iterator)
     if device is None:
         from ..utils import require_cuda
         device = require_cuda()

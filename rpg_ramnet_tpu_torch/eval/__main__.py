@@ -17,6 +17,11 @@ scale and metric lines:
                     N lanes, a reset mask per lane (run_batched_streaming;
                     with --scan_chunk, run_batched_chunked_streaming)
   --precompute_x, --decode_keys, --dataset_reg_factor   as test.py
+  --mesh N          with --lanes > 1: the lanes over a mesh of N devices
+                    (cuda:0 .. cuda:N-1; N replicas on the CPU with
+                    --device cpu), a replica and a lane state per device;
+                    with --lanes 1, spatial partitioning, not ported
+                    (ROADMAP queue 1, item 15)
   --device          'cuda' (default) or 'cpu'
 
 The model is the config's ``arch``: ERGB2DepthRecurrent (baselines
@@ -30,8 +35,7 @@ predictions are saved only from a sequence's third item on, the metric
 vector runs over the saved items and the metric-space scale over all.
 With lanes the items arrive out of dataset order; each is handled under
 its global index and its position in its sequence, so the output tree
-and the scale vector are those of one lane.  --mesh > 0 is not ported
-(ROADMAP queue 1, item 15).
+and the scale vector are those of one lane, with a mesh or without.
 """
 from __future__ import annotations
 
@@ -70,7 +74,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="reg_factor for loading depth targets (the "
                          "reference's test.py leaves it at 5.7)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="multi-device inference (not ported: 0 only)")
+                    help="lanes over a mesh of N devices (with --lanes > 1)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 
@@ -79,9 +83,23 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
     """Run test.py's loop; returns the model.  on_prediction(global index,
     {key: [H, W, 1] numpy prediction}) is called for every item."""
     args = parse_args(argv)
-    if args.mesh > 0:
-        raise NotImplementedError("--mesh > 0 (multi-device inference) is "
-                                  "not ported yet: ROADMAP queue 1, item 15")
+    mesh = None
+    if args.mesh > 0:     # test.py:117-135
+        from ..core.config import MeshConfig
+        from ..parallel import make_mesh
+        if args.device == "cpu":
+            devices = [torch.device("cpu")] * args.mesh
+        else:
+            n = torch.cuda.device_count()
+            if n < args.mesh:
+                raise SystemExit(f"--mesh {args.mesh}: only {n} "
+                                 "devices available")
+            devices = [torch.device("cuda", i) for i in range(args.mesh)]
+        if args.lanes <= 1:
+            raise NotImplementedError(
+                "--mesh with --lanes 1 (spatial partitioning: H sharded "
+                "over the mesh) is not ported yet: ROADMAP queue 1, item 15")
+        mesh = make_mesh(MeshConfig(data=args.mesh, model=1), devices)
     if args.config is None:
         with open(join(os.path.split(args.path_to_model)[0], "config.json")) as f:
             config_dict = json.load(f)
@@ -180,10 +198,10 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
                                       chunk=args.scan_chunk,
                                       on_prediction=handle,
                                       decode_keys=decode_keys,
-                                      precompute_x=precompute_x)
+                                      precompute_x=precompute_x, mesh=mesh)
     elif args.lanes > 1:
         run_batched_streaming(dataset, model, n_lanes=args.lanes,
-                              on_prediction=handle)
+                              on_prediction=handle, mesh=mesh)
     elif args.scan_chunk > 0:
         run_chunked_streaming(dataset, model, chunk=args.scan_chunk,
                               on_prediction=handle, decode_keys=decode_keys,

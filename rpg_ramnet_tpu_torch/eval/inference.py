@@ -33,7 +33,17 @@ sequence boundary; the tail chunk is zero-padded to the chunk length
 that ran dry get zero packages under a standing reset, and their outputs
 go to no callback; one host thread prepares the next chunk or lane step
 while the device runs the current one; in the phased regime the packages'
-timestamps go with them.  The spatial and lane meshes are not ported
+timestamps go with them.
+
+The lane engines take a ``mesh`` (``parallel.make_mesh``; JAX
+inference.py:345-375, :493-603): the lanes split over the mesh's data
+axis, one replica of the weights and one lane state per device, each
+device stepping its contiguous block of n_lanes/data lanes (its share of
+the packed buffers and of the reset mask), the maps gathered back in lane
+order on the first device.  Each replica runs whole tensors of its share,
+so the kernels stay on (JAX's ``auto`` turns its Pallas cells off under a
+mesh; ROADMAP queue 3).  The spatial mesh (``StreamingInference(
+spatial_mesh=)``, a mesh whose model axis is above 1) is not ported
 (ROADMAP queue 1, item 15).
 """
 from __future__ import annotations
@@ -49,6 +59,8 @@ import torch.nn.functional as F
 from ..core.config import ModelConfig
 from ..models import statenet
 from ..models.model import ERGB2Depth, ERGB2DepthRecurrent
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Sharding, make_mesh,
+                             replicate)
 from ..utils.layout import to_nchw, to_nhwc
 
 Model = Union[ERGB2DepthRecurrent, ERGB2Depth]
@@ -268,11 +280,32 @@ def _prefetched(load, args):
             yield res
 
 
-def _mesh_unported(mesh) -> None:
-    if mesh is not None:
+def _lane_replicas(model: Model, n_lanes: int, mesh):
+    """(replicas, mesh): without a mesh, [model] on a mesh of its device;
+    with one, a replica per device of its data axis, which must divide
+    the lanes evenly (JAX's check and message)."""
+    if mesh is None:
+        return [model], make_mesh(devices=[model.device])
+    if mesh.shape[MODEL_AXIS] != 1:
         raise NotImplementedError(
-            "mesh (lanes sharded over several devices) is not ported yet: "
-            "ROADMAP queue 1, item 15")
+            "a mesh whose model axis is above 1 (spatial partitioning) is "
+            "not ported yet: ROADMAP queue 1, item 15")
+    n_data = mesh.shape[DATA_AXIS]
+    if n_lanes % n_data:
+        raise ValueError(
+            f"n_lanes={n_lanes} must divide evenly over the mesh data "
+            f"axis ({n_data} devices)")
+    return replicate(model, mesh), mesh
+
+
+def _gather_lanes(outs, dim: int = 0):
+    """The replicas' {key: maps} joined in lane order on the first
+    replica's device."""
+    if len(outs) == 1:
+        return outs[0]
+    dev = outs[0][next(iter(outs[0]))].device
+    return {k: torch.cat([o[k].to(dev) for o in outs], dim)
+            for k in outs[0]}
 
 
 class SequenceScanInference:
@@ -376,14 +409,17 @@ class BatchedStreamingInference:
     boundary.  Per-item outputs equal single-lane streaming's.  The flags
     as the JAX engine's: the cells' kernels (K5, K3, K4) only for
     ``cfg.fused_gru == 'on'``, the fused_decoder policy (K8) allowed, the
-    composed layers only for ``cfg.composed_decoder == 'on'``.  mesh (lanes
-    sharded over devices) is not ported."""
+    composed layers only for ``cfg.composed_decoder == 'on'``.  mesh: the
+    lanes over its data axis, a replica and a lane state per device
+    (``_lane_replicas``); the maps come back in lane order."""
 
     def __init__(self, model: Model, n_lanes: int, height: int,
                  width: int, mesh=None):
-        _mesh_unported(mesh)
         self.model = model
-        self.state = model.init_state(n_lanes, height, width)
+        self.replicas, self._lanes = _lane_replicas(model, n_lanes, mesh)
+        per = n_lanes // len(self.replicas)
+        self.states = [m.init_state(per, height, width)
+                       for m in self.replicas]
         self._flags = dict(allow_fused=model.cfg.fused_gru == "on",
                            allow_fused_decoder=True,
                            allow_composed=model.cfg.composed_decoder == "on")
@@ -393,14 +429,18 @@ class BatchedStreamingInference:
         """pkg: {'events': [N, K, H, W, C], 'image': [N, H, W, C], and for
         the phased regime 'times_events' [N, K] and 'times_image' [N]}
         (numpy or tensors); reset_mask: [N] bool -> {key: [N, H, W, 1]}
-        float32 tensors on the model's device."""
-        dev = self.model.device
-        batched = {k: _as_input(v, dev) for k, v in pkg.items()}
-        batched["reset"] = torch.as_tensor(reset_mask, dtype=torch.bool,
-                                           device=dev)
-        self.state, preds = self.model.forward_package(self.state, batched,
-                                                       **self._flags)
-        return preds
+        float32 tensors on the model's device (the first replica's)."""
+        lanes = Sharding(self._lanes, 0)
+        shares = {k: lanes.put(v) for k, v in pkg.items()}
+        shares["reset"] = lanes.put(torch.as_tensor(reset_mask,
+                                                    dtype=torch.bool))
+        outs = []
+        for i, m in enumerate(self.replicas):
+            self.states[i], preds = m.forward_package(
+                self.states[i], {k: v[i] for k, v in shares.items()},
+                **self._flags)
+            outs.append(preds)
+        return _gather_lanes(outs)
 
 
 def _round_robin_lanes(dataset, n_lanes: int):
@@ -500,13 +540,14 @@ def run_batched_streaming(dataset, model: Model,
     single-lane streaming's.  on_prediction(global_idx, {key: [H, W, 1]
     numpy}, item, seq_pos) is called for every real item, steps in order
     and lanes in order within a step: not in dataset order, hence the
-    global index."""
-    _mesh_unported(mesh)
+    global index.  mesh: the lanes over its data axis
+    (``BatchedStreamingInference``)."""
     lanes = _Lanes(dataset, n_lanes, model.cfg)
     if not lanes.max_len:
         return
     engine = BatchedStreamingInference(model, n_lanes,
-                                       *lanes.zero["image"].shape[:2])
+                                       *lanes.zero["image"].shape[:2],
+                                       mesh=mesh)
     for arrs, reset, metas in _prefetched(lambda t: lanes.pack(t, 1),
                                           range(lanes.max_len)):
         preds = engine.step({k: v[0] for k, v in arrs.items()}, reset[0])
@@ -532,25 +573,32 @@ def run_batched_chunked_streaming(dataset, model: Model,
     buffers are [chunk, N, ...], loaded and pinned on one host thread
     while the device runs the previous chunk.  Per-item outputs equal
     single-lane streaming's (within float summation order with the x side
-    precomputed).  on_prediction as run_batched_streaming's."""
-    _mesh_unported(mesh)
+    precomputed).  on_prediction as run_batched_streaming's.  mesh: the
+    lanes over its data axis, a replica, a lane state and its share of
+    each chunk buffer (axis 1) per device (``_lane_replicas``)."""
     dk = tuple(decode_keys) if decode_keys else None
-    fwd = _chunk_forward(model, precompute_x, dk)
+    replicas, mesh = _lane_replicas(model, n_lanes, mesh)
+    lanes = Sharding(mesh, 1)
+    fwds = [_chunk_forward(m, precompute_x, dk) for m in replicas]
     dev = model.device
-    lanes = _Lanes(dataset, n_lanes, model.cfg)
-    if not lanes.max_len:
+    packed = _Lanes(dataset, n_lanes, model.cfg)
+    if not packed.max_len:
         return
 
     def load_chunk(t0):
-        arrs, reset, metas = lanes.pack(t0, chunk)
+        arrs, reset, metas = packed.pack(t0, chunk)
         arrs["reset"] = reset
         return {k: _pinned(v, dev) for k, v in arrs.items()}, metas
 
-    state = model.init_state(n_lanes, *lanes.zero["image"].shape[:2])
+    states = [m.init_state(n_lanes // len(replicas),
+                           *packed.zero["image"].shape[:2]) for m in replicas]
     for arrs, metas in _prefetched(load_chunk,
-                                   range(0, lanes.max_len, chunk)):
-        seq = {k: v.to(dev, non_blocking=True).movedim(0, 1)
-               for k, v in arrs.items()}
-        state, preds = fwd(state, seq)
-        _hand_out(on_prediction, preds, metas)
+                                   range(0, packed.max_len, chunk)):
+        shares = {k: lanes.put(v) for k, v in arrs.items()}
+        outs = []
+        for i, fwd in enumerate(fwds):
+            states[i], preds = fwd(states[i], {k: v[i].movedim(0, 1)
+                                               for k, v in shares.items()})
+            outs.append(preds)
+        _hand_out(on_prediction, _gather_lanes(outs, 1), metas)
 

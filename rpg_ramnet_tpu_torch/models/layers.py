@@ -69,6 +69,7 @@ import torch.nn.functional as F
 
 from ..ops.phased_cell import conv_lstm_phased, gate_k
 from ..ops.upsample_conv import kernel_weights
+from ..parallel import distributed
 from ..utils.layout import to_nchw, to_nhwc
 
 
@@ -193,17 +194,29 @@ class Norm(nn.Module):
         batch's biased statistics, over (N, H, W) for BN and per instance
         over (H, W) for IN, and the ctx's stats move by the momentum
         towards the unbiased variance and the mean (IN: their batch
-        means)."""
+        means).  BN's statistics span the global batch while syncing over
+        data-parallel ranks (``parallel.distributed``); IN's are per item
+        and need nothing."""
         xf = x.float()
         if ctx is None:
             y = ((xf - _per_channel(self.running_mean))
                  * torch.rsqrt(_per_channel(self.running_var) + NORM_EPS))
+        elif self.kind == "BN" and distributed.syncing():
+            # the global batch's statistics, as JAX's over the sharded
+            # batch: per-channel sums over the ranks, with gradients
+            # (SyncBatchNorm's scheme), then the centred sum of squares
+            n = math.prod(x.shape[d] for d in (0, 2, 3)) * distributed.world()
+            m = (distributed.global_sum(xf.sum((0, 2, 3))) / n).view(1, -1, 1, 1)
+            v = (distributed.global_sum((xf - m).square().sum((0, 2, 3)))
+                 / n).view(1, -1, 1, 1)
+            y = (xf - m) * torch.rsqrt(v + NORM_EPS)
         else:
             dims = (0, 2, 3) if self.kind == "BN" else (2, 3)
             m = xf.mean(dims, keepdim=True)
             v = (xf - m).square().mean(dims, keepdim=True)
             y = (xf - m) * torch.rsqrt(v + NORM_EPS)
             n = math.prod(x.shape[d] for d in dims)
+        if ctx is not None:
             unbiased = v.detach() * (n / max(n - 1, 1))
             # [1 or B, C, 1, 1] -> [C] (IN: the batch mean of its stats)
             ctx.update(self.key, self, m.detach().mean((0, 2, 3)),

@@ -6,8 +6,16 @@ Counterpart of the repo's ``train.py`` (reference RAM_Net/train.py:246-279):
                            epoch), or a reference .pth.tar (weights, epoch,
                            and its Adam moments for an Adam/AdamW config)
   -i/--initial_checkpoint  weights-only init (.pth.tar or checkpoint dir)
-  -g/--gpu_id              the CUDA device index
+  -g/--gpu_id              the CUDA device index (a single process only)
   --device                 'cuda' (default) or 'cpu'
+  --no_mesh                one process, even under torchrun (JAX train.py:28)
+Data-parallel training: ``torchrun --nproc_per_node N -m
+rpg_ramnet_tpu_torch.train -c cfg.json`` starts N ranks, each on
+cuda:LOCAL_RANK over NCCL (the CPU over gloo with --device cpu), one
+process group over them (``parallel.distributed``);
+data_loader.batch_size is the global batch, of which each rank loads and
+steps its share, and rank 0 alone writes.  The group is destroyed at the
+end.
 The dataset root comes from $PREPROCESSED_DATASETS_FOLDER (train.py:95), a
 run directory that already exists is refused (train.py:276), and the
 transforms are the reference's: RandomRotationFlip(0, 0.5, 0) +
@@ -42,6 +50,8 @@ def main(argv: Optional[Sequence[str]] = None, writer=None):
     ap.add_argument("-i", "--initial_checkpoint", default=None, type=str)
     ap.add_argument("-g", "--gpu_id", default=None, type=int)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--no_mesh", action="store_true",
+                    help="one process: no data parallelism under torchrun")
     args = ap.parse_args(argv)
 
     config_dict = None
@@ -66,13 +76,24 @@ def main(argv: Optional[Sequence[str]] = None, writer=None):
     from ..data import (BatchLoader, CenterCrop, Compose, RandomCrop,
                         RandomRotationFlip, concatenate_subfolders)
     from ..models import build_model
+    from ..parallel import distributed
     from ..utils import require_cuda
     from . import checkpoint
     from .trainer import Trainer
 
     cfg = Config.from_dict(config_dict)
+    data_parallel = distributed.launched() and not args.no_mesh
+    if data_parallel:
+        if args.device == "cuda":
+            torch.cuda.set_device(distributed.local_rank())
+        backend = "nccl" if args.device == "cuda" else "gloo"
+        distributed.init_from_env(backend)
+        # every rank has checked the run directory before rank 0 makes it
+        distributed.barrier()
+        print(f"data parallel: rank {distributed.rank()} of "
+              f"{distributed.world()} over {backend}", flush=True)
     if args.device == "cuda":
-        if args.gpu_id is not None:
+        if args.gpu_id is not None and not data_parallel:
             torch.cuda.set_device(args.gpu_id)
         device = require_cuda()
     else:
@@ -113,9 +134,13 @@ def main(argv: Optional[Sequence[str]] = None, writer=None):
         else:
             checkpoint.restore(init, model)
         print(f"Loaded initial model weights from: {init}")
-    trainer = Trainer(cfg, train_loader, val_loader, resume=args.resume,
-                      model=model, writer=writer)
-    trainer.train()
+    try:
+        trainer = Trainer(cfg, train_loader, val_loader, resume=args.resume,
+                          model=model, writer=writer)
+        trainer.train()
+    finally:
+        if data_parallel:
+            distributed.destroy()
     return trainer
 
 

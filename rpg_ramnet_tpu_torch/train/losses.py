@@ -5,7 +5,10 @@ RAM_Net/model/loss.py): the NaN masking of the reference (``x[~isnan]``)
 is a ``where`` and a division by the valid count, with the reference's
 scalings (the gradient loss's ``* batch * 2 / num_scales``).  Masked
 entries are zeroed before any nonlinearity, so they pass no NaN into the
-gradients.
+gradients.  Under data-parallel training (``parallel.distributed``'s
+``sync_ranks``) every masked sum and count is summed over the ranks and
+the gradient loss scales by the global batch, so each rank's loss is the
+global batch's, as JAX's GSPMD step computes it.
 """
 from __future__ import annotations
 
@@ -13,10 +16,14 @@ import torch
 
 from ..core.registry import LOSSES
 from ..ops.gradient import avg_pool, spatial_gradient
+from ..parallel import distributed
 
 
 def _nanmean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.where(mask, x, 0.0).sum() / mask.sum().clamp_min(1)
+    s, n = torch.where(mask, x, 0.0).sum(), mask.sum()
+    if distributed.syncing():
+        s, n = distributed.global_sum(torch.stack([s, n.to(s.dtype)])).unbind()
+    return s / n.clamp_min(1)
 
 
 @LOSSES.register("scale_invariant_loss")
@@ -53,9 +60,10 @@ def multi_scale_grad_loss(prediction, target, start_scale: int = 1,
     """Multi-scale gradient matching loss (loss.py:22-63), NHWC: per scale
     s, the difference average-pooled by start_scale*2^s, its sobel
     gradients, their NaN-aware L1 mean over both maps, times batch*2; the
-    sum over scales / num_scales."""
+    sum over scales / num_scales.  batch is the global batch while
+    syncing over ranks."""
     diff = prediction - target
-    batch = prediction.shape[0]
+    batch = prediction.shape[0] * distributed.group_size()
     total = 0.0
     for s in range(num_scales):
         gx, gy = spatial_gradient(avg_pool(diff, start_scale * 2 ** s))

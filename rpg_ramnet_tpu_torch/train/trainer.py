@@ -20,6 +20,16 @@ histograms with the gradient-flow figure (needs matplotlib); with
 trainer.state_preview the super-state change images.  A preview that fails
 is logged and kept in ``preview_errors``, as JAX logs it, and training
 goes on.
+
+Data-parallel (a ``torch.distributed`` process group of more than one
+rank, ``parallel.distributed``): the model takes rank 0's weights, each
+rank loads only its items of every global batch (the loaders' shard),
+the train and eval steps compute the global batch's loss and gradients,
+so the logged training and validation losses are the global batch's, and
+only rank 0 writes: the run directory, checkpoints, the JSONL log,
+TensorBoard and its previews.  The gradient histograms are rank 0's own
+items' gradients (JAX: the global batch's; ROADMAP queue 3).  Every rank
+resumes from the same checkpoint.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from ..compat import import_reference_optimizer_state, load_reference_checkpoint
 from ..core.config import Config
 from ..data.loader import BatchLoader, device_prefetch
 from ..models import build_model, statenet
+from ..parallel import distributed
 from ..utils.layout import to_nchw
 from ..utils.training_utils import (add_video_gif, named_weights,
                                     plot_grad_flow_bars,
@@ -59,14 +70,17 @@ def importable(module: str) -> bool:
 
 
 class JsonlLogger:
-    """The training log as JSONL, one entry per epoch."""
+    """The training log as JSONL, one entry per epoch (kept in memory
+    only where path is None)."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: Optional[str]):
         self.path = path
         self.entries: Dict[int, Any] = {}
 
     def add_entry(self, entry: Dict[str, Any]) -> None:
         self.entries[len(self.entries)] = entry
+        if self.path is None:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps(entry, default=float) + "\n")
 
@@ -77,7 +91,8 @@ class Trainer:
     directory of this trainer (model, optimizer, epoch) or a reference
     .pth.tar (weights, epoch, and its Adam moments where the optimizer is
     Adam or AdamW).  writer: the TensorBoard writer (a SummaryWriter
-    under the run directory when None)."""
+    under the run directory when None; rank 0's under a process group,
+    where the other ranks write nothing)."""
 
     def __init__(self, cfg: Config, train_loader: BatchLoader,
                  valid_loader: Optional[BatchLoader] = None,
@@ -90,15 +105,24 @@ class Trainer:
         self.train_loader = train_loader
         self.valid_loader = valid_loader
         self.run_dir = run_dir or join(cfg.trainer.save_dir, cfg.name)
-        os.makedirs(self.run_dir, exist_ok=True)
-        with open(join(self.run_dir, "config.json"), "w") as f:
-            json.dump(cfg.raw, f, indent=2)
-        self.jsonl = JsonlLogger(join(self.run_dir, "train_log.jsonl"))
-        self.tb = (writer if writer is not None
-                   else self._make_tb(join(self.run_dir, "tensorboard")))
+        self.writes = distributed.is_main()
+        self.jsonl = JsonlLogger(None)
+        self.tb = self.ckpt = None
+        if self.writes:
+            os.makedirs(self.run_dir, exist_ok=True)
+            with open(join(self.run_dir, "config.json"), "w") as f:
+                json.dump(cfg.raw, f, indent=2)
+            self.jsonl = JsonlLogger(join(self.run_dir, "train_log.jsonl"))
+            self.tb = (writer if writer is not None
+                       else self._make_tb(join(self.run_dir, "tensorboard")))
+            self.ckpt = checkpoint.CheckpointManager(
+                self.run_dir, use_async=cfg.trainer.async_checkpoint)
         self.preview_errors: List[str] = []
-        self.ckpt = checkpoint.CheckpointManager(
-            self.run_dir, use_async=cfg.trainer.async_checkpoint)
+        if distributed.world() > 1:
+            r, w = distributed.rank(), distributed.world()
+            train_loader.shard = (r, w, max(int(cfg.trainer.grad_accum), 1))
+            if valid_loader is not None:
+                valid_loader.shard = (r, w, 1)
         self.model = (model if model is not None
                       else build_model(cfg, device=device))
         self.device = self.model.device
@@ -113,6 +137,7 @@ class Trainer:
                              else -float("inf"))
         if resume:
             self._resume(resume)
+        distributed.broadcast_module(self.model)
 
     def _make_tb(self, path: str):
         if "tensorflow" not in sys.modules:
@@ -260,11 +285,12 @@ class Trainer:
         no optimizer step, split as the train step splits the batch
         (trainer.grad_accum micro-batches, so the peak memory stays the
         step's; JAX takes the whole batch at once: ROADMAP queue 3); no
-        .grad is left behind."""
+        .grad is left behind.  Under a process group, of rank 0's items
+        alone, with no collective (queue 3)."""
         if self.tb is None or self._last_batch is None:
             return
         if not hasattr(self, "_grad_fn"):
-            self._grad_fn = make_grad_fn(self.cfg, self.model)
+            self._grad_fn = make_grad_fn(self.cfg, self.model, sync=False)
         self._grad_fn(self._last_batch)
         grads = {strip_arch_prefix(n): (p.grad if p.grad is not None
                                         else torch.zeros_like(p))
@@ -386,7 +412,7 @@ class Trainer:
             improved = (monitored < self.monitor_best
                         if self.monitor_mode == "min"
                         else monitored > self.monitor_best)
-            if improved or epoch % cfg.trainer.save_freq == 0:
+            if self.writes and (improved or epoch % cfg.trainer.save_freq == 0):
                 # the checkpoint carries the best before this epoch, as
                 # JAX's (trainer.py:382-386): inf at a first improvement
                 name = f"checkpoint-epoch{epoch}"
@@ -394,14 +420,17 @@ class Trainer:
                                monitor_best=self.monitor_best, config=cfg.raw,
                                logger=self.jsonl.entries)
                 if improved:
-                    self.monitor_best = monitored
                     self.ckpt.save_best(name)
                     self.logger.info("epoch %d: new best %s=%.5f", epoch,
                                      self.monitor, monitored)
+            if improved:
+                self.monitor_best = monitored
             final_log = log
-        self.ckpt.wait()
+        if self.ckpt is not None:
+            self.ckpt.wait()
         if self.tb is not None:
             self.tb.flush()
+        distributed.barrier()
         return final_log
 
     def export_reference_checkpoint(self, path: str, epoch: int = 0) -> None:

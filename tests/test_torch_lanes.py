@@ -41,12 +41,13 @@ from rpg_ramnet_tpu.models import ERGB2DepthRecurrent as JaxModel
 from rpg_ramnet_tpu.ops import gru_hside as jax_gru_hside
 
 from rpg_ramnet_tpu_torch.compat import params_from_jax
-from rpg_ramnet_tpu_torch.core.config import Config, ModelConfig
+from rpg_ramnet_tpu_torch.core.config import Config, MeshConfig, ModelConfig
 from rpg_ramnet_tpu_torch.data.synthetic import generate_eventscape_sequence
 from rpg_ramnet_tpu_torch.eval import inference
 from rpg_ramnet_tpu_torch.eval.__main__ import main as eval_main
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
 from rpg_ramnet_tpu_torch.ops import gru_hside
+from rpg_ramnet_tpu_torch.parallel import make_mesh
 from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -454,17 +455,22 @@ def test_lane_engines_match_single_lane(recipe):
 
 
 def test_lane_engines_refuse_mesh_and_tolerate_empty():
+    """A mesh whose model axis is above 1 (spatial partitioning, not
+    ported) is refused; lanes over a data mesh are
+    tests/test_torch_parallel.py's."""
     _, _, model = _models("flagship")
     ds = _Dataset((2,))
+    spatial = make_mesh(MeshConfig(data=1, model=2),
+                        [torch.device("cpu")] * 2)
     for fn in (inference.run_batched_streaming,
                inference.run_batched_chunked_streaming):
         with pytest.raises(NotImplementedError, match="item 15"):
-            fn(ds, model, mesh=object())
+            fn(ds, model, mesh=spatial)
         log = []
         fn(_Dataset(()), model, on_prediction=_collect(log))
         assert log == []
     with pytest.raises(NotImplementedError, match="item 15"):
-        inference.BatchedStreamingInference(model, 2, H, W, mesh=object())
+        inference.BatchedStreamingInference(model, 2, H, W, mesh=spatial)
 
 
 # ---------------------------------------------------------- the entry point

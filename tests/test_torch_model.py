@@ -240,6 +240,8 @@ def test_port_imports_no_jax():
         "import rpg_ramnet_tpu_torch.data.raw_pipeline, rpg_ramnet_tpu_torch.eval.display\n"
         "import rpg_ramnet_tpu_torch.train.frame_trainer, rpg_ramnet_tpu_torch.utils.timers\n"
         "import rpg_ramnet_tpu_torch.core.registry\n"
+        "import rpg_ramnet_tpu_torch.parallel, rpg_ramnet_tpu_torch.entry\n"
+        "import rpg_ramnet_tpu_torch.parallel.distributed\n"
         "from rpg_ramnet_tpu_torch.core.config import Config, TrainerConfig\n"
         "from rpg_ramnet_tpu_torch.train.optim import make_optimizer\n"
         "from rpg_ramnet_tpu_torch.train.train_step import make_train_step\n"

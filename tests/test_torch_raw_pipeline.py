@@ -164,7 +164,9 @@ def test_device_voxelize_prefetch_matches_jax(split, size):
 
 
 def test_prefetch_refuses_sharding():
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """A sharding that is not (index, count[, grad_accum]) is refused;
+    the shares themselves are tests/test_torch_parallel.py's."""
+    with pytest.raises(TypeError, match="index, count"):
         next(rp.device_voxelize_prefetch(iter([]), num_bins=NB, height=H,
                                          width=W, sharding=object(),
                                          device=CPU))

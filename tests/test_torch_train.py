@@ -183,7 +183,7 @@ def test_config_defaults_and_schedule_match_jax():
         t, j = tcls(), jcls()
         for f in dataclasses.fields(tcls):
             if f.name in ("raw", "model", "train_data", "val_data",
-                          "trainer", "crop_size"):
+                          "trainer", "crop_size", "mesh"):
                 continue
             want = (JAX_RAW_TRAINER[f.name] if tcls is tconfig.TrainerConfig
                     and f.name in JAX_RAW_TRAINER else getattr(j, f.name))
@@ -205,6 +205,11 @@ def test_config_defaults_and_schedule_match_jax():
     assert (t.batch_size, t.grad_loss_weight, t.loss_config, t.crop_size) == \
         (j.batch_size, j.grad_loss_weight, j.loss_config, 224)
     assert supervised_keys(t) == ("events4", "image")
+    # the mesh key, default and given (the two packages' own classes)
+    for mesh in (None, {"data": 2, "model": 4, "dcn_data": 3}):
+        raw = {**j.raw, **({"mesh": mesh} if mesh else {})}
+        tc, jc = tconfig.Config.from_dict(raw), jconfig.Config.from_dict(raw)
+        assert dataclasses.asdict(tc.mesh) == dataclasses.asdict(jc.mesh)
     for sched in ({"lr_scheduler_type": "ExponentialLR",
                    "lr_scheduler_freq": 3, "lr_scheduler": {"gamma": 0.5}},
                   {"lr_scheduler_type": "StepLR",
