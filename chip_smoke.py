@@ -39,8 +39,10 @@ batch at a time by the device data path
 parallelism (``rpg_ramnet_tpu_torch.parallel``): the flagship's training
 step as two gloo ranks sharing the card, the training entry point as an
 NCCL world of one, lanes over a two-replica mesh of the card and the raw
-pipeline's per-rank shares.  It imports nothing of JAX or of the JAX
-package.
+pipeline's per-rank shares; and spatial partitioning: one stream's H in
+row bands over a two-band mesh of the card through the per-package
+engine, and the dry run's data x spatial legs.  It imports nothing of JAX
+or of the JAX package.
 
 Phases, each printed as one JSON line:
   1. device        the card, its power limit, the nvcc builds (in parallel;
@@ -291,7 +293,20 @@ Phases, each printed as one JSON line:
                    --lanes 8 --scan_chunk 4 against no mesh; one 800-window
                    raw batch through device_voxelize_prefetch as 2 shares
                    against the whole batch's grids; K1 and K5 at B=4
-                   against their plain versions (plan, device us).
+                   against their plain versions (plan, device us);
+ 27. spatial       spatial partitioning (``parallel.spatial``): the
+                   flagship at 256x512, B=1, through
+                   StreamingInference(spatial_mesh=) with H in two row
+                   bands over a [cuda:0, cuda:0] mesh, fused_gru and
+                   fused_decoder 'on', 4 packages: K5's and K8's launches
+                   per band, the maps against the same kernels unsharded
+                   and against 'off'; the phased regime at 256x352 on 3
+                   packages likewise (K4, K3 per band); the dry run's DP x
+                   SP legs (``entry.dryrun_multichip(4)``, its ranks on
+                   cuda:0 over gloo) meanwhile; the per-package wall,
+                   spatial against unsharded; K5, K8, K3 and K4 at the
+                   band shapes (a band with its halo) against their plain
+                   versions, device us beside the unsharded shapes'.
 Then the card's name and power limit as nvidia-smi gives them, the kernel
 summary (with each kernel's bound: the larger of its MACs at the bf16
 dense peak and its bytes at the HBM rate), and last {"ok": true,
@@ -489,6 +504,16 @@ MESH_CELLS = tuple((LANES // PAR_RANKS,) + c[1:] for c in FLAGSHIP_CELLS)
 MESH_ENTRY_SEQ_LENGTHS = (4, 2, 3, 2, 2, 3, 2, 2)
 NCCL_B = 4
 VOX_SHARD_TOL = 1e-6   # a share's normalized grids vs the whole batch's
+# phase 27: spatial partitioning on the one card: the flagship at HxW,
+# B=1, H in SPATIAL_BANDS row bands over a [cuda:0, cuda:0] mesh (cut: two
+# bands on one card; the copies between cards need a 4-chip call) with
+# fused_gru and fused_decoder 'on', SPATIAL_PACKAGES packages, against the
+# same kernels unsharded and against 'off'; the phased regime at
+# PHASED_HxPHASED_W on PHASED_SPATIAL_PACKAGES; the dry run's DP x SP legs
+# on [cuda:0] * SPATIAL_DRYRUN; per-package wall over SPATIAL_TIMED
+# packages a turn
+SPATIAL_BANDS, SPATIAL_PACKAGES, PHASED_SPATIAL_PACKAGES = 2, 4, 3
+SPATIAL_DRYRUN, SPATIAL_TIMED = 4, 8
 # the card's published peaks (H100 SXM, dense bf16; HBM3)
 PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
@@ -506,14 +531,15 @@ CELL_WORK = {"k1": (27, 10, 54), "k1_res": (27, 16, 54), "k2": (27, 18, 54),
              "k11_step": (27, 8, 108)}
 
 
-def decoder_bound(batch):
+def decoder_bound(batch, layers=DECODER_LAYERS):
     """(least ms, 'operations' or 'bytes') of the three flagship decoder
-    layers at one decode batch, summed: per layer the larger of its least
-    MACs (the bilinear 2x composed into four 4x4 phase kernels: 16*C*Cout
-    per 2x pixel) at the bf16 dense peak and its bytes (x, the skip of
-    layers 1 and 2, out, each once; the weights) at the HBM rate."""
+    layers (``layers``: (C, Cout, H, W) of each input) at one decode
+    batch, summed: per layer the larger of its least MACs (the bilinear 2x
+    composed into four 4x4 phase kernels: 16*C*Cout per 2x pixel) at the
+    bf16 dense peak and its bytes (x, the skip of layers 1 and 2, out,
+    each once; the weights) at the HBM rate."""
     by = {"operations": 0.0, "bytes": 0.0}
-    for i, (C, Cout, h, w) in enumerate(DECODER_LAYERS):
+    for i, (C, Cout, h, w) in enumerate(layers):
         t_ops = 2 * 4 * h * w * 16 * C * Cout * batch / PEAK_FLOPS
         io = batch * h * w * C * 2 * (2 if i else 1) + batch * 4 * h * w * Cout * 2
         t_bytes = (io + 25 * C * Cout * 2) / HBM_BYTES_PER_S
@@ -4658,6 +4684,250 @@ def parallel_phases(dev, seed, smi):
     emit(row)
     return row
 
+def band_rows(height, rows):
+    """Band 0's rows with its halo: a band of ``height`` rows of
+    SPATIAL_BANDS and the halo of ``rows`` it takes (``spatial._taken``)."""
+    from rpg_ramnet_tpu_torch.parallel import spatial
+    top, bottom = spatial._taken(SPATIAL_BANDS, height, rows)[0]
+    return height + top + bottom
+
+
+def spatial_kernel_rows(dev, seed, K):
+    """Phase 27's kernel rows: K5 and K8 at the flagship's band shapes
+    (state rows per band plus the 'convgru' halo; decoder layer inputs plus
+    the 'upsample_conv' halo, decode batch K+1), K3 and K4 at the phased
+    ones (plus the 'convlstm' and 'phased_cell' halos), each against its
+    plain version, device us beside the unsharded shape's
+    (``lane_kernel_rows``; K8's error relative to the plain version's
+    largest magnitude) and the band's bound."""
+    import torch
+    from rpg_ramnet_tpu_torch.ops import gru_hside, upsample_conv
+    from rpg_ramnet_tpu_torch.parallel.spatial import HALO
+    gen = torch.Generator().manual_seed(seed)
+    out = {"k5": {}, "k8": {}, "k3": {}, "k4": {}}
+    bands = {}
+    for kind, whole_shapes, halo in (
+            ("k5", FLAGSHIP_CELLS, "convgru"), ("k3", PHASED_CELLS, "convlstm"),
+            ("k4", PHASED_CELLS, "phased_cell")):
+        bands[kind] = []
+        for whole in whole_shapes:
+            B, Hc, Wc, C = whole
+            shape = (B, band_rows(Hc // SPATIAL_BANDS, HALO[halo][0]), Wc, C)
+            bands[kind].append(shape)
+            key = "x".join(map(str, shape))
+            if kind == "k5":
+                _, x, h, w = make_full_cell_inputs(shape, dev, gen)
+                _, xw, hw, ww = make_full_cell_inputs(whole, dev, gen)
+                out[kind].update(lane_kernel_rows([(
+                    key, lambda: gru_hside.conv_gru_full(x, h, *w),
+                    lambda: gru_hside.conv_gru_full_plain(x, h, *w),
+                    lambda: gru_hside.conv_gru_full(xw, hw, *ww), CELL_TOL,
+                    plan_name(gru_hside.plan_k5(*shape)))]))
+                del x, h, w, xw, hw, ww
+            else:
+                inputs = make_lstm_inputs(shape, dev, gen)
+                kern, plain = lstm_calls(inputs, kind)
+                kern_w, _ = lstm_calls(make_lstm_inputs(whole, dev, gen), kind)
+                out[kind].update(lane_kernel_rows([(
+                    key, kern, plain, kern_w, CELL_TOL,
+                    plan_name(gru_hside.plan_lstm(*shape,
+                                                  phased=kind == "k4")))]))
+                del inputs, kern, plain, kern_w
+    bands["k8"] = []
+    for i, (C, Cout, h, w) in enumerate(DECODER_LAYERS):
+        shape = (K + 1, C, Cout,
+                 band_rows(h // SPATIAL_BANDS, HALO["upsample_conv"][0]), w)
+        bands["k8"].append(shape)
+        layer, x, skip = decoder_inputs(shape, dev, seed + i)
+        _, xw, skipw = decoder_inputs((K + 1, C, Cout, h, w), dev, seed + i)
+        skip, skipw = (skip, skipw) if i else (None, None)
+        with torch.no_grad():
+            got = upsample_conv.upsample_conv_fused(layer, x, skip)
+            want = upsample_conv.upsample_conv_fused_plain(
+                layer.conv2d.weight, layer.conv2d.bias, x, skip)
+            err = ((got.float() - want.float()).abs().max()
+                   / want.float().abs().max()).item()
+            if not err <= DECODER_TOL:
+                raise AssertionError(f"K8 at band {shape}: rel err {err}")
+            us = cuda_time_us(lambda: upsample_conv.upsample_conv_fused(
+                layer, x, skip), 20, queued=True)
+            us_w = cuda_time_us(lambda: upsample_conv.upsample_conv_fused(
+                layer, xw, skipw), 20, queued=True)
+        out["k8"]["x".join(map(str, shape))] = {
+            "rel_err": err, "tol": DECODER_TOL, "device_us": us,
+            "device_us_whole": us_w}
+        del layer, x, skip, xw, skipw, got, want
+    for kind in ("k5", "k3", "k4"):
+        for r in out[kind].values():
+            r["device_us_whole"] = r.pop("device_us_b1")
+    bound = {k: cell_bound(k, v) for k, v in bands.items() if k != "k8"}
+    bound["k8"] = decoder_bound(K + 1, [s[1:] for s in bands["k8"]])
+    return out, bound, bands
+
+
+def spatial_engine_runs(models, mesh, pkgs, counters):
+    """Each package's maps from StreamingInference (batched decode) on
+    models['on'] over the mesh, and unsharded on models['on'] and
+    models['off']; the kernels' launches in the mesh run (the counters
+    zeroed just before it) and its K5/K3/K4 launches of the unsharded
+    'on' run."""
+    from rpg_ramnet_tpu_torch.eval import StreamingInference
+    runs, launches = {}, {}
+    for name, mode, m in (("spatial", "on", mesh), ("whole", "on", None),
+                          ("off", "off", None)):
+        engine = StreamingInference(models[mode], batched_decode=True,
+                                    spatial_mesh=m)
+        for c in counters.values():
+            c.launches = 0
+        runs[name] = {i: engine.step(p) for i, p in enumerate(pkgs)}
+        launches[name] = {k: c.launches for k, c in counters.items()}
+    return runs, launches
+
+
+def spatial_walls(models, mesh, pkgs):
+    """Median and p90 host-clock ms per package of StreamingInference
+    (batched decode) on models['on'], unsharded and over the mesh, in
+    turns whole, spatial, spatial, whole, SPATIAL_TIMED packages a turn
+    after two warm-up ones (each step ends in the maps' copy to the
+    host)."""
+    import numpy as np
+    from rpg_ramnet_tpu_torch.eval import StreamingInference
+    turns = []
+    for name in ("whole", "spatial", "spatial", "whole"):
+        engine = StreamingInference(models["on"], batched_decode=True,
+                                    spatial_mesh=mesh if name == "spatial"
+                                    else None)
+        for p in pkgs[:2]:
+            engine.step(p)
+        lat = []
+        for i in range(SPATIAL_TIMED):
+            t0 = time.perf_counter()
+            engine.step(pkgs[i % len(pkgs)])
+            lat.append((time.perf_counter() - t0) * 1e3)
+        turns.append({"engine": name, "median_ms": float(np.median(lat)),
+                      "p90_ms": float(np.percentile(lat, 90))})
+    best = {n: min(t["median_ms"] for t in turns if t["engine"] == n)
+            for n in ("whole", "spatial")}
+    return {"turns": turns, "median_ms_whole": best["whole"],
+            "median_ms_spatial": best["spatial"],
+            "spatial_over_whole": best["spatial"] / best["whole"]}
+
+
+def spatial_packages(K, h, w, n, seed, times=False):
+    """n unbatched packages at h x w (numpy), timestamps for the phased
+    regime."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pkgs = [{"events": rng.standard_normal((K, h, w, 5), dtype=np.float32),
+             "image": rng.random((h, w, 1), dtype=np.float32)}
+            for _ in range(n)]
+    if times:
+        for i, p in enumerate(pkgs):
+            p["times_events"] = np.float32(0.05 * i + 0.01 * np.arange(K))
+            p["times_image"] = p["times_events"][-1]
+    return pkgs
+
+
+def spatial_phases(dev, seed, smi):
+    """Phase 27: spatial partitioning (parallel/spatial.py) on the one
+    card: the flagship at 256x512, B=1, H in two row bands over a
+    [cuda:0, cuda:0] mesh with fused_gru and fused_decoder 'on' (K5 and K8
+    per band), and the phased regime at 256x352 with fused_gru 'on' (K4
+    and K3 per band), through StreamingInference(spatial_mesh=): launches,
+    maps against the same kernels unsharded (CELL_TOL) and against 'off'
+    (SLICE_TOL); the dry run's DP x SP legs (``entry.dryrun_multichip``
+    on [cuda:0] * 4, its ranks sharing the card over gloo) run meanwhile;
+    then the per-package wall, spatial against unsharded, and the kernels
+    at the band shapes.  One JSON line; returns what the kernels line
+    reads."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from rpg_ramnet_tpu_torch import entry
+    from rpg_ramnet_tpu_torch.core.config import MeshConfig, ModelConfig
+    from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
+    from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell, upsample_conv
+    from rpg_ramnet_tpu_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = ModelConfig.load(os.path.join(ROOT, CONFIG))
+    K = cfg.every_x_rgb_frame
+    mesh = make_mesh(MeshConfig(data=1, model=SPATIAL_BANDS),
+                     [dev] * SPATIAL_BANDS)
+    pcfg = dataclasses.replace(cfg, **{k: tuple(v) if isinstance(v, list)
+                                       else v for k, v in PHASED.items()})
+    legs = {"flagship": (
+                dataclasses.replace(cfg, fused_decoder="on"), H, W,
+                SPATIAL_PACKAGES, False,
+                {"k5": gru_hside.conv_gru_full,
+                 "k8": upsample_conv.upsample_conv_fused},
+                # per band: 3 scales x (K+1) cells; 3 decoder layers per
+                # package's one decode pass
+                {"k5": 3 * (K + 1), "k8": 3}),
+            "phased": (
+                pcfg, PHASED_H, PHASED_W, PHASED_SPATIAL_PACKAGES, True,
+                {"k3": gru_hside.conv_lstm_hside,
+                 "k4": phased_cell.conv_lstm_phased},
+                {"k3": 3 * (K + 1), "k4": 3 * (K + 1)})}
+    out, launched = {}, {}
+    with ThreadPoolExecutor(1) as pool:
+        dry = pool.submit(entry.dryrun_multichip, SPATIAL_DRYRUN)
+        for i, (name, (lcfg, h, w, n, times, counters, per)) in enumerate(
+                legs.items()):
+            on = ERGB2DepthRecurrent(
+                dataclasses.replace(lcfg, fused_gru="on"), device=dev,
+                generator=torch.Generator().manual_seed(seed + 51 + i))
+            off = ERGB2DepthRecurrent(
+                dataclasses.replace(lcfg, fused_gru="off",
+                                    fused_decoder="off"), device=dev)
+            off.load_state_dict(on.state_dict())
+            models = {"on": on, "off": off}
+            pkgs = spatial_packages(K, h, w, n, seed + 61 + i, times)
+            runs, launches = spatial_engine_runs(models, mesh, pkgs, counters)
+            want = {k: SPATIAL_BANDS * v * n for k, v in per.items()}
+            err_whole = max_pred_diff(runs["spatial"], runs["whole"])
+            err_off = max_pred_diff(runs["spatial"], runs["off"])
+            finite = all(np.isfinite(v).all() and v.min() >= 0 and v.max() <= 1
+                         and v.shape == (h, w, 1)
+                         for p in runs["spatial"].values() for v in p.values())
+            out[name] = {
+                "H": h, "W": w, "packages": n,
+                "launches": launches["spatial"], "launches_expected": want,
+                "launches_unsharded": launches["whole"],
+                "max_abs_err_vs_same_kernels_unsharded": err_whole,
+                "tol_same_kernels": CELL_TOL,
+                "max_abs_err_vs_off": err_off, "tol_off": SLICE_TOL,
+                "max_abs_err_unsharded_vs_off": max_pred_diff(runs["whole"],
+                                                              runs["off"]),
+                "maps_finite_in_0_1": finite}
+            if (launches["spatial"] != want or not finite
+                    or sorted(runs["spatial"]) != sorted(runs["whole"])
+                    or not err_whole <= CELL_TOL or not err_off <= SLICE_TOL):
+                raise AssertionError(f"spatial, {name}: {out[name]}")
+            launched[name] = launches["spatial"]
+            out[name]["_models"], out[name]["_pkgs"] = models, pkgs
+        dryrun = dry.result()
+    if not (dryrun.get("dp_sp_max_abs_err", 1) <= 1e-4
+            and dryrun.get("dp_sp_flagship_max_abs_err", 1) <= 1e-4):
+        raise AssertionError(f"dry run's DP x SP legs: {dryrun}")
+    for name in legs:
+        models, pkgs = out[name].pop("_models"), out[name].pop("_pkgs")
+        out[name]["per_package_wall"] = spatial_walls(models, mesh, pkgs)
+        del models, pkgs
+    torch.cuda.empty_cache()
+    krows, bound, shapes = spatial_kernel_rows(dev, seed, K)
+    check_no_jax()
+    row = {"phase": "spatial", "config": CONFIG, "bands": SPATIAL_BANDS,
+           "mesh": "[cuda:0] x 2, model axis", "legs": out,
+           "dryrun_multichip_4": dryrun, "band_kernels": krows,
+           "band_shapes": shapes, "band_bound_ms": bound,
+           "phase_s": time.perf_counter() - t_phase, "nvidia_smi": smi}
+    emit(row)
+    return {"launches": {k: v for leg in launched.values()
+                         for k, v in leg.items()}, "kernels": krows,
+            "bound": bound}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4982,6 +5252,11 @@ def main() -> int:
               k5=par["lane_mesh"]["per_package"]["launches"],
               k6=par["raw_shares"]["k6_launches"])
 
+    # 27. spatial partitioning: H in two row bands over [cuda:0, cuda:0],
+    #     the flagship (K5, K8 per band) and the phased regime (K4, K3)
+    sp = spatial_phases(dev, args.seed, smi)
+    spl = sp["launches"]
+
     src = "rpg_ramnet_tpu_torch/csrc/"
     v1m = vox_times["1M"]
     vdev = {k: r["min"] / 1e3 for k, r in v1m["device_us"].items()}
@@ -5058,7 +5333,7 @@ def main() -> int:
                                "parallel_ranks": pl["k2"]},
              micro_batch=micro_extra("bwd", trainer["launches"]["k2"])),
         dict(entry("gru_full", "gru_full.cu", "rpg_ramnet_tpu/ops/gru_hside.py:777",
-                   k5_launches + zl["k5"] + pl["k5"],
+                   k5_launches + zl["k5"] + pl["k5"] + spl["k5"],
                    max(e for row in k5_errs.values() for k, e in row.items()
                        if k != "exact_gates"),
                    sum(r["kernel_us"] for r in full_cells) / 1e3,
@@ -5068,9 +5343,12 @@ def main() -> int:
              plan={"x".join(map(str, r["shape"])): r["plan"] for r in full_cells},
              off_layer_ms=sum(r["plain_layer_bf16_us"] for r in full_cells) / 1e3,
              launches_by_path={"stream": k5_launches, "zoo": zl["k5"],
-                               "parallel_lane_mesh": pl["k5"]},
+                               "parallel_lane_mesh": pl["k5"],
+                               "spatial": spl["k5"]},
              lanes=lane_extra("k5", lanes["k5"]),
-             lane_mesh=par["mesh_kernels"]["k5"]),
+             lane_mesh=par["mesh_kernels"]["k5"],
+             spatial_bands=sp["kernels"]["k5"],
+             spatial_bands_bound=sp["bound"]["k5"]),
         dict(entry("voxel_scatter", "voxel.cu", "rpg_ramnet_tpu/ops/voxel.py:445",
                    stream_counts["k6"] + batch_run["auto"]["launches"] + rl["k6"]
                    + pl["k6"],
@@ -5100,7 +5378,7 @@ def main() -> int:
              path_at_1m=v1m["path"],
              plain_wrapper_ms=v1m["wrapper_us"]["plain_matmul"]["min"] / 1e3),
         dict(entry("lstm_hside", "lstm_hside.cu", "rpg_ramnet_tpu/ops/gru_hside.py:368",
-                   ph["counts"][0],
+                   ph["counts"][0] + spl["k3"],
                    max(e[0] for row in ph["k3_errs"].values() for k, e in row.items()
                        if k != "exact_gates"),
                    sum(r["k3_kernel_us"] for r in ph["cells"]) / 1e3,
@@ -5109,9 +5387,13 @@ def main() -> int:
              wrapper_ms=sum(r["k3_wrapper_us"] for r in ph["cells"]) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["k3"]["plan"]
                    for r in ph["cells"] + ph["k3_flagship"]},
-             lanes=lane_extra("k3", lanes["k3_k4"][0])),
+             lanes=lane_extra("k3", lanes["k3_k4"][0]),
+             launches_by_path={"phased": ph["counts"][0], "spatial": spl["k3"]},
+             spatial_bands=sp["kernels"]["k3"],
+             spatial_bands_bound=sp["bound"]["k3"]),
         dict(entry("phased_cell", "lstm_hside.cu",
-                   "rpg_ramnet_tpu/ops/phased_cell.py:113", ph["counts"][1],
+                   "rpg_ramnet_tpu/ops/phased_cell.py:113",
+                   ph["counts"][1] + spl["k4"],
                    max(e[0] for row in ph["k4_errs"].values() for k, e in row.items()
                        if k != "exact_gates"),
                    sum(r["k4_kernel_us"] for r in ph["cells"]) / 1e3,
@@ -5120,7 +5402,10 @@ def main() -> int:
              wrapper_ms=sum(r["k4_wrapper_us"] for r in ph["cells"]) / 1e3,
              plan={"x".join(map(str, r["shape"])): r["k4"]["plan"]
                    for r in ph["cells"]},
-             lanes=lane_extra("k4", lanes["k3_k4"][1])),
+             lanes=lane_extra("k4", lanes["k3_k4"][1]),
+             launches_by_path={"phased": ph["counts"][1], "spatial": spl["k4"]},
+             spatial_bands=sp["kernels"]["k4"],
+             spatial_bands_bound=sp["bound"]["k4"]),
         dict(entry("gru_pair", "gru_cells.cu", "rpg_ramnet_tpu/ops/gru_pair.py:69",
                    variants["pair"]["launches"]["k9"],
                    max(e for row in chunk_errs["k9"].values() for e in row.values()),
@@ -5163,7 +5448,7 @@ def main() -> int:
         dict(entry("upsample_conv", "upsample_conv.cu",
                    "rpg_ramnet_tpu/ops/upsample_conv.py:203",
                    dec_variants["k8"]["launches"]["k8"]
-                   + baselines["k8"]["launches"] + zl["k8"],
+                   + baselines["k8"]["launches"] + zl["k8"] + spl["k8"],
                    max(r["k8_rel_err"] for r in dec_errs.values()),
                    composed_rule["sum_us_batch96"]["k8"] / 1e3,
                    composed_rule["sum_us_batch96"]["two_stage"] / 1e3,
@@ -5171,7 +5456,9 @@ def main() -> int:
                    composed_rule["sum_us_batch96"]["composed"] / 1e3),
              launches_by_path={"chunked": dec_variants["k8"]["launches"]["k8"],
                                "baseline_ergb0": baselines["k8"]["launches"],
-                               "zoo": zl["k8"]}),
+                               "zoo": zl["k8"], "spatial": spl["k8"]},
+             spatial_bands=sp["kernels"]["k8"],
+             spatial_bands_bound=sp["bound"]["k8"]),
         entry("lstm_hside_res", "lstm_hside.cu",
               "rpg_ramnet_tpu/ops/gru_hside.py:356",
               ph_train["launches"]["k3_res"],

@@ -196,7 +196,7 @@ class MeshConfig:
     """The device mesh of a config's ``mesh`` key (JAX config.py:244-258):
     ``data`` devices on the data axis (-1: all the devices there are,
     divided by ``model``), ``model`` on the model axis (spatial
-    partitioning, not ported: ROADMAP queue 1, item 15).  ``dcn_data`` is
+    partitioning, ``parallel.spatial``).  ``dcn_data`` is
     parsed and ignored, as JAX's ``make_mesh`` ignores it."""
     data: int = -1
     model: int = 1

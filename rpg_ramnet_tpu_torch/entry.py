@@ -9,14 +9,18 @@ entry(device=None)          -> (fn, args): one datapackage forward (5
 dryrun_multichip(n, ...)    -> one data-parallel train step over n ranks
                                (one process each, started as torchrun
                                starts them), the deferred-decode step,
-                               and one lane-mesh engine step with reset
-                               masks, on tiny shapes.
+                               one lane-mesh engine step with reset
+                               masks, on tiny shapes, and for an even
+                               n >= 4 JAX's two DP x spatial legs: one
+                               package on a 2 x (n/2) mesh (batch over
+                               'data', H in row bands over 'model',
+                               parallel/spatial.py), tiny at 32x32 and
+                               B=2, then the flagship's layers at 64x64
+                               and B=16.
 
     python -m rpg_ramnet_tpu_torch.entry --dryrun N [--device cpu]
 
-The JAX dry run's DP x spatial legs wait for spatial partitioning
-(ROADMAP queue 1, item 15).  Both run on the card unless the caller asks
-for the CPU.
+Both run on the card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -216,9 +220,47 @@ def _dryrun_rank(n_devices: int, device: torch.device) -> Dict[str, float]:
             out["lane_finite"] = bool(torch.isfinite(preds["image"]).all())
             if not out["lane_finite"]:
                 raise RuntimeError("lane-mesh step: non-finite maps")
+            if n_devices >= 4 and n_devices % 2 == 0:
+                out.update(_dp_sp_legs(model, devices if dev.type == "cuda"
+                                       else [dev] * n_devices, rng))
         return out
     finally:
         distributed.destroy()
+
+
+def _dp_sp_legs(model, devices, rng) -> Dict[str, float]:
+    """__graft_entry__.py:129-166: one package forward on a 2 x (n/2)
+    mesh of ``devices``, batch over 'data' and H in row bands over
+    'model', for the tiny model at 32x32, B=2, and for the flagship's
+    layers (3 encoders, base 32, seeded 1) at 64x64, B=16; each map held
+    to the unsharded forward on the same inputs (the largest difference
+    is in the result)."""
+    from .models import build_model
+    from .parallel import make_mesh
+    from .parallel.spatial import SpatialModel, shard_package_spatial
+    mesh = make_mesh(MeshConfig(data=2, model=len(devices) // 2), devices)
+    flagship = build_model(_flagship_config(), device=devices[0],
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for name, m, B, HW in (("dp_sp", model, 2, 32),
+                           ("dp_sp_flagship", flagship, 16, 64)):
+        K = m.cfg.every_x_rgb_frame
+        pkg = {"events": rng.randn(B, K, HW, HW, 5).astype(np.float32),
+               "image": rng.rand(B, HW, HW, 1).astype(np.float32)}
+        sm = SpatialModel(m, mesh)
+        with torch.inference_mode():
+            _, preds = sm.forward_package(sm.init_state(B, HW, HW),
+                                         shard_package_spatial(pkg, mesh))
+            _, want = m.forward_package(
+                m.init_state(B, HW, HW),
+                {k: torch.from_numpy(v).to(m.device) for k, v in pkg.items()})
+        err = max(float((preds[k].to(want[k].device) - want[k]).abs().max())
+                  for k in want)
+        if not (torch.isfinite(preds["image"]).all() and err <= 1e-4):
+            raise RuntimeError(f"{name}: maps off the unsharded forward by "
+                               f"{err}")
+        out[f"{name}_max_abs_err"] = err
+    return out
 
 
 def main(argv: Optional[list] = None) -> int:

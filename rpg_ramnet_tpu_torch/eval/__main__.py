@@ -17,11 +17,14 @@ scale and metric lines:
                     N lanes, a reset mask per lane (run_batched_streaming;
                     with --scan_chunk, run_batched_chunked_streaming)
   --precompute_x, --decode_keys, --dataset_reg_factor   as test.py
-  --mesh N          with --lanes > 1: the lanes over a mesh of N devices
-                    (cuda:0 .. cuda:N-1; N replicas on the CPU with
-                    --device cpu), a replica and a lane state per device;
-                    with --lanes 1, spatial partitioning, not ported
-                    (ROADMAP queue 1, item 15)
+  --mesh N          a mesh of N devices (cuda:0 .. cuda:N-1; N replicas
+                    on the CPU with --device cpu): with --lanes > 1 the
+                    lanes over it, a replica and a lane state per device;
+                    with --lanes 1 the per-package engine's H split into N
+                    row bands (spatial partitioning, parallel/spatial.py:
+                    the crop's height over N must be a multiple of
+                    2**num_encoders); --scan_chunk without lanes ignores
+                    it, as test.py does
   --device          'cuda' (default) or 'cpu'
 
 The model is the config's ``arch``: ERGB2DepthRecurrent (baselines
@@ -74,7 +77,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="reg_factor for loading depth targets (the "
                          "reference's test.py leaves it at 5.7)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="lanes over a mesh of N devices (with --lanes > 1)")
+                    help="a mesh of N devices: the lanes over it (--lanes "
+                         "> 1), or H split into N row bands (--lanes 1)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
 
@@ -83,7 +87,7 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
     """Run test.py's loop; returns the model.  on_prediction(global index,
     {key: [H, W, 1] numpy prediction}) is called for every item."""
     args = parse_args(argv)
-    mesh = None
+    mesh = spatial_mesh = None
     if args.mesh > 0:     # test.py:117-135
         from ..core.config import MeshConfig
         from ..parallel import make_mesh
@@ -95,11 +99,11 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
                 raise SystemExit(f"--mesh {args.mesh}: only {n} "
                                  "devices available")
             devices = [torch.device("cuda", i) for i in range(args.mesh)]
-        if args.lanes <= 1:
-            raise NotImplementedError(
-                "--mesh with --lanes 1 (spatial partitioning: H sharded "
-                "over the mesh) is not ported yet: ROADMAP queue 1, item 15")
-        mesh = make_mesh(MeshConfig(data=args.mesh, model=1), devices)
+        if args.lanes > 1:
+            mesh = make_mesh(MeshConfig(data=args.mesh, model=1), devices)
+        else:
+            spatial_mesh = make_mesh(MeshConfig(data=1, model=args.mesh),
+                                     devices)
     if args.config is None:
         with open(join(os.path.split(args.path_to_model)[0], "config.json")) as f:
             config_dict = json.load(f)
@@ -208,7 +212,8 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
                               precompute_x=precompute_x)
     else:
         engine = StreamingInference(model, decode_keys=decode_keys,
-                                    batched_decode=True)
+                                    batched_decode=True,
+                                    spatial_mesh=spatial_mesh)
         prev_dataset_idx, sequence_idx = -1, 0
         with ThreadPoolExecutor(1) as pool:   # one-item host prefetch
             fut = pool.submit(dataset.__getitem__, 0) if n else None

@@ -42,9 +42,10 @@ device stepping its contiguous block of n_lanes/data lanes (its share of
 the packed buffers and of the reset mask), the maps gathered back in lane
 order on the first device.  Each replica runs whole tensors of its share,
 so the kernels stay on (JAX's ``auto`` turns its Pallas cells off under a
-mesh; ROADMAP queue 3).  The spatial mesh (``StreamingInference(
-spatial_mesh=)``, a mesh whose model axis is above 1) is not ported
-(ROADMAP queue 1, item 15).
+mesh; ROADMAP queue 3).  A mesh whose model axis is above 1 splits one
+stream's H into row bands instead (``StreamingInference(spatial_mesh=)``,
+``parallel.spatial``, JAX inference.py:72-139); the lane engines take a
+model axis of 1 only (ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ import torch.nn.functional as F
 from ..core.config import ModelConfig
 from ..models import statenet
 from ..models.model import ERGB2Depth, ERGB2DepthRecurrent
+from ..parallel import spatial
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Sharding, make_mesh,
                              replicate)
 from ..utils.layout import to_nchw, to_nhwc
@@ -136,14 +138,20 @@ class StreamingInference:
     K5, ``step`` lets the fused_decoder policy run decoder layers as
     kernel K8 and, for ``cfg.composed_decoder == 'on'`` only, the composed
     layers; ``step_modality`` does none of these.  Runs under
-    inference_mode."""
+    inference_mode.
+
+    spatial_mesh: a ``parallel.Mesh`` whose model axis splits H into row
+    bands (``parallel.spatial.SpatialModel``): a replica of the weights
+    per band, the state kept as per-band shards, each band's layers and
+    kernels run on the band and its halo; the maps come back whole.  The
+    latency mode of one stream over several devices (JAX
+    inference.py:72-139); ERGB2Depth runs its UNet over the bands the
+    same way (``spatial.unet_forward``)."""
 
     def __init__(self, model: Model, decode_keys=None,
                  batched_decode: bool = False, spatial_mesh=None):
-        if spatial_mesh is not None:
-            raise NotImplementedError(
-                "spatial_mesh (H-sharded single-stream inference) is not "
-                "ported yet: ROADMAP queue 1, item 15")
+        self._spatial = (None if spatial_mesh is None
+                         else spatial.SpatialModel(model, spatial_mesh))
         self.model = model
         self.cfg = model.cfg
         self.decode_keys = tuple(decode_keys) if decode_keys else None
@@ -155,7 +163,8 @@ class StreamingInference:
         self._state = None
 
     def reset(self, batch: int, height: int, width: int) -> None:
-        self._state = self.model.init_state(batch, height, width)
+        model = self.model if self._spatial is None else self._spatial
+        self._state = model.init_state(batch, height, width)
 
     @torch.inference_mode()
     def step(self, pkg) -> Dict[str, np.ndarray]:
@@ -172,11 +181,16 @@ class StreamingInference:
             self.reset(1, *batched["image"].shape[1:3])
         flags = dict(allow_fused=self.allow_fused, allow_fused_decoder=True,
                      allow_composed=self.allow_composed)
+        model = self.model
+        if self._spatial is not None:
+            model = self._spatial
+            batched = spatial.shard_package_spatial(batched,
+                                                    self._spatial.mesh)
         if self.batched_decode:
-            self._state, preds = self.model.forward_package_batched_decode(
+            self._state, preds = model.forward_package_batched_decode(
                 self._state, batched, **flags)
         else:
-            self._state, preds = self.model.forward_package(
+            self._state, preds = model.forward_package(
                 self._state, batched, decode_keys=self.decode_keys, **flags)
         return {k: v[0].float().cpu().numpy() for k, v in preds.items()}
 
@@ -195,6 +209,9 @@ class StreamingInference:
         xt = _as_input(x, self.model.device)[None]
         if self._state is None:
             self.reset(1, xt.shape[1], xt.shape[2])
+        if self._spatial is not None:
+            pred = self._spatial_modality(xt, modality)
+            return pred.cpu().numpy() if as_numpy else pred
         state = statenet.forward_modality(
             net, self.cfg, to_nchw(xt),
             statenet.map_state(to_nchw, self._state), modality)
@@ -202,6 +219,21 @@ class StreamingInference:
         pred = to_nhwc(statenet.forward_decoder_supers(
             net, self.cfg, statenet.decoder_view(self.cfg, state)))[0]
         return pred.cpu().numpy() if as_numpy else pred
+
+    def _spatial_modality(self, xt: torch.Tensor, modality: str):
+        """step_modality over the bands of a mesh of one data row: the
+        [H, W, 1] map on the first band's device."""
+        sm = self._spatial
+        bands = spatial.shard_package_spatial({"image": xt}, sm.mesh)[0]
+        state = spatial.forward_modality(
+            sm.rows[0], sm.nets[0], self.cfg,
+            [to_nchw(b["image"]) for b in bands],
+            [statenet.map_state(to_nchw, s) for s in self._state[0]],
+            modality, [None] * len(bands))
+        self._state = [[statenet.map_state(to_nhwc, s) for s in state]]
+        maps = sm.decode(0, [statenet.decoder_view(self.cfg, s)
+                             for s in state])
+        return spatial.gather_spatial([[to_nhwc(p) for p in maps]])[0]
 
 
 def _resolve_precompute(cfg: ModelConfig, precompute_x: Optional[bool],
@@ -283,13 +315,16 @@ def _prefetched(load, args):
 def _lane_replicas(model: Model, n_lanes: int, mesh):
     """(replicas, mesh): without a mesh, [model] on a mesh of its device;
     with one, a replica per device of its data axis, which must divide
-    the lanes evenly (JAX's check and message)."""
+    the lanes evenly (JAX's check and message), and whose model axis must
+    be 1."""
     if mesh is None:
         return [model], make_mesh(devices=[model.device])
     if mesh.shape[MODEL_AXIS] != 1:
-        raise NotImplementedError(
-            "a mesh whose model axis is above 1 (spatial partitioning) is "
-            "not ported yet: ROADMAP queue 1, item 15")
+        raise ValueError(
+            "the lane engines take a mesh whose model axis is 1: JAX "
+            "replicates the lanes' compute over a model axis, which buys "
+            "nothing (ROADMAP queue 3); StreamingInference(spatial_mesh=) "
+            "splits one stream's H over a model axis")
     n_data = mesh.shape[DATA_AXIS]
     if n_lanes % n_data:
         raise ValueError(

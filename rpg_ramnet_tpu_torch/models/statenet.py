@@ -500,26 +500,32 @@ def forward_decoder_supers(net: StateNet, cfg: ModelConfig,
     for rb in net.resblocks:
         x = rb(x, ctx)
     n = cfg.num_encoders
+    for i, dec in enumerate(net.decoders):
+        x = decode_layer(cfg, dec, x, supers[n - i - 1] if i > 0 else None,
+                         allow_fused, allow_composed, ctx)
+    return activate(net.pred(x, ctx).float(), cfg.activation)
+
+
+def decode_layer(cfg: ModelConfig, dec: nn.Module, x: torch.Tensor,
+                 skip: Optional[torch.Tensor], allow_fused: bool = False,
+                 allow_composed: bool = False,
+                 ctx: Optional[NormCtx] = None) -> torch.Tensor:
+    """One decoder layer of ``forward_decoder_supers`` after the skip of
+    ``skip`` (None before the first layer), routed as that function
+    says."""
     two_stage = (cfg.use_upsample_conv and not cfg.fast_upsample
                  and cfg.norm is None)
-    fuse_layers = (allow_fused and two_stage
-                   and cfg.skip_type in ("sum", "no_skip"))
-    composed_layers = allow_composed and two_stage
-    for i, dec in enumerate(net.decoders):
-        skip = supers[n - i - 1] if i > 0 else None
-        fused_skip = skip if cfg.skip_type == "sum" else None
-        if fuse_layers and _use_fused_decoder(cfg, x, dec.conv2d.out_channels,
-                                              fused_skip):
-            x = to_nchw(upsample_conv.upsample_conv_fused(
-                dec, to_nhwc(x),
-                None if fused_skip is None else to_nhwc(fused_skip)))
-            continue
-        if skip is not None:
-            x = apply_skip(cfg, x, skip)
-        if composed_layers and _use_composed_decoder(cfg, x):
-            x = upsample_conv_layer_composed(dec, x, "relu")
-        elif cfg.use_upsample_conv and cfg.fast_upsample:
-            x = upsample_conv_layer_fast(dec, x, ctx)
-        else:
-            x = dec(x, ctx)
-    return activate(net.pred(x, ctx).float(), cfg.activation)
+    fused_skip = skip if cfg.skip_type == "sum" else None
+    if (allow_fused and two_stage and cfg.skip_type in ("sum", "no_skip")
+            and _use_fused_decoder(cfg, x, dec.conv2d.out_channels,
+                                   fused_skip)):
+        return to_nchw(upsample_conv.upsample_conv_fused(
+            dec, to_nhwc(x),
+            None if fused_skip is None else to_nhwc(fused_skip)))
+    if skip is not None:
+        x = apply_skip(cfg, x, skip)
+    if allow_composed and two_stage and _use_composed_decoder(cfg, x):
+        return upsample_conv_layer_composed(dec, x, "relu")
+    if cfg.use_upsample_conv and cfg.fast_upsample:
+        return upsample_conv_layer_fast(dec, x, ctx)
+    return dec(x, ctx)

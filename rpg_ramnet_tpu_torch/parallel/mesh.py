@@ -2,7 +2,7 @@
 
 Counterpart of ``rpg_ramnet_tpu/parallel/mesh.py``.  JAX lays one program
 over a ``Mesh`` of devices with a 'data' axis and a 'model' axis and lets
-XLA insert the collectives.  The port has two mechanisms instead:
+XLA insert the collectives.  The port has three mechanisms instead:
 
 - training runs one process per GPU under ``torch.distributed``
   (``parallel.distributed``): each rank holds whole tensors for its share
@@ -12,14 +12,16 @@ XLA insert the collectives.  The port has two mechanisms instead:
 - the lane engines (``eval/inference.py``) run one process over a
   ``Mesh`` of torch devices: one replica of the weights (``replicate``)
   and one lane state per device of the data axis, each stepping its share
-  of the lanes.
+  of the lanes;
+- single-stream inference over a mesh whose model axis is above 1
+  (``parallel.spatial``): H split into row bands over the model axis, one
+  replica per band, the convolutions' halos copied between the bands.
 
-Either way a kernel sees whole tensors of its rank's or device's share,
-so the kernels stay on, where JAX's ``auto`` gates turn the Pallas cells
-off under a mesh (ROADMAP queue 3).  On the CPU a mesh of N devices is N
-replicas on the one CPU device, as JAX's virtual CPU devices are.  The
-model axis (spatial partitioning) is not ported (ROADMAP queue 1, item
-15).
+Either way a kernel sees whole tensors of its rank's or device's share
+(a band with its halo), so the kernels stay on, where JAX's ``auto``
+gates turn the Pallas cells off under a mesh (ROADMAP queue 3).  On the
+CPU a mesh of N devices is N replicas on the one CPU device, as JAX's
+virtual CPU devices are.
 """
 from __future__ import annotations
 
@@ -140,14 +142,15 @@ def replicated(mesh: Mesh) -> Sharding:
     return Sharding(mesh, None)
 
 
-def replicate(module: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module]:
-    """One copy of ``module`` (weights, buffers, mode) on each data device
-    of ``mesh``, in device order: ordinary tensors even when called under
+def replicate(module: torch.nn.Module, mesh: Mesh) -> List:
+    """One copy of ``module`` (weights, buffers, mode) on each device of
+    ``mesh``: for a model axis of 1 a list in data-device order, else one
+    list per data row in model-axis order (the row bands of
+    ``parallel.spatial``).  Ordinary tensors even when called under
     inference_mode (the kernels' weight folds read their version
     counters)."""
-    if mesh.shape[MODEL_AXIS] != 1:
-        raise NotImplementedError(
-            "a mesh whose model axis is above 1 (spatial partitioning) is "
-            "not ported yet: ROADMAP queue 1, item 15")
     with torch.inference_mode(False):
-        return [copy.deepcopy(module).to(d) for d in mesh.data_devices]
+        if mesh.shape[MODEL_AXIS] == 1:
+            return [copy.deepcopy(module).to(d) for d in mesh.data_devices]
+        return [[copy.deepcopy(module).to(d) for d in row]
+                for row in mesh.devices]

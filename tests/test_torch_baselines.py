@@ -61,6 +61,7 @@ from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar, load_any
 from rpg_ramnet_tpu_torch.train.sequence_loss import make_sequence_loss
 
 from test_torch_lanes import _jax_tree, _one_thread  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL_F32, RTOL_F32 = 2e-5, 1e-4

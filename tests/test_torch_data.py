@@ -23,6 +23,7 @@ from rpg_ramnet_tpu_torch.compat import load_reference_checkpoint
 from rpg_ramnet_tpu_torch.core.config import Config
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
 from rpg_ramnet_tpu_torch.train import checkpoint
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLIT = dict(n_sequences=2, n_frames=9, height=30, width=28)

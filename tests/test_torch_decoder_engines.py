@@ -51,6 +51,7 @@ from rpg_ramnet_tpu_torch.eval import inference
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, statenet
 from rpg_ramnet_tpu_torch.ops import upsample_conv
 from rpg_ramnet_tpu_torch.utils.layout import to_nchw
+from torch_threads import one_thread  # noqa: F401
 
 ATOL_F32 = 1e-5
 ATOL_BF16 = 5e-2

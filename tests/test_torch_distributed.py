@@ -49,6 +49,7 @@ from rpg_ramnet_tpu_torch.train.train_step import make_train_step
 
 from test_torch_lanes import _jax_tree, _one_thread  # noqa: F401
 from torch_dist_cases import CASES, case_config, case_raw, global_batch
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL_GRAD, RTOL_GRAD = 5e-5, 1e-3

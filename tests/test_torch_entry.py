@@ -37,6 +37,7 @@ from rpg_ramnet_tpu_torch.data import generate_split
 from rpg_ramnet_tpu.models import ERGB2DepthRecurrent as JaxModel
 
 from test_torch_lanes import _jax_tree, _one_thread  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL_F32 = 2e-5

@@ -27,6 +27,7 @@ from rpg_ramnet_tpu_torch.eval import StreamingInference
 from rpg_ramnet_tpu_torch.eval.__main__ import main as eval_main
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
 from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
@@ -138,8 +139,15 @@ def test_eval_scan_chunk_matches_per_package(setup, monkeypatch):
         for k in per_package[idx]:
             np.testing.assert_allclose(chunked[idx][k], per_package[idx][k],
                                        atol=ATOL)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        eval_main(base + ["--mesh", "2"])
+    # spatial partitioning: H in two row bands over a CPU mesh of two
+    spatial = {}
+    eval_main(base + ["--mesh", "2", "--lanes", "1"],
+              on_prediction=spatial.__setitem__)
+    assert sorted(spatial) == sorted(per_package)
+    for idx in per_package:
+        for k in per_package[idx]:
+            np.testing.assert_allclose(spatial[idx][k], per_package[idx][k],
+                                       atol=ATOL)
     # lane-batched streaming runs: two lanes, one sequence each
     lanes = {}
     eval_main(base + ["--lanes", "2"], on_prediction=lanes.__setitem__)

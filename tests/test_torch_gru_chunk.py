@@ -20,6 +20,7 @@ from torch_chunked_common import (OP_TOL, SLICE_TOL, Spy, as_jax, as_torch,
                                   cell, folded, interpret, jax_forward,
                                   max_diff, models, port_forward, sequence,
                                   to_np, with_cfg)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _chunk_inputs(shape, S, seed=0):

@@ -21,6 +21,7 @@ from rpg_ramnet_tpu_torch.compat import params_to_state_dict
 from rpg_ramnet_tpu_torch.models.layers import ConvGRU
 from rpg_ramnet_tpu_torch.ops import gru_hside
 from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = ((1, 32, 24, 8), (2, 16, 16, 16))
 PREFIX = "statenetphasedrecurrent."

@@ -30,6 +30,7 @@ from rpg_ramnet_tpu_torch.compat import params_to_state_dict
 from rpg_ramnet_tpu_torch.models.layers import ConvGRU
 from rpg_ramnet_tpu_torch.ops import gru_hside
 from rpg_ramnet_tpu_torch.ops.gru_hside import K5Plan
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "rpg_ramnet_tpu_torch" / "csrc"

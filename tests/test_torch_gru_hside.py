@@ -19,6 +19,7 @@ from rpg_ramnet_tpu_torch.core.config import ModelConfig
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
 from rpg_ramnet_tpu_torch.models.layers import ConvGRU
 from rpg_ramnet_tpu_torch.ops import gru_hside
+from torch_threads import one_thread  # noqa: F401
 
 SHAPES = ((1, 32, 24, 8), (2, 16, 16, 16), (1, 8, 8, 8))
 PREFIX = "statenetphasedrecurrent."

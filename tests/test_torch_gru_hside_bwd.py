@@ -23,6 +23,7 @@ from rpg_ramnet_tpu.ops import gru_hside as JG
 from rpg_ramnet_tpu_torch.models.layers import ConvGRU
 from rpg_ramnet_tpu_torch.ops import gru_hside
 from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
+from torch_threads import one_thread  # noqa: F401
 
 PREFIX = "statenetphasedrecurrent."
 # (B, H, W, C) and the JAX kernels' H tile (it must divide H)

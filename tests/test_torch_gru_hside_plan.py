@@ -31,6 +31,7 @@ from rpg_ramnet_tpu_torch.ops import gru_hside
 from rpg_ramnet_tpu_torch.ops.gru_hside import K1Plan
 
 from k1_emulation import EMULATED, k1_emulated
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 WIDTHS = (16, 32, 48, 64, 96, 128, 256)

@@ -29,6 +29,7 @@ from torch_chunked_common import (OP_TOL, SLICE_TOL, Spy, as_jax, as_torch,
                                   cell, folded, interpret, jax_forward,
                                   max_diff, models, port_forward, sequence,
                                   to_np, with_cfg)
+from torch_threads import one_thread  # noqa: F401
 
 PAIRS = [((1, 16, 16, 16), (1, 8, 8, 32)), ((2, 8, 16, 16), (2, 4, 8, 32))]
 

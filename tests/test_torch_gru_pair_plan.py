@@ -32,6 +32,7 @@ from rpg_ramnet_tpu_torch.ops.gru_hside import K1Plan
 
 from k1_emulation import k9_emulated, pair_blocks
 from torch_chunked_common import cell, folded
+from torch_threads import one_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parent.parent / "rpg_ramnet_tpu_torch" / "csrc"
 F32 = torch.float32

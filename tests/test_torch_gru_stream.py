@@ -20,6 +20,7 @@ from rpg_ramnet_tpu_torch.ops import gru_hside, gru_stream
 from torch_chunked_common import (OP_TOL, SLICE_TOL, Spy, as_jax, as_torch,
                                   cell, folded, jax_forward, max_diff, models,
                                   port_forward, sequence, to_np, with_cfg)
+from torch_threads import one_thread  # noqa: F401
 
 L, K = 2, 2
 

@@ -29,6 +29,7 @@ from rpg_ramnet_tpu_torch.ops.gru_hside import K1Plan
 
 from k1_emulation import EMULATED, k1_emulated, k11_emulated, k11_walk
 from torch_chunked_common import cell, folded
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "rpg_ramnet_tpu_torch" / "csrc"

@@ -455,21 +455,21 @@ def test_lane_engines_match_single_lane(recipe):
 
 
 def test_lane_engines_refuse_mesh_and_tolerate_empty():
-    """A mesh whose model axis is above 1 (spatial partitioning, not
-    ported) is refused; lanes over a data mesh are
-    tests/test_torch_parallel.py's."""
+    """A mesh whose model axis is above 1 is refused (spatial partitioning
+    is StreamingInference(spatial_mesh=), tests/test_torch_spatial.py);
+    lanes over a data mesh are tests/test_torch_parallel.py's."""
     _, _, model = _models("flagship")
     ds = _Dataset((2,))
     spatial = make_mesh(MeshConfig(data=1, model=2),
                         [torch.device("cpu")] * 2)
     for fn in (inference.run_batched_streaming,
                inference.run_batched_chunked_streaming):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(ValueError, match="model axis is 1"):
             fn(ds, model, mesh=spatial)
         log = []
         fn(_Dataset(()), model, on_prediction=_collect(log))
         assert log == []
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="model axis is 1"):
         inference.BatchedStreamingInference(model, 2, H, W, mesh=spatial)
 
 

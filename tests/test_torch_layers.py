@@ -19,6 +19,7 @@ from rpg_ramnet_tpu_torch.core.config import ModelConfig
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
 from rpg_ramnet_tpu_torch.models.layers import upsample2x_bilinear
 from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-5
 B, H, W = 2, 16, 24

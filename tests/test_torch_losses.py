@@ -22,6 +22,7 @@ from rpg_ramnet_tpu_torch.train import losses as TL
 from rpg_ramnet_tpu_torch.train.sequence_loss import make_sequence_loss
 
 from test_train import tiny_config
+from torch_threads import one_thread  # noqa: F401
 
 
 def _maps(seed=0, shape=(2, 20, 24, 1), nan=True):

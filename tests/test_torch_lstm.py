@@ -27,6 +27,7 @@ from rpg_ramnet_tpu_torch.models.layers import (ConvLSTM, PhasedConvLSTM,
                                                 phased_gate_k)
 from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
 from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
+from torch_threads import one_thread  # noqa: F401
 
 ATOL_F32 = 1e-5
 ATOL_FMOD, RTOL_FMOD = 2e-3, 1e-3

@@ -29,6 +29,7 @@ from rpg_ramnet_tpu.ops import phased_cell as JP
 from rpg_ramnet_tpu_torch.models.layers import ConvLSTM
 from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
 from rpg_ramnet_tpu_torch.ops.gru_hside import LstmPlan
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "rpg_ramnet_tpu_torch" / "csrc"

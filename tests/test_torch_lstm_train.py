@@ -43,6 +43,7 @@ from rpg_ramnet_tpu_torch.train.sequence_loss import make_sequence_loss
 from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
 
 from test_train import tiny_config
+from torch_threads import one_thread  # noqa: F401
 
 B, H, W, C = 2, 8, 16, 16
 TILE_H = 4              # the JAX kernels' H tile: two tiles, so halos show

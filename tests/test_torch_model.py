@@ -25,6 +25,7 @@ from rpg_ramnet_tpu_torch.compat import load_reference_checkpoint, params_from_j
 from rpg_ramnet_tpu_torch.core.config import ModelConfig
 from rpg_ramnet_tpu_torch.eval import SequenceScanInference, run_chunked_streaming
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, statenet
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL_F32 = 2e-5

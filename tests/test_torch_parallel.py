@@ -15,7 +15,8 @@
 - ``device_voxelize_prefetch(sharding=)``: each share's grids are that
   share of the unsharded batch's;
 - the eval entry point's ``--mesh 2 --lanes 2`` against ``--lanes 2``,
-  ``--mesh 2 --lanes 1`` (spatial) refused citing ROADMAP item 15, and
+  ``--mesh 3 --lanes 1`` (spatial) refused where the crop's height does
+  not split into 3 bands of a multiple of 2**num_encoders rows, and
   ``--mesh N`` with fewer than N GPUs refused with JAX's SystemExit;
 - no fallback: NCCL without a GPU and a CUDA mesh without a GPU raise.
 
@@ -53,6 +54,7 @@ from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar
 
 from test_torch_lanes import (H, K, W, _check_same, _collect, _Dataset,
                               _models, _one_thread, _tol)  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 ATOL = RTOL = 1e-5
@@ -365,12 +367,13 @@ def test_eval_entry_mesh_lanes_match_lanes(cli_root, monkeypatch, chunk):
 
 def test_eval_entry_mesh_refusals(cli_root, monkeypatch):
     monkeypatch.setenv("PREPROCESSED_DATASETS_FOLDER", str(cli_root / "data"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        eval_main(_cli(cli_root, "--mesh", "2", "--device", "cpu"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        inference.StreamingInference(
-            ERGB2DepthRecurrent(Config.from_dict(CLI_CONFIG).model),
-            spatial_mesh=_cpu_mesh())
+    with pytest.raises(ValueError, match="multiple of 2\\*\\*num_encoders"):
+        eval_main(_cli(cli_root, "--mesh", "3", "--device", "cpu"))
+    engine = inference.StreamingInference(
+        ERGB2DepthRecurrent(Config.from_dict(CLI_CONFIG).model),
+        spatial_mesh=make_mesh(MeshConfig(data=1, model=3), [CPU] * 3))
+    with pytest.raises(ValueError, match="multiple of 2\\*\\*num_encoders"):
+        engine.reset(1, *CROP)
     n = torch.cuda.device_count()
     with pytest.raises(SystemExit,
                        match=f"--mesh {n + 1}: only {n} devices available"):

@@ -40,6 +40,7 @@ from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent, statenet
 from rpg_ramnet_tpu_torch.ops import gru_hside, phased_cell
 from rpg_ramnet_tpu_torch.train.checkpoint import export_pth_tar, load_any
 from rpg_ramnet_tpu_torch.train.sequence_loss import make_sequence_loss
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL, RTOL = 2e-3, 1e-3

@@ -33,12 +33,14 @@ from rpg_ramnet_tpu.ops import gru_hside as jax_gru_hside
 from rpg_ramnet_tpu.utils import event_readers as jreaders
 
 from rpg_ramnet_tpu_torch.compat import params_from_jax
-from rpg_ramnet_tpu_torch.core.config import ModelConfig
+from rpg_ramnet_tpu_torch.core.config import MeshConfig, ModelConfig
 from rpg_ramnet_tpu_torch.eval import filters, inference, metrics
 from rpg_ramnet_tpu_torch.models import ERGB2DepthRecurrent
 from rpg_ramnet_tpu_torch.ops import event_preprocess, gru_hside
+from rpg_ramnet_tpu_torch.parallel import make_mesh
 from rpg_ramnet_tpu_torch.train import checkpoint
 from rpg_ramnet_tpu_torch.utils import event_readers
+from torch_threads import one_thread  # noqa: F401
 
 ATOL_F32 = 1e-5
 ATOL_BF16 = 5e-2
@@ -141,8 +143,12 @@ def test_fused_package_bf16_matches_jax_pallas_kernel(monkeypatch):
 
 def test_unported_options_raise():
     _, _, model = _models()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        inference.StreamingInference(model, spatial_mesh=object())
+    # a spatial mesh whose bands do not split H into whole bands of every
+    # scale (tests/test_torch_spatial.py runs the ones that do)
+    engine = inference.StreamingInference(model, spatial_mesh=make_mesh(
+        MeshConfig(data=1, model=3), [torch.device("cpu")] * 3))
+    with pytest.raises(ValueError, match="multiple of 2\\*\\*num_encoders"):
+        engine.reset(1, 32, 32)
     # a per-lane reset mask is ported: forward_package with one against
     # JAX's, lanes from a non-zero state, lane 0 reset, lane 1 not
     jcfg, params, _ = _models()

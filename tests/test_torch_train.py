@@ -39,6 +39,7 @@ from rpg_ramnet_tpu_torch.train.sequence_loss import (make_sequence_loss,
 from rpg_ramnet_tpu_torch.train.train_step import make_train_step
 
 from test_train import tiny_config
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, L, K, H, W = 2, 2, 3, 16, 16

@@ -32,6 +32,7 @@ from rpg_ramnet_tpu_torch.models.layers import (UpsampleConvLayer,
                                                 upsample_conv_layer_composed)
 from rpg_ramnet_tpu_torch.ops import upsample_conv
 from rpg_ramnet_tpu_torch.utils.layout import to_nchw, to_nhwc
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = RTOL = 1e-5
 FUSED_SHAPES = [(1, 16, 24, 8, 8), (2, 8, 8, 16, 8), (1, 32, 16, 8, 16)]

@@ -28,6 +28,7 @@ from rpg_ramnet_tpu.data.raw_pipeline import voxelize_batch
 from rpg_ramnet_tpu.ops import voxel as jvoxel
 
 from rpg_ramnet_tpu_torch.ops import voxel
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -31,6 +31,7 @@ from rpg_ramnet_tpu_torch.train.__main__ import main as train_main
 from test_torch_eval_cli import _event_log
 from test_torch_lanes import _one_thread  # noqa: F401
 from test_torch_zoo_train import NORMED, _raw
+from torch_threads import one_thread  # noqa: F401
 
 
 ENTRY = {

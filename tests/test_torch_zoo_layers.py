@@ -45,6 +45,7 @@ from rpg_ramnet_tpu_torch.models import layers as TL
 from rpg_ramnet_tpu_torch.models.statenet import reset_parameters_
 
 from test_torch_lanes import _jax_tree, _one_thread  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 ATOL_STATS = 1e-6

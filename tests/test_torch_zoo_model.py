@@ -42,6 +42,7 @@ from rpg_ramnet_tpu_torch.models import (ERGB2Depth, ERGB2DepthRecurrent,
 from rpg_ramnet_tpu_torch.ops import upsample_conv
 
 from test_torch_lanes import _jax_tree, _one_thread  # noqa: F401
+from torch_threads import one_thread  # noqa: F401
 
 ATOL, RTOL = 2e-5, 1e-4
 ATOL_BF16 = 5e-2

@@ -53,6 +53,7 @@ from rpg_ramnet_tpu_torch.train.train_step import (make_eval_step,
 
 from test_torch_lanes import _jax_tree, _one_thread  # noqa: F401
 from test_train import tiny_config
+from torch_threads import one_thread  # noqa: F401
 
 ATOL_GRAD, RTOL_GRAD = 5e-5, 1e-3
 ATOL_STATS = 1e-6
