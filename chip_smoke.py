@@ -45,9 +45,11 @@ engine, and the dry run's data x spatial legs.  It imports nothing of JAX
 or of the JAX package.
 
 Phases, each printed as one JSON line:
-  1. device        the card, its power limit, the nvcc builds (in parallel;
-                   lstm_hside.cu and gru_full.cu also with their IEEE
-                   gates);
+  1. device        the card, its power limit, its peaks (dense bf16 FLOP/s
+                   and HBM bytes/s, ``utils.costs.device_peaks``: a card
+                   the table does not hold fails the run), the nvcc
+                   builds (in parallel; lstm_hside.cu and gru_full.cu also
+                   with their IEEE gates);
   2. kernel        K1 against its plain PyTorch version on the card, at the
                    three inference widths, one ragged shape and the edge
                    shapes (H or W below the tile, H = W = 1, C = 16, 48,
@@ -61,18 +63,31 @@ Phases, each printed as one JSON line:
                    launches queued behind a sleep kernel; K1 also
                    unqueued, its wrapper's time; with K1's plan, device us
                    per launch, weight MB per launch, registers and spills),
-                   the slice's maps/s;
+                   the slice's maps/s and its share of the bf16 peak
+                   (``utils.costs.package_costs`` at 256x512, bf16, per
+                   package, times packages/s: JAX bench.py's formula), and
+                   one 'off' package's FLOPs as torch's FlopCounterMode
+                   counts them (``utils.costs.counted_costs``) beside the
+                   analytic count;
   5. kernel_train  K1-res, K2 and the ConvGRUHside Function against their
                    plain versions at the three training shapes (B=16) and
                    one ragged shape; K1-res (h', acts) and K2 (dh, dgx:
                    max and mean error) also under every plan kind there
                    and at the edge shapes;
   6. train         the first step's loss and gradients against
-                   fused_gru='off', then the entry point for TRAIN_STEPS
-                   optimizer steps and one validation batch on a synthetic
-                   on-disk split: finite losses, the K1-res, K2 and K1
-                   launch counts, peak memory;
-  7. timing_train  training sequences/s with the kernels and with 'off',
+                   fused_gru='off'; a first epoch of BatchLoader batches
+                   with thread workers, then with process workers twice
+                   (the pool's start, then the running pool), bit for
+                   bit, each epoch's wall; then the entry point with
+                   --worker_mode process
+                   for TRAIN_STEPS optimizer steps and one validation
+                   batch on a synthetic on-disk split: finite losses, the
+                   K1-res, K2 and K1 launch counts, peak memory, both
+                   loaders' pools shut down when it returns;
+  7. timing_train  training sequences/s with the kernels and with 'off'
+                   and the step's share of the bf16 peak
+                   (``utils.costs.train_window_costs``, JAX bench.py's
+                   formula),
                    K1-res and K2 per cell against their plain versions
                    (queued, as phase 4; each kernel also its wrapper's
                    time, its plan, device us, weight MB, registers and
@@ -318,6 +333,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -514,8 +530,18 @@ VOX_SHARD_TOL = 1e-6   # a share's normalized grids vs the whole batch's
 # packages a turn
 SPATIAL_BANDS, SPATIAL_PACKAGES, PHASED_SPATIAL_PACKAGES = 2, 4, 3
 SPATIAL_DRYRUN, SPATIAL_TIMED = 4, 8
-# the card's published peaks (H100 SXM, dense bf16; HBM3)
-PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+
+
+@functools.lru_cache(maxsize=1)
+def peaks():
+    """(dense bf16 FLOP/s, HBM bytes/s) of the card, from
+    ``rpg_ramnet_tpu_torch.utils.costs.device_peaks`` (ValueError for a
+    card it does not know)."""
+    import torch
+    from rpg_ramnet_tpu_torch.utils import costs
+    return costs.device_peaks(torch.cuda.get_device_name())[:2]
+
+
 # per cell: (MACs per pixel / C^2, bytes moved per pixel / C, weight
 # bytes / C^2[, bytes per pixel of the map / C, read once whatever the
 # batch]): K1 reads h, gx and writes h'; K1-res also acts; K2 reads g, h,
@@ -540,9 +566,9 @@ def decoder_bound(batch, layers=DECODER_LAYERS):
     each once; the weights) at the HBM rate."""
     by = {"operations": 0.0, "bytes": 0.0}
     for i, (C, Cout, h, w) in enumerate(layers):
-        t_ops = 2 * 4 * h * w * 16 * C * Cout * batch / PEAK_FLOPS
+        t_ops = 2 * 4 * h * w * 16 * C * Cout * batch / peaks()[0]
         io = batch * h * w * C * 2 * (2 if i else 1) + batch * 4 * h * w * Cout * 2
-        t_bytes = (io + 25 * C * Cout * 2) / HBM_BYTES_PER_S
+        t_bytes = (io + 25 * C * Cout * 2) / peaks()[1]
         by["operations" if t_ops >= t_bytes else "bytes"] += max(t_ops, t_bytes)
     return sum(by.values()) * 1e3, max(by, key=by.get)
 
@@ -1157,12 +1183,133 @@ def time_training(cfg, models, batch, steps=2):
             "train_wall_s_off_on_on_off": walls, "steps_per_run": steps}
 
 
-def run_training(raw, tmp, counters, writer=None, resume=None, keep=None):
+def share_of_peak(flops_per_s):
+    """flops_per_s over the card's dense bf16 peak; fails unless it is
+    finite and in (0, 1)."""
+    share = flops_per_s / peaks()[0]
+    if not (math.isfinite(share) and 0.0 < share < 1.0):
+        raise AssertionError(f"share of the bf16 peak {share}")
+    return share
+
+
+def slice_costs(cfg, off_model, packages_per_s, dev, seed):
+    """The chunked slice's share of the bf16 peak by JAX bench.py's
+    formula (analytic FLOPs of one bf16 package at HxW, batch 1, times
+    packages/s), and one package of the plain path (off_model:
+    fused_gru='off'; forward_package with no kernel allowed) counted by
+    torch's FlopCounterMode beside the analytic count."""
+    import torch
+    from rpg_ramnet_tpu_torch.models import event_loop_range
+    from rpg_ramnet_tpu_torch.ops import gru_hside
+    from rpg_ramnet_tpu_torch.utils import costs
+    analytic = costs.package_costs(cfg, H, W, batch=1, act_bytes=2).flops
+    g = torch.Generator().manual_seed(seed + 7)
+    pkg = {"events": torch.randn(1, event_loop_range(cfg), H, W,
+                                 cfg.num_bins_events, generator=g).to(dev),
+           "image": torch.rand(1, H, W, cfg.num_bins_rgb, generator=g).to(dev)}
+    launches = gru_hside.conv_gru_hside.launches
+    with torch.no_grad():
+        counted = costs.counted_costs(off_model.forward_package,
+                                      off_model.init_state(1, H, W), pkg)
+    if gru_hside.conv_gru_hside.launches != launches:
+        raise AssertionError("the counted 'off' package launched K1")
+    if not counted["flops"] > 0:
+        raise AssertionError(f"counted FLOPs {counted}")
+    return {"slice_mfu_vs_bf16_peak": share_of_peak(analytic * packages_per_s),
+            "analytic_flops_per_package": analytic,
+            "counted_flops_per_package": counted["flops"],
+            "counted_over_analytic": counted["flops"] / analytic,
+            "slice_packages_per_s": packages_per_s}
+
+
+def train_costs(cfg, seq_per_s):
+    """The training step's share of the bf16 peak by JAX bench.py's
+    formula: the analytic FLOPs of one TBPTT window batch (TRAIN_B
+    windows of TRAIN_L packages at TRAIN_CROP, two supervised decodes,
+    remat) over the step's seconds."""
+    from rpg_ramnet_tpu_torch.utils import costs
+    flops = costs.train_window_costs(cfg.model, TRAIN_CROP, TRAIN_CROP,
+                                     batch=TRAIN_B, L=TRAIN_L,
+                                     supervised_decodes=2, remat=True).flops
+    return {"train_mfu_vs_bf16_peak": share_of_peak(flops * seq_per_s / TRAIN_B),
+            "analytic_flops_per_step": flops}
+
+
+def pools_down(trainer):
+    """Both of the trainer's loaders ran process workers and shut their
+    pools down, and no worker process is left."""
+    import multiprocessing
+    loaders = (trainer.train_loader, trainer.valid_loader)
+    left = multiprocessing.active_children()
+    if any(ld.worker_mode != "process" or ld._proc_pool is not None
+           for ld in loaders) or left:
+        raise AssertionError(f"process pools not shut down: {left}")
+    return True
+
+
+def process_worker_check(cfg, root):
+    """The training split's first epoch (the entry point's training
+    transforms, shuffled) through BatchLoader with thread workers, then
+    twice with process workers (the pool's first epoch, which starts it,
+    and the same epoch again on the running pool): each process batch
+    equal to the thread batch bit for bit; each epoch's wall; the pool
+    shut down after."""
+    import multiprocessing
+
+    import numpy as np
+    from rpg_ramnet_tpu_torch.data import (BatchLoader, Compose, RandomCrop,
+                                           RandomRotationFlip,
+                                           concatenate_subfolders)
+    split = cfg.train_data
+    ds = concatenate_subfolders(
+        os.path.join(root, "train"), split.type, split.event_folder,
+        split.depth_folder, split.frame_folder, TRAIN_L, step_size=1,
+        transform=Compose([RandomRotationFlip(0.0, 0.5, 0.0),
+                           RandomCrop(TRAIN_CROP)]),
+        clip_distance=split.clip_distance,
+        every_x_rgb_frame=split.every_x_rgb_frame,
+        reg_factor=split.reg_factor)
+
+    def loader(mode):
+        return BatchLoader(ds, cfg.batch_size, num_workers=cfg.num_workers,
+                           seed=5, worker_mode=mode)
+
+    t0 = time.perf_counter()
+    want = list(loader("thread"))
+    walls = {"thread_epoch_s": time.perf_counter() - t0}
+    same = len(want) > 0
+    proc = loader("process")
+    try:
+        for name in ("process_epoch_cold_s", "process_epoch_warm_s"):
+            proc.set_epoch(0)
+            t0 = time.perf_counter()
+            got = 0
+            for a, b in zip(proc, want):
+                got += 1
+                same &= a.keys() == b.keys() and all(
+                    a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                    for k in a)
+            walls[name] = time.perf_counter() - t0
+            same &= got == len(want)
+    finally:
+        proc.close()
+    left = multiprocessing.active_children()
+    if not same or left:
+        raise AssertionError(f"process workers' batches differ from the "
+                             f"thread workers', or workers are left: {left}")
+    item_mb = sum(v[0].nbytes for v in want[0].values()) / 2 ** 20
+    return {"batches": len(want), "bitwise": same, "workers": cfg.num_workers,
+            "item_mb": item_mb, **walls}
+
+
+def run_training(raw, tmp, counters, writer=None, resume=None, keep=None,
+                 argv=()):
     """The entry point in-process on the synthetic split, with every
     launch count in counters ({name: (wrapper, expected launches)}) set to
     0 just before; returns its first epoch's log, the counts read just
     after and the peak memory.  writer: the trainer's TensorBoard writer;
-    resume: the -r argument; keep: a list the trainer is appended to."""
+    resume: the -r argument; keep: a list the trainer is appended to;
+    argv: more flags."""
     import torch
     from rpg_ramnet_tpu_torch.train.__main__ import main as train_main
     cfg_path = os.path.join(tmp, f"{raw['name']}_config.json")
@@ -1173,7 +1320,7 @@ def run_training(raw, tmp, counters, writer=None, resume=None, keep=None):
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = train_main(["-c", cfg_path]
+    trainer = train_main(["-c", cfg_path, *argv]
                          + (["-r", resume] if resume else []), writer=writer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1209,9 +1356,9 @@ def cell_bound(kind, shapes):
     shared = shared[0] if shared else 0
     by = {"operations": 0.0, "bytes": 0.0}
     for B, H, W, C in shapes:
-        t_ops = 2 * macs * C * C * B * H * W / PEAK_FLOPS
+        t_ops = 2 * macs * C * C * B * H * W / peaks()[0]
         t_bytes = ((io * B + shared) * C * H * W
-                   + wts * C * C) / HBM_BYTES_PER_S
+                   + wts * C * C) / peaks()[1]
         by["operations" if t_ops >= t_bytes else "bytes"] += max(t_ops, t_bytes)
     return sum(by.values()) * 1e3, max(by, key=by.get)
 
@@ -1223,7 +1370,7 @@ def voxel_bound(n_events, windows=1):
     event are far below the bytes' time."""
     nb, h, w = VOX_GRID
     return (windows * (16 * n_events + 4 * nb * h * w)
-            / HBM_BYTES_PER_S * 1e3, "bytes")
+            / peaks()[1] * 1e3, "bytes")
 
 
 def make_full_cell_inputs(shape, dev, gen):
@@ -4226,7 +4373,7 @@ def raw_pipeline_phases(dev, seed, smi):
             lambda: flat.zero_().index_add_(0, idx, vals), 3) / 1e3}
     events = int(n.sum().item())
     bound_ms = (16 * events + 4 * windows + 4 * windows * nb * H * W) \
-        / HBM_BYTES_PER_S * 1e3
+        / peaks()[1] * 1e3
     del ev, n, flat_ev, flat_n, idx, vals, flat
     torch.cuda.empty_cache()
     check_no_jax()
@@ -4952,6 +5099,7 @@ def main() -> int:
     # 1. device and build (one nvcc per source, all at once)
     dev = require_cuda()
     smi = nvidia_smi_line()
+    peak_flops, hbm_bytes_per_s = peaks()
     t0 = time.perf_counter()
     kernels.build(gru_hside.SOURCES + voxel.SOURCES + upsample_conv.SOURCES
                   + (("lstm_hside", gru_hside.LSTM_EXACT_GATES),
@@ -4973,6 +5121,7 @@ def main() -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
+          "peak_bf16_flops": peak_flops, "hbm_bytes_per_s": hbm_bytes_per_s,
           "build_s": build_s, "ptxas": ptxas})
 
     # 2. the kernel against its plain version on the card
@@ -5040,9 +5189,11 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     maps = packages * (K + 1)
+    shares = slice_costs(cfg, off_model, packages / min(walls[1], walls[2]),
+                         dev, args.seed)
     emit({"phase": "timing", "cells": cells,
           "slice_maps": maps,
-          "slice_maps_per_s": maps / min(walls[1], walls[2]),
+          "slice_maps_per_s": maps / min(walls[1], walls[2]), **shares,
           "slice_off_maps_per_s": maps / min(walls[0], walls[3]),
           "slice_wall_s_off_on_on_off": walls, "nvidia_smi": smi})
 
@@ -5066,18 +5217,24 @@ def main() -> int:
         batch, tmodels, first = first_step_vs_off(
             tcfg, os.path.join(tmp, "data"), dev, args.seed,
             {"k1_res": (gru_hside.conv_gru_hside_res, 2 * n_cells)})
+        workers = process_worker_check(tcfg, os.path.join(tmp, "data"))
+        kept = []
         trained = run_training(raw, tmp, {
             "k1_res": (gru_hside.conv_gru_hside_res, 2 * n_cells * TRAIN_STEPS),
             "k2": (gru_hside.conv_gru_hside_bwd, n_cells * TRAIN_STEPS),
-            "k1_validation": (gru_hside.conv_gru_hside, n_cells)})
+            "k1_validation": (gru_hside.conv_gru_hside, n_cells)},
+            keep=kept, argv=["--worker_mode", "process"])
+        workers["pools_down_after_training"] = pools_down(kept.pop())
     check_no_jax()
     emit({"phase": "train", "config": CONFIG, "precompute_x": True,
           "B": TRAIN_B, "L": TRAIN_L, "crop": TRAIN_CROP, "K": K,
           "steps": TRAIN_STEPS, "data_write_s": data_s,
+          "worker_mode": "process", "process_workers": workers,
           "first_step_vs_off": first, **trained})
 
     # 7. training throughput and the training kernels' times
     train_timing = time_training(tcfg, tmodels, batch)
+    train_timing.update(train_costs(tcfg, train_timing["train_seq_per_s"]))
     train_cells = time_train_cells(dev, gen)
     emit({"phase": "timing_train", **train_timing, "cells": train_cells,
           "nvidia_smi": smi})

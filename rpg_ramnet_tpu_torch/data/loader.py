@@ -2,10 +2,10 @@
 
 Counterpart of ``rpg_ramnet_tpu/data/loader.py`` (reference: torch
 DataLoader + ConcatDatasetCustom, RAM_Net/train.py:23-75,189-196):
-``concatenate_subfolders``, ``ConcatSequenceDataset``, a thread-pooled
-``BatchLoader`` producing fixed-shape numpy batches, two batches in
-flight, and ``device_prefetch``, which copies the next batches to the
-card on a side CUDA stream while the current one trains.
+``concatenate_subfolders``, ``ConcatSequenceDataset``, a ``BatchLoader``
+whose thread or process workers produce fixed-shape numpy batches, two
+batches in flight, and ``device_prefetch``, which copies the next batches
+to the card on a side CUDA stream while the current one trains.
 Augmentation seeds are per (seed, epoch, index), so an epoch is
 reproducible and resume continues the exact data order.  Under
 data-parallel training every rank draws the same global order and loads
@@ -13,9 +13,10 @@ only its items of each global batch (``shard``).
 """
 from __future__ import annotations
 
+import multiprocessing
 import os
 import zlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from os.path import join
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
@@ -41,10 +42,6 @@ def concatenate_subfolders(base_folder: str, dataset_type: str,
     """One dataset per sequence subfolder, concatenated (train.py:37-75);
     baseline, loss_composition and recurrency go to each dataset (JAX
     loader.py:29-48)."""
-    if dataset_type not in DATASETS:
-        raise NotImplementedError(
-            f"dataset type {dataset_type!r} is not ported yet: ROADMAP queue "
-            "1, item 6")
     cls = DATASETS.get(dataset_type)
     return ConcatSequenceDataset([
         cls(base_folder=join(base_folder, name), event_folder=event_folder,
@@ -91,20 +88,47 @@ def _stack_items(items: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
 
+# process-worker plumbing, at module level so that it pickles under spawn
+_WORKER_DATASET = None
+
+
+def _proc_worker_init(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _proc_load_item(idx: int, seed: int) -> Dict[str, np.ndarray]:
+    return _WORKER_DATASET.get(int(idx), seed=seed)[0]
+
+
 class BatchLoader:
     """Shuffled epoch iterator over a ConcatSequenceDataset producing
     batched numpy dicts ('events' [B, L, K, H, W, C], 'image'
-    [B, L, H, W, C], ...); num_workers threads load the items, two batches
-    ahead.  drop_last as torch's DataLoader (False by default).  JAX's
-    process workers have no caller there and are not ported (ROADMAP
-    queue 1, item 8).  shard: (rank, world[, grad_accum]): batch_size is
-    the global batch, whose order is the same on every rank, and each
-    batch holds only rank's items of it (``local_indices``: its share of
-    each micro-batch); a global batch that does not divide raises."""
+    [B, L, H, W, C], ...); num_workers workers load the items, two batches
+    ahead.  drop_last as torch's DataLoader (False by default).
+
+    worker_mode: 'thread' (the default: the decoding is numpy and PIL,
+    which release the GIL for the heavy parts) or 'process' (the
+    reference's DataLoader runs 4 process workers, train.py:192-196: for
+    hosts where per-item Python work, not IO, bounds the loading).  The
+    process pool lives as long as the loader, is started by spawn (no
+    fork of a process with CUDA or torch threads), gets the dataset once
+    through its initializer, never touches CUDA, and is shut down by
+    ``close()``.  Both modes draw the same per-(seed, epoch, index)
+    augmentation seeds, so their batches are bit-identical.
+
+    shard: (rank, world[, grad_accum]): batch_size is the global batch,
+    whose order is the same on every rank, and each batch holds only
+    rank's items of it (``local_indices``: its share of each
+    micro-batch); a global batch that does not divide raises."""
 
     def __init__(self, dataset: ConcatSequenceDataset, batch_size: int,
                  shuffle: bool = True, num_workers: int = 4,
-                 drop_last: bool = False, seed: int = 0, shard=None):
+                 drop_last: bool = False, seed: int = 0, shard=None,
+                 worker_mode: str = "thread"):
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode {worker_mode!r}: 'thread' or "
+                             "'process'")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -113,6 +137,23 @@ class BatchLoader:
         self.seed = seed
         self.epoch = 0
         self.shard = as_shard(shard)
+        self.worker_mode = worker_mode
+        self._proc_pool: Optional[ProcessPoolExecutor] = None
+
+    def _get_proc_pool(self) -> ProcessPoolExecutor:
+        if self._proc_pool is None:
+            self._proc_pool = ProcessPoolExecutor(
+                self.num_workers,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_proc_worker_init, initargs=(self.dataset,))
+        return self._proc_pool
+
+    def close(self) -> None:
+        """Shut the process pool down (a no-op in thread mode); the next
+        epoch would start a new one."""
+        if self._proc_pool is not None:
+            self._proc_pool.shutdown(cancel_futures=True)
+            self._proc_pool = None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -139,19 +180,32 @@ class BatchLoader:
         if self.shard is not None:
             batches = [b[local_indices(len(b), *self.shard)] for b in batches]
 
-        def load(i: int):
-            seed = zlib.crc32(f"{self.seed}/{epoch}/{int(i)}".encode()) \
+        def item_seed(i) -> int:
+            return zlib.crc32(f"{self.seed}/{epoch}/{int(i)}".encode()) \
                 & 0x7FFFFFFF
-            return self.dataset.get(int(i), seed=seed)[0]
 
-        with ThreadPoolExecutor(self.num_workers) as pool:
-            inflight = [[pool.submit(load, i) for i in b] for b in batches[:2]]
-            for b in batches[2:]:
-                futs = inflight.pop(0)
-                inflight.append([pool.submit(load, i) for i in b])
-                yield _stack_items([f.result() for f in futs])
-            for futs in inflight:
-                yield _stack_items([f.result() for f in futs])
+        if self.worker_mode == "process":
+            yield from self._run(self._get_proc_pool(), _proc_load_item,
+                                 batches, item_seed)
+        else:
+            def load(i: int, seed: int):
+                return self.dataset.get(i, seed=seed)[0]
+
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                yield from self._run(pool, load, batches, item_seed)
+
+    @staticmethod
+    def _run(pool, load, batches, item_seed):
+        def schedule(b):
+            return [pool.submit(load, int(i), item_seed(i)) for i in b]
+
+        inflight = [schedule(b) for b in batches[:2]]
+        for b in batches[2:]:
+            futs = inflight.pop(0)
+            inflight.append(schedule(b))
+            yield _stack_items([f.result() for f in futs])
+        for futs in inflight:
+            yield _stack_items([f.result() for f in futs])
 
 
 def device_prefetch(iterator: Iterable[Dict[str, np.ndarray]],

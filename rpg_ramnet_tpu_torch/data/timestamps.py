@@ -1,10 +1,10 @@
 """Timestamp index of an on-disk sensor stream folder.
 
 Counterpart of ``rpg_ramnet_tpu/data/timestamps.py`` (reference
-RAM_Net/data_loader/event_dataset.py:37-110 and RAM_Net/utils/util.py:17-36):
+RAM_Net/data_loader/event_dataset.py:37-110 and RAM_Net/utils/util.py:17-54):
 timestamps.txt parsing, start/stop windowing, the initial-stamp offset, the
-MVSEC length-1 quirk, and the searchsorted helpers with the MVSEC 0.01 s
-tolerance fix.
+MVSEC length-1 quirk, the searchsorted helpers with the MVSEC 0.01 s
+tolerance fix, and the closest stamp to a time.
 """
 from __future__ import annotations
 
@@ -33,6 +33,17 @@ def last_element_less_than(values: np.ndarray, req: float) -> Tuple[int, Optiona
     i = int(np.searchsorted(values, req, side="right")) - 1
     val = float(values[i]) if i >= 0 else None
     return i, val
+
+
+def closest_element_to(values: np.ndarray, req: float) -> Tuple[int, float, float]:
+    """(i, values[i], |values[i]-req|) for the closest element
+    (util.py:39-54)."""
+    assert len(values) > 0
+    i = int(np.searchsorted(values, req, side="left"))
+    if i > 0 and (i == len(values) or
+                  abs(req - values[i - 1]) < abs(req - values[i])):
+        i -= 1
+    return i, float(values[i]), float(abs(values[i] - req))
 
 
 def is_mvsec_folder(base_folder: str) -> bool:

@@ -114,6 +114,7 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
     from ..core.config import Config
     from ..data import CenterCrop, concatenate_subfolders
     from ..models import build_model
+    from ..models.model import summary
     from ..train.checkpoint import load_any
     from ..utils import require_cuda
     from .inference import (StreamingInference, optimal_scale,
@@ -145,8 +146,7 @@ def main(argv: Optional[Sequence[str]] = None, on_prediction=None):
     model = build_model(cfg, device=device)
     load_any(args.path_to_model, model)
     print(f"Loading model weights from: {args.path_to_model}")
-    print(f"{cfg.arch}: {sum(p.numel() for p in model.parameters())} "
-          "parameters")
+    summary(model, cfg.arch)
     model.eval()
 
     decode_keys = tuple(k for k in args.decode_keys.split(",") if k) or None

@@ -1,9 +1,9 @@
 """Artifact writers for inference outputs.
 
 Counterpart of ``rpg_ramnet_tpu/eval/writers.py`` (reference
-RAM_Net/utils/inference_utils.py: make_event_preview:20, the writers
-:101-149) and the output tree of RAM_Net/test.py:66-90,259-363, which
-``evaluation.py`` reads.  PIL, cv2 and matplotlib are imported where they
+RAM_Net/utils/inference_utils.py: make_event_preview:20,
+IntensityRescaler:58, the writers :101-149) and the output tree of
+RAM_Net/test.py:66-90,259-363, which ``evaluation.py`` reads.  PIL, cv2 and matplotlib are imported where they
 are used; without matplotlib the tree has no color maps.
 """
 from __future__ import annotations
@@ -69,6 +69,36 @@ def make_event_preview(events: np.ndarray, mode: str = "red-blue",
         return img
     m = np.median(s[s != 0]) if np.any(s != 0) else 0.0
     return np.clip(((s - m + 0.5) * 255), 0, 255).astype(np.uint8)
+
+
+class IntensityRescaler:
+    """Robust percentile auto-rescale with an EMA of the bounds, the
+    --auto_hdr rescaler (inference_utils.py:58-98)."""
+
+    def __init__(self, auto_hdr: bool = True, imin: float = 0.0,
+                 imax: float = 1.0, median_filter_size: int = 10,
+                 percentile: float = 1.0):
+        self.auto_hdr = auto_hdr
+        self.imin, self.imax = imin, imax
+        self.alpha = 2.0 / (median_filter_size + 1)
+        self.pmin = percentile
+        self.pmax = 100.0 - percentile
+        self._min_ema = None
+        self._max_ema = None
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        if self.auto_hdr:
+            lo = np.percentile(img, self.pmin)
+            hi = np.percentile(img, self.pmax)
+            self._min_ema = lo if self._min_ema is None else \
+                self.alpha * lo + (1 - self.alpha) * self._min_ema
+            self._max_ema = hi if self._max_ema is None else \
+                self.alpha * hi + (1 - self.alpha) * self._max_ema
+            imin, imax = self._min_ema, self._max_ema
+        else:
+            imin, imax = self.imin, self.imax
+        out = (img - imin) / max(imax - imin, 1e-9)
+        return np.clip(out, 0.0, 1.0)
 
 
 class DepthOutputWriter:

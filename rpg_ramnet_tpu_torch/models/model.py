@@ -30,6 +30,8 @@ public tensors are NHWC.
                                      updates, optionally checkpointed and
                                      with the package's x side batched,
                                      then one batched decode
+
+``summary`` prints a model's parameter count per top-level group.
 """
 from __future__ import annotations
 
@@ -43,6 +45,8 @@ from ..core.config import ModelConfig
 from ..core.registry import MODELS
 from ..ops import gru_chunk, gru_hside, gru_stream
 from ..utils.layout import to_nchw, to_nhwc
+from ..utils.training_utils import (ARCH_PREFIXES, count_parameters,
+                                    strip_arch_prefix)
 from . import statenet, unet
 from .layers import NormCtx
 
@@ -650,3 +654,26 @@ class ERGB2Depth(nn.Module):
         if ctx is not None:
             return state, preds, ctx.merged()
         return state, preds
+
+
+def summary(model: nn.Module, arch: str = "", log=None) -> int:
+    """Trainable-parameter count and its breakdown per top-level group
+    (reference BaseModel.summary, base/base_model.py:24-31; JAX
+    ``models.model.summary``): the groups are the arch module's children
+    (the first component of the parameter names without the arch prefix),
+    which are JAX's top-level param-tree keys, those without parameters
+    included.  Writes the lines through ``log`` (print when None) and
+    returns the total."""
+    net = model
+    for prefix in ARCH_PREFIXES:
+        net = getattr(net, prefix[:-1], net)
+    groups = {name: 0 for name, _ in net.named_children()}
+    for name, p in model.named_parameters():
+        group = strip_arch_prefix(name).split(".")[0]
+        groups[group] = groups.get(group, 0) + p.numel()
+    total = count_parameters(model)
+    lines = [f"Model: {arch}" if arch else "Model"]
+    lines += [f"  {name}: {n:,} params" for name, n in groups.items()]
+    lines.append(f"Trainable parameters: {total:,}")
+    (log or print)("\n".join(lines))
+    return total

@@ -2,10 +2,10 @@
 
 Counterpart of ``rpg_ramnet_tpu/ops/gradient.py``: kornia's sobel
 ``spatial_gradient`` (3x3 sobel kernels normalized by their L1 mass, /8,
-replicate padding, cross-correlation) and torch's ``AvgPool2d(k, k)``, on
-NHWC tensors.  Every tap multiplies, zero weights included, so NaNs spread
-to exactly the outputs a direct convolution would give NaN (the losses
-mask them).
+replicate padding, cross-correlation), torch's ``AvgPool2d(k, k)`` and
+kornia's ``sobel`` gradient magnitude, on NHWC tensors.  Every tap
+multiplies, zero weights included, so NaNs spread to exactly the outputs a
+direct convolution would give NaN (the losses mask them).
 """
 from __future__ import annotations
 
@@ -40,3 +40,10 @@ def avg_pool(x: torch.Tensor, k: int) -> torch.Tensor:
     hh, ww = h // k, w // k
     x = x[:, :hh * k, :ww * k]
     return x.reshape(n, hh, k, ww, k, c).mean(dim=(2, 4))
+
+
+def sobel_magnitude(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """kornia.filters.sobel's gradient magnitude on NHWC, the reference's
+    grad-loss preview mode (model/loss.py:48)."""
+    gx, gy = spatial_gradient(x)
+    return torch.sqrt(gx * gx + gy * gy + eps)

@@ -9,6 +9,10 @@ Counterpart of the repo's ``train.py`` (reference RAM_Net/train.py:246-279):
   -g/--gpu_id              the CUDA device index (a single process only)
   --device                 'cuda' (default) or 'cpu'
   --no_mesh                one process, even under torchrun (JAX train.py:28)
+  --worker_mode            'thread' (default) or 'process': the data
+                           loaders' workers (``data.BatchLoader``); a
+                           process pool is shut down when training ends,
+                           also when it raises
 Data-parallel training: ``torchrun --nproc_per_node N -m
 rpg_ramnet_tpu_torch.train -c cfg.json`` starts N ranks, each on
 cuda:LOCAL_RANK over NCCL (the CPU over gloo with --device cpu), one
@@ -52,6 +56,10 @@ def main(argv: Optional[Sequence[str]] = None, writer=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--no_mesh", action="store_true",
                     help="one process: no data parallelism under torchrun")
+    ap.add_argument("--worker_mode", default="thread",
+                    choices=("thread", "process"),
+                    help="the data loaders' workers: threads or spawned "
+                         "processes")
     args = ap.parse_args(argv)
 
     config_dict = None
@@ -122,9 +130,11 @@ def main(argv: Optional[Sequence[str]] = None, writer=None):
                                               RandomCrop(crop)]))
     val_ds = build(cfg.val_data, CenterCrop(crop))
     train_loader = BatchLoader(train_ds, cfg.batch_size, shuffle=cfg.shuffle,
-                               num_workers=cfg.num_workers)
+                               num_workers=cfg.num_workers,
+                               worker_mode=args.worker_mode)
     val_loader = BatchLoader(val_ds, cfg.batch_size, shuffle=False,
-                             num_workers=cfg.num_workers)
+                             num_workers=cfg.num_workers,
+                             worker_mode=args.worker_mode)
 
     model = build_model(cfg, device=device)
     init = args.initial_checkpoint
@@ -139,6 +149,8 @@ def main(argv: Optional[Sequence[str]] = None, writer=None):
                           model=model, writer=writer)
         trainer.train()
     finally:
+        train_loader.close()
+        val_loader.close()
         if data_parallel:
             distributed.destroy()
     return trainer

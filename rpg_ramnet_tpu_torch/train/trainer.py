@@ -50,6 +50,7 @@ from ..compat import import_reference_optimizer_state, load_reference_checkpoint
 from ..core.config import Config
 from ..data.loader import BatchLoader, device_prefetch
 from ..models import build_model, statenet
+from ..models.model import summary
 from ..parallel import distributed
 from ..utils.layout import to_nchw
 from ..utils.training_utils import (add_video_gif, named_weights,
@@ -125,6 +126,8 @@ class Trainer:
                 valid_loader.shard = (r, w, 1)
         self.model = (model if model is not None
                       else build_model(cfg, device=device))
+        if self.writes:
+            summary(self.model, cfg.arch, log=self.logger.info)
         self.device = self.model.device
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.train_step = make_train_step(cfg, self.model, self.optimizer)

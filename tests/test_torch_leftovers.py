@@ -25,6 +25,8 @@ import rpg_ramnet_tpu.models  # noqa: F401
 import rpg_ramnet_tpu.train.losses  # noqa: F401
 from rpg_ramnet_tpu.core import registry as jregistry
 from rpg_ramnet_tpu.core.config import ModelConfig as JaxModelConfig
+from rpg_ramnet_tpu.data.loader import \
+    concatenate_subfolders as jax_concatenate_subfolders
 from rpg_ramnet_tpu.models import ERGB2Depth as JaxUNet
 from rpg_ramnet_tpu.train import frame_trainer as jft
 
@@ -213,10 +215,11 @@ def test_registry_semantics(tmp_path):
         reg.register("alpha")(len)
     with pytest.raises(KeyError, match=r"Unknown widget 'gamma'. Available: \['alpha', 'beta'\]"):
         reg.get("gamma")
-    # the lookups keep their messages; the dataset's cites its ROADMAP item
+    # the lookups keep their messages, an unknown dataset type JAX's
     with pytest.raises(KeyError, match="Unknown model 'Nope'"):
         get_model("Nope")
     with pytest.raises(KeyError, match="Unknown loss 'nope'"):
         get_loss("nope")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        concatenate_subfolders(str(tmp_path), "NoSuchDataset", "e", "d", "f", 2)
+    for concat in (concatenate_subfolders, jax_concatenate_subfolders):
+        with pytest.raises(KeyError, match="Unknown dataset 'NoSuchDataset'"):
+            concat(str(tmp_path), "NoSuchDataset", "e", "d", "f", 2)

@@ -243,6 +243,7 @@ def test_port_imports_no_jax():
         "import rpg_ramnet_tpu_torch.core.registry\n"
         "import rpg_ramnet_tpu_torch.parallel, rpg_ramnet_tpu_torch.entry\n"
         "import rpg_ramnet_tpu_torch.parallel.distributed\n"
+        "import rpg_ramnet_tpu_torch.utils.costs\n"
         "from rpg_ramnet_tpu_torch.core.config import Config, TrainerConfig\n"
         "from rpg_ramnet_tpu_torch.train.optim import make_optimizer\n"
         "from rpg_ramnet_tpu_torch.train.train_step import make_train_step\n"
